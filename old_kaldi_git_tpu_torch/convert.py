@@ -1,0 +1,153 @@
+"""Weights and state carried across from the JAX package's artifacts.
+
+Two things:
+
+* `am_nnet_from_jax`: a flax variable tree (as numpy) → the port's AmNnet.
+  flax `Dense.kernel` is [in, out], `nn.Linear.weight` is [out, in];
+  `batch_stats/<layer>/batchnorm/{mean,var}` become the layers' buffers.
+* a reader for the committed pickles that does NOT import the JAX package:
+  an Unpickler whose `find_class` maps every `old_kaldi_git_tpu.*` class to
+  a plain stub that keeps the pickled `__dict__`.  `final.am` pickles
+  `models.tdnn.TdnnConfig`/`TdnnLayerSpec`; `tree.pkl` pickles
+  `(ContextDependency, TransitionModel)`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pickle
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from old_kaldi_git_tpu_torch.device import DeviceLike
+from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnLayerSpec, TdnnModel
+
+JAX_PACKAGE = "old_kaldi_git_tpu"
+
+
+class _Stub:
+    """Stand-in for a class of the JAX package: the unpickler fills its
+    `__dict__` with the pickled state and none of the original's code runs."""
+
+    def __repr__(self):
+        return f"<stub {type(self).__qualname__} {sorted(self.__dict__)}>"
+
+
+class StubUnpickler(pickle.Unpickler):
+    """Unpickler that never imports the JAX package.  Only numpy, builtins
+    and the standard library resolve normally; anything else is refused."""
+
+    _ALLOWED_ROOTS = ("numpy", "builtins", "collections", "copyreg")
+
+    def __init__(self, file):
+        super().__init__(file)
+        self._stubs: Dict[str, type] = {}
+
+    def find_class(self, module: str, name: str):
+        if module == JAX_PACKAGE or module.startswith(JAX_PACKAGE + "."):
+            key = f"{module}.{name}"
+            if key not in self._stubs:
+                self._stubs[key] = type(name, (_Stub,), {"__module__": module})
+            return self._stubs[key]
+        if module.split(".")[0] in self._ALLOWED_ROOTS:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"refusing to load {module}.{name}")
+
+
+def load_pickle(path: str) -> Any:
+    """Unpickle one of the committed artifacts with JAX-package classes as stubs."""
+    with open(path, "rb") as f:
+        return StubUnpickler(f).load()
+
+
+def _fields_of(obj: Any) -> Dict[str, Any]:
+    """Field dict of a config object: a mapping, or a stub's `__dict__`."""
+    return dict(obj) if isinstance(obj, Mapping) else dict(vars(obj))
+
+
+def tdnn_config_from_fields(config_fields: Mapping[str, Any]) -> TdnnConfig:
+    """The port's TdnnConfig from the JAX config's fields.  Fields of layer
+    kinds that are not ported yet are dropped; such a kind itself is kept
+    and refused by TdnnModel."""
+    known = {f.name for f in dataclasses.fields(TdnnLayerSpec)}
+    layers = []
+    for layer in config_fields["layers"]:
+        fields = _fields_of(layer)
+        spec = {k: v for k, v in fields.items() if k in known}
+        if "offsets" in spec:
+            spec["offsets"] = tuple(int(o) for o in spec["offsets"])
+        layers.append(TdnnLayerSpec(**spec))
+    return TdnnConfig(
+        input_dim=int(config_fields["input_dim"]),
+        num_outputs=int(config_fields["num_outputs"]),
+        layers=tuple(layers),
+        final_hidden_dim=int(config_fields.get("final_hidden_dim", 0)),
+    )
+
+
+def _tensor(a) -> torch.Tensor:
+    """A float32 tensor holding a copy of `a` (arrays out of a pickle or a
+    flax tree may be read-only)."""
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _copy_dense(linear: torch.nn.Linear, params: Mapping[str, np.ndarray]) -> None:
+    kernel = np.asarray(params["kernel"], np.float32)  # [in, out]
+    if tuple(linear.weight.shape) != kernel.T.shape:
+        raise ValueError(
+            f"kernel {kernel.shape} does not fit Linear {tuple(linear.weight.shape)}")
+    with torch.no_grad():
+        linear.weight.copy_(_tensor(kernel.T))
+        if linear.bias is not None:
+            linear.bias.copy_(_tensor(params["bias"]))
+
+
+def am_nnet_from_jax(config_fields: Mapping[str, Any],
+                     variables: Mapping[str, Any],
+                     log_priors: Optional[np.ndarray] = None,
+                     device: DeviceLike = None) -> AmNnet:
+    """The port's AmNnet from a JAX AmNnet's parts: `config_fields` the
+    TdnnConfig's fields (layers as objects or dicts), `variables` the flax
+    tree {'params': …, 'batch_stats': …} of numpy arrays."""
+    config = tdnn_config_from_fields(config_fields)
+    model = TdnnModel(config)
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    names = [f"{spec.kind}{i}" for i, spec in enumerate(config.layers)]
+    if config.final_hidden_dim:
+        names.append("prefinal")
+    for name in names:
+        layer = getattr(model, name)
+        _copy_dense(layer.affine, params[name]["affine"])
+        if hasattr(layer, "linear"):
+            _copy_dense(layer.linear, params[name]["linear"])
+        bn = stats[name]["batchnorm"]
+        with torch.no_grad():
+            layer.mean.copy_(_tensor(bn["mean"]))
+            layer.var.copy_(_tensor(bn["var"]))
+    _copy_dense(model.output, params["output"])
+    return AmNnet(config, model, log_priors, device=device)
+
+
+def load_am_nnet(path: str, device: DeviceLike = None) -> AmNnet:
+    """An `AmNnet.save` pickle of the JAX package → the port's AmNnet."""
+    d = load_pickle(path)
+    return am_nnet_from_jax(_fields_of(d["config"]), d["variables"],
+                            d.get("log_priors"), device=device)
+
+
+def tid_to_pdf_from_transition_model(tm: Any) -> np.ndarray:
+    """[num_tids+1] int32 tid → pdf map (entry 0 = -1, epsilon) from a stub
+    TransitionModel's `tuples` (phone, hmm_state, pdf) and `state2id` (first
+    tid of each transition-state, 1-based), as
+    hmm/transition_model.py tid_to_pdf_array computes it."""
+    state2id = np.asarray(tm.state2id, np.int64)
+    pdfs = np.asarray([t[2] for t in tm.tuples], np.int32)
+    num_tids = int(state2id[-1]) - 1
+    out = np.full(num_tids + 1, -1, np.int32)
+    counts = np.diff(state2id)
+    out[1:] = np.repeat(pdfs, counts)
+    return out

@@ -1,0 +1,55 @@
+"""Neural acoustic-model wrapper with priors.
+
+Counterpart of old_kaldi_git_tpu/models/am_nnet.py (reference
+src/nnet3/am-nnet-simple.h AmNnetSimple + nnet-am-decodable-simple): holds
+the model, its priors and its device; produces pseudo-loglikelihoods
+log p(x|pdf) ∝ log softmax(logits) − log prior for the decoder, batched
+[B, T, num_pdfs].  Inference only; float32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
+from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnModel
+
+
+class AmNnet:
+    def __init__(self, config: TdnnConfig, model: TdnnModel,
+                 log_priors: Optional[np.ndarray] = None,
+                 device: DeviceLike = None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.log_priors = (
+            None if log_priors is None
+            else torch.from_numpy(np.array(log_priors, np.float32)).to(self.device))
+
+    def _as_input(self, feats) -> torch.Tensor:
+        return torch.as_tensor(feats, dtype=torch.float32).to(self.device)
+
+    @torch.inference_mode()
+    def logits(self, feats, output_stride: int = 1) -> torch.Tensor:
+        """[B, T, D] → [B, ceil(T/stride), num_pdfs] raw logits;
+        output_stride > 1 evaluates only every stride-th frame (reference
+        frame-subsampling decode for chain models)."""
+        return self.model(self._as_input(feats), output_stride)
+
+    @torch.inference_mode()
+    def loglikes_batch(self, feats) -> torch.Tensor:
+        """[B, T, D] → [B, T, num_pdfs] pseudo-loglikes (log-softmax − prior),
+        a tensor on the model's device."""
+        out = torch.log_softmax(self.model(self._as_input(feats)), dim=-1)
+        return out if self.log_priors is None else out - self.log_priors
+
+    @staticmethod
+    def load(path: str, device: DeviceLike = None) -> "AmNnet":
+        """Load a model pickled by the JAX package's AmNnet.save, without
+        importing that package (see convert.py)."""
+        from old_kaldi_git_tpu_torch import convert
+
+        return convert.load_am_nnet(path, device=device)

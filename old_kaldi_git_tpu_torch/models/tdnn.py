@@ -1,0 +1,170 @@
+"""TDNN and factored TDNN (TDNN-F) acoustic models, inference.
+
+Counterpart of old_kaldi_git_tpu/models/tdnn.py (reference src/nnet3
+components as the standard recipes use them): Append/Offset splicing is a
+static time gather with indices clipped at the utterance edges;
+relu-batchnorm layers; TDNN-F factorized layers with a scaled bypass.
+Modules are nn.Modules over [B, T, D], named as the flax modules are
+(`tdnn0`, `tdnnf1`, …, `prefinal`, `output`) so weights carry across by
+name.  The affines are plain large products and go to torch's matmul.
+
+Layer kinds other than `tdnn` and `tdnnf` (recurrent, attention, conv) and
+Descriptor inputs are not ported yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+BATCHNORM_EPS = 1e-5  # flax.linen.BatchNorm default, which the reference model used
+
+
+def splice(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
+    """Append(Offset(x, o) for o in offsets): [B, T, D] → [B, T, D*len].
+    Edge frames are replicated (indices clipped), not zero-padded."""
+    if tuple(offsets) == (0,):
+        return x
+    T = x.shape[-2]
+    base = torch.arange(T, device=x.device)
+    pieces = [x.index_select(-2, (base + o).clamp(0, T - 1)) for o in offsets]
+    return torch.cat(pieces, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TdnnLayerSpec:
+    kind: str  # "tdnn" | "tdnnf" (others: later slices of the port)
+    dim: int  # output dim
+    offsets: Tuple[int, ...] = (0,)  # time offsets (tdnn splice)
+    input_desc: str = ""  # nnet3 Descriptor input; not ported yet
+    bottleneck_dim: int = 0  # tdnnf only
+    time_stride: int = 1  # tdnnf: factor context
+    bypass_scale: float = 0.66  # tdnnf
+
+
+@dataclasses.dataclass(frozen=True)
+class TdnnConfig:
+    input_dim: int
+    num_outputs: int  # pdfs
+    layers: Tuple[TdnnLayerSpec, ...]
+    final_hidden_dim: int = 0  # prefinal layer (0 = none)
+
+
+class ReluBatchNorm(nn.Module):
+    """relu-batchnorm-layer: Affine → ReLU → BatchNorm on running statistics
+    (no scale/offset, like the reference BatchNormComponent)."""
+
+    def __init__(self, in_dim: int, dim: int, offsets: Tuple[int, ...] = (0,)):
+        super().__init__()
+        self.offsets = tuple(offsets)
+        self.affine = nn.Linear(in_dim * len(self.offsets), dim)
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, sub: int = 1) -> torch.Tensor:
+        """`sub`: the sequence was already subsampled by this factor, so the
+        time offsets (multiples of it by construction) shrink by it."""
+        offsets = tuple(o // sub for o in self.offsets)
+        x = torch.relu(self.affine(splice(x, offsets)))
+        return (x - self.mean) * torch.rsqrt(self.var + BATCHNORM_EPS)
+
+
+class TdnnfLayer(nn.Module):
+    """Factored TDNN layer: bias-free linear-to-bottleneck over (-ts, 0),
+    affine back up over (0, ts), ReLU + BatchNorm, scaled residual bypass
+    when the dims match."""
+
+    def __init__(self, in_dim: int, dim: int, bottleneck_dim: int,
+                 time_stride: int = 1, bypass_scale: float = 0.66):
+        super().__init__()
+        ts = time_stride
+        self.down_offsets = (-ts, 0) if ts else (0,)
+        self.up_offsets = (0, ts) if ts else (0,)
+        self.bypass_scale = bypass_scale
+        self.bypass = in_dim == dim
+        self.linear = nn.Linear(in_dim * len(self.down_offsets), bottleneck_dim,
+                                bias=False)
+        self.affine = nn.Linear(bottleneck_dim * len(self.up_offsets), dim)
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, sub: int = 1) -> torch.Tensor:
+        y = self.linear(splice(x, tuple(o // sub for o in self.down_offsets)))
+        y = torch.relu(self.affine(
+            splice(y, tuple(o // sub for o in self.up_offsets))))
+        y = (y - self.mean) * torch.rsqrt(self.var + BATCHNORM_EPS)
+        if self.bypass:
+            y = y + self.bypass_scale * x
+        return y
+
+
+def _subsample_at(config: TdnnConfig, output_stride: int) -> int:
+    """Earliest tail position from which every remaining layer is a tdnn/tdnnf
+    whose time offsets are all multiples of output_stride: subsampling THERE
+    is exact, and the tail of the trunk runs at T/stride."""
+    stride_at = len(config.layers)
+    if output_stride > 1:
+        for j in range(len(config.layers), 0, -1):
+            spec = config.layers[j - 1]
+            if spec.kind == "tdnn":
+                if any(o % output_stride for o in spec.offsets):
+                    break
+            elif spec.time_stride % output_stride:
+                break
+            stride_at = j - 1
+    return stride_at
+
+
+class TdnnModel(nn.Module):
+    """Executes a TdnnConfig of sequential `tdnn` / `tdnnf` layers, an
+    optional prefinal relu-batchnorm layer and the output affine.
+
+    `forward(feats, output_stride)` returns raw logits
+    [B, ceil(T/output_stride), num_outputs]; the stride only changes where
+    the sequence is subsampled and the splice offsets past that point."""
+
+    def __init__(self, config: TdnnConfig):
+        super().__init__()
+        self.config = config
+        dim = config.input_dim
+        for i, spec in enumerate(config.layers):
+            if getattr(spec, "input_desc", ""):
+                raise NotImplementedError(
+                    "Descriptor inputs (models/descriptor.py) are not ported "
+                    "yet: they come with the remaining tensor modules")
+            if spec.kind == "tdnn":
+                layer = ReluBatchNorm(dim, spec.dim, spec.offsets)
+            elif spec.kind == "tdnnf":
+                layer = TdnnfLayer(dim, spec.dim, spec.bottleneck_dim,
+                                   spec.time_stride, spec.bypass_scale)
+            else:
+                raise NotImplementedError(
+                    f"layer kind {spec.kind!r} is not ported yet: recurrent, "
+                    "attention and conv layers come with the remaining "
+                    "tensor modules (models/recurrent.py, the conv layer)")
+            self.add_module(f"{spec.kind}{i}", layer)
+            dim = spec.dim
+        if config.final_hidden_dim:
+            self.prefinal = ReluBatchNorm(dim, config.final_hidden_dim, (0,))
+            dim = config.final_hidden_dim
+        self.output = nn.Linear(dim, config.num_outputs)
+
+    def forward(self, feats: torch.Tensor, output_stride: int = 1) -> torch.Tensor:
+        x = feats
+        stride_at = _subsample_at(self.config, output_stride)
+        sub = 1  # subsampling already applied to the running sequence
+        for i, spec in enumerate(self.config.layers):
+            if output_stride > 1 and i == stride_at:
+                x = x[:, ::output_stride]
+                sub = output_stride
+            x = getattr(self, f"{spec.kind}{i}")(x, sub)
+        if output_stride > sub:
+            # the trunk could not be subsampled earlier: the prefinal and
+            # output affines still run only at the subsampled frames
+            x = x[:, ::output_stride]
+        if self.config.final_hidden_dim:
+            x = self.prefinal(x)
+        return self.output(x)

@@ -1,0 +1,410 @@
+"""Mini-librispeech-class synthetic system at realistic decode-graph scale:
+the serving path of the port.
+
+Counterpart of old_kaldi_git_tpu/recipes/minilib.py, the part that decodes:
+it LOADS a system that the JAX package built (20k-word lexicon, pruned
+trigram, triphone tree, a 1M-state HCLG as CSR arrays, a TDNN-F CE model) and
+decodes the held-out set with measured WER.  Building and training stay with
+the JAX package for now.
+
+  waveform → compute_feats (13 MFCC through the fused kernel, per-utterance
+  CMN, deltas → 39) → AmNnet.loglikes_batch → decode_batch_tokens → words
+  → compute_wer.
+
+The evaluation audio is synthesised from the option seeds with numpy, by an
+own copy of the JAX package's synthesis (bit-equal waves and text), so
+nothing is downloaded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from old_kaldi_git_tpu_torch import convert
+from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph, FlatOlabels
+from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch_tokens
+from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
+from old_kaldi_git_tpu_torch.feat import Mfcc, MfccOptions, compute_deltas
+from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
+from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
+from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
+from old_kaldi_git_tpu_torch.utils.parse_options import options_dataclass
+
+log = get_logger("minilib")
+
+SAMP_FREQ = 8000.0
+FEAT_CHUNK = 128  # utterances per front-end batch
+
+
+@options_dataclass
+class MinilibOptions:
+    """The fields that shape the lexicon, the text and the held-out set
+    (the JAX package's options also hold its training settings)."""
+
+    num_phones: int = 40
+    num_words: int = 20_000
+    num_test: int = 256
+    seed: int = 42
+
+
+# ---------------------------------------------------------------------------
+# phone inventory & audio synthesis (formant tones over a generated
+# 40-phone grid)
+# ---------------------------------------------------------------------------
+
+def phone_inventory(num_phones: int) -> Dict[str, List[Tuple[float, float]]]:
+    """Deterministic formant grid: f1 x f2 combinations below the 4 kHz
+    Nyquist, each phone acoustically distinct in the mel filterbank."""
+    f1s = [300.0, 450.0, 600.0, 750.0, 900.0]
+    f2s = [1050.0, 1350.0, 1650.0, 1950.0, 2250.0, 2550.0, 2850.0, 3150.0]
+    specs: Dict[str, List[Tuple[float, float]]] = {}
+    for i in range(num_phones):
+        f1 = f1s[i % len(f1s)]
+        f2 = f2s[(i // len(f1s)) % len(f2s)]
+        specs[f"p{i:02d}"] = [(f1, 1.0), (f2, 0.7)]
+    return specs
+
+
+def phone_durations(num_phones: int) -> Dict[str, float]:
+    return {f"p{i:02d}": 0.05 + 0.005 * (i % 6) for i in range(num_phones)}
+
+
+def _tone(spec, dur, rng, noise):
+    n = int(dur * SAMP_FREQ)
+    t = np.arange(n) / SAMP_FREQ
+    sig = np.zeros(n)
+    for freq, amp in spec:
+        f = freq * (1.0 + 0.015 * rng.standard_normal())
+        sig += amp * np.sin(2 * math.pi * f * t + rng.random() * 2 * math.pi)
+    ramp = min(60, max(1, n // 4))
+    env = np.ones(n)
+    env[:ramp] = np.linspace(0, 1, ramp)
+    env[-ramp:] = np.linspace(1, 0, ramp)
+    return (2500.0 * sig * env + noise * rng.standard_normal(n)).astype(np.float32)
+
+
+def _silence(dur, rng, noise):
+    n = int(dur * SAMP_FREQ)
+    return (noise * rng.standard_normal(n)).astype(np.float32)
+
+
+def synth_utterance(
+    words: Sequence[str],
+    lexicon: Dict[str, str],
+    specs: Dict[str, List[Tuple[float, float]]],
+    durs: Dict[str, float],
+    rng: np.random.Generator,
+    noise: float = 40.0,
+    sil_between: float = 0.3,
+) -> np.ndarray:
+    pieces = [_silence(0.1, rng, noise)]
+    for w in words:
+        for ph in lexicon[w].split():
+            d = durs[ph] * (0.85 + 0.3 * rng.random())
+            pieces.append(_tone(specs[ph], d, rng, noise))
+        if rng.random() < sil_between:
+            pieces.append(_silence(0.05 + 0.1 * rng.random(), rng, noise))
+    pieces.append(_silence(0.1, rng, noise))
+    return np.concatenate(pieces)
+
+
+# ---------------------------------------------------------------------------
+# lexicon & text
+# ---------------------------------------------------------------------------
+
+def make_lexicon(opts: MinilibOptions) -> Dict[str, str]:
+    rng = np.random.default_rng(opts.seed)
+    names = list(phone_inventory(opts.num_phones))
+    lex: Dict[str, str] = {}
+    seen = set()
+    w = 0
+    while w < opts.num_words:
+        pron = tuple(rng.choice(names, size=int(rng.integers(3, 8))))
+        if pron in seen:
+            continue
+        seen.add(pron)
+        lex[f"w{w:05d}"] = " ".join(pron)
+        w += 1
+    return lex
+
+
+def make_text(
+    opts: MinilibOptions, num_sentences: int, seed: int,
+    min_len: int = 5, max_len: int = 18,
+) -> List[np.ndarray]:
+    """Sentences as word-id arrays from a sparse Zipfian Markov grammar.
+    The successor structure depends only on opts.seed, so LM text and
+    held-out train/test sentences come from the SAME language."""
+    grammar_rng = np.random.default_rng(opts.seed + 1)
+    V = opts.num_words
+    zipf = 1.0 / (np.arange(1, V + 1) ** 0.9)
+    zipf /= zipf.sum()
+    NSUCC = 30
+    succ = grammar_rng.choice(V, size=(V, NSUCC), p=zipf)
+    rng = np.random.default_rng(seed)
+    starts = rng.choice(V, size=num_sentences, p=zipf)
+    lens = rng.integers(min_len, max_len, size=num_sentences)
+    pick = rng.integers(0, NSUCC, size=(num_sentences, max_len))
+    out = []
+    for i in range(num_sentences):
+        cur = int(starts[i])
+        s = [cur]
+        for j in range(int(lens[i]) - 1):
+            cur = int(succ[cur, pick[i, j]])
+            s.append(cur)
+        out.append(np.asarray(s, np.int32))
+    return out
+
+
+def _to_words(sent_ids: np.ndarray) -> List[str]:
+    return [f"w{int(i):05d}" for i in sent_ids]
+
+
+
+def word_table(lexicon: Dict[str, str]) -> List[str]:
+    """Word-id → word, as the lang bundle numbers them: `<eps>` (0), the
+    lexicon's words sorted, then the LM-backoff disambiguation symbol `#0`."""
+    return ["<eps>"] + sorted(lexicon) + ["#0"]
+
+
+# ---------------------------------------------------------------------------
+# features (shared front-end: 13 MFCC + per-utt CMVN + deltas = 39)
+# ---------------------------------------------------------------------------
+
+def compute_feats(waves: Dict[str, np.ndarray],
+                  device: DeviceLike = None) -> Dict[str, np.ndarray]:
+    """{utt: wave} → {utt: [T, 39] float32}.  Each chunk of FEAT_CHUNK
+    utterances (sorted by key) is padded to its own longest wave, framed and
+    run through the MFCC kernel as one [B·T, W] call; CMN and deltas run on
+    the same device.  Frames past an utterance's end repeat its last frame
+    before the deltas, so the edge regression equals the unbatched one."""
+    dev = resolve_device(device)
+    opts = MfccOptions()
+    opts.frame_opts.samp_freq = SAMP_FREQ
+    opts.frame_opts.dither = 0.0
+    mfcc = Mfcc(opts)
+    keys = sorted(waves)
+    out: Dict[str, np.ndarray] = {}
+    for c0 in range(0, len(keys), FEAT_CHUNK):
+        chunk = keys[c0: c0 + FEAT_CHUNK]
+        mlen = max(waves[k].shape[0] for k in chunk)
+        batch = np.zeros((len(chunk), mlen), np.float32)
+        for i, k in enumerate(chunk):
+            batch[i, : waves[k].shape[0]] = waves[k]
+        nf_h = np.asarray([mfcc.num_frames(waves[k].shape[0]) for k in chunk])
+        feats = mfcc(torch.from_numpy(batch).to(dev))  # [B, T, 13]
+        T = feats.shape[1]
+        nf = torch.from_numpy(nf_h).to(dev)
+        t_idx = torch.arange(T, device=dev)[None, :]
+        idx = torch.minimum(t_idx, (nf - 1).clamp(min=0)[:, None])
+        feats = feats.gather(1, idx[:, :, None].expand(-1, -1, feats.shape[2]))
+        mask = (t_idx < nf[:, None]).to(feats.dtype)
+        mean = (feats * mask[:, :, None]).sum(1) / nf.clamp(min=1)[:, None]
+        deltas = compute_deltas(feats - mean[:, None, :]).cpu().numpy()
+        for i, k in enumerate(chunk):
+            out[k] = deltas[i, : nf_h[i]].astype(np.float32)
+    return out
+
+
+def synth_set(
+    opts: MinilibOptions, sents: List[np.ndarray], prefix: str, seed: int,
+    noise: float = 40.0,
+) -> Tuple[Dict[str, np.ndarray], Dict[str, List[str]]]:
+    lex = make_lexicon(opts)
+    specs = phone_inventory(opts.num_phones)
+    durs = phone_durations(opts.num_phones)
+    rng = np.random.default_rng(seed)
+    waves, text = {}, {}
+    for i, s in enumerate(sents):
+        words = _to_words(s)
+        utt = f"{prefix}_{i:04d}"
+        waves[utt] = synth_utterance(words, lex, specs, durs, rng,
+                                     noise=noise)
+        text[utt] = words
+    return waves, text
+
+
+# The NOISY evaluation regime: the clean corpus decodes at 0.03-0.07% WER,
+# where quality differences cannot be resolved; re-synthesizing the held-out
+# set at this noise amplitude puts the CE first pass in the few-percent range.
+NOISE_EVAL = 400.0
+
+
+def make_test_set(
+    opts: MinilibOptions, noise: Optional[float] = None,
+) -> Tuple[Dict[str, np.ndarray], Dict[str, List[str]]]:
+    """The held-out evaluation set: clean (synthesis default noise=40) or
+    re-synthesized at a raised noise amplitude — same sentences, same rng
+    stream, so clean and noisy rows are paired."""
+    test_sents = make_text(opts, opts.num_test, opts.seed + 6)
+    return synth_set(opts, test_sents, "test", opts.seed + 7,
+                     noise=40.0 if noise is None else noise)
+
+
+# ---------------------------------------------------------------------------
+# the committed system
+# ---------------------------------------------------------------------------
+
+def load_csr(path: str, tid_to_pdf: Optional[np.ndarray] = None) -> CsrGraph:
+    """A graph saved by the JAX package's save_csr.  Graphs saved without
+    their per-arc pdf array need `tid_to_pdf` to rebuild it."""
+    z = np.load(path)
+    if "pdf" in z:
+        pdf = z["pdf"]
+    else:
+        if tid_to_pdf is None:
+            raise KaldiError(
+                f"{path} was saved without the pdf array; pass tid_to_pdf "
+                "(convert.tid_to_pdf_from_transition_model)")
+        pdf = np.asarray(tid_to_pdf, np.int32)[z["tid"]]
+    csr = CsrGraph(
+        start=int(z["start"]),
+        row_ptr=z["row_ptr"], tid=z["tid"], pdf=pdf,
+        weight=z["weight"], nextstate=z["nextstate"],
+        final_weight=z["final_weight"],
+        arc_olabels=FlatOlabels(z["olab_off"], z["olab_val"]),
+        final_olabels=FlatOlabels(z["folab_off"], z["folab_val"]),
+        eps_ns=z["eps_ns"] if "eps_ns" in z else None,
+        eps_w=z["eps_w"] if "eps_w" in z else None,
+        eps_olab=z["eps_olab"] if "eps_olab" in z else None,
+        eps_depth=int(z["eps_depth"]) if "eps_depth" in z else 0,
+    )
+    csr._olabel_mask = csr.arc_olabels.offsets[1:] > csr.arc_olabels.offsets[:-1]
+    return csr
+
+
+@dataclasses.dataclass
+class MinilibSystem:
+    words: List[str]  # word id → word
+    csr: CsrGraph
+    am: AmNnet
+    test_waves: Dict[str, np.ndarray]
+    test_text: Dict[str, List[str]]
+
+
+def load_system(workdir: str, opts: Optional[MinilibOptions] = None,
+                device: DeviceLike = None) -> MinilibSystem:
+    """Load the built system (tree.pkl, hclg.npz, final.am) and synthesise
+    the held-out test set.  Only loads: a missing artifact raises."""
+    opts = opts or MinilibOptions()
+    dev = resolve_device(device)
+    for name in ("tree.pkl", "hclg.npz", "final.am"):
+        if not os.path.exists(os.path.join(workdir, name)):
+            raise KaldiError(
+                f"{workdir}: {name} is missing; the port loads a system the "
+                "JAX package built and does not build one")
+    _ctx_dep, tm = convert.load_pickle(os.path.join(workdir, "tree.pkl"))
+    tid_to_pdf = convert.tid_to_pdf_from_transition_model(tm)
+    csr = load_csr(os.path.join(workdir, "hclg.npz"), tid_to_pdf)
+    am = AmNnet.load(os.path.join(workdir, "final.am"), device=dev)
+    test_waves, test_text = make_test_set(opts)
+    return MinilibSystem(word_table(make_lexicon(opts)), csr, am,
+                         test_waves, test_text)
+
+
+class _StageClock:
+    """Adds each stage's host-clock seconds, up to a device synchronise, to a
+    caller's dict; does nothing (no synchronise either) without one."""
+
+    def __init__(self, device: torch.device, timings: Optional[Dict[str, float]]):
+        self.device, self.timings = device, timings
+        self.t0 = time.perf_counter()
+
+    def add(self, key: str, value: float) -> None:
+        if self.timings is not None:
+            self.timings[key] = self.timings.get(key, 0) + value
+
+    def lap(self, key: Optional[str]) -> None:
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        if key is not None:
+            self.add(key, now - self.t0)
+        self.t0 = now
+
+
+def decode_test_set(
+    system: MinilibSystem,
+    waves: Dict[str, np.ndarray],
+    beam: float = 14.0,
+    max_active: int = 2048,
+    acoustic_scale: float = 1.0,
+    batch: int = 64,
+    timings: Optional[Dict[str, float]] = None,
+) -> Dict[str, List[str]]:
+    """Token-sparse decode of `waves` on the system's device → {utt: words}.
+
+    Utterances are decoded in duration-sorted chunks of `batch`: the
+    [T, B, K] backpointer store is the memory hog at the 1M-state scale, and
+    duration sorting keeps the padding waste small.  T is bucketed to
+    multiples of 128 and the last chunk's batch dim is padded with
+    zero-frame rows, so every chunk has one of a few shapes.
+
+    timings: a dict that receives the host-clock seconds of each stage
+    (`front_end_seconds`, `acoustic_model_seconds`, `search_seconds`, the
+    last with backtrace and host tail) and `search_frames`; each stage then
+    ends with a device synchronise."""
+    dev = system.am.device
+    clock = _StageClock(dev, timings)
+    feats = compute_feats(waves, device=dev)
+    clock.lap("front_end_seconds")
+    vopts = ViterbiOptions(beam=beam, max_active=max_active,
+                           acoustic_scale=acoustic_scale)
+    by_dur = sorted(feats, key=lambda k: feats[k].shape[0])
+    hyps: Dict[str, List[str]] = {}
+    for lo in range(0, len(by_dur), batch):
+        chunk = by_dur[lo: lo + batch]
+        keys, padded, nf = pad_feature_batch({k: feats[k] for k in chunk})
+        T = padded.shape[1]
+        Tb = -(-T // 128) * 128
+        if Tb > T:
+            padded = np.pad(padded, ((0, 0), (0, Tb - T), (0, 0)))
+        if len(keys) < batch:
+            padded = np.pad(padded, ((0, batch - len(keys)), (0, 0), (0, 0)))
+            nf = np.concatenate([nf, np.zeros(batch - len(keys), nf.dtype)])
+        clock.lap(None)  # host staging belongs to no stage
+        loglikes = system.am.loglikes_batch(padded)
+        clock.lap("acoustic_model_seconds")
+        results = decode_batch_tokens(system.csr, loglikes, nf, vopts, device=dev)
+        clock.lap("search_seconds")
+        clock.add("search_frames", int(nf.max()))
+        for k, res in zip(keys, results):
+            hyps[k] = [system.words[w] for w in res.words] if res else []
+    return hyps
+
+
+def decode_and_score(
+    system: MinilibSystem,
+    beam: float = 14.0,
+    max_active: int = 2048,
+    acoustic_scale: float = 1.0,
+    batch: int = 64,
+    noise: Optional[float] = None,
+    opts: Optional[MinilibOptions] = None,
+    timings: Optional[Dict[str, float]] = None,
+) -> Tuple[float, float]:
+    """Decode the system's held-out set; returns (WER %, audio seconds).
+
+    noise: decode the set re-synthesized at this noise amplitude instead of
+    the clean waves (NOISE_EVAL is the standard noisy regime).
+    timings: see decode_test_set."""
+    test_waves, test_text = system.test_waves, system.test_text
+    if noise is not None:
+        test_waves, test_text = make_test_set(
+            opts or MinilibOptions(), noise=noise)
+    hyps = decode_test_set(system, test_waves, beam, max_active,
+                           acoustic_scale, batch, timings)
+    stats = compute_wer({k: list(v) for k, v in test_text.items()}, hyps)
+    audio_s = sum(w.shape[0] for w in test_waves.values()) / SAMP_FREQ
+    log.info("minilib decode: %s over %.0f audio-s", stats.report(), audio_s)
+    return stats.wer, audio_s

@@ -1,0 +1,165 @@
+"""Port front end vs the JAX package on the CPU: framing, MFCC, deltas and
+the recipe's compute_feats (MFCC + per-utterance CMN + deltas) on synthesised
+utterances of ragged length.  Tolerance 1e-3 absolute: float32 sums in
+another order at cepstral magnitudes of tens.  On the synthesised speech the
+liftered cepstra reach magnitudes above 100, where 1e-3 absolute would be
+1e-5 relative — a few float32 ulps of 256-term sums — and CMN and the delta
+filters carry that error into small elements too, so there the bound adds
+1e-5 of the utterance's largest feature (measured worst case: 1.5e-3 at a
+largest feature of 114; the JAX package's own kernel test allows 1e-3
+relative on top of 1e-3 absolute).  The synthesis itself is a numpy copy and
+must be bit-equal."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import old_kaldi_git_tpu.feat.compute as jcompute
+import old_kaldi_git_tpu.feat.functions as jfunctions
+import old_kaldi_git_tpu.feat.window as jwindow
+import old_kaldi_git_tpu.recipes.minilib as jminilib
+import old_kaldi_git_tpu_torch.feat.compute as tcompute
+import old_kaldi_git_tpu_torch.feat.functions as tfunctions
+import old_kaldi_git_tpu_torch.feat.window as twindow
+import old_kaldi_git_tpu_torch.recipes.minilib as tminilib
+
+ATOL = 1e-3
+
+
+def _wave(seed, shape, amp=1500.0):
+    return (np.random.default_rng(seed).normal(size=shape) * amp).astype(np.float32)
+
+
+def _frame_opts(mod, **kw):
+    o = mod.FrameExtractionOptions(dither=0.0)
+    for k, v in kw.items():
+        setattr(o, k, v)
+    return o
+
+
+@pytest.fixture(scope="module")
+def test_sets():
+    """4 held-out utterances through both packages' synthesis."""
+    jset = jminilib.make_test_set(jminilib.MinilibOptions(num_test=4))
+    tset = tminilib.make_test_set(tminilib.MinilibOptions(num_test=4))
+    return jset, tset
+
+
+@pytest.mark.parametrize("kw", [
+    dict(samp_freq=8000.0),
+    dict(samp_freq=16000.0),
+    dict(samp_freq=8000.0, snip_edges=False),
+    dict(samp_freq=8000.0, window_type="hamming", preemph_coeff=0.0,
+         remove_dc_offset=False, round_to_power_of_two=False),
+])
+def test_extract_frames(kw):
+    jo, to = _frame_opts(jwindow, **kw), _frame_opts(twindow, **kw)
+    assert to.window_size == jo.window_size
+    assert to.padded_window_size == jo.padded_window_size
+    for n in (0, 199, 200, 1234, 8000):
+        assert twindow.num_frames(n, to) == jwindow.num_frames(n, jo)
+    assert np.array_equal(twindow.feature_window(to), jwindow.feature_window(jo))
+    assert np.array_equal(twindow.frame_start_indices(3000, to),
+                          jwindow.frame_start_indices(3000, jo))
+    wave = _wave(0, (2, 3000))
+    jf, je = jwindow.extract_frames(jnp.asarray(wave), jo)
+    tf, te = twindow.extract_frames(torch.from_numpy(wave), to)
+    assert tuple(tf.shape) == jf.shape and tuple(te.shape) == je.shape
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=ATOL, rtol=1e-6)
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), atol=1e-4, rtol=0)
+
+
+def test_dither_needs_an_explicit_generator():
+    to = twindow.FrameExtractionOptions(samp_freq=8000.0, dither=1.0)
+    wave = torch.from_numpy(_wave(1, (1, 2000)))
+    plain, _ = twindow.extract_frames(wave, to)
+    again, _ = twindow.extract_frames(wave, to)
+    assert torch.equal(plain, again)  # no generator: no dither, deterministic
+    g = torch.Generator().manual_seed(3)
+    dithered, _ = twindow.extract_frames(wave, to, dither_generator=g)
+    assert not torch.equal(plain, dithered)
+
+
+@pytest.mark.parametrize("samp_freq,use_energy", [(8000.0, True), (16000.0, True),
+                                                  (8000.0, False)])
+def test_mfcc(samp_freq, use_energy):
+    jo = jcompute.MfccOptions(use_energy=use_energy)
+    to = tcompute.MfccOptions(use_energy=use_energy)
+    for o in (jo, to):
+        o.frame_opts.samp_freq = samp_freq
+        o.frame_opts.dither = 0.0
+    assert np.array_equal(tcompute.dct_matrix(13, 23), jcompute.dct_matrix(13, 23))
+    assert np.array_equal(tcompute.lifter_coeffs(13, 22.0),
+                          jcompute.lifter_coeffs(13, 22.0))
+    wave = _wave(2, (3, 4321))
+    want = np.asarray(jcompute.Mfcc(jo)(jnp.asarray(wave)))
+    got = tcompute.Mfcc(to)(torch.from_numpy(wave)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("order,window,T", [(2, 2, 50), (1, 3, 7), (2, 2, 3)])
+def test_compute_deltas(order, window, T):
+    jo = jfunctions.DeltaFeaturesOptions(order=order, window=window)
+    to = tfunctions.DeltaFeaturesOptions(order=order, window=window)
+    for a, b in zip(tfunctions.delta_filters(to), jfunctions.delta_filters(jo)):
+        assert np.array_equal(a, b)
+    x = _wave(3, (2, T, 13), amp=10.0)
+    want = np.asarray(jfunctions.compute_deltas(jnp.asarray(x), jo))
+    got = tfunctions.compute_deltas(torch.from_numpy(x), to).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_synthesised_waves_and_text_bit_equal(test_sets):
+    (jw, jt), (tw, tt) = test_sets
+    assert sorted(jw) == sorted(tw) and jt == tt
+    lens = {len(w) for w in tw.values()}
+    assert len(lens) > 1  # ragged
+    for k in jw:
+        assert jw[k].dtype == tw[k].dtype == np.float32
+        assert np.array_equal(jw[k], tw[k])
+    # the pieces, at other sizes
+    jo = jminilib.MinilibOptions(num_words=300, num_test=3, seed=5)
+    to = tminilib.MinilibOptions(num_words=300, num_test=3, seed=5)
+    assert tminilib.make_lexicon(to) == jminilib.make_lexicon(jo)
+    for a, b in zip(tminilib.make_text(to, 5, 9), jminilib.make_text(jo, 5, 9)):
+        assert np.array_equal(a, b)
+    jn, _ = jminilib.synth_set(jo, jminilib.make_text(jo, 2, 9), "n", 11, noise=400.0)
+    tn, _ = tminilib.synth_set(to, tminilib.make_text(to, 2, 9), "n", 11, noise=400.0)
+    assert all(np.array_equal(jn[k], tn[k]) for k in jn)
+
+
+def test_compute_feats_on_ragged_utterances(test_sets):
+    (jw, _), (tw, _) = test_sets
+    want = jminilib.compute_feats(jw)
+    got = tminilib.compute_feats(tw, device="cpu")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].shape[1] == 39
+        assert got[k].dtype == np.float32
+        tol = ATOL + 1e-5 * float(np.abs(want[k]).max())
+        np.testing.assert_allclose(got[k], want[k], atol=tol, rtol=0)
+
+
+def test_compute_feats_is_independent_of_the_batch_it_rides_in(test_sets):
+    """The port pads each chunk to its own longest wave, the JAX recipe to
+    the global maximum: an utterance's features must not depend on that."""
+    _, (tw, _) = test_sets
+    together = tminilib.compute_feats(tw, device="cpu")
+    for k in tw:
+        alone = tminilib.compute_feats({k: tw[k]}, device="cpu")[k]
+        np.testing.assert_allclose(alone, together[k], atol=1e-4, rtol=0)
+
+
+def test_word_table_matches_the_lang_bundle(tmp_path):
+    """id 0 = <eps>, id i = the (i-1)-th word of the sorted lexicon, then #0:
+    held against the JAX package's lang bundle for the default options."""
+    lang = jminilib._load_lang(str(tmp_path))
+    table = tminilib.word_table(tminilib.make_lexicon(tminilib.MinilibOptions()))
+    assert len(table) == len(lang.words.symbols()) == 20002
+    for i in (0, 1, 2, 777, 19999, 20000, 20001):
+        assert table[i] == lang.words[i]
+    assert table[0] == "<eps>" and table[-1] == "#0"
+    assert all(table[i] == f"w{i - 1:05d}" for i in range(1, 20001))

@@ -1,0 +1,88 @@
+"""The port stands alone: importing it and every sub-module pulls in neither
+jax, flax nor the JAX package, and chip_smoke.py names none of them."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import old_kaldi_git_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "old_kaldi_git_tpu")
+
+
+def _port_modules():
+    names = ["old_kaldi_git_tpu_torch"]
+    for m in pkgutil.walk_packages(old_kaldi_git_tpu_torch.__path__,
+                                   "old_kaldi_git_tpu_torch."):
+        names.append(m.name)
+    return names
+
+
+def test_port_has_the_slice_modules():
+    names = set(_port_modules())
+    for want in ("device", "convert", "utils.log", "utils.parse_options",
+                 "utils.batching", "utils.edit_distance", "ops._build",
+                 "ops.gather_kernel", "ops.mfcc_kernel", "feat.window",
+                 "feat.mel", "feat.compute", "feat.functions", "models.tdnn",
+                 "models.am_nnet", "decoder.csr", "decoder.viterbi",
+                 "recipes.minilib"):
+        assert f"old_kaldi_git_tpu_torch.{want}" in names
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import importlib, sys\n"
+        f"for n in {_port_modules()!r}:\n"
+        "    importlib.import_module(n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "import torch\n"
+        "print('TF32', torch.backends.cuda.matmul.allow_tf32, "
+        "torch.backends.cudnn.allow_tf32)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "TF32 False False" in out.stdout, out.stdout
+
+
+def _imported_roots(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_sources_name_no_forbidden_import():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    pkg = os.path.join(REPO, "old_kaldi_git_tpu_torch")
+    for d, _dirs, files in os.walk(pkg):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 15
+    for path in paths:
+        bad = _imported_roots(path) & set(FORBIDDEN)
+        assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
+    """On a machine without CUDA the script must exit non-zero before any
+    result line (this test runs where there is no GPU; with one it would
+    decode, so it is bounded by checking availability first)."""
+    import torch
+
+    if torch.cuda.is_available():
+        return
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and out.stdout.strip() == ""
