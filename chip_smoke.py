@@ -8,7 +8,11 @@ its plain PyTorch version on the card, then drives the port's main path once
 through its entry points: the committed exp/minilib system (20k words, 1M-state
 HCLG, TDNN-F) decodes its 256-utterance held-out set, synthesised from a seed,
 at max_active=1024, batch=128, beam=14, acoustic_scale=1.0, with the host-clock
-seconds of each stage.  --noisy also decodes the set re-synthesised at noise
+seconds of each stage.  Then the GMM serving path: the committed triphone
+tri.mdl, read by the port's own reader, decodes the same 256 utterances as
+one padded batch through recipes/decode.decode_dataset at DecodeOptions()
+(beam 16, max_active 7000, acoustic_scale 0.1): loglikes through the GMM
+kernel, the top-K dense-alpha search.  --noisy also decodes the set re-synthesised at noise
 amplitude 400 (the reference's second operating point) and lists the
 utterances with errors.  --profile-frames N puts the first N frames of one
 chunk's search under torch.profiler and reports the device-busy share (summed
@@ -34,6 +38,8 @@ H100_HBM_BYTES_PER_S = 3.35e12  # published peak
 
 BEAM, MAX_ACTIVE, BATCH, ACOUSTIC_SCALE = 14.0, 1024, 128, 1.0
 MAX_WER_PERCENT = 1.0  # the reference decodes this set at 0.07 %
+GMM_MAX_ERRORS = 2  # 0.07 % of 2,868 words; the JAX package makes 0 with tri.mdl
+GMM_TOL = (2e-3, 2e-3)  # |kernel - plain| <= atol + rtol·|plain| (tests/test_ops.py)
 
 
 def emit(obj) -> None:
@@ -126,6 +132,60 @@ def check_refusals(torch, gather, fused, weights) -> int:
     return len(cases)
 
 
+def check_gmm(torch, kernel, plain, cases):
+    """K3 against its plain version: returns (worst |Δ|, worst |Δ| over its
+    allowance atol + rtol·|plain|); raises above the allowance."""
+    atol, rtol = GMM_TOL
+    worst = worst_share = 0.0
+    for feats, weights in cases:
+        out = kernel(feats, weights)
+        torch.cuda.synchronize()
+        ref = plain(feats, weights)
+        if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"gmm kernel output bad at {tuple(feats.shape)}")
+        err = (out - ref).abs()
+        share = float((err / (atol + rtol * ref.abs())).max())
+        worst, worst_share = max(worst, float(err.max())), max(worst_share, share)
+        if share > 1.0:
+            raise RuntimeError(f"gmm kernel off by {float(err.max())} at "
+                               f"{tuple(feats.shape)} ({share:.3f} of its allowance)")
+        del out, ref, err
+    return worst, worst_share
+
+
+def check_gmm_refusals(torch, kernel, feats, weights) -> int:
+    """The K3 wrapper refuses a strided, a float64 and a host-side input
+    before any launch."""
+    cases = [
+        (ValueError, lambda: kernel(feats.t().contiguous().t(), weights)),
+        (TypeError, lambda: kernel(feats.double(), weights)),
+        (ValueError, lambda: kernel(feats.cpu(), weights)),
+    ]
+    before = kernel.launches
+    for exc, call in cases:
+        try:
+            call()
+        except exc:
+            pass
+        else:
+            raise RuntimeError(f"the gmm wrapper did not refuse ({exc.__name__})")
+    if kernel.launches != before:
+        raise RuntimeError("a refused gmm call was counted as a launch")
+    return len(cases)
+
+
+def random_gmm(np, convert, dev, num_pdfs: int, dim: int, seed: int):
+    """A random GMM with an odd pdf count and 1-150 Gaussians a pdf."""
+    rng = np.random.default_rng(seed)
+    pdfs = []
+    for i in range(num_pdfs):
+        m = 150 if i == 7 else int(rng.integers(1, 151))
+        w = rng.random(m) + 0.1
+        pdfs.append((w / w.sum(), rng.normal(size=(m, dim)) * 2,
+                     0.3 + rng.random((m, dim))))
+    return convert.am_diag_gmm_from_jax(pdfs, device=dev)
+
+
 def search_profile(torch, decode, loglikes, nf, frames: int) -> dict:
     """Device-busy share of the first `frames` frames of one chunk's search."""
     import numpy as np
@@ -180,6 +240,7 @@ def main() -> int:
 
     import numpy as np
 
+    from old_kaldi_git_tpu_torch import convert
     from old_kaldi_git_tpu_torch.decoder.csr import build_tile_graph
     from old_kaldi_git_tpu_torch.decoder.viterbi import (
         ViterbiOptions, _token_budget, decode_batch_tokens)
@@ -189,9 +250,10 @@ def main() -> int:
     from old_kaldi_git_tpu_torch.ops import _build
     from old_kaldi_git_tpu_torch.ops.gather_kernel import (
         batched_table_gather, batched_table_gather_plain)
+    from old_kaldi_git_tpu_torch.ops.gmm_kernel import gmm_loglikes, gmm_loglikes_plain
     from old_kaldi_git_tpu_torch.ops.mfcc_kernel import (
         fused_mfcc_from_frames, fused_mfcc_reference, make_mfcc_weights)
-    from old_kaldi_git_tpu_torch.recipes import minilib
+    from old_kaldi_git_tpu_torch.recipes import decode, minilib
     from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
     from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer, edit_distance
 
@@ -304,6 +366,7 @@ def main() -> int:
     # ---- phase 4: the main path, with the launch counts set to 0 just before -
     batched_table_gather.launches = 0
     fused_mfcc_from_frames.launches = 0
+    gmm_loglikes.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -315,6 +378,7 @@ def main() -> int:
     wall_s = time.perf_counter() - t0
     k1_launches = batched_table_gather.launches
     k2_launches = fused_mfcc_from_frames.launches
+    k3_tdnn_launches = gmm_loglikes.launches
     emit({"phase": "decode", "card": card, "utterances": len(system.test_waves),
           "max_active": MAX_ACTIVE, "batch": BATCH, "beam": BEAM,
           "acoustic_scale": ACOUSTIC_SCALE, "wer_percent": wer,
@@ -330,19 +394,117 @@ def main() -> int:
     if not (wer <= MAX_WER_PERCENT):
         raise RuntimeError(f"WER {wer:.2f}% exceeds {MAX_WER_PERCENT}%")
 
+    # ---- phase 5: K3 against its plain version ------------------------------
+    # at the GMM path's shape (the 256 held-out utterances' real features,
+    # padded into one batch as decode_dataset pads them, against tri.mdl), on
+    # a random model with an odd pdf count and 1-150 Gaussians, and at N = 45.
+    # It runs after the TDNN decode: its GBs of tensors and the 2,000-pdf
+    # model would otherwise be in the process while the TDNN path is timed.
+    gmm_model = convert.load_am_gmm_model("exp/minilib/tri.mdl", device=dev)
+    gw = gmm_model.am.weights()
+    _, gpad, _ = pad_feature_batch(minilib.compute_feats(system.test_waves, device=dev))
+    gx = torch.from_numpy(gpad.reshape(-1, gpad.shape[-1])).to(dev)
+    rnd = random_gmm(np, convert, dev, 999, gx.shape[1], seed=3)
+    rx = 3.0 * torch.randn((4099, gx.shape[1]), device="cuda", generator=gen)
+    k3_err, k3_share = check_gmm(
+        torch, gmm_loglikes, gmm_loglikes_plain,
+        [(gx, gw), (rx, rnd.weights()), (gx[:45].contiguous(), gw)])
+    k3_refusals = check_gmm_refusals(torch, gmm_loglikes, gx[:64].contiguous(), gw)
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    k3_ms = time_ms(torch, lambda: gmm_loglikes(gx, gw), reps=10, plug=plug)
+    k3_plain_ms = time_ms(torch, lambda: gmm_loglikes_plain(gx, gw), reps=2,
+                          warm=1, plug=plug)
+    n3, d3 = gx.shape
+    k3_flops = 2 * n3 * gw.num_gauss * (2 * d3 + 1)
+    k3_bytes = 4 * (n3 * d3 + n3 * gw.num_pdfs + gw.rows.numel() + gw.offsets.numel())
+    k3_ops_ms = 1e3 * k3_flops / H100_FP32_FLOPS
+    k3_bytes_ms = 1e3 * k3_bytes / H100_HBM_BYTES_PER_S
+    emit({"phase": "gmm_kernel", "card": card,
+          "shape": {"frames": n3, "dim": d3, "pdfs": gw.num_pdfs,
+                    "gaussians": gw.num_gauss, "padded_mixtures": gw.max_mix},
+          "max_abs_err": k3_err, "worst_share_of_tolerance": k3_share,
+          "tolerance": f"{GMM_TOL[0]} + {GMM_TOL[1]}*|plain|",
+          "kernel_ms": k3_ms, "plain_ms": k3_plain_ms,
+          "plain_timing": f"chunked plain version over all {n3} frames",
+          "library_ms": None, "bound_ms": max(k3_ops_ms, k3_bytes_ms),
+          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
+          "flops": k3_flops, "bytes": k3_bytes, "refusals": k3_refusals,
+          "check_launches": gmm_loglikes.launches})
+    del plug, rnd, rx, gx, gpad
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the GMM path, with the launch counts set to 0 just before --
+    if not np.array_equal(gmm_model.tm.tid_to_pdf_array()[system.csr.tid], system.csr.pdf):
+        raise RuntimeError("tri.mdl's tid -> pdf map is not the graph's")
+    batched_table_gather.launches = 0
+    fused_mfcc_from_frames.launches = 0
+    gmm_loglikes.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gmm_feats = minilib.compute_feats(system.test_waves, device=dev)
+    torch.cuda.synchronize()
+    gstages = {"features_seconds": time.perf_counter() - t0}
+    failed = []
+    ghyps = decode.decode_dataset(gmm_model, system.csr, system.words, gmm_feats,
+                                  decode.DecodeOptions(), timings=gstages,
+                                  failed=failed)
+    gstats = decode.score_hyps(system.test_text, ghyps)
+    torch.cuda.synchronize()
+    gwall_s = time.perf_counter() - t0
+    gframes = max(f.shape[0] for f in gmm_feats.values())
+    g_launches = {"gather": batched_table_gather.launches,
+                  "mfcc": fused_mfcc_from_frames.launches,
+                  "gmm": gmm_loglikes.launches}
+    dopts = decode.DecodeOptions()
+    emit({"phase": "decode_gmm", "card": card, "model": "exp/minilib/tri.mdl",
+          "utterances": len(gmm_feats), "frames_padded": gframes,
+          "frames": sum(f.shape[0] for f in gmm_feats.values()),
+          "beam": dopts.beam, "max_active": dopts.max_active,
+          "acoustic_scale": dopts.acoustic_scale,
+          "wer_percent": gstats.wer, "errors": gstats.errors,
+          "words": gstats.ref_len, "failed_utterances": len(failed),
+          "audio_seconds": audio_s, "wall_seconds": gwall_s, **gstages,
+          "search_ms_per_frame": 1e3 * gstages["search_seconds"] / gframes,
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+          "launches": g_launches})
+    if not (g_launches["gmm"] > 0 and g_launches["mfcc"] > 0):
+        raise RuntimeError(f"the GMM path did not go through its kernels: {g_launches}")
+    if failed:
+        raise RuntimeError(f"{len(failed)} utterances failed to decode: {failed[:8]}")
+    if gstats.errors > GMM_MAX_ERRORS:
+        raise RuntimeError(f"GMM WER {gstats.wer:.3f}% ({gstats.errors} errors) "
+                           f"exceeds {GMM_MAX_ERRORS} errors")
+    del gmm_feats
+    torch.cuda.empty_cache()
+
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
          "replaces": "old_kaldi_git_tpu/ops/gather_kernel.py:57",
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
+         "launches": k1_launches + g_launches["gather"],
+         "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"]},
+         "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+         "launches": k2_launches + g_launches["mfcc"],
+         "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"]},
+         "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": max(k2_ops_ms, k2_bytes_ms),
          "bound_by": "operations" if k2_ops_ms >= k2_bytes_ms else "bytes",
+         "library_ms": None},
+        {"name": "gmm_loglikes", "route": "cuda",
+         "source": "old_kaldi_git_tpu_torch/ops/csrc/gmm.cu",
+         "replaces": "old_kaldi_git_tpu/ops/gmm_kernel.py:125",
+         "launches": k3_tdnn_launches + g_launches["gmm"],
+         "launches_by_path": {"decode": k3_tdnn_launches,
+                              "decode_gmm": g_launches["gmm"]},
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": max(k3_ops_ms, k3_bytes_ms),
+         "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
          "library_ms": None},
     ]})
     if args.noisy:

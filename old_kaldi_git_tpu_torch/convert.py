@@ -1,6 +1,6 @@
 """Weights and state carried across from the JAX package's artifacts.
 
-Two things:
+Three things:
 
 * `am_nnet_from_jax`: a flax variable tree (as numpy) → the port's AmNnet.
   flax `Dense.kernel` is [in, out], `nn.Linear.weight` is [out, in];
@@ -10,18 +10,22 @@ Two things:
   a plain stub that keeps the pickled `__dict__`.  `final.am` pickles
   `models.tdnn.TdnnConfig`/`TdnnLayerSpec`; `tree.pkl` pickles
   `(ContextDependency, TransitionModel)`.
+* GMM models: `am_diag_gmm_from_jax` from per-pdf (weights, means, vars)
+  arrays, as the JAX package's DiagGmms hold them; `load_am_gmm_model` reads
+  a binary `.mdl` (TransitionModel + AmDiagGmm) with the port's own reader.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import pickle
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from old_kaldi_git_tpu_torch.device import DeviceLike
+from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm, AmGmmModel, DiagGmm
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
 from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnLayerSpec, TdnnModel
 
@@ -151,3 +155,16 @@ def tid_to_pdf_from_transition_model(tm: Any) -> np.ndarray:
     counts = np.diff(state2id)
     out[1:] = np.repeat(pdfs, counts)
     return out
+
+
+def am_diag_gmm_from_jax(pdfs: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+                         device: DeviceLike = None) -> AmDiagGmm:
+    """The port's AmDiagGmm from per-pdf (weights [M], means [M, D],
+    vars [M, D]) arrays, the fields of the JAX package's DiagGmms."""
+    return AmDiagGmm([DiagGmm(w, m, v) for w, m, v in pdfs], device)
+
+
+def load_am_gmm_model(path: str, device: DeviceLike = None) -> AmGmmModel:
+    """A GMM `.mdl` written by the JAX package (or by Kaldi) → the port's
+    AmGmmModel, read without the JAX package."""
+    return AmGmmModel.load(path, device)

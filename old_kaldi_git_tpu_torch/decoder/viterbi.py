@@ -18,6 +18,17 @@ shared HCLG).  Per frame, for a whole utterance batch:
 The frame loop is a Python loop over torch ops on the device; backpointers
 stay on the device and only [T, B] winning-arc ids come to the host.
 
+`decode_batch` is the entry point of every graph size: it picks one of three
+regimes with the JAX package's thresholds (`decode_regime`).  Huge graphs
+take the token-sparse search above; graphs whose [B, S] cost vector fits take
+`_decode_and_backtrace`, a dense relaxation of every arc per frame:
+
+  cand [B, A] = alpha[:, frm] + w − acoustic_scale·ll_t[:, pdf]
+  → scatter-min into the next states, winning arc by scatter-max of arc ids
+  → dense mode (K = S): beam gate only, [T, B, S] winning arcs stored;
+    top-K mode (K < S): the K best states by (cost, state id), beam gate,
+    [T, B, K] kept states and their winning arcs stored.
+
 Ported: folded graphs (eps arcs forwarded at build time), best path only.
 Lattice records (`want_lattice=True`) and split-eps graphs raise
 NotImplementedError until their slices of the port.
@@ -26,7 +37,7 @@ NotImplementedError until their slices of the port.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,8 +47,11 @@ from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.ops.gather_kernel import batched_table_gather
 from old_kaldi_git_tpu_torch.utils.log import KaldiError
 from old_kaldi_git_tpu_torch.utils.parse_options import options_dataclass
+from old_kaldi_git_tpu_torch.utils.timing import StageClock
 
 BIG = 1e10  # pseudo-infinity that survives float32 arithmetic
+TOKENS_ABOVE_BYTES = 2_000_000_000  # [B, S] float32 cost vector above this
+DENSE_UP_TO_BYTES = 4_000_000_000  # [T, B, S] int32 winning-arc store up to this
 
 
 @options_dataclass
@@ -317,4 +331,205 @@ def results_from_arcs(
             words.extend(graph.final_olabels[int(end_states[b])])
         results.append(DecodeResult(
             words=words, alignment=tids.astype(np.int32), cost=float(costs[b])))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# dense / top-K decode over a shared graph (decode_batch)
+# ---------------------------------------------------------------------------
+
+def decode_regime(batch: int, frames: int, num_states: int, max_active: int,
+                  want_lattice: bool = False) -> Tuple[str, int]:
+    """("tokens" | "dense" | "topk", K), as the JAX package's decode_batch
+    chooses: token-sparse when the [B, S] float32 cost vector would pass
+    2 GB; dense (K = S) when the [T, B, S] int32 winning-arc store fits in
+    4 GB and no lattice is wanted; else K = max(4, min(max_active, S)),
+    which is dense mode again when that K reaches S."""
+    S = num_states
+    K = max(4, min(max_active, S))
+    if batch * S * 4 > TOKENS_ABOVE_BYTES:
+        return "tokens", K
+    if not want_lattice and frames * batch * S * 4 <= DENSE_UP_TO_BYTES:
+        return "dense", S
+    return ("dense" if K >= S else "topk"), K
+
+
+def _cost_state_key(cost: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """One int64 key per entry, ordered as the pair (cost, state id): an
+    order-preserving map of the float32 cost (both signs) in the high 32
+    bits, the state id in the low 32.  Keys are distinct, so a top-K on them
+    has no ties to break: equal costs enter in state order, lowest first, as
+    `lax.top_k` puts them."""
+    bits = cost.contiguous().view(torch.int32).long()
+    ordered = torch.where(bits < 0, -(2 ** 31) - 1 - bits, bits)
+    del bits
+    return ordered.bitwise_left_shift_(32).bitwise_or_(state)
+
+
+def _relax(alpha: torch.Tensor, ll_t: torch.Tensor, frm: torch.Tensor,
+           pdf: torch.Tensor, w: torch.Tensor, ns: torch.Tensor,
+           ns_idx: torch.Tensor, arc_ids: torch.Tensor, acoustic_scale: float,
+           S: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame of every arc: (new_alpha [B, S] float32, best_arc [B, S]
+    int32, −1 where no arc arrives).
+
+    `cand` is computed ONCE and the same tensor feeds both the scatter-min
+    and the winner test `cand <= new_alpha[ns] + 1e-6`: the test only works
+    if both sides see the same bits.  Each [B, A] temporary is freed as soon
+    as it is used (3.1 GB each at B = 256, A = 3.07M)."""
+    B = alpha.shape[0]
+    ac = ll_t.index_select(1, pdf).mul_(acoustic_scale)
+    cand = alpha.index_select(1, frm).add_(w).sub_(ac)
+    del ac
+    cand.clamp_(max=BIG)
+    new_alpha = torch.full((B, S), BIG, dtype=torch.float32, device=alpha.device)
+    new_alpha.scatter_reduce_(1, ns_idx, cand, "amin")
+    hit = cand <= new_alpha.index_select(1, ns).add_(1e-6)
+    hit &= cand < BIG
+    del cand
+    arc_src = torch.where(hit, arc_ids, -1)
+    del hit
+    best_arc = torch.full((B, S), -1, dtype=torch.int32, device=alpha.device)
+    best_arc.scatter_reduce_(1, ns_idx, arc_src, "amax")
+    return new_alpha, best_arc
+
+
+def _decode_and_backtrace(
+    frm: torch.Tensor, pdf: torch.Tensor, w: torch.Tensor, ns: torch.Tensor,
+    start: int, loglikes: torch.Tensor, num_frames: torch.Tensor,
+    acoustic_scale: float, beam: float, fw: torch.Tensor, K: int, S: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense (K >= S) or top-K (K < S) beam decode, end-state choice and
+    backtrace on the device.  Graph arrays are per-arc [A] tensors (frm, pdf
+    int64; w float32; ns int64) and fw [S] float32 (BIG = not final).
+
+    Returns (end_states [B] int64, has_final [B] bool, costs [B] float32,
+    arcs [T, B] int32 with −1 on inactive or failed frames).  Frames past
+    every utterance's end are not run; their backpointers stay −1, as the
+    JAX scan's masked frames leave them."""
+    B, T, _ = loglikes.shape
+    A = frm.shape[0]
+    dev = loglikes.device
+    alpha = torch.full((B, S), BIG, dtype=torch.float32, device=dev)
+    alpha[:, start] = 0.0
+    arc_ids = torch.arange(A, dtype=torch.int32, device=dev)
+    ns_idx = ns[None, :].expand(B, A)
+    dense = K >= S
+    bp_arc = torch.full((T, B, S if dense else K), -1, dtype=torch.int32, device=dev)
+    if not dense:
+        bp_state = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
+        state_ids = torch.arange(S, dtype=torch.int64, device=dev)
+    t_end = min(T, int(num_frames.max().item())) if B else 0
+    for t in range(t_end):
+        new_alpha, best_arc = _relax(alpha, loglikes[:, t], frm, pdf, w, ns,
+                                     ns_idx, arc_ids, acoustic_scale, S)
+        active = (t < num_frames)[:, None]
+        if dense:
+            best = new_alpha.amin(dim=1, keepdim=True)
+            gated = torch.where(new_alpha <= best + beam, new_alpha, BIG)
+            alpha = torch.where(active, gated, alpha)
+            bp_arc[t] = torch.where(active & (gated < BIG), best_arc, -1)
+            continue
+        top_key = torch.topk(_cost_state_key(new_alpha, state_ids), K, dim=1,
+                             largest=False, sorted=True).values
+        top_idx = top_key.bitwise_and_(0xFFFFFFFF)
+        top_cost = new_alpha.gather(1, top_idx)
+        keep = top_cost <= top_cost[:, :1] + beam
+        top_cost = torch.where(keep, top_cost, BIG)
+        gated = new_alpha.fill_(BIG).scatter_(1, top_idx, top_cost)
+        alpha = torch.where(active, gated, alpha)
+        kept = active & keep
+        bp_state[t] = torch.where(kept, top_idx.to(torch.int32), -1)
+        bp_arc[t] = torch.where(kept, best_arc.gather(1, top_idx), -1)
+        del top_key, top_idx, top_cost, keep, gated, best_arc
+    total = alpha + fw[None, :]
+    has_final = total.amin(dim=1) < BIG
+    best_total = torch.where(has_final[:, None], total, alpha)
+    end_states = best_total.argmin(dim=1)
+    costs = best_total.gather(1, end_states[:, None])[:, 0]
+    if not dense:
+        arcs = _backtrace_scan(bp_state, bp_arc, frm, end_states.to(torch.int32),
+                               num_frames)
+        return end_states, has_final, costs, arcs
+    arcs = torch.full((T, B), -1, dtype=torch.int32, device=dev)
+    state = end_states
+    for t in range(t_end - 1, -1, -1):
+        arc = bp_arc[t].gather(1, state[:, None])[:, 0]
+        act = (t < num_frames) & (arc >= 0)
+        arcs[t] = torch.where(act, arc, -1)
+        state = torch.where(act, frm[arc.clamp(min=0).long()], state)
+    return end_states, has_final, costs, arcs
+
+
+def _dense_graph_arrays(graph: CsrGraph, device: torch.device):
+    """(frm, pdf, w, ns, fw) of a graph on `device`, uploaded once per
+    device and kept on the graph: per-arc source state, pdf and next state
+    as int64 index tensors, weights float32, final weights float32 with BIG
+    for non-final states."""
+    cache = graph.__dict__.setdefault("_dense_dev", {})
+    key = str(device)
+    if key not in cache:
+        if graph.num_arcs and graph.pdf.min() < 0:
+            raise KaldiError("graph has arcs without a pdf (epsilon input): "
+                             "decode_batch takes folded graphs")
+        frm = np.repeat(np.arange(graph.num_states, dtype=np.int64), graph.out_degree())
+        fw = np.where(np.isfinite(graph.final_weight), graph.final_weight, BIG)
+        cache[key] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (
+            frm, graph.pdf.astype(np.int64), graph.weight.astype(np.float32),
+            graph.nextstate.astype(np.int64), fw.astype(np.float32)))
+    return cache[key]
+
+
+def decode_batch(
+    graph: CsrGraph,
+    loglikes: Union[np.ndarray, torch.Tensor],
+    num_frames: Sequence[int],
+    opts: Optional[ViterbiOptions] = None,
+    want_lattice: bool = False,
+    device: DeviceLike = None,
+    timings: Optional[Dict[str, float]] = None,
+) -> List[Optional[DecodeResult]]:
+    """Beam-decode a batch [B, T, P] of loglikes against a shared graph, in
+    the regime `decode_regime` picks; one DecodeResult per row, None where
+    the beam died or the backtrace broke.
+
+    `device=None` means the GPU, as in decode_batch_tokens.  timings: a
+    dict that receives `search_seconds` (search and backtrace, ended by the
+    copy of the [T, B] arcs to the host) and `host_tail_seconds` (words and
+    alignments from the arcs)."""
+    if want_lattice:
+        raise NotImplementedError(
+            "lattices of decode_batch (_decode_scan) are not ported yet: they "
+            "come with the lattice and rescoring slice")
+    if graph.eps_ns is not None:
+        raise NotImplementedError(
+            "split-eps (chain) graphs are not ported yet: they come with "
+            "the chain decode slice")
+    opts = opts or ViterbiOptions()
+    if device is None and isinstance(loglikes, torch.Tensor) and loglikes.is_cuda:
+        dev = loglikes.device
+    else:
+        dev = resolve_device(device)
+    loglikes = torch.as_tensor(loglikes, dtype=torch.float32).to(dev)
+    B, T, P = loglikes.shape
+    regime, K = decode_regime(B, T, graph.num_states, opts.max_active)
+    clock = StageClock(dev, timings)
+    if regime == "tokens":
+        results = decode_batch_tokens(graph, loglikes, num_frames, opts, device=dev)
+        clock.lap("search_seconds")
+        return results
+    num_frames = np.asarray(num_frames, np.int32)
+    frm, pdf, w, ns, fw = _dense_graph_arrays(graph, dev)
+    if graph.num_arcs and int(graph.pdf.max()) >= P:
+        raise KaldiError(f"graph pdf ids reach {int(graph.pdf.max())}, loglikes have {P}")
+    end, final, cost, arcs = _decode_and_backtrace(
+        frm, pdf, w, ns, graph.start, loglikes,
+        torch.from_numpy(num_frames).to(dev), float(opts.acoustic_scale),
+        float(opts.beam), fw, K, graph.num_states)
+    arcs = arcs.cpu().numpy()
+    clock.lap("search_seconds")
+    results = results_from_arcs(
+        graph, arcs, end.cpu().numpy().astype(np.int32), final.cpu().numpy(),
+        cost.cpu().numpy().astype(np.float64), num_frames)
+    clock.lap("host_tail_seconds")
     return results

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build",
 )
-KERNEL_SOURCES = ("gather", "mfcc")
+KERNEL_SOURCES = ("gather", "mfcc", "gmm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

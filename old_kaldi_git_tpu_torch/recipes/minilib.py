@@ -21,7 +21,6 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,6 +36,7 @@ from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
 from old_kaldi_git_tpu_torch.utils.parse_options import options_dataclass
+from old_kaldi_git_tpu_torch.utils.timing import StageClock
 
 log = get_logger("minilib")
 
@@ -310,29 +310,6 @@ def load_system(workdir: str, opts: Optional[MinilibOptions] = None,
                          test_waves, test_text)
 
 
-class _StageClock:
-    """Adds each stage's host-clock seconds, up to a device synchronise, to a
-    caller's dict; does nothing (no synchronise either) without one."""
-
-    def __init__(self, device: torch.device, timings: Optional[Dict[str, float]]):
-        self.device, self.timings = device, timings
-        self.t0 = time.perf_counter()
-
-    def add(self, key: str, value: float) -> None:
-        if self.timings is not None:
-            self.timings[key] = self.timings.get(key, 0) + value
-
-    def lap(self, key: Optional[str]) -> None:
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        if key is not None:
-            self.add(key, now - self.t0)
-        self.t0 = now
-
-
 def decode_test_set(
     system: MinilibSystem,
     waves: Dict[str, np.ndarray],
@@ -355,7 +332,7 @@ def decode_test_set(
     last with backtrace and host tail) and `search_frames`; each stage then
     ends with a device synchronise."""
     dev = system.am.device
-    clock = _StageClock(dev, timings)
+    clock = StageClock(dev, timings)
     feats = compute_feats(waves, device=dev)
     clock.lap("front_end_seconds")
     vopts = ViterbiOptions(beam=beam, max_active=max_active,

@@ -28,7 +28,9 @@ def test_port_has_the_slice_modules():
                  "ops.gather_kernel", "ops.mfcc_kernel", "feat.window",
                  "feat.mel", "feat.compute", "feat.functions", "models.tdnn",
                  "models.am_nnet", "decoder.csr", "decoder.viterbi",
-                 "recipes.minilib"):
+                 "recipes.minilib", "utils.io_funcs", "utils.timing",
+                 "hmm.topology", "hmm.transition_model", "gmm.diag_gmm",
+                 "ops.gmm_kernel", "recipes.decode"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 
