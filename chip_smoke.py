@@ -30,11 +30,17 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores, published peak
+H100_TF32_FLOPS = 495e12      # TF32 on the tensor cores, dense, published peak
 H100_HBM_BYTES_PER_S = 3.35e12  # published peak
+# K2's and K3's products need about 2^-22 relative precision: on the tensor
+# cores that is three TF32 products (hi·hi + hi·lo + lo·hi), the least the
+# card could do them in
+TF32_SPLIT_PRODUCTS = 3
 
 BEAM, MAX_ACTIVE, BATCH, ACOUSTIC_SCALE = 14.0, 1024, 128, 1.0
 MAX_WER_PERCENT = 1.0  # the reference decodes this set at 0.07 %
@@ -153,13 +159,15 @@ def check_gmm(torch, kernel, plain, cases):
     return worst, worst_share
 
 
-def check_gmm_refusals(torch, kernel, feats, weights) -> int:
-    """The K3 wrapper refuses a strided, a float64 and a host-side input
-    before any launch."""
+def check_gmm_refusals(torch, kernel, feats, weights, wide) -> int:
+    """The K3 wrapper refuses a strided, a float64 and a host-side input,
+    and a model of feature dim 48 (`wide`), whose staged tiles do not fit a
+    block's shared memory, before any launch."""
     cases = [
         (ValueError, lambda: kernel(feats.t().contiguous().t(), weights)),
         (TypeError, lambda: kernel(feats.double(), weights)),
         (ValueError, lambda: kernel(feats.cpu(), weights)),
+        (ValueError, lambda: kernel(torch.zeros((8, wide.dim), device="cuda"), wide)),
     ]
     before = kernel.launches
     for exc, call in cases:
@@ -174,12 +182,30 @@ def check_gmm_refusals(torch, kernel, feats, weights) -> int:
     return len(cases)
 
 
+def ptxas_by_depth(log: str) -> dict:
+    """Registers and spills of each depth K that csrc/gmm.cu is built for,
+    from its `nvcc -Xptxas -v` report: {"K=80": "...", ...}."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?ILi(\d+)E", line)
+        if m:
+            key = f"K={m.group(1)}"
+        elif key and ("registers" in line or "spill" in line):
+            out[key] = " ".join(filter(None, [out.get(key), line.split(":")[-1].strip()]))
+    return out
+
+
 def random_gmm(np, convert, dev, num_pdfs: int, dim: int, seed: int):
     """A random GMM with an odd pdf count and 1-150 Gaussians a pdf."""
     rng = np.random.default_rng(seed)
+    return gmm_from_mix(np, convert, dev, [150 if i == 7 else int(rng.integers(1, 151))
+                                           for i in range(num_pdfs)], dim, rng)
+
+
+def gmm_from_mix(np, convert, dev, mix, dim: int, rng):
+    """A random GMM with the given Gaussian count for each pdf."""
     pdfs = []
-    for i in range(num_pdfs):
-        m = 150 if i == 7 else int(rng.integers(1, 151))
+    for m in mix:
         w = rng.random(m) + 0.1
         pdfs.append((w / w.sum(), rng.normal(size=(m, dim)) * 2,
                      0.3 + rng.random((m, dim))))
@@ -331,7 +357,8 @@ def main() -> int:
     del plug
     k2_flops = 2 * n * w * f * 2 + 2 * n * f * nb + 2 * n * nb * c
     k2_bytes = 4 * (n * w + n * c)
-    k2_ops_ms = 1e3 * k2_flops / H100_FP32_FLOPS
+    k2_ops_ms = 1e3 * TF32_SPLIT_PRODUCTS * k2_flops / H100_TF32_FLOPS
+    k2_fp32_ms = 1e3 * k2_flops / H100_FP32_FLOPS
     k2_bytes_ms = 1e3 * k2_bytes / H100_HBM_BYTES_PER_S
     emit({"phase": "kernels", "card": card,
           "gather": {"shape": [BATCH, P, E], "exact": k1_err == 0.0, "kernel_ms": k1_ms,
@@ -340,7 +367,11 @@ def main() -> int:
                      "ms_per_call_host_bound": k1_host_ms},
           "mfcc": {"shape": [n, w], "max_abs_err": k2_err, "kernel_ms": k2_ms,
                    "plain_ms": k2_plain_ms, "library_ms": None,
-                   "bound_ms": max(k2_ops_ms, k2_bytes_ms), "flops": k2_flops,
+                   "bound_ms": max(k2_ops_ms, k2_bytes_ms),
+                   "bound_by": "operations" if k2_ops_ms >= k2_bytes_ms else "bytes",
+                   "bound_basis": "3xTF32 products at 495 TFLOP/s, or bytes at 3.35 TB/s",
+                   "ops_ms": k2_ops_ms, "bytes_ms": k2_bytes_ms,
+                   "fp32_cuda_cores_ms": k2_fp32_ms, "flops": k2_flops,
                    "bytes": k2_bytes},
           "timing": "mean of back-to-back launches, inputs resident in L2",
           "refusals": refusals,
@@ -397,7 +428,9 @@ def main() -> int:
     # ---- phase 5: K3 against its plain version ------------------------------
     # at the GMM path's shape (the 256 held-out utterances' real features,
     # padded into one batch as decode_dataset pads them, against tri.mdl), on
-    # a random model with an odd pdf count and 1-150 Gaussians, and at N = 45.
+    # a random model with an odd pdf count and 1-150 Gaussians, on a model
+    # whose 300- and 130-Gaussian pdfs run over several tiles (the carry),
+    # and at N = 1, 45 and 129 (the edges of a 128-frame block).
     # It runs after the TDNN decode: its GBs of tensors and the 2,000-pdf
     # model would otherwise be in the process while the TDNN path is timed.
     gmm_model = convert.load_am_gmm_model("exp/minilib/tri.mdl", device=dev)
@@ -406,31 +439,55 @@ def main() -> int:
     gx = torch.from_numpy(gpad.reshape(-1, gpad.shape[-1])).to(dev)
     rnd = random_gmm(np, convert, dev, 999, gx.shape[1], seed=3)
     rx = 3.0 * torch.randn((4099, gx.shape[1]), device="cuda", generator=gen)
+    span = gmm_from_mix(np, convert, dev, [3, 300, 2, 64, 1, 63, 5, 130, 7],
+                        gx.shape[1], np.random.default_rng(4))
+    sx = 3.0 * torch.randn((333, gx.shape[1]), device="cuda", generator=gen)
     k3_err, k3_share = check_gmm(
         torch, gmm_loglikes, gmm_loglikes_plain,
-        [(gx, gw), (rx, rnd.weights()), (gx[:45].contiguous(), gw)])
-    k3_refusals = check_gmm_refusals(torch, gmm_loglikes, gx[:64].contiguous(), gw)
+        [(gx, gw), (rx, rnd.weights()), (sx, span.weights())]
+        + [(gx[:n].contiguous(), gw) for n in (1, 45, 129)])
+    wide = gmm_from_mix(np, convert, dev, [2, 3], 48, np.random.default_rng(5))
+    k3_refusals = check_gmm_refusals(torch, gmm_loglikes, gx[:64].contiguous(), gw,
+                                     wide.weights())
     plug = torch.randn((8192, 8192), device="cuda", generator=gen)
-    k3_ms = time_ms(torch, lambda: gmm_loglikes(gx, gw), reps=10, plug=plug)
+    k3_ms = time_ms(torch, lambda: gmm_loglikes(gx, gw), reps=20, plug=plug)
     k3_plain_ms = time_ms(torch, lambda: gmm_loglikes_plain(gx, gw), reps=2,
                           warm=1, plug=plug)
+    # yardstick: the product alone, [N, K] frame rows by the packed
+    # [columns, K] rows in fp32 (cuBLAS, TF32 off), without the logsumexp
     n3, d3 = gx.shape
+    ext = torch.zeros((n3, gw.depth), device="cuda")
+    ext[:, :d3], ext[:, d3:2 * d3], ext[:, 2 * d3] = gx, gx * gx, 1.0
+    cols_t = sum(gw.columns()).T.contiguous()
+    k3_product_ms = time_ms(torch, lambda: torch.matmul(ext, cols_t), reps=20, plug=plug)
+    del ext, cols_t
     k3_flops = 2 * n3 * gw.num_gauss * (2 * d3 + 1)
-    k3_bytes = 4 * (n3 * d3 + n3 * gw.num_pdfs + gw.rows.numel() + gw.offsets.numel())
-    k3_ops_ms = 1e3 * k3_flops / H100_FP32_FLOPS
+    k3_bytes = 4 * (n3 * d3 + n3 * gw.num_pdfs) + sum(
+        t.numel() * t.element_size()
+        for t in (gw.tiles, gw.segments, gw.seg_offsets, gw.work, gw.work_offsets))
+    k3_ops_ms = 1e3 * TF32_SPLIT_PRODUCTS * k3_flops / H100_TF32_FLOPS
+    k3_fp32_ms = 1e3 * k3_flops / H100_FP32_FLOPS
     k3_bytes_ms = 1e3 * k3_bytes / H100_HBM_BYTES_PER_S
     emit({"phase": "gmm_kernel", "card": card,
           "shape": {"frames": n3, "dim": d3, "pdfs": gw.num_pdfs,
-                    "gaussians": gw.num_gauss, "padded_mixtures": gw.max_mix},
+                    "gaussians": gw.num_gauss, "tiles": gw.num_tiles,
+                    "depth": gw.depth, "padded_mixtures": gw.max_mix},
           "max_abs_err": k3_err, "worst_share_of_tolerance": k3_share,
           "tolerance": f"{GMM_TOL[0]} + {GMM_TOL[1]}*|plain|",
           "kernel_ms": k3_ms, "plain_ms": k3_plain_ms,
           "plain_timing": f"chunked plain version over all {n3} frames",
-          "library_ms": None, "bound_ms": max(k3_ops_ms, k3_bytes_ms),
+          "library_ms": None,
+          "product_only_ms": k3_product_ms,
+          "product_only": "torch.matmul of the [N, K] frame rows by the packed "
+                          "[columns, K] rows in fp32: the product alone, not the function",
+          "bound_ms": max(k3_ops_ms, k3_bytes_ms),
           "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
+          "bound_basis": "3xTF32 products at 495 TFLOP/s, or bytes at 3.35 TB/s",
+          "ops_ms": k3_ops_ms, "bytes_ms": k3_bytes_ms, "fp32_cuda_cores_ms": k3_fp32_ms,
           "flops": k3_flops, "bytes": k3_bytes, "refusals": k3_refusals,
+          "ptxas_by_depth": ptxas_by_depth(_build.build_logs().get("gmm", "")),
           "check_launches": gmm_loglikes.launches})
-    del plug, rnd, rx, gx, gpad
+    del plug, rnd, rx, span, sx, wide, gx, gpad
     torch.cuda.empty_cache()
 
     # ---- phase 6: the GMM path, with the launch counts set to 0 just before --

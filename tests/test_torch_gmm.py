@@ -67,7 +67,7 @@ def test_reads_committed_models_like_the_jax_package(name):
     assert np.array_equal(W.view(np.int32), np.asarray(jW).view(np.int32))
     packed = tm.am.weights()
     assert packed.num_gauss == tm.am.num_gauss and packed.max_mix == M
-    assert packed.rows.shape[1] % 4 == 0 and packed.offsets[-1] == packed.num_gauss
+    assert packed.depth % 8 == 0 and int((packed.col_pdf >= 0).sum()) == packed.num_gauss
 
 
 def test_tri_model_tid_to_pdf_equals_the_graphs():
@@ -193,14 +193,20 @@ def test_plain_version_does_not_depend_on_its_chunking(monkeypatch):
 
 
 def test_ragged_rows_are_the_real_gaussians_of_the_padded_ones():
+    """The kernel's tile columns are the real Gaussians of the padded rows,
+    pdf by pdf, split hi + lo; the rest of the tile is zero padding."""
     pdfs = _random_pdfs(8, 5, 3, lambda rng, i: [1, 3, 2, 4, 1][i])
     _, tam = _both_models(pdfs)
     W, mask, _ = tam.stacked()
     packed = tam.weights()
-    assert packed.offsets.tolist() == [0, 1, 4, 6, 10, 11]
-    rows = packed.rows.numpy()
-    assert rows.shape == (11, 8) and not rows[:, 7:].any()
-    assert np.array_equal(rows[:, :7], W[mask.reshape(-1)])
+    assert packed.col_pdf.tolist() == [0, 1, 1, 1, 2, 2, 3, 3, 3, 3, 4] + [-1] * 53
+    assert packed.segments.tolist() == [[0, 0, 1, 0], [1, 1, 4, 0], [2, 4, 6, 0],
+                                        [3, 6, 10, 0], [4, 10, 11, 0]]
+    assert packed.seg_offsets.tolist() == [0, 5]
+    hi, lo = (c.numpy() for c in packed.columns())
+    assert hi.shape == lo.shape == (64, 8) and not hi[11:].any() and not hi[:, 7:].any()
+    rows = W[mask.reshape(-1)]
+    assert np.all(np.abs(hi[:11, :7] + lo[:11, :7] - rows) <= 2.0 ** -22 * np.abs(rows))
     with pytest.raises(ValueError, match="at least one"):
         tk.pack_gmm_weights(W, np.array([1, 3, 0, 4, 1]), torch.device("cpu"))
 
