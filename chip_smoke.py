@@ -28,6 +28,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -37,15 +38,18 @@ import time
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores, published peak
 H100_TF32_FLOPS = 495e12      # TF32 on the tensor cores, dense, published peak
 H100_HBM_BYTES_PER_S = 3.35e12  # published peak
-# K2's and K3's products need about 2^-22 relative precision: on the tensor
-# cores that is three TF32 products (hi·hi + hi·lo + lo·hi), the least the
-# card could do them in
+H100_FP64_FLOPS = 34e12       # fp64 outside the tensor cores, published peak
+# K3's product needs about 2^-22 relative precision: on the tensor cores that
+# is three TF32 products (hi·hi + hi·lo + lo·hi), the least the card could do
+# it in
 TF32_SPLIT_PRODUCTS = 3
 
 BEAM, MAX_ACTIVE, BATCH, ACOUSTIC_SCALE = 14.0, 1024, 128, 1.0
 MAX_WER_PERCENT = 1.0  # the reference decodes this set at 0.07 %
 GMM_MAX_ERRORS = 2  # 0.07 % of 2,868 words; the JAX package makes 0 with tri.mdl
 GMM_TOL = (2e-3, 2e-3)  # |kernel - plain| <= atol + rtol·|plain| (tests/test_ops.py)
+MFCC_TOL = 1e-3  # |kernel - plain| on every cepstrum (tests/test_ops.py: 1e-3 + 1e-3·|ref|)
+MFCC_TOL64 = 1e-4  # |kernel - plain version run in float64|
 
 
 def emit(obj) -> None:
@@ -74,39 +78,62 @@ def time_ms(torch, fn, reps: int = 30, warm: int = 3, plug=None) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_gather(torch, gather, plain, shapes, seed: int = 0):
-    """K1 against its plain version: exact, out-of-range indices included."""
+def check_gather(torch, gather, plain, cases, seed: int = 0):
+    """K1 against its plain version: exact, out-of-range indices included.
+    A case (b, p, e, T, t) takes the table as frame t of a [b, T, p] tensor,
+    row-strided as the decoder passes it (T = 1: contiguous)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
-    for b, p, e in shapes:
-        table = torch.randn((b, p), device="cuda", generator=gen)
+    for b, p, e, T, t in cases:
+        table = torch.randn((b, T, p), device="cuda", generator=gen)[:, t]
         idx = torch.randint(-3, p + 3, (b, e), device="cuda", generator=gen,
                             dtype=torch.int32)
         out = gather(table, idx)
         torch.cuda.synchronize()
         ref = plain(table, idx)
         if out.shape != ref.shape or not torch.equal(out, ref):
-            raise RuntimeError(f"gather kernel disagrees at shape {(b, p, e)}")
+            raise RuntimeError(f"gather kernel disagrees at {(b, p, e, T, t)}")
         worst = max(worst, float((out - ref).abs().max()))
     return worst
 
 
-def check_mfcc(torch, fused, reference, cases, tol: float):
-    """K2 against its plain version at speech-like amplitudes, atol `tol`
-    (fp32 sums in another order at log-mel magnitudes ~20)."""
-    worst = 0.0
-    for frames, weights in cases:
+def check_mfcc(torch, fused, reference, cases):
+    """K2 against its plain version at speech-like amplitudes, atol MFCC_TOL,
+    and against the plain version run in float64 (tables with the exact
+    DFT), atol MFCC_TOL64.  A case (frames, weights, weights64, fp32) with
+    fp32 False is held against the float64 plain version only: the fp32
+    plain version's own distance from it is returned for such a case.
+    Returns (worst |Δ| against fp32, worst |Δ| against float64,
+    {shape: the fp32 plain version's |Δ| from float64} of those cases)."""
+    worst = worst64 = 0.0
+    plain_own = {}
+    for frames, weights, weights64, fp32 in cases:
         out = fused(frames, weights)
         torch.cuda.synchronize()
         ref = reference(frames, weights)
+        ref64 = reference(frames.double(), weights64)
         if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
             raise RuntimeError(f"mfcc kernel output bad at {tuple(frames.shape)}")
         err = float((out - ref).abs().max())
-        if err > tol:
-            raise RuntimeError(
-                f"mfcc kernel off by {err} (> {tol}) at {tuple(frames.shape)}")
-        worst = max(worst, err)
-    return worst
+        err64 = float((out.double() - ref64).abs().max())
+        if (fp32 and err > MFCC_TOL) or err64 > MFCC_TOL64:
+            raise RuntimeError(f"mfcc kernel off by {err} (> {MFCC_TOL}) or {err64} "
+                               f"from float64 (> {MFCC_TOL64}) at {tuple(frames.shape)}")
+        if fp32:
+            worst = max(worst, err)
+        else:
+            plain_own["x".join(map(str, frames.shape))] = float(
+                (ref.double() - ref64).abs().max())
+        worst64 = max(worst64, err64)
+    return worst, worst64, plain_own
+
+
+def mfcc_flops(n: int, w: int, spans: int, nb: int, c: int) -> int:
+    """float64 operations of the "fft" route for n frames of window w: the
+    W/2-point complex FFT (5·M·log2 M), the split (10 a bin) and the power
+    (3 a bin), the span sums (2 a kept product) and the DCT."""
+    m = w // 2
+    return n * (5 * m * (m.bit_length() - 1) + 13 * m + 2 * spans + 2 * nb * c)
 
 
 def check_refusals(torch, gather, fused, weights) -> int:
@@ -123,6 +150,11 @@ def check_refusals(torch, gather, fused, weights) -> int:
             (torch.zeros((2048, 1024), device="cuda"),
              torch.zeros((2048, 1024), device="cuda"),
              torch.zeros((1024, weights[2].shape[1]), device="cuda"), weights[3]))),
+        # a filterbank that is not made of triangles: its spans overflow the
+        # kernel's span table
+        ("span table", lambda: fused(
+            torch.zeros((4, weights[0].shape[0]), device="cuda"),
+            (weights[0], weights[1], torch.ones_like(weights[2]), weights[3]))),
     ]
     before = gather.launches, fused.launches
     for word, call in cases:
@@ -180,6 +212,19 @@ def check_gmm_refusals(torch, kernel, feats, weights, wide) -> int:
     if kernel.launches != before:
         raise RuntimeError("a refused gmm call was counted as a launch")
     return len(cases)
+
+
+def ptxas_by_entry(log: str) -> dict:
+    """Registers and spills of each kernel entry in an `nvcc -Xptxas -v`
+    report: {mangled entry name: "..."}."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            key = m.group(1)
+        elif key and ("registers" in line or "spill" in line):
+            out[key] = " ".join(filter(None, [out.get(key), line.split(":")[-1].strip()]))
+    return out
 
 
 def ptxas_by_depth(log: str) -> dict:
@@ -278,7 +323,8 @@ def main() -> int:
         batched_table_gather, batched_table_gather_plain)
     from old_kaldi_git_tpu_torch.ops.gmm_kernel import gmm_loglikes, gmm_loglikes_plain
     from old_kaldi_git_tpu_torch.ops.mfcc_kernel import (
-        fused_mfcc_from_frames, fused_mfcc_reference, make_mfcc_weights)
+        fused_mfcc_from_frames, fused_mfcc_reference, make_mfcc_weights, mel_spans,
+        mfcc_route)
     from old_kaldi_git_tpu_torch.recipes import decode, minilib
     from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
     from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer, edit_distance
@@ -289,11 +335,13 @@ def main() -> int:
 
     # ---- phase 1: device, build --------------------------------------------
     _build.build()
+    logs = _build.build_logs()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "kernel_build_seconds": round(_build.build_seconds, 2),
-          "ptxas": {k: [l for l in v.splitlines() if "registers" in l or "spill" in l]
-                    for k, v in _build.build_logs().items()}})
+          "ptxas": {"gather": ptxas_by_entry(logs.get("gather", "")),
+                    "mfcc": ptxas_by_entry(logs.get("mfcc", "")),
+                    "gmm": ptxas_by_depth(logs.get("gmm", ""))}})
 
     # ---- the system (needed for the main path's kernel shapes) --------------
     t0 = time.perf_counter()
@@ -305,27 +353,48 @@ def main() -> int:
     P = system.am.config.num_outputs
 
     # ---- phase 2: each kernel against its plain version ----------------------
-    # K1 at the main path's shape, at two ragged ones, and with a table row
-    # beyond a block's shared memory (the kernel then reads device memory)
+    # K1 at the main path's shape, contiguous and as a frame of a [B, T, P]
+    # tensor (row-strided, as the decoder passes it), at ragged shapes (an
+    # E that is not a multiple of 4 with aligned rows: the bulk copy with
+    # scalar indices and stores), with rows that are not 16-byte aligned
+    # (P = 129 at t > 0, staged by the threads), and with a table row beyond
+    # a block's shared memory (the kernel then reads device memory): every
+    # instance of csrc/gather.cu
     k1_err = check_gather(torch, batched_table_gather, batched_table_gather_plain,
-                          [(BATCH, P, E), (3, 50, 7), (9, 129, 1031),
-                           (2, 70000, 333)])
+                          [(BATCH, P, E, 1, 0), (BATCH, P, E, 3, 1), (BATCH, P, E - 1, 1, 0),
+                           (3, 50, 7, 1, 0),
+                           (9, 129, 1031, 1, 0), (9, 129, 1032, 4, 1),
+                           (5, 129, 4100, 4, 3), (2, 70000, 333, 1, 0),
+                           (2, 70000, 336, 2, 1)])
     gen = torch.Generator(device="cuda").manual_seed(1)
-    table = torch.randn((BATCH, P), device="cuda", generator=gen)
+    frames3 = torch.randn((BATCH, 3, P), device="cuda", generator=gen)
+    table = frames3[:, 1].contiguous()
     idx = torch.randint(0, P, (BATCH, E), device="cuda", generator=gen,
                         dtype=torch.int32)
     idx64 = idx.long()
     plug = torch.randn((8192, 8192), device="cuda", generator=gen)
     k1_ms = time_ms(torch, lambda: batched_table_gather(table, idx), plug=plug)
+    k1_strided_ms = time_ms(torch, lambda: batched_table_gather(frames3[:, 1], idx),
+                            plug=plug)
+    # the copy the decoder no longer makes before each frame's gather
+    k1_copy_ms = time_ms(torch, lambda: frames3[:, 1].contiguous(), plug=plug)
     k1_plain_ms = time_ms(torch, lambda: batched_table_gather_plain(table, idx),
                           plug=plug)
     k1_lib_ms = time_ms(torch, lambda: torch.gather(table, 1, idx64), plug=plug)
     k1_host_ms = time_ms(torch, lambda: batched_table_gather(table, idx))
+    # yardstick: the smallest kernel, a fill of one float, timed the same way
+    one = torch.empty(1, device="cuda")
+    k1_fill_ms = time_ms(torch, lambda: one.fill_(0.0), plug=plug)
     k1_bytes = 4 * BATCH * (2 * E + P)
     k1_bound_ms = 1e3 * k1_bytes / H100_HBM_BYTES_PER_S
+    del frames3
 
     # K2 at the frame count of the first 128-utterance front-end chunk
-    # (W = 256), on that chunk's real frames, and at W = 512 with a ragged N
+    # (W = 256), on that chunk's real frames, on the same waves framed as
+    # 16 kHz audio (W = 512), in 15 ms and 127 ms windows (W = 128 and
+    # W = 1024: the 16x4 and the three-pass 16x8x4 plans) with ragged N, on
+    # random frames at W = 512 and at W = 400 (round_to_power_of_two=False:
+    # the "dft" route) with ragged N, and at N = 45
     opts8 = MfccOptions()
     opts8.frame_opts.samp_freq = minilib.SAMP_FREQ
     opts8.frame_opts.dither = 0.0
@@ -334,45 +403,119 @@ def main() -> int:
     batch = np.zeros((len(keys), mlen), np.float32)
     for i, k in enumerate(keys):
         batch[i, : system.test_waves[k].shape[0]] = system.test_waves[k]
-    frames8, _ = extract_frames(torch.from_numpy(batch).to(dev), opts8.frame_opts)
-    frames8 = frames8.reshape(-1, frames8.shape[-1]).contiguous()
+    batch = torch.from_numpy(batch).to(dev)
+
+    def frames_of(opts):
+        fr, _ = extract_frames(batch, opts.frame_opts)
+        return fr.reshape(-1, fr.shape[-1]).contiguous()
+
+    frames8 = frames_of(opts8)
     if frames8.shape[0] != len(keys) * num_frames(mlen, opts8.frame_opts):
         raise RuntimeError("front-end chunk has an unexpected frame count")
-    w8 = make_mfcc_weights(opts8, device=dev)
     opts16 = MfccOptions()
     opts16.frame_opts.dither = 0.0
-    w16 = make_mfcc_weights(opts16, device=dev)
-    frames16 = 1000.0 * torch.randn((1237, 512), device="cuda", generator=gen)
-    k2_err = check_mfcc(torch, fused_mfcc_from_frames, fused_mfcc_reference,
-                        [(frames8, w8), (frames16, w16), (frames8[:45], w8)],
-                        tol=1e-3)
+    opts400 = MfccOptions()
+    opts400.frame_opts.dither = 0.0
+    opts400.frame_opts.round_to_power_of_two = False
+    opts128 = MfccOptions()
+    opts128.frame_opts.samp_freq = minilib.SAMP_FREQ
+    opts128.frame_opts.dither = 0.0
+    opts128.frame_opts.frame_length_ms = 15.0  # 120 samples, padded to 128
+    opts1024 = MfccOptions()
+    opts1024.frame_opts.samp_freq = minilib.SAMP_FREQ
+    opts1024.frame_opts.dither = 0.0
+    opts1024.frame_opts.frame_length_ms = 127.0  # 1,016 samples, padded to 1,024
+    frames16 = frames_of(opts16)
+    frames128 = frames_of(opts128)[:-3]
+    frames1024 = frames_of(opts1024)[:-3]
+    rand16 = 1000.0 * torch.randn((1237, 512), device="cuda", generator=gen)
+    # white noise, as at W = 512, and the real waves framed as 16 kHz audio,
+    # which leave the upper half of the band nearly empty, so that the fp32
+    # plain version loses its small bins.  All of those frames are held
+    # against both plain versions; their first 2,999 (the noise case's
+    # shape) against the float64 one only, and the fp32 plain version's own
+    # distance from it is reported
+    frames400 = 1000.0 * torch.randn((2999, 400), device="cuda", generator=gen)
+    real400 = frames_of(opts400)[:-3]
+    all_opts = (opts8, opts16, opts400, opts128, opts1024)
+    w8, w16, w400, w128, w1024 = (make_mfcc_weights(o, device=dev) for o in all_opts)
+    w8d, w16d, w400d, w128d, w1024d = (
+        make_mfcc_weights(o, device=dev, dtype=torch.float64) for o in all_opts)
+    if ((frames16.shape[1], w400[0].shape[0], frames128.shape[1], frames1024.shape[1])
+            != (512, 400, 128, 1024)):
+        raise RuntimeError("the checked windows are not 512, 400, 128 and 1024 samples")
+    by_route = dict(fused_mfcc_from_frames.launches_by_route)
+    k2_err, k2_err64, k2_plain_own = check_mfcc(
+        torch, fused_mfcc_from_frames, fused_mfcc_reference,
+        [(frames8, w8, w8d, True), (frames16, w16, w16d, True), (rand16, w16, w16d, True),
+         (frames128, w128, w128d, True), (frames1024, w1024, w1024d, True),
+         (frames400, w400, w400d, True), (real400, w400, w400d, True),
+         (real400[:2999], w400, w400d, False),
+         (frames8[:45], w8, w8d, True)])
+    k2_check_routes = {r: fused_mfcc_from_frames.launches_by_route[r] - by_route[r]
+                       for r in by_route}
+    if k2_check_routes != {"fft": 6, "dft": 3}:
+        raise RuntimeError(f"K2's checks took the routes {k2_check_routes}")
+    mfcc_smem = _build.bind("mfcc", "okt_fused_mfcc_smem", [ctypes.c_int] * 4,
+                            restype=ctypes.c_longlong)
+    k2_smem = {str(wd): mfcc_smem(mfcc_route(wd) == "fft", wd, w8[2].shape[1], w8[3].shape[1])
+               for wd in (128, 256, 512, 1024, 400, 2048)}
     refusals = check_refusals(torch, batched_table_gather,
                               fused_mfcc_from_frames, w16)
     n, w = frames8.shape
-    f, nb, c = w8[0].shape[1], w8[2].shape[1], w8[3].shape[1]
+    nb, c = w8[2].shape[1], w8[3].shape[1]
     k2_ms = time_ms(torch, lambda: fused_mfcc_from_frames(frames8, w8), reps=10,
                     plug=plug)
     k2_plain_ms = time_ms(torch, lambda: fused_mfcc_reference(frames8, w8), reps=10,
                           plug=plug)
+    k2_rfft_ms = time_ms(torch, lambda: torch.fft.rfft(frames8, dim=1), reps=10,
+                         plug=plug)
+    k2_512_ms = time_ms(torch, lambda: fused_mfcc_from_frames(frames16, w16), reps=10,
+                        plug=plug)
+    k2_400_ms = time_ms(torch, lambda: fused_mfcc_from_frames(frames400, w400),
+                        reps=10, plug=plug)
     del plug
-    k2_flops = 2 * n * w * f * 2 + 2 * n * f * nb + 2 * n * nb * c
+    spans8 = int(mel_spans(w8[2].cpu().numpy())[:, 1].sum())
+    k2_flops = mfcc_flops(n, w, spans8, nb, c)
     k2_bytes = 4 * (n * w + n * c)
-    k2_ops_ms = 1e3 * TF32_SPLIT_PRODUCTS * k2_flops / H100_TF32_FLOPS
-    k2_fp32_ms = 1e3 * k2_flops / H100_FP32_FLOPS
+    k2_ops_ms = 1e3 * k2_flops / H100_FP64_FLOPS
     k2_bytes_ms = 1e3 * k2_bytes / H100_HBM_BYTES_PER_S
+    k2_bound_ms = max(k2_ops_ms, k2_bytes_ms)
+    # the former bound: the dense DFT product in three TF32 products
+    k2_dense_flops = 2 * n * w * (w // 2) * 2 + 2 * n * (w // 2) * nb + 2 * n * nb * c
+    k2_dense_ms = 1e3 * TF32_SPLIT_PRODUCTS * k2_dense_flops / H100_TF32_FLOPS
+    n16 = frames16.shape[0]
+    k2_512_bound_ms = max(
+        1e3 * 4 * n16 * (512 + c) / H100_HBM_BYTES_PER_S,
+        1e3 * mfcc_flops(n16, 512, int(mel_spans(w16[2].cpu().numpy())[:, 1].sum()),
+                         nb, c) / H100_FP64_FLOPS)
+    del frames16, frames400, rand16, batch, frames128, frames1024, real400
     emit({"phase": "kernels", "card": card,
           "gather": {"shape": [BATCH, P, E], "exact": k1_err == 0.0, "kernel_ms": k1_ms,
+                     "kernel_ms_row_strided_table": k1_strided_ms,
+                     "removed_column_copy_ms": k1_copy_ms,
                      "plain_ms": k1_plain_ms, "library_ms": k1_lib_ms,
                      "bound_ms": k1_bound_ms, "bytes": k1_bytes,
-                     "ms_per_call_host_bound": k1_host_ms},
-          "mfcc": {"shape": [n, w], "max_abs_err": k2_err, "kernel_ms": k2_ms,
-                   "plain_ms": k2_plain_ms, "library_ms": None,
-                   "bound_ms": max(k2_ops_ms, k2_bytes_ms),
+                     "ms_per_call_host_bound": k1_host_ms,
+                     "one_float_fill_ms": k1_fill_ms},
+          "mfcc": {"shape": [n, w], "route": mfcc_route(w),
+                   "max_abs_err": k2_err, "tolerance": MFCC_TOL,
+                   "max_abs_err_vs_float64_plain": k2_err64, "tolerance_float64": MFCC_TOL64,
+                   "kernel_ms": k2_ms, "plain_ms": k2_plain_ms, "library_ms": None,
+                   "rfft_only_ms": k2_rfft_ms,
+                   "rfft_only": "torch.fft.rfft of the same frames in fp32: the spectrum "
+                                "alone, not the function",
+                   "bound_ms": k2_bound_ms,
                    "bound_by": "operations" if k2_ops_ms >= k2_bytes_ms else "bytes",
-                   "bound_basis": "3xTF32 products at 495 TFLOP/s, or bytes at 3.35 TB/s",
-                   "ops_ms": k2_ops_ms, "bytes_ms": k2_bytes_ms,
-                   "fp32_cuda_cores_ms": k2_fp32_ms, "flops": k2_flops,
-                   "bytes": k2_bytes},
+                   "bound_basis": "bytes at 3.35 TB/s, or fp64 FFT operations at 34 TFLOP/s",
+                   "ops_ms": k2_ops_ms, "bytes_ms": k2_bytes_ms, "flops": k2_flops,
+                   "bytes": k2_bytes, "dense_dft_3xtf32_ms": k2_dense_ms,
+                   "w512": {"shape": [n16, 512], "kernel_ms": k2_512_ms,
+                            "bound_ms": k2_512_bound_ms},
+                   "w400_dft_route_ms": k2_400_ms,
+                   "fp32_plain_vs_float64_where_fp32_not_checked": k2_plain_own,
+                   "smem_bytes_by_window": k2_smem,
+                   "check_launches_by_route": k2_check_routes},
           "timing": "mean of back-to-back launches, inputs resident in L2",
           "refusals": refusals,
           "check_launches": {"gather": batched_table_gather.launches,
@@ -397,6 +540,7 @@ def main() -> int:
     # ---- phase 4: the main path, with the launch counts set to 0 just before -
     batched_table_gather.launches = 0
     fused_mfcc_from_frames.launches = 0
+    fused_mfcc_from_frames.launches_by_route = {"fft": 0, "dft": 0}
     gmm_loglikes.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -409,6 +553,7 @@ def main() -> int:
     wall_s = time.perf_counter() - t0
     k1_launches = batched_table_gather.launches
     k2_launches = fused_mfcc_from_frames.launches
+    k2_routes = dict(fused_mfcc_from_frames.launches_by_route)
     k3_tdnn_launches = gmm_loglikes.launches
     emit({"phase": "decode", "card": card, "utterances": len(system.test_waves),
           "max_active": MAX_ACTIVE, "batch": BATCH, "beam": BEAM,
@@ -418,10 +563,13 @@ def main() -> int:
           "search_ms_per_frame":
               1e3 * stages["search_seconds"] / stages["search_frames"],
           "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
-          "gather_launches": k1_launches, "mfcc_launches": k2_launches})
+          "gather_launches": k1_launches, "mfcc_launches": k2_launches,
+          "mfcc_launches_by_route": k2_routes})
     if not (k1_launches > 0 and k2_launches > 0):
         raise RuntimeError("the main path did not go through both kernels: "
                            f"gather {k1_launches}, mfcc {k2_launches}")
+    if k2_routes["fft"] != k2_launches:
+        raise RuntimeError(f"the TDNN front end left the fft route: {k2_routes}")
     if not (wer <= MAX_WER_PERCENT):
         raise RuntimeError(f"WER {wer:.2f}% exceeds {MAX_WER_PERCENT}%")
 
@@ -495,6 +643,7 @@ def main() -> int:
         raise RuntimeError("tri.mdl's tid -> pdf map is not the graph's")
     batched_table_gather.launches = 0
     fused_mfcc_from_frames.launches = 0
+    fused_mfcc_from_frames.launches_by_route = {"fft": 0, "dft": 0}
     gmm_loglikes.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -513,6 +662,7 @@ def main() -> int:
     g_launches = {"gather": batched_table_gather.launches,
                   "mfcc": fused_mfcc_from_frames.launches,
                   "gmm": gmm_loglikes.launches}
+    g_routes = dict(fused_mfcc_from_frames.launches_by_route)
     dopts = decode.DecodeOptions()
     emit({"phase": "decode_gmm", "card": card, "model": "exp/minilib/tri.mdl",
           "utterances": len(gmm_feats), "frames_padded": gframes,
@@ -524,9 +674,11 @@ def main() -> int:
           "audio_seconds": audio_s, "wall_seconds": gwall_s, **gstages,
           "search_ms_per_frame": 1e3 * gstages["search_seconds"] / gframes,
           "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
-          "launches": g_launches})
+          "launches": g_launches, "mfcc_launches_by_route": g_routes})
     if not (g_launches["gmm"] > 0 and g_launches["mfcc"] > 0):
         raise RuntimeError(f"the GMM path did not go through its kernels: {g_launches}")
+    if g_routes["fft"] != g_launches["mfcc"]:
+        raise RuntimeError(f"the GMM front end left the fft route: {g_routes}")
     if failed:
         raise RuntimeError(f"{len(failed)} utterances failed to decode: {failed[:8]}")
     if gstats.errors > GMM_MAX_ERRORS:
@@ -549,8 +701,9 @@ def main() -> int:
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
          "launches": k2_launches + g_launches["mfcc"],
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"]},
+         "launches_by_route": {r: k2_routes[r] + g_routes[r] for r in k2_routes},
          "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": max(k2_ops_ms, k2_bytes_ms),
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": "operations" if k2_ops_ms >= k2_bytes_ms else "bytes",
          "library_ms": None},
         {"name": "gmm_loglikes", "route": "cuda",

@@ -168,8 +168,8 @@ def _decode_scan_tokens(
         arc = ((tile.to(torch.int32) * MD)[:, :, None] + lane).reshape(B, E)
         base_cost = expand_md(base_cost)
         valid = expand_md(valid)
-        ll_arc = batched_table_gather(
-            loglikes[:, t].contiguous(), pdf_arc.clamp(max=P - 1))
+        # the frame's [B, P] rows are read in place, through their stride
+        ll_arc = batched_table_gather(loglikes[:, t], pdf_arc.clamp(max=P - 1))
         # tile-padding arcs carry w=BIG; a positive acoustic term could drag
         # their cost just under BIG, so they are masked like budget-invalid
         # slots, not merely cost-gated
@@ -255,7 +255,8 @@ def decode_batch_tokens(
         dev = loglikes.device
     else:
         dev = resolve_device(device)
-    loglikes = torch.as_tensor(loglikes, dtype=torch.float32).to(dev)
+    # contiguous rows: the gather reads each frame's [B, P] slice in place
+    loglikes = torch.as_tensor(loglikes, dtype=torch.float32).to(dev).contiguous()
     B, T, P = loglikes.shape
     tg = build_tile_graph(graph)
     if tg.num_tiles == 0:

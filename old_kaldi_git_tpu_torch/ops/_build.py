@@ -8,7 +8,8 @@ into its own shared library, loaded with ctypes:
 
 No PyTorch header is included, so a source builds in seconds.  Libraries go
 into `build/` beside the package (an ignored directory), named by a hash of
-their source, so an edited source never meets a stale library.  A build or
+their source, the headers under csrc/ (`*.cuh`) and the flags, so an edited
+source or header never meets a stale library.  A build or
 load failure raises: there is no other path for a CUDA tensor.
 
 This module is imported only by the CUDA branch of the kernel wrappers.
@@ -54,8 +55,11 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Tuple[str, str]:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(h for h in os.listdir(CSRC_DIR) if h.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -94,17 +98,18 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> List[str]:
     return paths
 
 
-def bind(name: str, symbol: str, argtypes: Sequence[type]):
+def bind(name: str, symbol: str, argtypes: Sequence[type], restype: type = ctypes.c_int):
     """The C entry point `symbol` of csrc/<name>.cu with its argument types
     declared (a pointer passed without `c_void_p` would be cut to 32 bits).
-    Every entry returns `cudaGetLastError()` as an int.  The first call
-    builds every kernel source at once, so that their compiles overlap."""
+    A launching entry returns `cudaGetLastError()` as an int.  The first
+    call builds every kernel source at once, so that their compiles
+    overlap."""
     fn = _entries.get((name, symbol))
     if fn is None:
         build()
         fn = getattr(ctypes.CDLL(_lib_path(name)[1]), symbol)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _entries[(name, symbol)] = fn
     return fn
 

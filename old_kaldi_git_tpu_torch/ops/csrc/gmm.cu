@@ -71,6 +71,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int kRows = 128;               // frames per block (FRAMES_PER_BLOCK)
@@ -80,10 +82,6 @@ constexpr int kThreads = kConsumerThreads + 32;  // and one producer warp
 constexpr int kConsumerWarps = kConsumerThreads / 32;
 constexpr int kMaxDynamicSmem = 232448;
 constexpr int kCarryIn = 1, kCarryOut = 2;  // segment flags (CARRY_IN, CARRY_OUT)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ float tf32_rna(float v) {
     uint32_t r;
@@ -110,42 +108,6 @@ __device__ __forceinline__ uint64_t make_desc(const float* p, uint32_t lbo, uint
 __device__ __forceinline__ uint64_t opaque(uint64_t v) {
     asm volatile("mov.b64 %0, %0;" : "+l"(v));
     return v;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    // the loop stays inside the asm block, so that the compiler sees no
-    // divergent branch between a warpgroup's products and their wait
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-        "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
-        "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-            "r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
 }
 
 __device__ __forceinline__ void named_sync(int id) {
@@ -388,7 +350,7 @@ gmm_loglikes_kernel(const float* __restrict__ feats, const float* __restrict__ t
         mbar_init(&b.full[1], 1);
         mbar_init(&b.empty[0], kConsumerWarps);
         mbar_init(&b.empty[1], kConsumerWarps);
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        mbar_init_fence();
     }
     __syncthreads();
 

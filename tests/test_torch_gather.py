@@ -65,3 +65,19 @@ def test_cpu_call_does_not_count_as_a_launch():
     before = batched_table_gather.launches
     batched_table_gather(torch.zeros((2, 4)), torch.zeros((2, 3), dtype=torch.int32))
     assert batched_table_gather.launches == before
+
+
+@pytest.mark.parametrize("b,T,p,e,t", [(4, 7, 2000, 1300, 3), (3, 5, 129, 257, 1),
+                                       (9, 2, 50, 7, 1), (2, 3, 1, 5, 2)])
+def test_row_strided_table_equals_the_contiguous_gather(b, T, p, e, t):
+    """The decoder passes loglikes[:, t] of a [B, T, P] tensor in place."""
+    rng = np.random.default_rng(b * 100 + t)
+    ll = torch.from_numpy(rng.normal(size=(b, T, p)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-2, p + 2, size=(b, e)).astype(np.int32))
+    frame = ll[:, t]
+    assert frame.stride() == (T * p, 1) and (b == 1 or not frame.is_contiguous())
+    out = batched_table_gather(frame, idx)
+    assert torch.equal(out, batched_table_gather(frame.contiguous(), idx))
+    ref = np.asarray(jax_gather(jnp.asarray(frame.contiguous().numpy()),
+                                jnp.asarray(idx.numpy()), interpret=True))
+    assert np.array_equal(out.numpy(), ref)
