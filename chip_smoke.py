@@ -12,9 +12,18 @@ seconds of each stage.  Then the GMM serving path: the committed triphone
 tri.mdl, read by the port's own reader, decodes the same 256 utterances as
 one padded batch through recipes/decode.decode_dataset at DecodeOptions()
 (beam 16, max_active 7000, acoustic_scale 0.1): loglikes through the GMM
-kernel, the top-K dense-alpha search.  --noisy also decodes the set re-synthesised at noise
-amplitude 400 (the reference's second operating point) and lists the
-utterances with errors.  --profile-frames N puts the first N frames of one
+kernel, the top-K dense-alpha search.  Then the chain path: chain.mdl on its
+split-eps graph chain_hclg.npz decodes the same 256 utterances through
+recipes/minilib.decode_and_score_chain (logits at frame-subsampling 3,
+max_active=2048, batch=64, beam=14), and 16 of them once more with lattice
+records (the split-eps lattice mode), whose rebuilt lattices must give the
+decoder's words.  Then rescoring, as the JAX package's bench calls it:
+rescore_and_score on the first 64 utterances re-synthesised at noise 400,
+max_active=1024, batch 16, lattice beam 8, a full 4-gram estimated from the
+synthesised LM text; before, after and oracle WER and the seconds of each
+stage.  --noisy also decodes the set re-synthesised at noise amplitude 400
+(the reference's second operating point) with the TDNN and the chain model
+and lists the utterances with errors.  --profile-frames N puts the first N frames of one
 chunk's search under torch.profiler and reports the device-busy share (summed
 kernel time over the wall time the same window takes without the profiler,
 whose own cost is large) and the kernels that take most of it.
@@ -46,6 +55,10 @@ TF32_SPLIT_PRODUCTS = 3
 
 BEAM, MAX_ACTIVE, BATCH, ACOUSTIC_SCALE = 14.0, 1024, 128, 1.0
 MAX_WER_PERCENT = 1.0  # the reference decodes this set at 0.07 %
+CHAIN_MAX_ACTIVE, CHAIN_BATCH, CHAIN_LATTICE_UTTS = 2048, 64, 16
+# bench.py's rescoring call (recipes/minilib.py rescore_and_score defaults)
+RESCORE = dict(noise=400.0, full_lm_order=4, compute_oracle=True, num_utts=64)
+RESCORE_MAX_ACTIVE, RESCORE_BATCH = 1024, 16
 GMM_MAX_ERRORS = 2  # 0.07 % of 2,868 words; the JAX package makes 0 with tri.mdl
 GMM_TOL = (2e-3, 2e-3)  # |kernel - plain| <= atol + rtol·|plain| (tests/test_ops.py)
 MFCC_TOL = 1e-3  # |kernel - plain| on every cepstrum (tests/test_ops.py: 1e-3 + 1e-3·|ref|)
@@ -318,6 +331,8 @@ def main() -> int:
     from old_kaldi_git_tpu_torch.device import card_name_and_power_limit
     from old_kaldi_git_tpu_torch.feat import MfccOptions, extract_frames
     from old_kaldi_git_tpu_torch.feat.window import num_frames
+    from old_kaldi_git_tpu_torch.lat.lattice import (
+        lattice_best_path, lattice_from_token_records)
     from old_kaldi_git_tpu_torch.ops import _build
     from old_kaldi_git_tpu_torch.ops.gather_kernel import (
         batched_table_gather, batched_table_gather_plain)
@@ -351,6 +366,16 @@ def main() -> int:
     K = max(4, min(MAX_ACTIVE, system.csr.num_states))
     E = _token_budget(system.csr, K, tg.md) * tg.md
     P = system.am.config.num_outputs
+    t0 = time.perf_counter()
+    chain = minilib.load_chain_system("exp/minilib", device=dev)
+    chain_load_s = time.perf_counter() - t0
+    ctg = build_tile_graph(chain.csr)
+    Kc = max(4, min(CHAIN_MAX_ACTIVE, chain.csr.num_states))
+    Ec = _token_budget(chain.csr, Kc, ctg.md) * ctg.md
+    Pc = chain.model.am.config.num_outputs
+    # the rescore path decodes the flagship graph at K = 1024: E as above
+    Kr = max(4, min(RESCORE_MAX_ACTIVE, system.csr.num_states))
+    Er = _token_budget(system.csr, Kr, tg.md) * tg.md
 
     # ---- phase 2: each kernel against its plain version ----------------------
     # K1 at the main path's shape, contiguous and as a frame of a [B, T, P]
@@ -359,13 +384,17 @@ def main() -> int:
     # scalar indices and stores), with rows that are not 16-byte aligned
     # (P = 129 at t > 0, staged by the threads), and with a table row beyond
     # a block's shared memory (the kernel then reads device memory): every
-    # instance of csrc/gather.cu
+    # instance of csrc/gather.cu; and at the chain path's shape (a frame of
+    # the [64, 256, 1624] logits, read in place) and the rescore path's
+    # (a frame of [16, T, 2000] loglikes)
     k1_err = check_gather(torch, batched_table_gather, batched_table_gather_plain,
                           [(BATCH, P, E, 1, 0), (BATCH, P, E, 3, 1), (BATCH, P, E - 1, 1, 0),
                            (3, 50, 7, 1, 0),
                            (9, 129, 1031, 1, 0), (9, 129, 1032, 4, 1),
                            (5, 129, 4100, 4, 3), (2, 70000, 333, 1, 0),
-                           (2, 70000, 336, 2, 1)])
+                           (2, 70000, 336, 2, 1),
+                           (CHAIN_BATCH, Pc, Ec, 256, 7), (CHAIN_BATCH, Pc, Ec, 1, 0),
+                           (RESCORE_BATCH, P, Er, 3, 1), (RESCORE_BATCH, P, Er, 1, 0)])
     gen = torch.Generator(device="cuda").manual_seed(1)
     frames3 = torch.randn((BATCH, 3, P), device="cuda", generator=gen)
     table = frames3[:, 1].contiguous()
@@ -388,6 +417,28 @@ def main() -> int:
     k1_bytes = 4 * BATCH * (2 * E + P)
     k1_bound_ms = 1e3 * k1_bytes / H100_HBM_BYTES_PER_S
     del frames3
+
+    def gather_at(b, p, e, t_len):
+        """K1 at a path's shape, its table a frame of a [b, t_len, p] tensor:
+        kernel, plain version and torch.gather, timed as above, and the
+        bound (its bytes at the card's memory rate)."""
+        frames = torch.randn((b, t_len, p), device="cuda", generator=gen)
+        tab = frames[:, t_len // 2]
+        ix = torch.randint(0, p, (b, e), device="cuda", generator=gen, dtype=torch.int32)
+        ix64 = ix.long()
+        nbytes = 4 * b * (2 * e + p)
+        out = {"shape": [b, p, e], "table": f"frame {t_len // 2} of [{b},{t_len},{p}]",
+               "kernel_ms": time_ms(torch, lambda: batched_table_gather(tab, ix), plug=plug),
+               "plain_ms": time_ms(torch, lambda: batched_table_gather_plain(tab, ix),
+                                   plug=plug),
+               "library_ms": time_ms(torch, lambda: torch.gather(tab, 1, ix64), plug=plug),
+               "bytes": nbytes, "bound_ms": 1e3 * nbytes / H100_HBM_BYTES_PER_S,
+               "bound_by": "bytes"}
+        del frames
+        return out
+
+    k1_chain = gather_at(CHAIN_BATCH, Pc, Ec, 256)
+    k1_rescore = gather_at(RESCORE_BATCH, P, Er, 768)
 
     # K2 at the frame count of the first 128-utterance front-end chunk
     # (W = 256), on that chunk's real frames, on the same waves framed as
@@ -497,7 +548,8 @@ def main() -> int:
                      "plain_ms": k1_plain_ms, "library_ms": k1_lib_ms,
                      "bound_ms": k1_bound_ms, "bytes": k1_bytes,
                      "ms_per_call_host_bound": k1_host_ms,
-                     "one_float_fill_ms": k1_fill_ms},
+                     "one_float_fill_ms": k1_fill_ms,
+                     "chain_shape": k1_chain, "rescore_shape": k1_rescore},
           "mfcc": {"shape": [n, w], "route": mfcc_route(w),
                    "max_abs_err": k2_err, "tolerance": MFCC_TOL,
                    "max_abs_err_vs_float64_plain": k2_err64, "tolerance_float64": MFCC_TOL64,
@@ -687,20 +739,139 @@ def main() -> int:
     del gmm_feats
     torch.cuda.empty_cache()
 
+    def zero_counts():
+        batched_table_gather.launches = 0
+        fused_mfcc_from_frames.launches = 0
+        fused_mfcc_from_frames.launches_by_route = {"fft": 0, "dft": 0}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 7: the chain path, with the launch counts set to 0 just before
+    zero_counts()
+    t0 = time.perf_counter()
+    cstages = {}
+    cwer, _ = minilib.decode_and_score_chain(
+        chain, beam=BEAM, max_active=CHAIN_MAX_ACTIVE, batch=CHAIN_BATCH, timings=cstages)
+    torch.cuda.synchronize()
+    cwall_s = time.perf_counter() - t0
+    cstats = dict(minilib.decode_and_score_chain.last_stats)
+    c_launches = {"gather": batched_table_gather.launches,
+                  "mfcc": fused_mfcc_from_frames.launches}
+    emit({"phase": "decode_chain", "card": card, "model": "exp/minilib/chain.mdl",
+          "graph": {"states": chain.csr.num_states, "arcs": chain.csr.num_arcs,
+                    "eps_depth": chain.csr.eps_depth, "tiles": ctg.num_tiles},
+          "utterances": len(system.test_waves), "max_active": CHAIN_MAX_ACTIVE,
+          "batch": CHAIN_BATCH, "beam": BEAM, "acoustic_scale": 1.0,
+          "frame_subsampling_factor": chain.model.frame_subsampling_factor,
+          "wer_percent": cwer, "errors": cstats["errors"],
+          "ref_words": cstats["ref_words"],
+          "utterances_with_errors": cstats["utterances_with_errors"],
+          "audio_seconds": audio_s, "wall_seconds": cwall_s,
+          "audio_seconds_per_second": audio_s / cwall_s, **cstages,
+          "search_ms_per_frame": 1e3 * cstages["search_seconds"] / cstages["search_frames"],
+          "load_chain_system_seconds": chain_load_s,
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+          "gather_launches": c_launches["gather"], "mfcc_launches": c_launches["mfcc"]})
+    if not (c_launches["gather"] > 0 and c_launches["mfcc"] > 0):
+        raise RuntimeError(f"the chain path did not go through both kernels: {c_launches}")
+    if not (cwer <= MAX_WER_PERCENT):
+        raise RuntimeError(f"chain WER {cwer:.2f}% exceeds {MAX_WER_PERCENT}%")
+
+    # ---- phase 8: chain lattices (the split-eps lattice mode) on 16 utterances
+    # spread over the durations, counts set to 0 just before
+    cfeats = minilib.compute_feats(system.test_waves, device=dev)
+    by_dur = sorted(cfeats, key=lambda k: cfeats[k].shape[0])
+    lkeys = by_dur[::len(by_dur) // CHAIN_LATTICE_UTTS][:CHAIN_LATTICE_UTTS]
+    fsf = chain.model.frame_subsampling_factor
+    lkeys, lpad, lnf = pad_feature_batch({k: cfeats[k] for k in lkeys})
+    tb = -(-lpad.shape[1] // (128 * fsf)) * (128 * fsf)
+    lpad = np.pad(lpad, ((0, 0), (0, tb - lpad.shape[1]), (0, 0)))
+    del cfeats
+    zero_counts()
+    t0 = time.perf_counter()
+    lstages = {}
+    lres = decode_batch_tokens(
+        chain.csr, chain.model.am.logits(lpad, output_stride=fsf), (lnf + fsf - 1) // fsf,
+        ViterbiOptions(beam=BEAM, max_active=CHAIN_MAX_ACTIVE, acoustic_scale=1.0),
+        want_lattice=True, lattice_beam=8.0, timings=lstages)
+    torch.cuda.synchronize()
+    lwall_s = time.perf_counter() - t0
+    l_launches = batched_table_gather.launches
+    t0 = time.perf_counter()
+    lat_mismatch, lat_arcs = [], 0
+    for k, r in zip(lkeys, lres):
+        lat = None if r is None else lattice_from_token_records(chain.csr, r.token_lattice)
+        words = None if lat is None else lattice_best_path(lat, 1.0, 1.0)[0]
+        lat_arcs += 0 if lat is None else lat.num_arcs
+        if r is None or words != r.words:
+            lat_mismatch.append(k)
+    emit({"phase": "decode_chain_lattice", "card": card, "utterances": len(lkeys),
+          "frames_subsampled": int(((lnf + fsf - 1) // fsf).max()),
+          "wall_seconds": lwall_s, **lstages,
+          "live_record_share": lstages["lattice_records_live"]
+          / lstages["lattice_record_slots"],
+          "overflow_fallbacks": lstages.get("lattice_overflow_fallbacks", 0),
+          "lattice_build_seconds": time.perf_counter() - t0, "lattice_arcs": lat_arcs,
+          "best_path_differs_from_decoder": lat_mismatch,
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+          "gather_launches": l_launches})
+    if l_launches == 0:
+        raise RuntimeError("the chain lattice decode did not launch the gather kernel")
+    if lat_mismatch:
+        raise RuntimeError(f"rebuilt chain lattices disagree with the decoder: {lat_mismatch}")
+    del lres, lpad
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: rescoring, with the launch counts set to 0 just before -----
+    zero_counts()
+    t0 = time.perf_counter()
+    rstages = {}
+    before, after = minilib.rescore_and_score(
+        system, max_active=RESCORE_MAX_ACTIVE, batch=RESCORE_BATCH, timings=rstages,
+        **RESCORE)
+    torch.cuda.synchronize()
+    rwall_s = time.perf_counter() - t0
+    rstats = dict(minilib.rescore_and_score.last_stats)
+    r_launches = {"gather": batched_table_gather.launches,
+                  "mfcc": fused_mfcc_from_frames.launches}
+    emit({"phase": "rescore", "card": card, **RESCORE, "max_active": RESCORE_MAX_ACTIVE,
+          "batch": RESCORE_BATCH, "lattice_beam": 8.0,
+          "wer_before": before, "wer_after": after, "wer_oracle": rstats["oracle_wer"],
+          "wall_seconds": rwall_s, **rstages,
+          "live_record_share": rstages["lattice_records_live"]
+          / rstages["lattice_record_slots"],
+          "overflow_fallbacks": rstages.get("lattice_overflow_fallbacks", 0),
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+          "gather_launches": r_launches["gather"], "mfcc_launches": r_launches["mfcc"]})
+    if not (r_launches["gather"] > 0 and r_launches["mfcc"] > 0):
+        raise RuntimeError(f"the rescore path did not go through both kernels: {r_launches}")
+    if not (after <= before + 1.0 and rstats["oracle_wer"] <= before + 1e-9):
+        raise RuntimeError(f"rescoring broke its invariants: before {before}, after "
+                           f"{after}, oracle {rstats['oracle_wer']}")
+    torch.cuda.empty_cache()
+
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
          "replaces": "old_kaldi_git_tpu/ops/gather_kernel.py:57",
-         "launches": k1_launches + g_launches["gather"],
-         "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"]},
+         "launches": (k1_launches + g_launches["gather"] + c_launches["gather"]
+                      + l_launches + r_launches["gather"]),
+         "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
+                              "decode_chain": c_launches["gather"],
+                              "decode_chain_lattice": l_launches,
+                              "rescore": r_launches["gather"]},
          "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
-         "library_ms": k1_lib_ms},
+         "library_ms": k1_lib_ms,
+         "at_other_shapes": {"decode_chain": k1_chain, "rescore": k1_rescore}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
-         "launches": k2_launches + g_launches["mfcc"],
-         "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"]},
+         "launches": (k2_launches + g_launches["mfcc"] + c_launches["mfcc"]
+                      + r_launches["mfcc"]),
+         "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
+                              "decode_chain": c_launches["mfcc"],
+                              "rescore": r_launches["mfcc"]},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] for r in k2_routes},
          "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
@@ -728,6 +899,14 @@ def main() -> int:
               "wer_percent": stats.wer, "errors": stats.errors,
               "ref_words": stats.ref_len,
               "errors_by_utterance": {k: e for k, e in errs.items() if e}})
+        nwer, _ = minilib.decode_and_score_chain(
+            chain, beam=BEAM, max_active=CHAIN_MAX_ACTIVE, batch=CHAIN_BATCH,
+            noise=minilib.NOISE_EVAL)
+        nstats = minilib.decode_and_score_chain.last_stats
+        emit({"phase": "decode_chain_noisy", "card": card, "noise": minilib.NOISE_EVAL,
+              "wer_percent": nwer, "errors": nstats["errors"],
+              "ref_words": nstats["ref_words"],
+              "utterances_with_errors": nstats["utterances_with_errors"]})
 
     # last, because the profiler stays attached to the process and slows
     # every later launch

@@ -112,10 +112,11 @@ def _copy_dense(linear: torch.nn.Linear, params: Mapping[str, np.ndarray]) -> No
 def am_nnet_from_jax(config_fields: Mapping[str, Any],
                      variables: Mapping[str, Any],
                      log_priors: Optional[np.ndarray] = None,
-                     device: DeviceLike = None) -> AmNnet:
+                     device: DeviceLike = None, ivector_dim: int = 0) -> AmNnet:
     """The port's AmNnet from a JAX AmNnet's parts: `config_fields` the
     TdnnConfig's fields (layers as objects or dicts), `variables` the flax
-    tree {'params': …, 'batch_stats': …} of numpy arrays."""
+    tree {'params': …, 'batch_stats': …} of numpy arrays, `ivector_dim` the
+    input dims that carry an online iVector."""
     config = tdnn_config_from_fields(config_fields)
     model = TdnnModel(config)
     params = variables["params"]
@@ -133,7 +134,7 @@ def am_nnet_from_jax(config_fields: Mapping[str, Any],
             layer.mean.copy_(_tensor(bn["mean"]))
             layer.var.copy_(_tensor(bn["var"]))
     _copy_dense(model.output, params["output"])
-    return AmNnet(config, model, log_priors, device=device)
+    return AmNnet(config, model, log_priors, device=device, ivector_dim=ivector_dim)
 
 
 def load_am_nnet(path: str, device: DeviceLike = None) -> AmNnet:

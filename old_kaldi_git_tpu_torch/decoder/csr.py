@@ -52,9 +52,11 @@ class CsrGraph:
     the device once per graph and device.
 
     FOLDED regime (eps_ns is None): eps arcs are eliminated by closure
-    forwarding — every arc's weight/olabels include its eps prefix.  The
-    SPLIT regime (eps_ns set: one backoff arc per state, hop merge rounds in
-    the decoder) is carried in the container but not decoded yet."""
+    forwarding — every arc's weight/olabels include its eps prefix.  SPLIT
+    regime (eps_ns set): the emitting arcs only, plus at most one backoff
+    eps arc a state (eps_ns/eps_w/eps_olab: its destination, weight and
+    word, -1 / BIG / 0 without one; chains at most eps_depth deep), which
+    the token-sparse decoder follows by hops after each frame."""
 
     start: int
     row_ptr: np.ndarray  # [S+1] int32

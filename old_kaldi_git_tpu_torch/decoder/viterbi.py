@@ -15,6 +15,15 @@ shared HCLG).  Per frame, for a whole utterance batch:
     Viterbi min (the ε-free dedup)
   → stable sort by cost, first K, beam gate → next token set.
 
+Split-eps graphs (the chain HCLG: emitting arcs plus at most one backoff
+eps arc a state) seed the start state's eps closure and, after each frame's
+top-K, let every kept token add its <= D hop states in one (1+D)K-wide merge
+(`_hop_merge`); the host walks the backoff chains for their words
+(`split_words_for_arc_seq`).  With `want_lattice=True` every frame also
+emits bounded lattice-arc records on the device (on split graphs after
+extending every candidate by its hops), compacted on the device to the live
+rows before they reach the host (`TokenLattice`).
+
 The frame loop is a Python loop over torch ops on the device; backpointers
 stay on the device and only [T, B] winning-arc ids come to the host.
 
@@ -29,9 +38,9 @@ take the token-sparse search above; graphs whose [B, S] cost vector fits take
     top-K mode (K < S): the K best states by (cost, state id), beam gate,
     [T, B, K] kept states and their winning arcs stored.
 
-Ported: folded graphs (eps arcs forwarded at build time), best path only.
-Lattice records (`want_lattice=True`) and split-eps graphs raise
-NotImplementedError until their slices of the port.
+`decode_batch` takes folded graphs and the best path only: its lattices
+(`_decode_scan`) and split graphs raise NotImplementedError until their
+slices of the port.
 """
 
 from __future__ import annotations
@@ -45,9 +54,11 @@ import torch
 from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph, build_tile_graph
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.ops.gather_kernel import batched_table_gather
-from old_kaldi_git_tpu_torch.utils.log import KaldiError
+from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
 from old_kaldi_git_tpu_torch.utils.parse_options import options_dataclass
 from old_kaldi_git_tpu_torch.utils.timing import StageClock
+
+log = get_logger("viterbi")
 
 BIG = 1e10  # pseudo-infinity that survives float32 arithmetic
 TOKENS_ABOVE_BYTES = 2_000_000_000  # [B, S] float32 cost vector above this
@@ -62,10 +73,30 @@ class ViterbiOptions:
 
 
 @dataclasses.dataclass
+class TokenLattice:
+    """Bounded per-utterance lattice-arc records of the token-sparse
+    decoder (emitted on the device; see _decode_scan_tokens with L > 0).
+    Slot ids refer to each frame's top-K token set; src slots at t=0 refer
+    to the initial token set (slot 0 = start state)."""
+
+    src_slot: np.ndarray  # [T, L] int32, -1 = empty record
+    dst_slot: np.ndarray  # [T, L] int32
+    arc: np.ndarray       # [T, L] int32 graph arc ids
+    ac: np.ndarray        # [T, L] float32 unscaled acoustic costs
+    final_states: np.ndarray  # [K] last-frame token state ids (-1 dead)
+    final_costs: np.ndarray   # [K] their forward costs
+    # post-hop destination state per record (-1 = empty); split-eps
+    # lattices walk arc-target -> dst_state for backoff words/weights
+    dst_state: Optional[np.ndarray] = None  # [T, L] int32
+
+
+@dataclasses.dataclass
 class DecodeResult:
     words: List[int]
     alignment: np.ndarray  # tids, [T]
     cost: float
+    # bounded device-emitted lattice arcs (want_lattice=True)
+    token_lattice: Optional[TokenLattice] = None
 
 
 def _token_budget(graph: CsrGraph, K: int, md: int = 4) -> int:
@@ -92,41 +123,113 @@ def _dest_cost_key(dest: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     return (dest.long() << 32) | ordered
 
 
+def _hop_merge(new_state: torch.Tensor, new_cost: torch.Tensor,
+               new_arc: torch.Tensor, eps_hops: torch.Tensor, S: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """SPLIT-EPS backoff hops (reference ProcessNonemitting for
+    backoff-shaped graphs): each of the K selected tokens contributes its
+    <= D precomputed eps-closure states (eps_hops[s, k] = (cumulative weight
+    bits, k+1-hop dest), BIG on missing hops) as extra candidates carrying
+    the same winning emit arc; one (1+D)K-wide dedup on (dest, cost) keeps
+    the min per dest and a 1-key sort the K best.  Exact for chains up to
+    depth D in one round.  The candidates are concatenated kept tokens
+    first, then hops in [B, K, D] row-major order, and both sorts are
+    stable, so ties resolve as the JAX package's concatenation order does."""
+    B, K = new_state.shape
+    D = eps_hops.shape[1]
+    s1 = torch.where(new_cost < BIG, new_state, S)
+    hop = eps_hops[s1.clamp(0, eps_hops.shape[0] - 1).long()]  # [B, K, D, 2]
+    h_w = hop[..., 0].view(torch.float32)
+    ok = (s1[:, :, None] < S) & (h_w < BIG)
+    h_cost = torch.where(ok, (new_cost[:, :, None] + h_w).clamp(max=BIG), BIG)
+    h_state = torch.where(ok, hop[..., 1], S)
+    cs = torch.cat([s1, h_state.reshape(B, K * D)], dim=1)
+    cc = torch.cat([new_cost, h_cost.reshape(B, K * D)], dim=1)
+    ca = torch.cat([new_arc, new_arc[:, :, None].expand(B, K, D).reshape(B, K * D)],
+                   dim=1)
+    key, order = torch.sort(_dest_cost_key(cs, cc), dim=1, stable=True)
+    ds2 = (key >> 32).to(torch.int32)
+    cc2 = cc.gather(1, order)
+    first = torch.ones_like(ds2, dtype=torch.bool)
+    first[:, 1:] = ds2[:, 1:] != ds2[:, :-1]
+    cand = torch.where(first & (ds2 < S), cc2, BIG)
+    cost, sel = torch.sort(cand, dim=1, stable=True)
+    sel = sel[:, :K]
+    return ds2.gather(1, sel), cost[:, :K], ca.gather(1, order).gather(1, sel)
+
+
 def _decode_scan_tokens(
     tile_ptr: torch.Tensor, tiles: torch.Tensor, start: int,
     loglikes: torch.Tensor, num_frames: torch.Tensor,
     acoustic_scale: float, beam: float, K: int, ET: int, S: int,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Token-sparse beam decode of folded graphs, best path only.
+    L: int = 0, lattice_beam: float = 0.0,
+    init_tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    eps_hops: Optional[torch.Tensor] = None, D: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           Optional[Tuple[torch.Tensor, ...]]]:
+    """Token-sparse beam decode of folded (D = 0) or split-eps (D > 0,
+    `eps_hops` the [S, D, 2] hop table) graphs.
 
     Returns (tok_state [B, K] int32, tok_cost [B, K] float32,
-    bp_state [T, B, K] int32, bp_arc [T, B, K] int32).  Arc ids are PADDED
-    tile-slot ids (tile*MD + lane); callers map them back to graph arcs via
-    TileGraph.pad2orig.  The backpointer stores are allocated once and
-    written per frame; frames past every utterance's end are not run."""
+    bp_state [T, B, K] int32, bp_arc [T, B, K] int32, records).  Arc ids are
+    PADDED tile-slot ids (tile*MD + lane); callers map them back to graph
+    arcs via TileGraph.pad2orig.  The backpointer stores are allocated once
+    and written per frame; frames past every utterance's end are not run.
+    `init_tokens` (state [B, K] int32, cost [B, K] float32) replaces the
+    start-state seed: a split graph's start closure, or a carried token set.
+
+    L > 0 also emits per-frame LATTICE-ARC RECORDS (GetRawLattice on the
+    device): every expanded candidate whose via-cost is within
+    `lattice_beam` of its destination's frame winner AND whose destination
+    survived the top-K prune is a raw-lattice arc; the L best by via-cost
+    per (utterance, frame) are kept.  `records` is then (src_slot, dst_slot,
+    arc, ac, dst_state), each [t_end, B, L] (int32; ac float32, the unscaled
+    acoustic cost), -1 / 0.0 on empty records; t_end is the longest
+    utterance, since no later frame emits a record.  On a split graph the
+    lattice mode extends EVERY emit candidate by its hops before selection
+    (at (1+D)x sort width), so records can name post-hop destinations; the
+    two-stage hop merge runs only without records."""
     B, T, P = loglikes.shape
     NT, MD, _ = tiles.shape
     E = ET * MD
+    Ew = E * (1 + D) if L and D else E
+    C = 4 if L else 3
     dev = loglikes.device
     j = torch.arange(ET, dtype=torch.int64, device=dev)
     lane = torch.arange(MD, dtype=torch.int32, device=dev)
     zero_col = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    k_ids = torch.arange(K, dtype=torch.int64, device=dev).expand(B, K)
+    w_ids = torch.arange(Ew, dtype=torch.int64, device=dev)
 
-    tok_state = torch.full((B, K), -1, dtype=torch.int32, device=dev)
-    tok_state[:, 0] = start
-    tok_cost = torch.full((B, K), BIG, dtype=torch.float32, device=dev)
-    tok_cost[:, 0] = 0.0
+    if init_tokens is None:
+        tok_state = torch.full((B, K), -1, dtype=torch.int32, device=dev)
+        tok_state[:, 0] = start
+        tok_cost = torch.full((B, K), BIG, dtype=torch.float32, device=dev)
+        tok_cost[:, 0] = 0.0
+    else:
+        tok_state, tok_cost = init_tokens
     bp_state = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
     bp_arc = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
+    t_end = min(T, int(num_frames.max().item())) if B else 0
+    records = None
+    if L:
+        records = tuple(
+            torch.full((t_end, B, L), fill, dtype=dtype, device=dev)
+            for fill, dtype in ((-1, torch.int32), (-1, torch.int32),
+                                (-1, torch.int32), (0.0, torch.float32),
+                                (-1, torch.int32)))
 
     def expand_md(x):
         """[B, ET] per-tile value → [B, E] per-arc value (lane repeat)."""
         return x[:, :, None].expand(B, ET, MD).reshape(B, E)
 
+    def with_hops(x):
+        """[B, E] per-candidate value → [B, E·D], repeated for each hop."""
+        return x[:, :, None].expand(B, E, D).reshape(B, E * D)
+
     def deltas(vals):
         return torch.diff(vals, dim=1, prepend=zero_col)
 
-    t_end = min(T, int(num_frames.max().item())) if B else 0
     for t in range(t_end):
         live = (tok_state >= 0) & (tok_cost < BIG)
         s_cl = tok_state.clamp(min=0).long()
@@ -144,18 +247,21 @@ def _decode_scan_tokens(
         #   ch2: token cost base (deltas of the cost BITS, carried as
         #        integers: exact for arbitrary values, no float arithmetic
         #        ever touches them)
+        #   ch3 (records only): the owning token's slot k_of (deltas of k)
         # Sums are taken in int64, where nothing wraps.  Run starts >= ET
         # must DROP, not clamp onto the last slot: they go to a spare slot
         # ET that is cut off before the cumsum.
-        cost_bits = tok_cost.view(torch.int32).long()
-        stacked = torch.stack(
-            [deltas(cum), deltas(rp - prev), deltas(cost_bits)], dim=1)
-        # channels first, [B, 3, ET]: the cumsum then runs along the
+        chans = [deltas(cum), deltas(rp - prev),
+                 deltas(tok_cost.view(torch.int32).long())]
+        if L:
+            chans.append(deltas(k_ids))
+        stacked = torch.stack(chans, dim=1)
+        # channels first, [B, C, ET]: the cumsum then runs along the
         # contiguous dim (a scan along a strided dim is several times slower)
-        scat = torch.zeros((B, 3, ET + 1), dtype=torch.int64, device=dev)
+        scat = torch.zeros((B, C, ET + 1), dtype=torch.int64, device=dev)
         scat.scatter_add_(
-            2, prev.clamp(max=ET)[:, None, :].expand(B, 3, K), stacked)
-        bases = torch.cumsum(scat[:, :, :ET], dim=2)  # [B, 3, ET]
+            2, prev.clamp(max=ET)[:, None, :].expand(B, C, K), stacked)
+        bases = torch.cumsum(scat[:, :, :ET], dim=2)  # [B, C, ET]
         valid = j[None, :] < bases[:, 0]
         tile = (bases[:, 1] + j[None, :]).clamp(0, NT - 1)
         base_cost = bases[:, 2].to(torch.int32).view(torch.float32)
@@ -177,12 +283,26 @@ def _decode_scan_tokens(
         cost = base_cost + w_arc - acoustic_scale * ll_arc
         dest = torch.where(valid, ns_arc, S)  # sentinel sorts last
         cost = torch.where(valid, cost.clamp(max=BIG), BIG)
+        if L:
+            k_of = expand_md(bases[:, 3])
+        if L and D:
+            # split-eps lattice mode: every emit candidate also reaches its
+            # <= D hop states, at the same arc, before any selection
+            hop = eps_hops[dest.clamp(0, eps_hops.shape[0] - 1).long()]  # [B, E, D, 2]
+            h_w = hop[..., 0].view(torch.float32)
+            ok = (dest[:, :, None] < S) & (h_w < BIG) & (cost[:, :, None] < BIG)
+            h_cost = torch.where(ok, (cost[:, :, None] + h_w).clamp(max=BIG), BIG)
+            h_state = torch.where(ok, hop[..., 1], S)
+            dest = torch.cat([dest, h_state.reshape(B, E * D)], dim=1)
+            cost = torch.cat([cost, h_cost.reshape(B, E * D)], dim=1)
+            arc, k_of, ll_arc = (torch.cat([x, with_hops(x)], dim=1)
+                                 for x in (arc, k_of, ll_arc))
         # dedup: stable sort on (dest, cost); ties keep expansion order
         key_s, order = torch.sort(_dest_cost_key(dest, cost), dim=1, stable=True)
         dest_s = (key_s >> 32).to(torch.int32)
         cost_s = cost.gather(1, order)
         arc_s = arc.gather(1, order)
-        first = torch.ones((B, E), dtype=torch.bool, device=dev)
+        first = torch.ones((B, Ew), dtype=torch.bool, device=dev)
         first[:, 1:] = dest_s[:, 1:] != dest_s[:, :-1]
         cand = torch.where(first & (dest_s < S), cost_s, BIG)
         # top-K: stable sort by cost, first K
@@ -190,6 +310,9 @@ def _decode_scan_tokens(
         new_cost, sel = new_cost[:, :K], sel[:, :K]
         new_state = dest_s.gather(1, sel)
         new_arc = arc_s.gather(1, sel)
+        if D and not L:
+            new_state, new_cost, new_arc = _hop_merge(
+                new_state, new_cost, new_arc, eps_hops, S)
         # keep requires a REAL candidate: when a frame has zero valid
         # expansions everything is BIG and the sentinel dest S would
         # otherwise survive the beam gate (BIG <= BIG + beam)
@@ -203,7 +326,34 @@ def _decode_scan_tokens(
         tok_cost = torch.where(active, new_cost, tok_cost)
         bp_state[t] = torch.where(active, new_state, -1)
         bp_arc[t] = torch.where(active, new_arc, -1)
-    return tok_state, tok_cost, bp_state, bp_arc
+        if not L:
+            continue
+        # ---- bounded lattice-arc emission ----
+        # the winner of each sorted dest run sits at the run's first slot
+        run_start = torch.cummax(torch.where(first, w_ids, 0), dim=1).values
+        winner = cost_s.gather(1, run_start)
+        # surviving-token slot of each dest: the kept slot index scattered
+        # at its winner's sorted position (the selected positions are
+        # distinct), -1 elsewhere
+        slot_of = torch.full((B, Ew), -1, dtype=torch.int64, device=dev)
+        slot_of.scatter_reduce_(1, sel, torch.where(keep, k_ids, -1), "amax",
+                                include_self=True)
+        dst_slot = slot_of.gather(1, run_start)
+        flag = ((dest_s < S) & (cost_s < BIG) & (dst_slot >= 0)
+                & (cost_s <= winner + lattice_beam) & active)
+        score = torch.where(flag, cost_s, BIG)
+        # the L best records: a stable sort keeps equal scores in index
+        # order, as lax.top_k returns them
+        score, pick = torch.sort(score, dim=1, stable=True)
+        ok = score[:, :L] < BIG
+        pick = pick[:, :L]
+        kof_s, ll_s = k_of.gather(1, order), ll_arc.gather(1, order)
+        for store, x, fill in zip(
+                records,
+                (kof_s, dst_slot, arc_s, -ll_s, dest_s),
+                (-1, -1, -1, 0.0, -1)):
+            store[t] = torch.where(ok, x.gather(1, pick), fill)
+    return tok_state, tok_cost, bp_state, bp_arc, records
 
 
 def _backtrace_scan(bp_state: torch.Tensor, bp_arc: torch.Tensor,
@@ -227,34 +377,240 @@ def _backtrace_scan(bp_state: torch.Tensor, bp_arc: torch.Tensor,
     return arcs
 
 
+def _eps_hop_table_host(graph: CsrGraph) -> Tuple[np.ndarray, int]:
+    """([S, D, 2] int32 (cumulative-weight bits, k+1-hop destination), D)
+    for a split-eps graph's backoff chains; BIG weight on missing hops.
+    The weights are summed in float64 and cast to float32 once, as the JAX
+    package sums them.  Cached on the graph."""
+    cached = getattr(graph, "_eps_hops_host", None)
+    if cached is not None:
+        return cached
+    S = graph.num_states
+    D = max(1, int(graph.eps_depth))
+    eps_ns = graph.eps_ns
+    eps_w = graph.eps_w.astype(np.float64)
+    hops = np.zeros((S, D, 2), np.int32)
+    u = eps_ns.astype(np.int64)
+    cum = np.where(u >= 0, eps_w, BIG)
+    for k in range(D):
+        valid = u >= 0
+        wcol = np.where(valid, np.minimum(cum, BIG), BIG).astype(np.float32)
+        hops[:, k, 0] = wcol.view(np.int32)
+        hops[:, k, 1] = np.where(valid, u, 0)
+        nxt = np.where(valid, eps_ns[np.maximum(u, 0)], -1)
+        cum = np.where(
+            nxt >= 0, cum + np.where(valid, eps_w[np.maximum(u, 0)], BIG), BIG)
+        u = nxt
+    graph._eps_hops_host = (hops, D)
+    return graph._eps_hops_host
+
+
+def _eps_hop_table(graph: CsrGraph, device: torch.device) -> Tuple[torch.Tensor, int]:
+    """The hop table on `device`, uploaded once per device and kept."""
+    cache = graph.__dict__.setdefault("_eps_hops_dev", {})
+    key = str(device)
+    if key not in cache:
+        hops, D = _eps_hop_table_host(graph)
+        cache[key] = (torch.from_numpy(hops).to(device), D)
+    return cache[key]
+
+
+def start_closure(graph: CsrGraph, D: int) -> List[Tuple[int, float]]:
+    """The start state's eps closure on a split graph: (state, cost) of the
+    start state and of up to D backoff hops from it, costs summed in float64
+    (the decoder's hop merge runs only after a frame's expansion, so these
+    seed the initial token set)."""
+    seeds = [(graph.start, 0.0)]
+    u, c = graph.start, 0.0
+    while graph.eps_ns[u] >= 0 and len(seeds) <= D:
+        c += float(graph.eps_w[u])
+        u = int(graph.eps_ns[u])
+        seeds.append((u, c))
+    return seeds
+
+
+def eps_walk(graph: CsrGraph, u: int, v: int) -> Optional[Tuple[List[int], float]]:
+    """(word labels, total weight) along the (unique) backoff chain
+    u -> v; None if v is not reachable within eps_depth hops
+    (decoder/host inconsistency)."""
+    words: List[int] = []
+    w = 0.0
+    for _ in range(graph.eps_depth + 1):
+        if u == v:
+            return words, w
+        nxt = int(graph.eps_ns[u])
+        if nxt < 0:
+            return None
+        if graph.eps_olab[u]:
+            words.append(int(graph.eps_olab[u]))
+        w += float(graph.eps_w[u])
+        u = nxt
+    return (words, w) if u == v else None
+
+
+def _arc_src(graph: CsrGraph) -> np.ndarray:
+    """arc id → source state (cached per graph)."""
+    frm = getattr(graph, "_arc_src_cache", None)
+    if frm is None or len(frm) != graph.num_arcs:
+        frm = np.repeat(np.arange(graph.num_states, dtype=np.int64),
+                        graph.out_degree().astype(np.int64))
+        graph._arc_src_cache = frm
+    return frm
+
+
+def split_words_for_arc_seq(graph: CsrGraph, arc_seq: np.ndarray,
+                            end_state: int) -> Optional[List[int]]:
+    """Word labels for a split-eps winning EMIT-arc chain ending at
+    end_state: emit-arc olabels plus the backoff words recovered by walking
+    the unique eps chain between each arc's target and the next arc's
+    source (the decoder records only the emit arc and the post-hop token
+    state).  None if a hop walk fails (decoder/host inconsistency)."""
+    frm = _arc_src(graph)
+    nf = len(arc_seq)
+    words: List[int] = []
+    pre = eps_walk(graph, graph.start, int(frm[arc_seq[0]]))
+    if pre is None:
+        return None
+    words.extend(pre[0])
+    for t in range(nf):
+        a = int(arc_seq[t])
+        words.extend(graph.arc_olabels[a])
+        tgt = int(frm[arc_seq[t + 1]]) if t + 1 < nf else int(end_state)
+        hop = eps_walk(graph, int(graph.nextstate[a]), tgt)
+        if hop is None:
+            return None
+        words.extend(hop[0])
+    return words
+
+
+def _results_from_arcs_split(
+    graph: CsrGraph,
+    arcs: np.ndarray,  # [T, B] winning EMIT arc ids (-1 = dead frame)
+    end_states: np.ndarray,
+    use_final: np.ndarray,
+    costs: np.ndarray,
+    num_frames: np.ndarray,
+) -> List[Optional[DecodeResult]]:
+    """Host tail of split-eps decodes: as results_from_arcs, but the words
+    on backoff arcs are recovered by split_words_for_arc_seq."""
+    results: List[Optional[DecodeResult]] = []
+    for b in range(arcs.shape[1]):
+        nf_b = int(num_frames[b])
+        if costs[b] >= BIG:
+            results.append(None)
+            continue
+        arc_seq = arcs[:nf_b, b]
+        if (arc_seq < 0).any():
+            results.append(None)
+            continue
+        if nf_b == 0:  # zero-frame (batch-padding) rows: empty result
+            results.append(DecodeResult(words=[], alignment=np.zeros(0, np.int32),
+                                        cost=float(costs[b])))
+            continue
+        words = split_words_for_arc_seq(graph, arc_seq, int(end_states[b]))
+        if words is None:
+            log.warning("split-eps backtrace walk failed for utt %d", b)
+            results.append(None)
+            continue
+        if use_final[b]:
+            words.extend(graph.final_olabels[int(end_states[b])])
+        results.append(DecodeResult(words=words,
+                                    alignment=graph.tid[arc_seq].astype(np.int32),
+                                    cost=float(costs[b])))
+    return results
+
+
+def _compact_lat_records(records: Tuple[torch.Tensor, ...], R: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compact the [T, B, L] record tensors to the live records only, ON
+    THE DEVICE, before anything crosses to the host (a few percent of the
+    slots are live).  Returns (packed [B, R, 6] int32: (t, src_slot,
+    dst_slot, arc, ac_bits, dst_state) rows in (t, slot) order, -1 rows
+    after them; counts [B]).  Records beyond R are dropped: counts[b] > R
+    tells the host to fetch that utterance's full columns instead.  Padding
+    frames hold no records (the emission is masked by `t < num_frames`), so
+    they count nothing."""
+    src, dst, arc, ac, ds = records
+    T, B, L = arc.shape
+
+    def flat(x):
+        return x.transpose(0, 1).reshape(B, T * L)
+
+    v = flat(arc >= 0)
+    pos = torch.cumsum(v, dim=1, dtype=torch.int64) - 1
+    pos = torch.where(v & (pos < R), pos, R)  # parked row R is sliced off
+    t_of = torch.arange(T, dtype=torch.int32, device=arc.device)[:, None, None]
+    stacked = torch.stack(
+        [flat(t_of.expand(T, B, L)), flat(src), flat(dst), flat(arc),
+         flat(ac.view(torch.int32)), flat(ds)], dim=-1)  # [B, T*L, 6]
+    out = torch.full((B, R + 1, 6), -1, dtype=torch.int32, device=arc.device)
+    out.scatter_(1, pos[:, :, None].expand(B, T * L, 6), stacked)
+    return out[:, :R], v.sum(dim=1)
+
+
+def _token_lattice_from_packed(rows: np.ndarray, nf_b: int, pad2orig: np.ndarray,
+                               tok_state: np.ndarray, tok_cost: np.ndarray
+                               ) -> Optional["TokenLattice"]:
+    """Host side of the compacted records: regroup the flat (t, slot)-ordered
+    rows into the per-frame [T, L'] arrays of a TokenLattice (L' = that
+    utterance's most records in any frame)."""
+    rows = rows[rows[:, 0] < nf_b]
+    t = rows[:, 0]
+    if nf_b <= 0:
+        return None
+    per_frame = np.bincount(t, minlength=nf_b)
+    Lb = max(1, int(per_frame.max()) if per_frame.size else 1)
+    src = np.full((nf_b, Lb), -1, np.int32)
+    dst = np.full((nf_b, Lb), -1, np.int32)
+    arc = np.full((nf_b, Lb), -1, np.int32)
+    ac = np.zeros((nf_b, Lb), np.float32)
+    ds = np.full((nf_b, Lb), -1, np.int32)
+    starts = np.zeros(nf_b + 1, np.int64)
+    np.cumsum(per_frame, out=starts[1:])
+    col = np.arange(len(rows), dtype=np.int64) - starts[t]
+    src[t, col] = rows[:, 1]
+    dst[t, col] = rows[:, 2]
+    a = rows[:, 3]
+    arc[t, col] = np.where(a >= 0, pad2orig[np.maximum(a, 0)], -1)
+    ac[t, col] = np.ascontiguousarray(rows[:, 4]).view(np.float32)
+    ds[t, col] = rows[:, 5]
+    return TokenLattice(src, dst, arc, ac, tok_state, tok_cost, ds)
+
+
 def decode_batch_tokens(
     graph: CsrGraph,
     loglikes: Union[np.ndarray, torch.Tensor],
     num_frames: Sequence[int],
     opts: Optional[ViterbiOptions] = None,
     want_lattice: bool = False,
+    lattice_beam: float = 10.0,
+    lattice_budget: int = 0,
     device: DeviceLike = None,
+    timings: Optional[Dict[str, float]] = None,
 ) -> List[Optional[DecodeResult]]:
     """Beam-decode a batch [B, T, P] of pseudo-loglikes against a shared
-    graph; one DecodeResult per row, None where the beam died (a row with
-    no frames yields an empty result).
+    graph, folded or split-eps; one DecodeResult per row, None where the
+    beam died (a row with no frames yields an empty result).
+
+    want_lattice=True also emits bounded per-frame lattice-arc records on
+    the device and attaches each row's TokenLattice (see
+    lat.lattice.lattice_from_token_records); lattice_budget: records kept
+    per (utterance, frame), 0 → min(E, max(512, 2K)) rounded up to 128.
 
     `device=None` means the GPU: a tensor that already lies on a CUDA device
     is decoded there, anything else is moved to the default one, and without
-    a GPU this raises.  The CPU decodes only when asked by name."""
-    if want_lattice:
-        raise NotImplementedError(
-            "lattice records of the token-sparse decoder are not ported "
-            "yet: they come with the lattice and rescoring slice")
-    if graph.eps_ns is not None:
-        raise NotImplementedError(
-            "split-eps (chain) graphs are not ported yet: they come with "
-            "the chain decode slice")
+    a GPU this raises.  The CPU decodes only when asked by name.  timings:
+    a dict that receives `search_seconds` (the frame loop, backtrace and
+    host tail) and, with lattices, `record_transfer_seconds` (the records'
+    compaction on the device, their copy and regrouping on the host),
+    `lattice_records_live`, `lattice_record_slots` (L a decoded frame) and
+    `lattice_overflow_fallbacks` (utterances whose records passed R)."""
     opts = opts or ViterbiOptions()
     if device is None and isinstance(loglikes, torch.Tensor) and loglikes.is_cuda:
         dev = loglikes.device
     else:
         dev = resolve_device(device)
+    clock = StageClock(dev, timings)
     # contiguous rows: the gather reads each frame's [B, P] slice in place
     loglikes = torch.as_tensor(loglikes, dtype=torch.float32).to(dev).contiguous()
     B, T, P = loglikes.shape
@@ -263,13 +619,29 @@ def decode_batch_tokens(
         raise KaldiError("decoding graph has no arcs")
     K = max(4, min(opts.max_active, graph.num_states))
     ET = _token_budget(graph, K, tg.md)
+    E = ET * tg.md
+    split = graph.eps_ns is not None
+    L = 0
+    if want_lattice:
+        L = lattice_budget or min(E, max(512, 2 * K))
+        L = min(E, (L + 127) // 128 * 128)
     num_frames = np.asarray(num_frames, np.int32)
     fw = np.where(np.isfinite(graph.final_weight), graph.final_weight, BIG)
     nf_dev = torch.from_numpy(num_frames).to(dev)
     tile_ptr_dev, tiles_dev, frm_dev = tg.device_arrays(dev)
-    tok_state, tok_cost, bp_state, bp_arc = _decode_scan_tokens(
+    eps_hops, D, init_tokens = None, 0, None
+    if split:
+        eps_hops, D = _eps_hop_table(graph, dev)
+        ts0 = np.full((B, K), -1, np.int32)
+        tc0 = np.full((B, K), BIG, np.float32)
+        for i, (s_i, c_i) in enumerate(start_closure(graph, D)[:K]):
+            ts0[:, i] = s_i
+            tc0[:, i] = c_i
+        init_tokens = (torch.from_numpy(ts0).to(dev), torch.from_numpy(tc0).to(dev))
+    tok_state, tok_cost, bp_state, bp_arc, records = _decode_scan_tokens(
         tile_ptr_dev, tiles_dev, graph.start, loglikes, nf_dev,
-        float(opts.acoustic_scale), float(opts.beam), K, ET, graph.num_states)
+        float(opts.acoustic_scale), float(opts.beam), K, ET, graph.num_states,
+        L, float(lattice_beam), init_tokens, eps_hops, D)
     tok_state_h = tok_state.cpu().numpy()
     tok_cost_h = tok_cost.cpu().numpy()
     end_states = np.zeros(B, np.int32)
@@ -290,9 +662,39 @@ def decode_batch_tokens(
         bp_state, bp_arc, frm_dev,
         torch.from_numpy(np.maximum(end_states, 0)).to(dev), nf_dev,
     ).cpu().numpy()
+    del bp_state, bp_arc
     # the scan's arc ids are padded tile slots — map back to graph arcs
     arcs = np.where(arcs >= 0, tg.pad2orig[np.maximum(arcs, 0)], -1)
-    return results_from_arcs(graph, arcs, end_states, use_final, costs, num_frames)
+    tail = _results_from_arcs_split if split else results_from_arcs
+    results = tail(graph, arcs, end_states, use_final, costs, num_frames)
+    clock.lap("search_seconds")
+    if not want_lattice:
+        return results
+    R = min(T * 64, T * L)
+    packed, counts = _compact_lat_records(records, R)
+    counts = counts.cpu().numpy()
+    # the one lattice copy to the host: the live rows only
+    packed = packed[:, :max(1, min(R, int(counts.max())))].cpu().numpy()
+    clock.add("lattice_records_live", int(counts.sum()))
+    clock.add("lattice_record_slots", L * int(num_frames.sum()))
+    for b, res in enumerate(results):
+        if res is None:
+            continue
+        nf_b = int(num_frames[b])
+        if counts[b] > R:
+            clock.add("lattice_overflow_fallbacks", 1)
+            # budget overflow (a record-dense utterance): fetch this
+            # utterance's full columns
+            cols = [x[:, b].cpu().numpy() for x in records]
+            arc_b = np.where(cols[2] >= 0, tg.pad2orig[np.maximum(cols[2], 0)], -1)
+            res.token_lattice = TokenLattice(
+                cols[0][:nf_b], cols[1][:nf_b], arc_b[:nf_b], cols[3][:nf_b],
+                tok_state_h[b], tok_cost_h[b], cols[4][:nf_b])
+            continue
+        res.token_lattice = _token_lattice_from_packed(
+            packed[b, : counts[b]], nf_b, tg.pad2orig, tok_state_h[b], tok_cost_h[b])
+    clock.lap("record_transfer_seconds")
+    return results
 
 
 def results_from_arcs(

@@ -1,0 +1,344 @@
+"""Lattices rebuilt from the token-sparse decoder's records, best path and
+oracle.
+
+Own copy of the parts of old_kaldi_git_tpu/lat/lattice.py on the rescoring
+path (reference src/lat: kaldi Lattice, GetRawLattice, lattice-best-path,
+lattice-oracle): host code, plain Python and numpy.
+
+  Lattice                     ~ kaldi Lattice (tids in, words out, (graph,
+                                acoustic) weight pair), stored topsorted by
+                                frame
+  lattice_from_token_records  ~ GetRawLattice, from the records the decoder
+                                emitted on the device
+  lattice_best_path           ~ lattice-best-path (with lm/acoustic scales)
+  lattice_oracle              ~ lattice-oracle (least edit distance of any
+                                path against a reference)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph
+from old_kaldi_git_tpu_torch.decoder.viterbi import TokenLattice, eps_walk, start_closure
+from old_kaldi_git_tpu_torch.utils.log import KaldiError
+
+INF = math.inf
+
+
+@dataclasses.dataclass
+class LatticeArc:
+    ilabel: int  # transition-id (0 = eps)
+    olabel: int  # word id (0 = eps)
+    graph_cost: float
+    acoustic_cost: float
+    nextstate: int
+
+
+class Lattice:
+    """Topologically-ordered lattice (frame-synchronous states)."""
+
+    def __init__(self):
+        self.arcs: List[List[LatticeArc]] = []
+        self.finals: List[Tuple[float, float]] = []  # (graph, acoustic), INF=not
+        self.start = 0
+        self.state_time: List[int] = []  # frame index per state (-1 unknown)
+
+    def add_state(self, time: int = -1) -> int:
+        self.arcs.append([])
+        self.finals.append((INF, INF))
+        self.state_time.append(time)
+        return len(self.arcs) - 1
+
+    @property
+    def num_states(self) -> int:
+        return len(self.arcs)
+
+    @property
+    def num_arcs(self) -> int:
+        return sum(len(a) for a in self.arcs)
+
+    def is_final(self, s: int) -> bool:
+        return self.finals[s][0] != INF
+
+    def combined(self, arc: LatticeArc, lm_scale: float, ac_scale: float) -> float:
+        return lm_scale * arc.graph_cost + ac_scale * arc.acoustic_cost
+
+
+def lattice_from_token_records(graph: CsrGraph, rec: TokenLattice
+                               ) -> Optional[Lattice]:
+    """Raw lattice from the token-sparse decoder's bounded device-emitted
+    arc records (decoder/viterbi.py TokenLattice).
+
+    TPU re-design of GetRawLattice (reference
+    src/decoder/lattice-faster-decoder.cc): the lattice-beam pruning and
+    ForwardLink discovery already happened ON DEVICE inside the decode
+    scan; the host only materializes (t, slot) states and copies the
+    (graph_cost, acoustic_cost) pairs — no loglikes matrix ever reaches
+    the host and the transfer is O(T·L), not O(T·K·S)."""
+    T = rec.src_slot.shape[0]
+    if T == 0:
+        return None
+    lat = Lattice()
+    start = lat.add_state(time=-1)
+    lat.start = start
+    slot_state: List[Dict[int, int]] = [dict() for _ in range(T)]
+
+    def get(t: int, slot: int) -> int:
+        if t < 0:
+            return start
+        d = slot_state[t]
+        st = d.get(slot)
+        if st is None:
+            st = d[slot] = lat.add_state(time=t)
+        return st
+
+    split = graph.eps_ns is not None
+    if split and rec.dst_state is None:
+        return None  # split records require the post-hop dest states
+    seeds = []
+    if split:
+        # the initial token set is the start state's eps closure (slot
+        # k = k-th closure state); t=0 records must carry the seed
+        # walk's words/weight from the true start state
+        seeds = [s for s, _ in start_closure(graph, graph.eps_depth)]
+    for t in range(T):
+        arcs_t = rec.arc[t]
+        live = np.nonzero(arcs_t >= 0)[0]
+        srcs, dsts, acs = rec.src_slot[t], rec.dst_slot[t], rec.ac[t]
+        for i in live:
+            a = int(arcs_t[i])
+            pre_words, pre_w = [], 0.0
+            hop_words, hop_w = [], 0.0
+            if split:
+                # backoff words/weights along arc-target -> record dest
+                walk = eps_walk(graph, int(graph.nextstate[a]),
+                                int(rec.dst_state[t][i]))
+                if walk is None:
+                    continue  # inconsistent record; drop the arc
+                hop_words, hop_w = walk
+                if t == 0:
+                    k = int(srcs[i])
+                    if k >= len(seeds):
+                        continue
+                    seed_walk = eps_walk(graph, graph.start, seeds[k])
+                    if seed_walk is None:
+                        continue
+                    pre_words, pre_w = seed_walk
+            _emit(lat, graph, get(t - 1, int(srcs[i])),
+                  get(t, int(dsts[i])), a, float(acs[i]),
+                  pre_words=pre_words,
+                  extra_words=hop_words, extra_gc=hop_w + pre_w)
+
+    any_final = False
+    last = slot_state[T - 1]
+    for k, s in enumerate(rec.final_states):
+        st = last.get(k)
+        if st is None or s < 0:
+            continue
+        fw = graph.final_weight[int(s)]
+        if np.isfinite(fw):
+            lat.finals[st] = (float(fw), 0.0)
+            any_final = True
+    if not any_final:
+        for k in last:
+            lat.finals[last[k]] = (0.0, 0.0)
+    _connect(lat)
+    if lat.num_arcs == 0:
+        return None
+    return lat
+
+
+def _emit(lat: Lattice, graph: CsrGraph, src: int, dst: int, arc_id: int,
+          ac: float, extra_words=(), extra_gc: float = 0.0,
+          pre_words=()):
+    """Add a lattice arc for closed-graph arc arc_id, expanding multi-word
+    output label chains; pre_words/extra_words/extra_gc fold a split-eps
+    seed/backoff chain's labels and weight into the same lattice arc."""
+    words = list(pre_words) + list(graph.arc_olabels[arc_id]) \
+        + list(extra_words)
+    tid = int(graph.tid[arc_id])
+    gc = float(graph.weight[arc_id]) + float(extra_gc)
+    if len(words) <= 1:
+        lat.arcs[src].append(
+            LatticeArc(tid, words[0] if words else 0, gc, ac, dst)
+        )
+    else:
+        cur = src
+        for i, w in enumerate(words):
+            last = i == len(words) - 1
+            nxt = dst if last else lat.add_state(time=lat.state_time[src])
+            lat.arcs[cur].append(
+                LatticeArc(
+                    tid if i == 0 else 0, w,
+                    gc if i == 0 else 0.0, ac if i == 0 else 0.0, nxt,
+                )
+            )
+            cur = nxt
+
+
+def _connect(lat: Lattice) -> None:
+    """Trim states not on a start→final path (in place, preserves order)."""
+    n = lat.num_states
+    acc = np.zeros(n, bool)
+    acc[lat.start] = True
+    # states are roughly topsorted (start first, then by frame) — one pass
+    # forward + fixpoint for the chain states
+    changed = True
+    while changed:
+        changed = False
+        for s in range(n):
+            if acc[s]:
+                for a in lat.arcs[s]:
+                    if not acc[a.nextstate]:
+                        acc[a.nextstate] = True
+                        changed = True
+    coacc = np.zeros(n, bool)
+    for s in range(n):
+        if lat.is_final(s):
+            coacc[s] = True
+    changed = True
+    while changed:
+        changed = False
+        for s in range(n - 1, -1, -1):
+            if not coacc[s]:
+                if any(coacc[a.nextstate] for a in lat.arcs[s]):
+                    coacc[s] = True
+                    changed = True
+    keep = acc & coacc
+    remap = -np.ones(n, np.int64)
+    new_arcs, new_finals, new_time = [], [], []
+    for s in range(n):
+        if keep[s]:
+            remap[s] = len(new_arcs)
+            new_arcs.append([a for a in lat.arcs[s] if keep[a.nextstate]])
+            new_finals.append(lat.finals[s])
+            new_time.append(lat.state_time[s])
+    for lst in new_arcs:
+        for a in lst:
+            a.nextstate = int(remap[a.nextstate])
+    lat.arcs = new_arcs
+    lat.finals = new_finals
+    lat.state_time = new_time
+    lat.start = int(remap[lat.start]) if remap[lat.start] >= 0 else 0
+
+
+def _topo_order(lat: Lattice) -> List[int]:
+    n = lat.num_states
+    indeg = np.zeros(n, np.int64)
+    for s in range(n):
+        for a in lat.arcs[s]:
+            indeg[a.nextstate] += 1
+    order = [s for s in range(n) if indeg[s] == 0]
+    i = 0
+    while i < len(order):
+        s = order[i]
+        i += 1
+        for a in lat.arcs[s]:
+            indeg[a.nextstate] -= 1
+            if indeg[a.nextstate] == 0:
+                order.append(a.nextstate)
+    if len(order) != n:
+        raise KaldiError("lattice has a cycle")
+    return order
+
+
+def lattice_best_path(
+    lat: Lattice, lm_scale: float = 1.0, ac_scale: float = 0.1
+) -> Tuple[List[int], List[int], float]:
+    """(words, tids, cost) of the best path under the given scales."""
+    order = _topo_order(lat)
+    n = lat.num_states
+    dist = np.full(n, INF)
+    back: List[Optional[Tuple[int, LatticeArc]]] = [None] * n
+    dist[lat.start] = 0.0
+    for s in order:
+        if dist[s] == INF:
+            continue
+        for a in lat.arcs[s]:
+            nd = dist[s] + lat.combined(a, lm_scale, ac_scale)
+            if nd < dist[a.nextstate]:
+                dist[a.nextstate] = nd
+                back[a.nextstate] = (s, a)
+    best_s, best_c = -1, INF
+    for s in range(n):
+        if lat.is_final(s):
+            g, ac = lat.finals[s]
+            c = dist[s] + lm_scale * g + ac_scale * ac
+            if c < best_c:
+                best_s, best_c = s, c
+    if best_s < 0:
+        return [], [], INF
+    words, tids = [], []
+    s = best_s
+    while back[s] is not None:
+        ps, a = back[s]
+        if a.olabel:
+            words.append(a.olabel)
+        if a.ilabel:
+            tids.append(a.ilabel)
+        s = ps
+    return words[::-1], tids[::-1], best_c
+
+
+def lattice_oracle(
+    lat: Lattice, ref_words: Sequence[int]
+) -> Tuple[int, List[int]]:
+    """Oracle (minimum) edit distance of any lattice path against ref_words,
+    and the words of an achieving path (reference latbin/lattice-oracle:
+    composition with an edit-distance transducer; here the equivalent DP
+    over (lattice state, ref position))."""
+    order = _topo_order(lat)
+    n = lat.num_states
+    Q = len(ref_words)
+    INF_I = 10 ** 9
+    # dp[s][q] = min edits to reach s having consumed ref[:q]
+    dp = np.full((n, Q + 1), INF_I, np.int64)
+    back: Dict[Tuple[int, int], Tuple[int, int, int]] = {}
+    # deletions of leading ref words at the start state
+    dp[lat.start, :] = np.arange(Q + 1)
+    for s in order:
+        for q in range(Q + 1):
+            d = dp[s, q]
+            if d >= INF_I:
+                continue
+            # delete ref word (stay at state, advance q) — handled by the
+            # initialization sweep below via in-state relaxation
+            if q < Q and d + 1 < dp[s, q + 1]:
+                dp[s, q + 1] = d + 1
+                back[(s, q + 1)] = (s, q, -1)  # -1 = deletion
+            for a in lat.arcs[s]:
+                ns = a.nextstate
+                if a.olabel == 0:
+                    if d < dp[ns, q]:
+                        dp[ns, q] = d
+                        back[(ns, q)] = (s, q, 0)
+                else:
+                    # substitution / match
+                    if q < Q:
+                        c = d + (a.olabel != ref_words[q])
+                        if c < dp[ns, q + 1]:
+                            dp[ns, q + 1] = c
+                            back[(ns, q + 1)] = (s, q, a.olabel)
+                    # insertion of the arc word
+                    if d + 1 < dp[ns, q]:
+                        dp[ns, q] = d + 1
+                        back[(ns, q)] = (s, q, a.olabel)
+    best_s, best = -1, INF_I
+    for s in range(n):
+        if lat.is_final(s) and dp[s, Q] < best:
+            best_s, best = s, int(dp[s, Q])
+    if best_s < 0:
+        return INF_I, []
+    words: List[int] = []
+    s, q = best_s, Q
+    while (s, q) in back:
+        ps, pq, w = back[(s, q)]
+        if w > 0:
+            words.append(w)
+        s, q = ps, pq
+    return best, words[::-1]

@@ -1,0 +1,97 @@
+"""Exact lattice LM rescoring over CompactLattices.
+
+Own copy of `lmrescore_compact_lattice` of old_kaldi_git_tpu/lat/rescore.py
+(reference latbin/lattice-lmrescore and lattice-lmrescore-const-arpa).  Both
+LMs are deterministic over word histories, so composing the word lattice
+with them is a DP over (lattice state, old-LM history, new-LM history)
+tuples that adjusts each arc's graph cost by
+
+    graph' = graph + old_scale·(−log P_old(w | h_old))
+                   + new_scale·(−log P_new(w | h_new))
+
+with old_scale = −1 (remove the LM baked into HCLG) and new_scale = +1 (add
+the big LM); finals get the same treatment with </s>.  Every path's total
+cost changes by exactly its LM-score delta, so no path is lost.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+from old_kaldi_git_tpu_torch.lat.determinize import CompactLattice, CompactLatticeArc
+from old_kaldi_git_tpu_torch.lat.lattice import INF
+from old_kaldi_git_tpu_torch.lm.arpa import BOS, EOS, ArpaLm
+from old_kaldi_git_tpu_torch.utils.log import get_logger
+
+log = get_logger("lmrescore")
+
+Hist = Tuple[str, ...]
+
+
+def _advance(hist: Hist, word: str, order: int) -> Hist:
+    return (hist + (word,))[-(order - 1):] if order > 1 else ()
+
+
+def lmrescore_compact_lattice(
+    clat: CompactLattice,
+    words: Sequence[str],  # word id → word
+    new_lm: ArpaLm,
+    old_lm: Optional[ArpaLm] = None,
+    new_scale: float = 1.0,
+    old_scale: float = -1.0,
+    max_states: int = 2000000,
+) -> CompactLattice:
+    """Compose with (old LM)^old_scale ⊗ (new LM)^new_scale, exactly.
+
+    With old_lm=None only the new LM is applied (lattice-lmrescore-const-arpa
+    after the old scores were already removed)."""
+    out = CompactLattice()
+    if clat.num_states == 0:
+        return out
+    o_ord = old_lm.order if old_lm else 1
+    n_ord = new_lm.order
+    # histories bounded by each LM's order; sentences start at <s>
+    start_key = (
+        clat.start,
+        (BOS,) if o_ord > 1 else (),
+        (BOS,) if n_ord > 1 else (),
+    )
+    ids: Dict[Tuple[int, Hist, Hist], int] = {start_key: out.add_state()}
+    out.start = 0
+    stack = [start_key]
+    while stack:
+        key = stack.pop()
+        s, h_old, h_new = key
+        s_out = ids[key]
+        g, a, string = clat.finals[s]
+        if g != INF:
+            adj = new_scale * -new_lm.logprob(EOS, h_new)
+            if old_lm is not None:
+                adj += old_scale * -old_lm.logprob(EOS, h_old)
+            out.finals[s_out] = (g + adj, a, string)
+        for arc in clat.arcs[s]:
+            w = words[arc.word]
+            adj = new_scale * -new_lm.logprob(w, h_new)
+            if old_lm is not None:
+                adj += old_scale * -old_lm.logprob(w, h_old)
+            nkey = (
+                arc.nextstate,
+                _advance(h_old, w, o_ord),
+                _advance(h_new, w, n_ord),
+            )
+            if nkey not in ids:
+                ids[nkey] = out.add_state()
+                if out.num_states > max_states:
+                    raise RuntimeError("lmrescore: state blow-up")
+                stack.append(nkey)
+            out.arcs[s_out].append(
+                CompactLatticeArc(
+                    arc.word, arc.graph_cost + adj, arc.acoustic_cost,
+                    arc.tids, ids[nkey],
+                )
+            )
+    log.info(
+        "lmrescore: %d → %d states (%d arcs)",
+        clat.num_states, out.num_states, out.num_arcs,
+    )
+    return out

@@ -21,8 +21,10 @@ from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnModel
 class AmNnet:
     def __init__(self, config: TdnnConfig, model: TdnnModel,
                  log_priors: Optional[np.ndarray] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, ivector_dim: int = 0):
         self.config = config
+        # the trailing input dims that carry an online iVector (0 = none)
+        self.ivector_dim = ivector_dim
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.log_priors = (

@@ -11,6 +11,13 @@ the JAX package for now.
   CMN, deltas → 39) → AmNnet.loglikes_batch → decode_batch_tokens → words
   → compute_wer.
 
+Two more paths decode the same held-out set: the chain model `chain.mdl`
+on its split-eps graph `chain_hclg.npz` (logits at frame-subsampling 3,
+`decode_and_score_chain`), and lattice rescoring (`rescore_and_score`):
+the flagship decode keeps bounded lattice records on the device, the host
+rebuilds and determinizes each lattice and rescores it from the pruned
+trigram to a full 4-gram estimated from the synthesised LM text.
+
 The evaluation audio is synthesised from the option seeds with numpy, by an
 own copy of the JAX package's synthesis (bit-equal waves and text), so
 nothing is downloaded.
@@ -19,6 +26,7 @@ nothing is downloaded.
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -31,7 +39,14 @@ from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph, FlatOlabels
 from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch_tokens
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.feat import Mfcc, MfccOptions, compute_deltas
+from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
+from old_kaldi_git_tpu_torch.lat.lattice import (
+    lattice_best_path, lattice_from_token_records, lattice_oracle)
+from old_kaldi_git_tpu_torch.lat.rescore import lmrescore_compact_lattice
+from old_kaldi_git_tpu_torch.lm.arpa import parse_arpa
+from old_kaldi_git_tpu_torch.lm.ngram import estimate_ngram_lm
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+from old_kaldi_git_tpu_torch.recipes.chain import ChainModel
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
@@ -46,13 +61,16 @@ FEAT_CHUNK = 128  # utterances per front-end batch
 
 @options_dataclass
 class MinilibOptions:
-    """The fields that shape the lexicon, the text and the held-out set
-    (the JAX package's options also hold its training settings)."""
+    """The fields that shape the lexicon, the text, the held-out set and the
+    LM text that rescoring estimates its full LM from (the JAX package's
+    options also hold its training settings)."""
 
     num_phones: int = 40
     num_words: int = 20_000
+    lm_sentences: int = 250_000
     num_test: int = 256
     seed: int = 42
+    lm_order: int = 3
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +306,7 @@ class MinilibSystem:
     am: AmNnet
     test_waves: Dict[str, np.ndarray]
     test_text: Dict[str, List[str]]
+    workdir: str = ""
 
 
 def load_system(workdir: str, opts: Optional[MinilibOptions] = None,
@@ -307,7 +326,7 @@ def load_system(workdir: str, opts: Optional[MinilibOptions] = None,
     am = AmNnet.load(os.path.join(workdir, "final.am"), device=dev)
     test_waves, test_text = make_test_set(opts)
     return MinilibSystem(word_table(make_lexicon(opts)), csr, am,
-                         test_waves, test_text)
+                         test_waves, test_text, workdir)
 
 
 def decode_test_set(
@@ -385,3 +404,216 @@ def decode_and_score(
     audio_s = sum(w.shape[0] for w in test_waves.values()) / SAMP_FREQ
     log.info("minilib decode: %s over %.0f audio-s", stats.report(), audio_s)
     return stats.wer, audio_s
+
+
+# ---------------------------------------------------------------------------
+# the chain system: chain.mdl on its split-eps graph
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ChainSystem:
+    words: List[str]  # word id → word
+    csr: CsrGraph  # split-eps: emitting arcs + one backoff arc a state
+    model: ChainModel
+
+
+def load_chain_system(workdir: str, model_name: str = "chain.mdl",
+                      opts: Optional[MinilibOptions] = None,
+                      device: DeviceLike = None) -> ChainSystem:
+    """Load a chain model and chain_hclg.npz (saved without its pdf column:
+    the model's own tid → pdf map rebuilds it)."""
+    opts = opts or MinilibOptions()
+    for name in (model_name, "chain_hclg.npz"):
+        if not os.path.exists(os.path.join(workdir, name)):
+            raise KaldiError(f"{workdir}: {name} is missing")
+    model = ChainModel.load(os.path.join(workdir, model_name), device=device)
+    csr = load_csr(os.path.join(workdir, "chain_hclg.npz"), model.tid_to_pdf)
+    return ChainSystem(word_table(make_lexicon(opts)), csr, model)
+
+
+def decode_chain_test_set(
+    system: ChainSystem,
+    waves: Dict[str, np.ndarray],
+    beam: float = 14.0,
+    max_active: int = 2048,
+    batch: int = 64,
+    timings: Optional[Dict[str, float]] = None,
+) -> Dict[str, List[str]]:
+    """Token-sparse decode of `waves` with the chain model → {utt: words}:
+    raw logits at frame-subsampling `fsf` (3), acoustic scale 1.0.  Chunks
+    as decode_test_set, with T bucketed to multiples of 128·fsf input frames
+    so that every chunk decodes a multiple of 128 subsampled frames, and
+    nf_sub = ceil(nf / fsf).  timings: as decode_test_set (`search_frames`
+    counts subsampled frames)."""
+    am = system.model.am
+    if am.ivector_dim:
+        raise NotImplementedError(
+            "online iVectors are not ported yet: they come with their slice")
+    dev = am.device
+    fsf = system.model.frame_subsampling_factor
+    clock = StageClock(dev, timings)
+    feats = compute_feats(waves, device=dev)
+    clock.lap("front_end_seconds")
+    vopts = ViterbiOptions(beam=beam, max_active=max_active, acoustic_scale=1.0)
+    by_dur = sorted(feats, key=lambda k: feats[k].shape[0])
+    hyps: Dict[str, List[str]] = {}
+    for lo in range(0, len(by_dur), batch):
+        chunk = by_dur[lo: lo + batch]
+        keys, padded, nf = pad_feature_batch({k: feats[k] for k in chunk})
+        T = padded.shape[1]
+        Tb = -(-T // (128 * fsf)) * (128 * fsf)
+        padded = np.pad(padded, ((0, batch - len(keys)), (0, Tb - T), (0, 0)))
+        nf = np.concatenate([nf, np.zeros(batch - len(keys), nf.dtype)])
+        nf_sub = (nf + fsf - 1) // fsf
+        clock.lap(None)  # host staging belongs to no stage
+        logits = am.logits(padded, output_stride=fsf)
+        clock.lap("acoustic_model_seconds")
+        results = decode_batch_tokens(system.csr, logits, nf_sub, vopts, device=dev)
+        clock.lap("search_seconds")
+        clock.add("search_frames", int(nf_sub.max()))
+        for k, res in zip(keys, results):
+            hyps[k] = [system.words[w] for w in res.words] if res else []
+    return hyps
+
+
+def decode_and_score_chain(
+    system: ChainSystem,
+    opts: Optional[MinilibOptions] = None,
+    beam: float = 14.0,
+    max_active: int = 2048,
+    batch: int = 64,
+    noise: Optional[float] = None,
+    timings: Optional[Dict[str, float]] = None,
+) -> Tuple[float, float]:
+    """Decode the held-out set with the chain model (frame-subsampling 3,
+    acoustic scale 1.0, self-loop-scale-1.0 split-eps graph); returns
+    (WER %, audio seconds).  noise: as decode_and_score.  timings: see
+    decode_chain_test_set.  The run's WER, error count and the utterances
+    with errors land in `decode_and_score_chain.last_stats`."""
+    opts = opts or MinilibOptions()
+    test_waves, test_text = make_test_set(opts, noise=noise)
+    hyps = decode_chain_test_set(system, test_waves, beam, max_active, batch, timings)
+    stats = compute_wer({k: list(v) for k, v in test_text.items()}, hyps)
+    audio_s = sum(w.shape[0] for w in test_waves.values()) / SAMP_FREQ
+    decode_and_score_chain.last_stats = {
+        "wer": stats.wer, "errors": stats.errors, "ref_words": stats.ref_len,
+        "utterances_with_errors": sorted(
+            k for k in test_text if list(test_text[k]) != hyps[k]),
+        "noise": noise}
+    log.info("minilib chain decode: %s over %.0f audio-s", stats.report(), audio_s)
+    return stats.wer, audio_s
+
+
+# ---------------------------------------------------------------------------
+# lattice rescoring: pruned trigram → full higher-order LM
+# ---------------------------------------------------------------------------
+
+def rescore_and_score(
+    system: MinilibSystem,
+    opts: Optional[MinilibOptions] = None,
+    beam: float = 14.0,
+    max_active: int = 1024,
+    lattice_beam: float = 8.0,
+    lattice_budget: int = 0,  # 0 = auto (2·max_active records a frame)
+    batch: int = 16,
+    num_utts: int = 0,
+    noise: Optional[float] = None,
+    full_lm_order: int = 0,
+    compute_oracle: bool = False,
+    timings: Optional[Dict[str, float]] = None,
+) -> Tuple[float, float]:
+    """Decode with the pruned-trigram HCLG keeping lattices (bounded device
+    records), determinize each lattice exactly within `lattice_beam`, then
+    rescore pruned trigram → full `full_lm_order`-gram (0: opts.lm_order)
+    estimated from the synthesised LM text (reference
+    lattice-lmrescore-const-arpa over the fglarge 4-gram).  Returns
+    (WER before, WER after) over the first `num_utts` (0 = all) held-out
+    utterances by name; the run's numbers, with the lattice oracle WER when
+    `compute_oracle`, land in `rescore_and_score.last_stats`.
+
+    timings: a dict that receives the host-clock seconds of each stage
+    (`lm_estimate_seconds`, `arpa_parse_seconds`, `front_end_seconds`,
+    `acoustic_model_seconds`, `search_seconds`, `record_transfer_seconds`,
+    `lattice_build_seconds` (rebuild and best path), `oracle_seconds`,
+    `determinize_seconds`, `rescore_seconds`) and the decoder's record
+    counts (`lattice_records_live`, `lattice_record_slots`,
+    `lattice_overflow_fallbacks`)."""
+    opts = opts or MinilibOptions()
+    dev = system.am.device
+    clock = StageClock(dev, timings)
+    order = full_lm_order or opts.lm_order
+    sents = [_to_words(s) for s in make_text(opts, opts.lm_sentences, opts.seed + 2)]
+    cutoffs = (0, 0, 1) + (1,) * max(0, order - 3)
+    full_lm = estimate_ngram_lm(sents, order=order, cutoffs=cutoffs)
+    del sents
+    clock.lap("lm_estimate_seconds")
+    with gzip.open(os.path.join(system.workdir, "arpa.txt.gz"), "rt") as f:
+        pruned_lm = parse_arpa(f.read())
+    clock.lap("arpa_parse_seconds")
+
+    test_waves, test_text = system.test_waves, system.test_text
+    if noise is not None:
+        test_waves, test_text = make_test_set(opts, noise=noise)
+    keys_all = sorted(test_waves)
+    if num_utts:
+        keys_all = keys_all[:num_utts]
+    feats = compute_feats({k: test_waves[k] for k in keys_all}, device=dev)
+    clock.lap("front_end_seconds")
+    word_id = {w: i for i, w in enumerate(system.words)}
+    vopts = ViterbiOptions(beam=beam, max_active=max_active, acoustic_scale=1.0)
+    base_hyps: Dict[str, List[str]] = {}
+    resc_hyps: Dict[str, List[str]] = {}
+    refs: Dict[str, List[str]] = {}
+    oracle_errs = oracle_ref = 0
+    by_dur = sorted(feats, key=lambda k: feats[k].shape[0])
+    for lo in range(0, len(by_dur), batch):
+        chunk = by_dur[lo: lo + batch]
+        keys, padded, nf = pad_feature_batch({k: feats[k] for k in chunk})
+        T = padded.shape[1]
+        padded = np.pad(padded, ((0, 0), (0, -(-T // 128) * 128 - T), (0, 0)))
+        clock.lap(None)
+        ll = system.am.loglikes_batch(padded)
+        clock.lap("acoustic_model_seconds")
+        results = decode_batch_tokens(
+            system.csr, ll, nf, vopts, want_lattice=True, lattice_beam=lattice_beam,
+            lattice_budget=lattice_budget, device=dev, timings=timings)
+        clock.lap(None)  # the decoder times its own stages
+        for k, res in zip(keys, results):
+            refs[k] = list(test_text[k])
+            lat = (None if res is None or res.token_lattice is None
+                   else lattice_from_token_records(system.csr, res.token_lattice))
+            if lat is None:
+                base_hyps[k] = resc_hyps[k] = []
+                oracle_errs += len(refs[k])
+                oracle_ref += len(refs[k])
+                clock.lap("lattice_build_seconds")
+                continue
+            words, _t, _c = lattice_best_path(lat, 1.0, 1.0)
+            base_hyps[k] = [system.words[w] for w in words]
+            clock.lap("lattice_build_seconds")
+            if compute_oracle:
+                ref_ids = [word_id[w] for w in refs[k]]
+                errs, _p = lattice_oracle(lat, ref_ids)
+                oracle_errs += errs
+                oracle_ref += len(ref_ids)
+                clock.lap("oracle_seconds")
+            clat = determinize_lattice_pruned(lat, lattice_beam, acoustic_scale=1.0)
+            clock.lap("determinize_seconds")
+            resc = lmrescore_compact_lattice(clat, system.words, full_lm, pruned_lm)
+            w2, _tids, _cost = resc.best_path(lm_scale=1.0, ac_scale=1.0)
+            resc_hyps[k] = [system.words[w] for w in w2]
+            clock.lap("rescore_seconds")
+    before = compute_wer(refs, base_hyps)
+    after = compute_wer(refs, resc_hyps)
+    oracle_wer = (100.0 * oracle_errs / max(oracle_ref, 1)
+                  if compute_oracle else None)
+    rescore_and_score.last_stats = {
+        "before": before.wer, "after": after.wer,
+        "oracle_wer": oracle_wer, "num_utts": len(keys_all),
+        "full_lm_order": order, "noise": noise,
+    }
+    log.info("minilib rescore (%d utts, noise %s): pruned trigram %s → full "
+             "%d-gram %s%s", len(keys_all), noise, before.report(), order,
+             after.report(),
+             f" (lattice oracle WER {oracle_wer:.2f})" if compute_oracle else "")
+    return before.wer, after.wer

@@ -239,15 +239,37 @@ def test_dest_cost_key_orders_like_the_pair():
     assert np.array_equal(cost[got], cost[want])
 
 
-def test_unported_modes_raise():
+def test_lattice_calls_now_decode():
+    """The call that raised before lattices were ported now decodes, as the
+    JAX package does, and attaches a TokenLattice to every row."""
     kw = _ragged_graph(0)
-    _, tg = _both(**kw)
-    ll = np.zeros((1, 2, 9), np.float32)
-    with pytest.raises(NotImplementedError, match="lattice"):
-        tvit.decode_batch_tokens(tg, ll, [2], want_lattice=True, device="cpu")
-    split = tcsr.CsrGraph(**kw, eps_ns=np.full(60, -1, np.int32))
-    with pytest.raises(NotImplementedError, match="chain"):
-        tvit.decode_batch_tokens(split, ll, [2], device="cpu")
+    jg, tg = _both(**kw)
+    ll = np.random.default_rng(17).normal(size=(2, 6, 9)).astype(np.float32)
+    jres = jvit.decode_batch_tokens(jg, ll, [6, 2], want_lattice=True)
+    tres = tvit.decode_batch_tokens(tg, ll, [6, 2], want_lattice=True, device="cpu")
+    _compare(jres, tres)
+    assert all(r.token_lattice is not None for r in tres)
+    for jr, tr in zip(jres, tres):
+        assert np.array_equal(tr.token_lattice.arc, jr.token_lattice.arc)
+
+
+def test_split_calls_now_decode():
+    """A split-eps graph without a single backoff arc (the call that raised
+    before split graphs were ported) decodes as its folded twin and as the
+    JAX package."""
+    kw = _ragged_graph(0)
+    eps = dict(eps_ns=np.full(60, -1, np.int32), eps_w=np.full(60, 1e10, np.float32),
+               eps_olab=np.zeros(60, np.int32), eps_depth=0)
+    jsplit, tsplit = _both(**kw, **eps)
+    ll = np.random.default_rng(18).normal(size=(3, 8, 9)).astype(np.float32)
+    nf = [8, 3, 0]
+    o = dict(beam=1e9, max_active=16, acoustic_scale=1.0)
+    jres = jvit.decode_batch_tokens(jsplit, ll, nf, jvit.ViterbiOptions(**o))
+    tres = tvit.decode_batch_tokens(tsplit, ll, nf, tvit.ViterbiOptions(**o), device="cpu")
+    _compare(jres, tres)
+    _, folded = _decode_both(kw, ll, nf, **o)
+    _compare(folded, tres)
+    assert tres[0] is not None
 
 
 def test_decode_runs_on_the_cpu_only_when_asked(monkeypatch):

@@ -30,7 +30,9 @@ def test_port_has_the_slice_modules():
                  "models.am_nnet", "decoder.csr", "decoder.viterbi",
                  "recipes.minilib", "utils.io_funcs", "utils.timing",
                  "hmm.topology", "hmm.transition_model", "gmm.diag_gmm",
-                 "ops.gmm_kernel", "recipes.decode"):
+                 "ops.gmm_kernel", "recipes.decode", "recipes.chain",
+                 "lat.lattice", "lat.determinize", "lat.rescore", "lm.arpa",
+                 "lm.ngram"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 
