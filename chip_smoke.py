@@ -21,9 +21,21 @@ decoder's words.  Then rescoring, as the JAX package's bench calls it:
 rescore_and_score on the first 64 utterances re-synthesised at noise 400,
 max_active=1024, batch 16, lattice beam 8, a full 4-gram estimated from the
 synthesised LM text; before, after and oracle WER and the seconds of each
-stage.  --noisy also decodes the set re-synthesised at noise amplitude 400
-(the reference's second operating point) with the TDNN and the chain model
-and lists the utterances with errors.  --profile-frames N puts the first N frames of one
+stage, and each utterance's live lattice records against the port's counts
+on the CPU (where one differs, the card's search runs once more on loglikes
+computed on the CPU, to tell a search fault from acoustic float order).
+Then the iVector systems at bench.py's K=2048, B=64: the CE+iVec model
+final_ivec.am (decode_and_score(..., use_ivectors=True)) and chain_ivec.mdl
+(load_chain_system(..., use_ivectors=True)), features with online iVectors
+from final.ie appended.  Then streaming, on 16 utterances spread over the
+durations: online/streaming.StreamingTokenDecoder fed the batch features in
+32-frame chunks with final.am on hclg.npz (and 30-frame chunks with
+chain.mdl on chain_hclg.npz at frame-subsampling 3), whose words must equal
+the batch decode's; and online2, the OnlineFeaturePipeline with online
+iVectors fed 0.5 s of audio at a time into the streaming decoder with
+final_ivec.am.  --noisy also decodes the set re-synthesised at noise amplitude 400
+(the reference's second operating point) with the TDNN, the chain model
+and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
 chunk's search under torch.profiler and reports the device-busy share (summed
 kernel time over the wall time the same window takes without the profiler,
 whose own cost is large) and the kernels that take most of it.
@@ -59,6 +71,75 @@ CHAIN_MAX_ACTIVE, CHAIN_BATCH, CHAIN_LATTICE_UTTS = 2048, 64, 16
 # bench.py's rescoring call (recipes/minilib.py rescore_and_score defaults)
 RESCORE = dict(noise=400.0, full_lm_order=4, compute_oracle=True, num_utts=64)
 RESCORE_MAX_ACTIVE, RESCORE_BATCH = 1024, 16
+# live lattice records of each of the 64 rescored utterances (by name) as the
+# port counts them on the CPU:
+# tests/test_torch_lattice.py::test_rescore_recipe_equals_at_the_benchmark_setting
+RESCORE_CPU_LIVE_RECORDS = [
+    15234, 10665, 22383, 21835, 15390, 10463, 14006, 22691, 22553, 20805, 10528,
+    23392, 40058, 14994, 17924, 16184, 20632, 26717, 24281, 11802, 25049, 26346,
+    28781, 21051, 19989, 22328, 14009, 24693, 34157, 31977, 29631, 21336, 22356,
+    13510, 12296, 17424, 37364, 34436, 18964, 13653, 21544, 10389, 29579, 36022,
+    15451, 16636, 26660, 25018, 30300, 31589, 24407, 29603, 25803, 26482, 27312,
+    9069, 23652, 26666, 16750, 25132, 13241, 36260, 34545, 12666]
+# (the JAX package counts 23,650 on test_0056 where the port counts 23,652:
+# the lattice-beam gate is a float comparison, and their front ends and
+# TDNNs round differently; on the JAX package's loglikes both keep 23,650:
+# tests/test_torch_lattice.py::test_rescore_records_equal_on_the_same_loglikes)
+IVEC_MAX_ACTIVE, IVEC_BATCH = 2048, 64  # bench.py's iVector rows
+# the four iVector decodes' errors and utterances with errors, the JAX
+# package's on the CPU, which the port's CPU words equal word for word:
+# tests/test_torch_ivector.py::test_ivector_recipe_words_equal_on_the_held_out_set
+IVEC_CPU_ERRORS = {
+    "decode_ivec": (2, ["test_0053"]),
+    "decode_chain_ivec": (1, ["test_0152"]),
+    "decode_ivec_noisy": (64, [
+        "test_0014", "test_0028", "test_0045", "test_0072", "test_0117", "test_0120",
+        "test_0121", "test_0126", "test_0138", "test_0143", "test_0149", "test_0150",
+        "test_0152", "test_0169", "test_0191", "test_0218", "test_0227", "test_0231",
+        "test_0237", "test_0239"]),
+    "decode_chain_ivec_noisy": (47, [
+        "test_0002", "test_0007", "test_0011", "test_0014", "test_0023", "test_0051",
+        "test_0055", "test_0064", "test_0072", "test_0081", "test_0083", "test_0085",
+        "test_0091", "test_0093", "test_0094", "test_0099", "test_0103", "test_0106",
+        "test_0110", "test_0111", "test_0114", "test_0141", "test_0142", "test_0143",
+        "test_0146", "test_0152", "test_0157", "test_0160", "test_0168", "test_0169",
+        "test_0174", "test_0175", "test_0189", "test_0197", "test_0201", "test_0210",
+        "test_0222", "test_0224", "test_0225", "test_0227", "test_0228", "test_0230",
+        "test_0238", "test_0246"]),
+}
+# benchmarks/streaming_bench.py's setting; chain chunks are a multiple of 3
+STREAM_UTTS, STREAM_MAX_ACTIVE, STREAM_CHUNK, STREAM_CHAIN_CHUNK = 16, 2048, 32, 30
+ONLINE2_CHUNK_SAMPLES = 4000  # 0.5 s at 8 kHz
+PIPELINE_TOL = 1e-4  # chunked vs whole-stream features (tests/test_online.py)
+# online2's words on the CPU, the port's and the JAX package's:
+# tests/test_torch_online.py::test_online2_words_equal_the_jax_package
+ONLINE2_CPU_WORDS = {
+    "test_0002": "w00448 w13460 w04450 w00019 w01686 w02799",
+    "test_0012": ("w00308 w00000 w09655 w05507 w00019 w08306 w01732 w14048 "
+                  "w00399 w01480 w01225 w00027 w00000 w00003 w03332 w00001"),
+    "test_0019": "w00048 w01069 w15407 w00228 w01647",
+    "test_0081": ("w00061 w00000 w00176 w00083 w00002 w00380 w14964 "
+                  "w07566 w00002 w02189 w02475 w00000 w00035 w16094 w00547"),
+    "test_0092": ("w00023 w00322 w05708 w15721 w09766 w00081 "
+                  "w00028 w00324 w00001 w00048 w03822 w00004"),
+    "test_0112": ("w03340 w02049 w00008 w00990 w00670 w00096 "
+                  "w00004 w00763 w00004 w00000 w03704 w00012"),
+    "test_0114": "w00098 w01226 w00878 w00004 w00763",
+    "test_0124": ("w04942 w00005 w07859 w00030 w00001 w00006 w02702 "
+                  "w00941 w10909 w00072 w00025 w00006 w00176 w00000 w01544"),
+    "test_0135": ("w00004 w00191 w03345 w03626 w00056 w00008 w00345 "
+                  "w00012 w04727 w01129 w00033 w04070 w00028 w00005"),
+    "test_0180": "w00006 w06844 w00291 w04415 w00234 w00828 w00002 w06001",
+    "test_0187": "w00010 w18062 w01879 w00911 w00179 w00950 w00471 w01660 w00078 w00014",
+    "test_0217": "w00167 w00410 w00003 w01622 w03155 w00304 w01854",
+    "test_0227": ("w03106 w00065 w00131 w00031 w00118 w10001 w04329 w08943 "
+                  "w00030 w01657 w00008 w01026 w00018 w02383 w00440 w00043"),
+    "test_0228": ("w00517 w04089 w11116 w00051 w00062 "
+                  "w00004 w00000 w00879 w00810 w03303 w00077"),
+    "test_0230": "w16296 w00002 w07813 w12024 w12374 w00548 w01172 w00675 w00003 w12297",
+    "test_0253": ("w00004 w15350 w00017 w00005 w05207 w00445 w15999 w10969 "
+                  "w00000 w00004 w00002 w06160 w07682 w05743 w05489 w00223"),
+}
 GMM_MAX_ERRORS = 2  # 0.07 % of 2,868 words; the JAX package makes 0 with tri.mdl
 GMM_TOL = (2e-3, 2e-3)  # |kernel - plain| <= atol + rtol·|plain| (tests/test_ops.py)
 MFCC_TOL = 1e-3  # |kernel - plain| on every cepstrum (tests/test_ops.py: 1e-3 + 1e-3·|ref|)
@@ -306,6 +387,72 @@ def search_profile(torch, decode, loglikes, nf, frames: int) -> dict:
                                           for r in rows[:12]]}
 
 
+def rescore_trace(torch, np, minilib, decode_batch_tokens, ViterbiOptions,
+                  pad_feature_batch, AmNnet, system, traced, dev) -> dict:
+    """For each of the `traced` rescore utterances: its rescore batch's
+    loglikes computed on the CPU (front end and TDNN), then the search with
+    lattice records over that utterance's row, once on the card and once on
+    the CPU; and how far the card's loglikes are from the CPU's, with the
+    card's TDNN on the card's features and on the CPU's.  Equal counts from
+    the two searches over the same loglikes put a difference between the
+    devices in the acoustic float order, not in the search."""
+    waves, _ = minilib.make_test_set(minilib.MinilibOptions(), noise=RESCORE["noise"])
+    keys_all = sorted(waves)[:RESCORE["num_utts"]]
+    # the recipe's batches follow the frame counts, which the card gives
+    card_feats = minilib.compute_feats({k: waves[k] for k in keys_all}, device=dev)
+    by_dur = sorted(card_feats, key=lambda k: card_feats[k].shape[0])
+    am_cpu = AmNnet.load("exp/minilib/final.am", device="cpu")
+    vopts = ViterbiOptions(beam=BEAM, max_active=RESCORE_MAX_ACTIVE, acoustic_scale=1.0)
+    out = {}
+    for u in traced:
+        i = by_dur.index(u) // RESCORE_BATCH * RESCORE_BATCH
+        bkeys = by_dur[i: i + RESCORE_BATCH]
+        feats = {"cpu": minilib.compute_feats({k: waves[k] for k in bkeys}, device="cpu"),
+                 dev: {k: card_feats[k] for k in bkeys}}
+        padded = {}
+        for d, f in feats.items():  # the recipe's batch: T to a multiple of 128
+            keys, x, nf = pad_feature_batch(f)
+            padded[d] = np.pad(x, ((0, 0), (0, -(-x.shape[1] // 128) * 128 - x.shape[1]),
+                                   (0, 0)))
+        b = keys.index(u)
+        n = int(nf[b])
+        ll_cpu = am_cpu.loglikes_batch(padded["cpu"])[b: b + 1]
+        ll_card = system.am.loglikes_batch(padded[dev])[b: b + 1]
+        ll_card_on_cpu_feats = system.am.loglikes_batch(padded["cpu"])[b: b + 1]
+        trace = {"frames": n}
+        for name, ll, d in (("card_search_on_cpu_loglikes", ll_cpu.to(dev), dev),
+                            ("cpu_search_on_cpu_loglikes", ll_cpu, "cpu"),
+                            ("card_search_on_card_loglikes", ll_card, dev)):
+            res = decode_batch_tokens(system.csr, ll, nf[b: b + 1], vopts,
+                                      want_lattice=True, lattice_beam=8.0, device=d)[0]
+            trace[name] = (None if res is None or res.token_lattice is None
+                           else int((res.token_lattice.arc >= 0).sum()))
+        trace["max_abs_loglike_diff_card_vs_cpu"] = float(
+            (ll_card.cpu() - ll_cpu)[:, :n].abs().max())
+        trace["max_abs_loglike_diff_card_tdnn_on_cpu_features"] = float(
+            (ll_card_on_cpu_feats.cpu() - ll_cpu)[:, :n].abs().max())
+        out[u] = trace
+    return out
+
+
+def stream_words(torch, dec, feats, chunk):
+    """Each utterance's batch features fed to a streaming decoder `chunk`
+    frames at a time: ({utt: word ids}, wall seconds of the feeding and the
+    best path, search frames)."""
+    words, wall, frames = {}, 0.0, 0
+    for k in sorted(feats):
+        f = feats[k]
+        dec.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, len(f), chunk):
+            dec.advance(f[lo: lo + chunk], final=lo + chunk >= len(f))
+        words[k] = dec.best_words()
+        wall += time.perf_counter() - t0
+        frames += -(-len(f) // dec.fsf)
+    return words, wall, frames
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--noisy", action="store_true",
@@ -331,6 +478,10 @@ def main() -> int:
     from old_kaldi_git_tpu_torch.device import card_name_and_power_limit
     from old_kaldi_git_tpu_torch.feat import MfccOptions, extract_frames
     from old_kaldi_git_tpu_torch.feat.window import num_frames
+    from old_kaldi_git_tpu_torch.ivector.extractor import OnlineIvectorExtractor
+    from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+    from old_kaldi_git_tpu_torch.online.streaming import (
+        OnlineFeaturePipeline, StreamingTokenDecoder)
     from old_kaldi_git_tpu_torch.lat.lattice import (
         lattice_best_path, lattice_from_token_records)
     from old_kaldi_git_tpu_torch.ops import _build
@@ -376,6 +527,34 @@ def main() -> int:
     # the rescore path decodes the flagship graph at K = 1024: E as above
     Kr = max(4, min(RESCORE_MAX_ACTIVE, system.csr.num_states))
     Er = _token_budget(system.csr, Kr, tg.md) * tg.md
+    # the iVector systems, and the streaming decoders (their [1, W/fsf, P]
+    # acoustic windows give K1 its B = 1 tables)
+    t0 = time.perf_counter()
+    ivec_am, ivec_ext = minilib.ivector_models(system)
+    chain_iv = minilib.load_chain_system("exp/minilib", device=dev, use_ivectors=True)
+    ivec_load_s = time.perf_counter() - t0
+    Ki = max(4, min(IVEC_MAX_ACTIVE, system.csr.num_states))
+    Ei = _token_budget(system.csr, Ki, tg.md) * tg.md
+    sil = [minilib.silence_phone_id(minilib.make_lexicon(minilib.MinilibOptions()))]
+    tid_to_phone = convert.tid_to_phone_from_transition_model(
+        convert.load_pickle("exp/minilib/tree.pkl")[1])
+    svopts = ViterbiOptions(beam=BEAM, max_active=STREAM_MAX_ACTIVE, acoustic_scale=1.0)
+    fsf = chain.model.frame_subsampling_factor
+
+    def stream_decoder(graph, am, t2p, chunk, step=1):
+        scores = am.loglikes_batch if step == 1 else (
+            lambda x: am.logits(x, output_stride=step))
+        return StreamingTokenDecoder(
+            graph, scores, sil, t2p, svopts, am_left_context=am.config.left_context,
+            am_right_context=am.config.right_context, chunk_quantum=chunk,
+            frame_subsampling_factor=step, device=dev)
+
+    sdec = stream_decoder(system.csr, system.am, tid_to_phone, STREAM_CHUNK)
+    cdec = stream_decoder(chain.csr, chain.model.am, chain.model.tid_to_phone,
+                          STREAM_CHAIN_CHUNK, fsf)
+    if (sdec.E * tg.md, cdec.E * ctg.md) != (Ei, Ec):
+        raise RuntimeError("the streaming decoders' budgets are not the batch paths'")
+    ws, wc = sdec.window_frames, cdec.window_frames // fsf  # window rows
 
     # ---- phase 2: each kernel against its plain version ----------------------
     # K1 at the main path's shape, contiguous and as a frame of a [B, T, P]
@@ -386,7 +565,9 @@ def main() -> int:
     # a block's shared memory (the kernel then reads device memory): every
     # instance of csrc/gather.cu; and at the chain path's shape (a frame of
     # the [64, 256, 1624] logits, read in place) and the rescore path's
-    # (a frame of [16, T, 2000] loglikes)
+    # (a frame of [16, T, 2000] loglikes); at the CE+iVec shape (K = 2048,
+    # B = 64), and with B = 1 as the streaming decoders pass a row of their
+    # acoustic window's output, in place, at both widths
     k1_err = check_gather(torch, batched_table_gather, batched_table_gather_plain,
                           [(BATCH, P, E, 1, 0), (BATCH, P, E, 3, 1), (BATCH, P, E - 1, 1, 0),
                            (3, 50, 7, 1, 0),
@@ -394,7 +575,9 @@ def main() -> int:
                            (5, 129, 4100, 4, 3), (2, 70000, 333, 1, 0),
                            (2, 70000, 336, 2, 1),
                            (CHAIN_BATCH, Pc, Ec, 256, 7), (CHAIN_BATCH, Pc, Ec, 1, 0),
-                           (RESCORE_BATCH, P, Er, 3, 1), (RESCORE_BATCH, P, Er, 1, 0)])
+                           (RESCORE_BATCH, P, Er, 3, 1), (RESCORE_BATCH, P, Er, 1, 0),
+                           (IVEC_BATCH, P, Ei, 3, 1), (1, P, Ei, ws, 7), (1, P, Ei, 1, 0),
+                           (1, Pc, Ec, wc, 11), (1, Pc, Ec, 1, 0)])
     gen = torch.Generator(device="cuda").manual_seed(1)
     frames3 = torch.randn((BATCH, 3, P), device="cuda", generator=gen)
     table = frames3[:, 1].contiguous()
@@ -439,6 +622,9 @@ def main() -> int:
 
     k1_chain = gather_at(CHAIN_BATCH, Pc, Ec, 256)
     k1_rescore = gather_at(RESCORE_BATCH, P, Er, 768)
+    k1_ivec = gather_at(IVEC_BATCH, P, Ei, 768)
+    k1_stream = gather_at(1, P, Ei, ws)
+    k1_stream_chain = gather_at(1, Pc, Ec, wc)
 
     # K2 at the frame count of the first 128-utterance front-end chunk
     # (W = 256), on that chunk's real frames, on the same waves framed as
@@ -549,7 +735,9 @@ def main() -> int:
                      "bound_ms": k1_bound_ms, "bytes": k1_bytes,
                      "ms_per_call_host_bound": k1_host_ms,
                      "one_float_fill_ms": k1_fill_ms,
-                     "chain_shape": k1_chain, "rescore_shape": k1_rescore},
+                     "chain_shape": k1_chain, "rescore_shape": k1_rescore,
+                     "ivec_shape": k1_ivec, "stream_shape": k1_stream,
+                     "stream_chain_shape": k1_stream_chain},
           "mfcc": {"shape": [n, w], "route": mfcc_route(w),
                    "max_abs_err": k2_err, "tolerance": MFCC_TOL,
                    "max_abs_err_vs_float64_plain": k2_err64, "tolerance_float64": MFCC_TOL64,
@@ -746,6 +934,24 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
+    def read_counts(name):
+        """K1's and K2's launches since zero_counts(), K2's by route; every
+        path's front end must take the fft route"""
+        got = {"gather": batched_table_gather.launches,
+               "mfcc": fused_mfcc_from_frames.launches,
+               "mfcc_by_route": dict(fused_mfcc_from_frames.launches_by_route)}
+        if got["mfcc_by_route"]["fft"] != got["mfcc"]:
+            raise RuntimeError(f"{name}: the front end left the fft route: {got}")
+        return got
+
+    def hold_to_cpu_errors(name, stats):
+        """the JAX package's errors and utterances with errors on the CPU"""
+        errors, utts = IVEC_CPU_ERRORS[name]
+        if (stats["errors"], stats["utterances_with_errors"]) != (errors, utts):
+            raise RuntimeError(
+                f"{name}: {stats['errors']} errors in {stats['utterances_with_errors']}, "
+                f"the JAX package on the CPU {errors} in {utts}")
+
     # ---- phase 7: the chain path, with the launch counts set to 0 just before
     zero_counts()
     t0 = time.perf_counter()
@@ -755,8 +961,7 @@ def main() -> int:
     torch.cuda.synchronize()
     cwall_s = time.perf_counter() - t0
     cstats = dict(minilib.decode_and_score_chain.last_stats)
-    c_launches = {"gather": batched_table_gather.launches,
-                  "mfcc": fused_mfcc_from_frames.launches}
+    c_launches = read_counts("decode_chain")
     emit({"phase": "decode_chain", "card": card, "model": "exp/minilib/chain.mdl",
           "graph": {"states": chain.csr.num_states, "arcs": chain.csr.num_arcs,
                     "eps_depth": chain.csr.eps_depth, "tiles": ctg.num_tiles},
@@ -771,7 +976,8 @@ def main() -> int:
           "search_ms_per_frame": 1e3 * cstages["search_seconds"] / cstages["search_frames"],
           "load_chain_system_seconds": chain_load_s,
           "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
-          "gather_launches": c_launches["gather"], "mfcc_launches": c_launches["mfcc"]})
+          "gather_launches": c_launches["gather"], "mfcc_launches": c_launches["mfcc"],
+          "mfcc_launches_by_route": c_launches["mfcc_by_route"]})
     if not (c_launches["gather"] > 0 and c_launches["mfcc"] > 0):
         raise RuntimeError(f"the chain path did not go through both kernels: {c_launches}")
     if not (cwer <= MAX_WER_PERCENT):
@@ -832,8 +1038,7 @@ def main() -> int:
     torch.cuda.synchronize()
     rwall_s = time.perf_counter() - t0
     rstats = dict(minilib.rescore_and_score.last_stats)
-    r_launches = {"gather": batched_table_gather.launches,
-                  "mfcc": fused_mfcc_from_frames.launches}
+    r_launches = read_counts("rescore")
     emit({"phase": "rescore", "card": card, **RESCORE, "max_active": RESCORE_MAX_ACTIVE,
           "batch": RESCORE_BATCH, "lattice_beam": 8.0,
           "wer_before": before, "wer_after": after, "wer_oracle": rstats["oracle_wer"],
@@ -842,12 +1047,175 @@ def main() -> int:
           / rstages["lattice_record_slots"],
           "overflow_fallbacks": rstages.get("lattice_overflow_fallbacks", 0),
           "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
-          "gather_launches": r_launches["gather"], "mfcc_launches": r_launches["mfcc"]})
+          "gather_launches": r_launches["gather"], "mfcc_launches": r_launches["mfcc"],
+          "mfcc_launches_by_route": r_launches["mfcc_by_route"]})
     if not (r_launches["gather"] > 0 and r_launches["mfcc"] > 0):
         raise RuntimeError(f"the rescore path did not go through both kernels: {r_launches}")
     if not (after <= before + 1.0 and rstats["oracle_wer"] <= before + 1e-9):
         raise RuntimeError(f"rescoring broke its invariants: before {before}, after "
                            f"{after}, oracle {rstats['oracle_wer']}")
+    # each utterance's live records against the port's on the CPU
+    live = rstats["live_records"]
+    rkeys = sorted(system.test_waves)[:RESCORE["num_utts"]]
+    card_live = [live.get(k) for k in rkeys]
+    differing = [k for k, c, w in zip(rkeys, card_live, RESCORE_CPU_LIVE_RECORDS) if c != w]
+    emit({"phase": "rescore_live_records", "card": card,
+          "utterances": rkeys, "card_live_records": card_live,
+          "cpu_live_records": RESCORE_CPU_LIVE_RECORDS,
+          "card_total": sum(c or 0 for c in card_live),
+          "cpu_total": sum(RESCORE_CPU_LIVE_RECORDS),
+          "differing": {k: [live.get(k), RESCORE_CPU_LIVE_RECORDS[rkeys.index(k)]]
+                        for k in differing}})
+    # where a count differs, the card's search once more on the CPU's loglikes
+    t0 = time.perf_counter()
+    trace = rescore_trace(torch, np, minilib, decode_batch_tokens, ViterbiOptions,
+                          pad_feature_batch, AmNnet, system, differing, dev
+                          ) if differing else {}
+    emit({"phase": "rescore_trace", "card": card, "by_utterance": trace,
+          "seconds": time.perf_counter() - t0})
+    for k, t in trace.items():
+        if t["card_search_on_cpu_loglikes"] != t["cpu_search_on_cpu_loglikes"]:
+            raise RuntimeError(f"{k}: the card's search keeps "
+                               f"{t['card_search_on_cpu_loglikes']} records on the CPU's "
+                               f"loglikes, the CPU's {t['cpu_search_on_cpu_loglikes']}")
+        if t["card_search_on_card_loglikes"] != live.get(k):
+            raise RuntimeError(f"{k}: alone it keeps {t['card_search_on_card_loglikes']} "
+                               f"records, in its batch {live.get(k)}")
+    torch.cuda.empty_cache()
+
+    # ---- phases 10-11: the iVector systems, counts set to 0 just before each
+    def ivector_phase(name, model, decode, target, **kw):
+        zero_counts()
+        t0 = time.perf_counter()
+        stages = {}
+        wer, _ = decode(target, beam=BEAM, max_active=IVEC_MAX_ACTIVE, batch=IVEC_BATCH,
+                        timings=stages, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(name)
+        emit({"phase": name, "card": card, "model": model,
+              "utterances": len(system.test_waves), "max_active": IVEC_MAX_ACTIVE,
+              "batch": IVEC_BATCH, "beam": BEAM, "acoustic_scale": 1.0,
+              "wer_percent": wer,
+              **{k: v for k, v in decode.last_stats.items() if k != "wer"},
+              "audio_seconds": audio_s, "wall_seconds": wall,
+              "audio_seconds_per_second": audio_s / wall, **stages,
+              "ivector_share_of_wall": stages["ivector_seconds"] / wall,
+              "search_ms_per_frame": 1e3 * stages["search_seconds"] / stages["search_frames"],
+              "load_ivector_systems_seconds": ivec_load_s,
+              "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+              "gather_launches": launches["gather"], "mfcc_launches": launches["mfcc"],
+              "mfcc_launches_by_route": launches["mfcc_by_route"]})
+        if not (launches["gather"] > 0 and launches["mfcc"] > 0):
+            raise RuntimeError(f"{name} did not go through both kernels: {launches}")
+        if not (wer <= MAX_WER_PERCENT):
+            raise RuntimeError(f"{name}: WER {wer:.2f}% exceeds {MAX_WER_PERCENT}%")
+        hold_to_cpu_errors(name, decode.last_stats)
+        return launches
+
+    iv_launches = ivector_phase("decode_ivec", "exp/minilib/final_ivec.am + final.ie",
+                                minilib.decode_and_score, system, use_ivectors=True)
+    civ_launches = ivector_phase("decode_chain_ivec", "exp/minilib/chain_ivec.mdl + final.ie",
+                                 minilib.decode_and_score_chain, chain_iv)
+
+    # ---- phases 12-13: streaming, TDNN and chain, on 16 utterances spread
+    # over the durations; the batch decode's words first, then the counts
+    # set to 0 just before the front end and the streaming loop
+    by_dur = sorted(system.test_waves, key=lambda k: len(system.test_waves[k]))
+    skeys = by_dur[::len(by_dur) // STREAM_UTTS][:STREAM_UTTS]
+    swaves = {k: system.test_waves[k] for k in skeys}
+    saudio_s = sum(len(w) for w in swaves.values()) / minilib.SAMP_FREQ
+    s_launches = {}
+    for name, dec, batch_words in (
+            ("stream", sdec, lambda: minilib.decode_test_set(
+                system, swaves, BEAM, STREAM_MAX_ACTIVE, 1.0, batch=STREAM_UTTS)),
+            ("stream_chain", cdec, lambda: minilib.decode_chain_test_set(
+                chain, swaves, BEAM, STREAM_MAX_ACTIVE, batch=STREAM_UTTS))):
+        want = batch_words()
+        zero_counts()
+        sfeats = minilib.compute_feats(swaves, device=dev)
+        got, wall, frames = stream_words(torch, dec, sfeats, dec.chunk_quantum)
+        s_launches[name] = read_counts(name)
+        words = chain.words if dec is cdec else system.words
+        differ = sorted(k for k in skeys if [words[w] for w in got[k]] != want[k])
+        sstats = compute_wer({k: list(system.test_text[k]) for k in skeys},
+                             {k: [words[w] for w in got[k]] for k in skeys})
+        emit({"phase": name, "card": card, "utterances": skeys,
+              "graph_states": dec.graph.num_states, "max_active": STREAM_MAX_ACTIVE,
+              "beam": BEAM, "chunk_frames": dec.chunk_quantum,
+              "frame_subsampling_factor": dec.fsf, "window_frames": dec.window_frames,
+              "audio_seconds": saudio_s, "stream_wall_seconds": wall,
+              "single_stream_rtf": wall / saudio_s, "search_frames": frames,
+              "ms_per_search_frame": 1e3 * wall / frames,
+              "wer_percent": sstats.wer, "utterances_differing_from_batch": differ,
+              "gather_launches": s_launches[name]["gather"],
+              "mfcc_launches": s_launches[name]["mfcc"],
+              "mfcc_launches_by_route": s_launches[name]["mfcc_by_route"]})
+        if s_launches[name]["gather"] != frames or s_launches[name]["mfcc"] == 0:
+            raise RuntimeError(f"{name}: {s_launches[name]} launches for {frames} "
+                               "search frames (one gather a frame expected)")
+        if differ:
+            raise RuntimeError(f"{name}: {len(differ)} utterances differ from the "
+                               f"batch decode: {differ}")
+
+    # ---- phase 14: online2, audio in 0.5 s pieces through the feature
+    # pipeline with online iVectors into the streaming decoder with the
+    # CE+iVec model; counts set to 0 just before, and read just after, the
+    # chunked loop (the whole-stream pipelines that check it come after)
+    odec = stream_decoder(system.csr, ivec_am, tid_to_phone, STREAM_CHUNK)
+    zero_counts()
+    owords, ofeats, owall, opipe, ocalls = {}, {}, 0.0, 0.0, 0
+    for k in skeys:
+        w = swaves[k]
+        pipe = OnlineFeaturePipeline(
+            opts8, ivector_extractor=OnlineIvectorExtractor(ivec_ext), device=dev)
+        odec.reset()
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, len(w) + ONLINE2_CHUNK_SAMPLES, ONLINE2_CHUNK_SAMPLES):
+            t1 = time.perf_counter()
+            last = lo >= len(w)
+            f = pipe.input_finished() if last else pipe.accept_waveform(
+                w[lo: lo + ONLINE2_CHUNK_SAMPLES])
+            opipe += time.perf_counter() - t1
+            ocalls += 1
+            outs.append(f)
+            odec.advance(f, final=last)
+        owords[k] = [system.words[i] for i in odec.best_words()]
+        owall += time.perf_counter() - t0
+        ofeats[k] = np.concatenate(outs)
+    o_launches = read_counts("online2")
+    ofeat_err = 0.0
+    for k in skeys:
+        whole = OnlineFeaturePipeline(
+            opts8, ivector_extractor=OnlineIvectorExtractor(ivec_ext), device=dev)
+        wf = np.concatenate([whole.accept_waveform(swaves[k]), whole.input_finished()])
+        if ofeats[k].shape != wf.shape:
+            raise RuntimeError(f"online2 {k}: chunked features {ofeats[k].shape}, "
+                               f"whole {wf.shape}")
+        ofeat_err = max(ofeat_err, float(np.abs(ofeats[k] - wf).max()))
+    ostats = compute_wer({k: list(system.test_text[k]) for k in skeys}, owords)
+    odiffer = sorted(k for k in skeys if " ".join(owords[k]) != ONLINE2_CPU_WORDS[k])
+    emit({"phase": "online2", "card": card, "utterances": len(skeys),
+          "chunk_samples": ONLINE2_CHUNK_SAMPLES, "audio_seconds": saudio_s,
+          "wall_seconds": owall, "single_stream_rtf": owall / saudio_s,
+          "feature_pipeline_seconds": opipe, "feature_pipeline_share": opipe / owall,
+          "pipeline_calls": ocalls,
+          "wer_percent": ostats.wer, "errors": ostats.errors,
+          "utterances_differing_from_cpu_words": odiffer,
+          "max_abs_chunked_vs_whole_features": ofeat_err,
+          "tolerance": PIPELINE_TOL,
+          "gather_launches": o_launches["gather"], "mfcc_launches": o_launches["mfcc"],
+          "mfcc_launches_by_route": o_launches["mfcc_by_route"]})
+    if not (o_launches["gather"] > 0 and o_launches["mfcc"] > 0):
+        raise RuntimeError(f"online2 did not go through both kernels: {o_launches}")
+    if not ofeat_err <= PIPELINE_TOL:
+        raise RuntimeError(f"online2: chunked features off the whole stream's by {ofeat_err}")
+    if odiffer:
+        raise RuntimeError(f"online2: {len(odiffer)} utterances differ from the CPU's "
+                           f"words: {odiffer}")
+    del odec, sdec, cdec
     torch.cuda.empty_cache()
 
     emit({"kernels": [
@@ -855,24 +1223,44 @@ def main() -> int:
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
          "replaces": "old_kaldi_git_tpu/ops/gather_kernel.py:57",
          "launches": (k1_launches + g_launches["gather"] + c_launches["gather"]
-                      + l_launches + r_launches["gather"]),
+                      + l_launches + r_launches["gather"] + iv_launches["gather"]
+                      + civ_launches["gather"] + s_launches["stream"]["gather"]
+                      + s_launches["stream_chain"]["gather"] + o_launches["gather"]),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
-                              "rescore": r_launches["gather"]},
+                              "rescore": r_launches["gather"],
+                              "decode_ivec": iv_launches["gather"],
+                              "decode_chain_ivec": civ_launches["gather"],
+                              "stream": s_launches["stream"]["gather"],
+                              "stream_chain": s_launches["stream_chain"]["gather"],
+                              "online2": o_launches["gather"]},
          "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
-         "at_other_shapes": {"decode_chain": k1_chain, "rescore": k1_rescore}},
+         "at_other_shapes": {"decode_chain": k1_chain, "rescore": k1_rescore,
+                             "decode_ivec": k1_ivec, "stream": k1_stream,
+                             "stream_chain": k1_stream_chain}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
          "launches": (k2_launches + g_launches["mfcc"] + c_launches["mfcc"]
-                      + r_launches["mfcc"]),
+                      + r_launches["mfcc"] + iv_launches["mfcc"] + civ_launches["mfcc"]
+                      + s_launches["stream"]["mfcc"] + s_launches["stream_chain"]["mfcc"]
+                      + o_launches["mfcc"]),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
-                              "rescore": r_launches["mfcc"]},
-         "launches_by_route": {r: k2_routes[r] + g_routes[r] for r in k2_routes},
+                              "rescore": r_launches["mfcc"],
+                              "decode_ivec": iv_launches["mfcc"],
+                              "decode_chain_ivec": civ_launches["mfcc"],
+                              "stream": s_launches["stream"]["mfcc"],
+                              "stream_chain": s_launches["stream_chain"]["mfcc"],
+                              "online2": o_launches["mfcc"]},
+         "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
+             p["mfcc_by_route"][r] for p in (
+                 c_launches, r_launches, iv_launches, civ_launches,
+                 s_launches["stream"], s_launches["stream_chain"], o_launches))
+             for r in k2_routes},
          "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": "operations" if k2_ops_ms >= k2_bytes_ms else "bytes",
@@ -907,6 +1295,16 @@ def main() -> int:
               "wer_percent": nwer, "errors": nstats["errors"],
               "ref_words": nstats["ref_words"],
               "utterances_with_errors": nstats["utterances_with_errors"]})
+        for name, decode, target, kw in (
+                ("decode_ivec_noisy", minilib.decode_and_score, system,
+                 {"use_ivectors": True}),
+                ("decode_chain_ivec_noisy", minilib.decode_and_score_chain, chain_iv, {})):
+            nwer, _ = decode(target, beam=BEAM, max_active=IVEC_MAX_ACTIVE,
+                             batch=IVEC_BATCH, noise=minilib.NOISE_EVAL, **kw)
+            emit({"phase": name, "card": card, "noise": minilib.NOISE_EVAL,
+                  "wer_percent": nwer,
+                  **{k: v for k, v in decode.last_stats.items() if k != "wer"}})
+            hold_to_cpu_errors(name, decode.last_stats)
 
     # last, because the profiler stays attached to the process and slows
     # every later launch

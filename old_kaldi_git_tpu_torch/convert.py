@@ -138,24 +138,35 @@ def am_nnet_from_jax(config_fields: Mapping[str, Any],
 
 
 def load_am_nnet(path: str, device: DeviceLike = None) -> AmNnet:
-    """An `AmNnet.save` pickle of the JAX package → the port's AmNnet."""
+    """An `AmNnet.save` pickle of the JAX package → the port's AmNnet, with
+    the input dims that carry an online iVector (`ivector_dim`)."""
     d = load_pickle(path)
     return am_nnet_from_jax(_fields_of(d["config"]), d["variables"],
-                            d.get("log_priors"), device=device)
+                            d.get("log_priors"), device=device,
+                            ivector_dim=int(d.get("ivector_dim", 0)))
+
+
+def _per_tid(tm: Any, column: int) -> np.ndarray:
+    """[num_tids+1] int32 map tid → field `column` of its transition state's
+    tuple (phone, hmm_state, pdf), entry 0 = -1 (epsilon), from a stub
+    TransitionModel's `tuples` and `state2id` (first tid of each
+    transition state, 1-based)."""
+    state2id = np.asarray(tm.state2id, np.int64)
+    values = np.asarray([t[column] for t in tm.tuples], np.int32)
+    out = np.full(int(state2id[-1]), -1, np.int32)
+    out[1:] = np.repeat(values, np.diff(state2id))
+    return out
 
 
 def tid_to_pdf_from_transition_model(tm: Any) -> np.ndarray:
-    """[num_tids+1] int32 tid → pdf map (entry 0 = -1, epsilon) from a stub
-    TransitionModel's `tuples` (phone, hmm_state, pdf) and `state2id` (first
-    tid of each transition-state, 1-based), as
-    hmm/transition_model.py tid_to_pdf_array computes it."""
-    state2id = np.asarray(tm.state2id, np.int64)
-    pdfs = np.asarray([t[2] for t in tm.tuples], np.int32)
-    num_tids = int(state2id[-1]) - 1
-    out = np.full(num_tids + 1, -1, np.int32)
-    counts = np.diff(state2id)
-    out[1:] = np.repeat(pdfs, counts)
-    return out
+    """tid → pdf, as hmm/transition_model.py tid_to_pdf_array computes it."""
+    return _per_tid(tm, 2)
+
+
+def tid_to_phone_from_transition_model(tm: Any) -> np.ndarray:
+    """tid → phone, as hmm/transition_model.py tid_to_phone_array computes
+    it (the streaming decoder's trailing-silence count reads it)."""
+    return _per_tid(tm, 0)
 
 
 def am_diag_gmm_from_jax(pdfs: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],

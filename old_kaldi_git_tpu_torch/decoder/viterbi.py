@@ -165,6 +165,7 @@ def _decode_scan_tokens(
     L: int = 0, lattice_beam: float = 0.0,
     init_tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     eps_hops: Optional[torch.Tensor] = None, D: int = 0,
+    bp_out: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            Optional[Tuple[torch.Tensor, ...]]]:
     """Token-sparse beam decode of folded (D = 0) or split-eps (D > 0,
@@ -177,6 +178,10 @@ def _decode_scan_tokens(
     and written per frame; frames past every utterance's end are not run.
     `init_tokens` (state [B, K] int32, cost [B, K] float32) replaces the
     start-state seed: a split graph's start closure, or a carried token set.
+    `bp_out` (bp_state [rows, B, K], bp_arc [rows, B, K], t0): write the
+    backpointers in place into rows t0 .. t0+T−1 of these stores (a
+    streaming decoder's preallocated buffers) instead of new ones; the
+    returned backpointers are then those rows.
 
     L > 0 also emits per-frame LATTICE-ARC RECORDS (GetRawLattice on the
     device): every expanded candidate whose via-cost is within
@@ -208,8 +213,11 @@ def _decode_scan_tokens(
         tok_cost[:, 0] = 0.0
     else:
         tok_state, tok_cost = init_tokens
-    bp_state = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
-    bp_arc = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
+    if bp_out is None:
+        bp_state = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
+        bp_arc = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
+    else:
+        bp_state, bp_arc = (x.narrow(0, bp_out[2], T) for x in bp_out[:2])
     t_end = min(T, int(num_frames.max().item())) if B else 0
     records = None
     if L:

@@ -7,13 +7,16 @@ stacks every pdf's Gaussians into rows of [x, x², 1] coefficients so that all
 frames × all pdfs is one call of the GMM kernel (ops/gmm_kernel.py).  The
 arithmetic of `read` and of `gconsts` is float64, then the rows are cast to
 float32 once, as the JAX package's `stacked()` does: the packed rows are the
-JAX package's to the bit.  Inference only; no EM update.
+JAX package's to the bit.  A single DiagGmm also scores frames itself
+(`component_loglikes`, `loglikes`, `posteriors`) in float64 on the frames'
+device: the iVector extractor's UBM needs its per-component posteriors at
+that precision.  Inference only; no EM update.
 """
 
 from __future__ import annotations
 
 import math
-from typing import BinaryIO, List, Optional, Tuple
+from typing import BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +64,38 @@ class DiagGmm:
         return (np.log(np.maximum(self.weights, 1e-30))
                 - 0.5 * (self.dim * M_LOG_2PI + np.log(self.vars).sum(axis=1)
                          + (self.means ** 2 / self.vars).sum(axis=1)))
+
+    def tensors(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """gconsts [M], means_invvars, inv_vars, means and vars [M, D] as
+        float64 tensors on `device`, uploaded once per device and kept."""
+        cache = self.__dict__.setdefault("_dev", {})
+        key = str(device)
+        if key not in cache:
+            cache[key] = {name: torch.from_numpy(np.ascontiguousarray(getattr(self, name)))
+                          .to(device)
+                          for name in ("gconsts", "means_invvars", "inv_vars", "means",
+                                       "vars")}
+        return cache[key]
+
+    def component_loglikes(self, x: torch.Tensor) -> torch.Tensor:
+        """[T, D] frames (a tensor) → [T, M] per-component loglikes, float64
+        on the frames' device."""
+        t = self.tensors(x.device)
+        x = x.to(torch.float64)
+        return (t["gconsts"][None, :] + x @ t["means_invvars"].T
+                - 0.5 * (x ** 2) @ t["inv_vars"].T)
+
+    def loglikes(self, x: torch.Tensor) -> torch.Tensor:
+        """[T, D] → [T] total loglikes (logsumexp over components)."""
+        comp = self.component_loglikes(x)
+        m = comp.max(dim=1, keepdim=True).values
+        return (m + torch.log(torch.exp(comp - m).sum(dim=1, keepdim=True)))[:, 0]
+
+    def posteriors(self, x: torch.Tensor) -> torch.Tensor:
+        """[T, D] → [T, M] per-component posteriors, float64."""
+        comp = self.component_loglikes(x)
+        p = torch.exp(comp - comp.max(dim=1, keepdim=True).values)
+        return p / p.sum(dim=1, keepdim=True)
 
     @staticmethod
     def read(f: BinaryIO) -> "DiagGmm":

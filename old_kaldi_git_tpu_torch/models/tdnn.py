@@ -52,6 +52,23 @@ class TdnnConfig:
     layers: Tuple[TdnnLayerSpec, ...]
     final_hidden_dim: int = 0  # prefinal layer (0 = none)
 
+    @property
+    def left_context(self) -> int:
+        """Input frames before a frame that its output depends on."""
+        return -sum(min(0, min(layer_offsets(l))) for l in self.layers)
+
+    @property
+    def right_context(self) -> int:
+        """Input frames after a frame that its output depends on."""
+        return sum(max(0, max(layer_offsets(l))) for l in self.layers)
+
+
+def layer_offsets(spec: TdnnLayerSpec) -> Tuple[int, ...]:
+    """A layer's time offsets: a tdnnf's (-ts, 0, ts), a tdnn's splice."""
+    if spec.kind == "tdnnf" and spec.time_stride:
+        return (-spec.time_stride, 0, spec.time_stride)
+    return tuple(spec.offsets)
+
 
 class ReluBatchNorm(nn.Module):
     """relu-batchnorm-layer: Affine → ReLU → BatchNorm on running statistics

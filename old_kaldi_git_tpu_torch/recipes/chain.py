@@ -6,9 +6,10 @@ Counterpart of the loader of old_kaldi_git_tpu/recipes/chain.py
 model, the denominator graph, the frame-subsampling factor and per-layer
 learning-rate factors.  Decoding needs the network, the tid → pdf map of the
 transition model (chain graphs are saved without their pdf column) and the
-subsampling factor; the tree, the denominator graph and the learning-rate
-factors are training state and are read but not converted.  Chain models
-decode their raw logits at acoustic scale 1.0: no log-softmax, no priors.
+subsampling factor; streaming also its tid → phone map.  The tree, the
+denominator graph and the learning-rate factors are training state and are
+read but not converted.  Chain models decode their raw logits at acoustic
+scale 1.0: no log-softmax, no priors.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ class ChainModel:
     am: AmNnet
     tid_to_pdf: np.ndarray  # [num_tids + 1] int32, entry 0 = -1
     frame_subsampling_factor: int
+    tid_to_phone: np.ndarray  # [num_tids + 1] int32, entry 0 = -1
 
     @staticmethod
     def load(path: str, device: DeviceLike = None) -> "ChainModel":
@@ -38,4 +40,5 @@ class ChainModel:
                 vars(am["config"]), am["variables"], am["log_priors"],
                 device=device, ivector_dim=int(am.get("ivector_dim", 0))),
             convert.tid_to_pdf_from_transition_model(d["tm"]),
-            int(d["fsf"]))
+            int(d["fsf"]),
+            convert.tid_to_phone_from_transition_model(d["tm"]))

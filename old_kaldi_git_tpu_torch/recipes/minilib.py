@@ -16,7 +16,10 @@ on its split-eps graph `chain_hclg.npz` (logits at frame-subsampling 3,
 `decode_and_score_chain`), and lattice rescoring (`rescore_and_score`):
 the flagship decode keeps bounded lattice records on the device, the host
 rebuilds and determinizes each lattice and rescores it from the pruned
-trigram to a full 4-gram estimated from the synthesised LM text.
+trigram to a full 4-gram estimated from the synthesised LM text.  The
+iVector systems (`final_ivec.am`, `chain_ivec.mdl`) take the same features
+with online iVectors from the diagonal-UBM extractor `final.ie` appended
+(`use_ivectors=True`).
 
 The evaluation audio is synthesised from the option seeds with numpy, by an
 own copy of the JAX package's synthesis (bit-equal waves and text), so
@@ -39,6 +42,8 @@ from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph, FlatOlabels
 from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch_tokens
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.feat import Mfcc, MfccOptions, compute_deltas
+from old_kaldi_git_tpu_torch.ivector.extractor import (
+    IvectorExtractor, extract_online_ivectors)
 from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
 from old_kaldi_git_tpu_torch.lat.lattice import (
     lattice_best_path, lattice_from_token_records, lattice_oracle)
@@ -47,6 +52,7 @@ from old_kaldi_git_tpu_torch.lm.arpa import parse_arpa
 from old_kaldi_git_tpu_torch.lm.ngram import estimate_ngram_lm
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
 from old_kaldi_git_tpu_torch.recipes.chain import ChainModel
+from old_kaldi_git_tpu_torch.recipes.nnet3 import append_ivector_feats
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
@@ -193,6 +199,17 @@ def word_table(lexicon: Dict[str, str]) -> List[str]:
     return ["<eps>"] + sorted(lexicon) + ["#0"]
 
 
+SILENCE_PHONE = "SIL"
+
+
+def silence_phone_id(lexicon: Dict[str, str]) -> int:
+    """The silence phone's id as the lang bundle numbers phones: `<eps>` (0),
+    then the lexicon's phones and SIL, sorted (the JAX package rebuilds its
+    lang.pkl cache from the lexicon in just this order)."""
+    phones = {p for pron in lexicon.values() for p in pron.split()}
+    return 1 + sorted(phones | {SILENCE_PHONE}).index(SILENCE_PHONE)
+
+
 # ---------------------------------------------------------------------------
 # features (shared front-end: 13 MFCC + per-utt CMVN + deltas = 39)
 # ---------------------------------------------------------------------------
@@ -230,6 +247,14 @@ def compute_feats(waves: Dict[str, np.ndarray],
         for i, k in enumerate(chunk):
             out[k] = deltas[i, : nf_h[i]].astype(np.float32)
     return out
+
+
+def compute_ivectors(ext: IvectorExtractor, feats: Dict[str, np.ndarray],
+                     period: int = 10) -> Dict[str, np.ndarray]:
+    """Per-utterance online iVectors {utt: [T, R] float32} (reference
+    ivector-extract-online2), computed on the extractor's device."""
+    return {k: extract_online_ivectors(ext, v, period=period).cpu().numpy()
+            for k, v in feats.items()}
 
 
 def synth_set(
@@ -307,6 +332,27 @@ class MinilibSystem:
     test_waves: Dict[str, np.ndarray]
     test_text: Dict[str, List[str]]
     workdir: str = ""
+    # the CE+iVec model and its extractor, loaded at first use
+    ivector_models: Optional[Tuple[AmNnet, IvectorExtractor]] = None
+
+
+def load_ivector_extractor(workdir: str, am: AmNnet) -> IvectorExtractor:
+    """`final.ie` on `am`'s device, checked against the iVector dims that
+    `am` takes."""
+    ext = IvectorExtractor.load(os.path.join(workdir, "final.ie"), device=am.device)
+    if ext.ivector_dim != am.ivector_dim:
+        raise KaldiError(f"final.ie gives {ext.ivector_dim}-dim iVectors, the "
+                         f"model takes {am.ivector_dim}")
+    return ext
+
+
+def ivector_models(system: MinilibSystem) -> Tuple[AmNnet, IvectorExtractor]:
+    """(final_ivec.am, final.ie) on the system's device, loaded once."""
+    if system.ivector_models is None:
+        am = AmNnet.load(os.path.join(system.workdir, "final_ivec.am"),
+                         device=system.am.device)
+        system.ivector_models = (am, load_ivector_extractor(system.workdir, am))
+    return system.ivector_models
 
 
 def load_system(workdir: str, opts: Optional[MinilibOptions] = None,
@@ -337,6 +383,7 @@ def decode_test_set(
     acoustic_scale: float = 1.0,
     batch: int = 64,
     timings: Optional[Dict[str, float]] = None,
+    use_ivectors: bool = False,
 ) -> Dict[str, List[str]]:
     """Token-sparse decode of `waves` on the system's device → {utt: words}.
 
@@ -349,11 +396,21 @@ def decode_test_set(
     timings: a dict that receives the host-clock seconds of each stage
     (`front_end_seconds`, `acoustic_model_seconds`, `search_seconds`, the
     last with backtrace and host tail) and `search_frames`; each stage then
-    ends with a device synchronise."""
+    ends with a device synchronise.
+
+    use_ivectors: decode with the CE+iVec model `final_ivec.am`, the
+    features with online iVectors from `final.ie` appended
+    (`ivector_seconds`)."""
     dev = system.am.device
     clock = StageClock(dev, timings)
     feats = compute_feats(waves, device=dev)
     clock.lap("front_end_seconds")
+    am = system.am
+    if use_ivectors:
+        am, ext = ivector_models(system)
+        clock.lap(None)  # loading belongs to no stage
+        feats = append_ivector_feats(feats, compute_ivectors(ext, feats))
+        clock.lap("ivector_seconds")
     vopts = ViterbiOptions(beam=beam, max_active=max_active,
                            acoustic_scale=acoustic_scale)
     by_dur = sorted(feats, key=lambda k: feats[k].shape[0])
@@ -369,7 +426,7 @@ def decode_test_set(
             padded = np.pad(padded, ((0, batch - len(keys)), (0, 0), (0, 0)))
             nf = np.concatenate([nf, np.zeros(batch - len(keys), nf.dtype)])
         clock.lap(None)  # host staging belongs to no stage
-        loglikes = system.am.loglikes_batch(padded)
+        loglikes = am.loglikes_batch(padded)
         clock.lap("acoustic_model_seconds")
         results = decode_batch_tokens(system.csr, loglikes, nf, vopts, device=dev)
         clock.lap("search_seconds")
@@ -377,6 +434,14 @@ def decode_test_set(
         for k, res in zip(keys, results):
             hyps[k] = [system.words[w] for w in res.words] if res else []
     return hyps
+
+
+def _score_stats(stats, test_text: Dict[str, List[str]],
+                 hyps: Dict[str, List[str]], noise: Optional[float]) -> Dict:
+    return {"wer": stats.wer, "errors": stats.errors, "ref_words": stats.ref_len,
+            "utterances_with_errors": sorted(
+                k for k in test_text if list(test_text[k]) != hyps[k]),
+            "noise": noise}
 
 
 def decode_and_score(
@@ -388,20 +453,23 @@ def decode_and_score(
     noise: Optional[float] = None,
     opts: Optional[MinilibOptions] = None,
     timings: Optional[Dict[str, float]] = None,
+    use_ivectors: bool = False,
 ) -> Tuple[float, float]:
     """Decode the system's held-out set; returns (WER %, audio seconds).
 
     noise: decode the set re-synthesized at this noise amplitude instead of
     the clean waves (NOISE_EVAL is the standard noisy regime).
-    timings: see decode_test_set."""
+    timings, use_ivectors: see decode_test_set.  The run's WER, error count
+    and the utterances with errors land in `decode_and_score.last_stats`."""
     test_waves, test_text = system.test_waves, system.test_text
     if noise is not None:
         test_waves, test_text = make_test_set(
             opts or MinilibOptions(), noise=noise)
     hyps = decode_test_set(system, test_waves, beam, max_active,
-                           acoustic_scale, batch, timings)
+                           acoustic_scale, batch, timings, use_ivectors)
     stats = compute_wer({k: list(v) for k, v in test_text.items()}, hyps)
     audio_s = sum(w.shape[0] for w in test_waves.values()) / SAMP_FREQ
+    decode_and_score.last_stats = _score_stats(stats, test_text, hyps, noise)
     log.info("minilib decode: %s over %.0f audio-s", stats.report(), audio_s)
     return stats.wer, audio_s
 
@@ -415,20 +483,28 @@ class ChainSystem:
     words: List[str]  # word id → word
     csr: CsrGraph  # split-eps: emitting arcs + one backoff arc a state
     model: ChainModel
+    # final.ie, for a model that takes online iVectors
+    ivector_extractor: Optional[IvectorExtractor] = None
 
 
-def load_chain_system(workdir: str, model_name: str = "chain.mdl",
+def load_chain_system(workdir: str, model_name: Optional[str] = None,
                       opts: Optional[MinilibOptions] = None,
-                      device: DeviceLike = None) -> ChainSystem:
+                      device: DeviceLike = None,
+                      use_ivectors: bool = False) -> ChainSystem:
     """Load a chain model and chain_hclg.npz (saved without its pdf column:
-    the model's own tid → pdf map rebuilds it)."""
+    the model's own tid → pdf map rebuilds it).  The model defaults to
+    chain.mdl, or chain_ivec.mdl with `use_ivectors`; a model that takes
+    online iVectors comes with the extractor final.ie."""
     opts = opts or MinilibOptions()
+    model_name = model_name or ("chain_ivec.mdl" if use_ivectors else "chain.mdl")
     for name in (model_name, "chain_hclg.npz"):
         if not os.path.exists(os.path.join(workdir, name)):
             raise KaldiError(f"{workdir}: {name} is missing")
     model = ChainModel.load(os.path.join(workdir, model_name), device=device)
     csr = load_csr(os.path.join(workdir, "chain_hclg.npz"), model.tid_to_pdf)
-    return ChainSystem(word_table(make_lexicon(opts)), csr, model)
+    ext = (load_ivector_extractor(workdir, model.am) if model.am.ivector_dim
+           else None)
+    return ChainSystem(word_table(make_lexicon(opts)), csr, model, ext)
 
 
 def decode_chain_test_set(
@@ -444,16 +520,18 @@ def decode_chain_test_set(
     as decode_test_set, with T bucketed to multiples of 128·fsf input frames
     so that every chunk decodes a multiple of 128 subsampled frames, and
     nf_sub = ceil(nf / fsf).  timings: as decode_test_set (`search_frames`
-    counts subsampled frames)."""
+    counts subsampled frames).  A model that takes online iVectors gets
+    them appended to the features (`ivector_seconds`)."""
     am = system.model.am
-    if am.ivector_dim:
-        raise NotImplementedError(
-            "online iVectors are not ported yet: they come with their slice")
     dev = am.device
     fsf = system.model.frame_subsampling_factor
     clock = StageClock(dev, timings)
     feats = compute_feats(waves, device=dev)
     clock.lap("front_end_seconds")
+    if am.ivector_dim:
+        feats = append_ivector_feats(
+            feats, compute_ivectors(system.ivector_extractor, feats))
+        clock.lap("ivector_seconds")
     vopts = ViterbiOptions(beam=beam, max_active=max_active, acoustic_scale=1.0)
     by_dur = sorted(feats, key=lambda k: feats[k].shape[0])
     hyps: Dict[str, List[str]] = {}
@@ -495,11 +573,7 @@ def decode_and_score_chain(
     hyps = decode_chain_test_set(system, test_waves, beam, max_active, batch, timings)
     stats = compute_wer({k: list(v) for k, v in test_text.items()}, hyps)
     audio_s = sum(w.shape[0] for w in test_waves.values()) / SAMP_FREQ
-    decode_and_score_chain.last_stats = {
-        "wer": stats.wer, "errors": stats.errors, "ref_words": stats.ref_len,
-        "utterances_with_errors": sorted(
-            k for k in test_text if list(test_text[k]) != hyps[k]),
-        "noise": noise}
+    decode_and_score_chain.last_stats = _score_stats(stats, test_text, hyps, noise)
     log.info("minilib chain decode: %s over %.0f audio-s", stats.report(), audio_s)
     return stats.wer, audio_s
 
@@ -529,7 +603,8 @@ def rescore_and_score(
     lattice-lmrescore-const-arpa over the fglarge 4-gram).  Returns
     (WER before, WER after) over the first `num_utts` (0 = all) held-out
     utterances by name; the run's numbers, with the lattice oracle WER when
-    `compute_oracle`, land in `rescore_and_score.last_stats`.
+    `compute_oracle` and each utterance's live lattice records, land in
+    `rescore_and_score.last_stats`.
 
     timings: a dict that receives the host-clock seconds of each stage
     (`lm_estimate_seconds`, `arpa_parse_seconds`, `front_end_seconds`,
@@ -565,6 +640,7 @@ def rescore_and_score(
     resc_hyps: Dict[str, List[str]] = {}
     refs: Dict[str, List[str]] = {}
     oracle_errs = oracle_ref = 0
+    live: Dict[str, int] = {}
     by_dur = sorted(feats, key=lambda k: feats[k].shape[0])
     for lo in range(0, len(by_dur), batch):
         chunk = by_dur[lo: lo + batch]
@@ -580,6 +656,8 @@ def rescore_and_score(
         clock.lap(None)  # the decoder times its own stages
         for k, res in zip(keys, results):
             refs[k] = list(test_text[k])
+            if res is not None and res.token_lattice is not None:
+                live[k] = int((res.token_lattice.arc >= 0).sum())
             lat = (None if res is None or res.token_lattice is None
                    else lattice_from_token_records(system.csr, res.token_lattice))
             if lat is None:
@@ -610,7 +688,7 @@ def rescore_and_score(
     rescore_and_score.last_stats = {
         "before": before.wer, "after": after.wer,
         "oracle_wer": oracle_wer, "num_utts": len(keys_all),
-        "full_lm_order": order, "noise": noise,
+        "full_lm_order": order, "noise": noise, "live_records": live,
     }
     log.info("minilib rescore (%d utts, noise %s): pruned trigram %s → full "
              "%d-gram %s%s", len(keys_all), noise, before.report(), order,

@@ -32,7 +32,8 @@ def test_port_has_the_slice_modules():
                  "hmm.topology", "hmm.transition_model", "gmm.diag_gmm",
                  "ops.gmm_kernel", "recipes.decode", "recipes.chain",
                  "lat.lattice", "lat.determinize", "lat.rescore", "lm.arpa",
-                 "lm.ngram"):
+                 "lm.ngram", "ivector.extractor", "online.streaming",
+                 "models.streaming_am", "recipes.nnet3"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 
