@@ -33,7 +33,21 @@ durations: online/streaming.StreamingTokenDecoder fed the batch features in
 chain.mdl on chain_hclg.npz at frame-subsampling 3), whose words must equal
 the batch decode's; and online2, the OnlineFeaturePipeline with online
 iVectors fed 0.5 s of audio at a time into the streaming decoder with
-final_ivec.am.  --noisy also decodes the set re-synthesised at noise amplitude 400
+final_ivec.am.  Then forced alignment: the 600-utterance training set,
+synthesised from its seeds, through recipes/minilib.align_training_set with
+tri.mdl, with mono.mdl and as the equal alignment (features through the
+MFCC kernel, loglikes through the GMM kernel, a training graph per
+utterance from the native graph library, built from cpp/wfst.cc, and the
+alignment scan with the gather kernel three times a frame), each
+utterance's tids held to the port's alignment on the CPU (digests in this
+script); any utterance that differs is aligned once more on loglikes
+computed on the CPU, on both devices.  Then the gather and GMM kernels at
+the alignment's shapes, and bench.py's toy system (recipes/toy.py): 1,024
+utterances of 10 s of noise at 16 kHz through the MFCC kernel, a TDNN-F
+and the dense search at K = S; its lattice mode on loglikes synthesised
+from known sentences, whose lattices' best paths must be the decoder's
+words and whose words the CPU's; and the dense StreamingDecoder, whose
+words must be the batch decode's.  --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
 chunk's search under torch.profiler and reports the device-busy share (summed
@@ -49,12 +63,15 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
+import gzip
 import json
 import os
 import re
 import sys
 import time
+import zlib
 
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores, published peak
 H100_TF32_FLOPS = 495e12      # TF32 on the tensor cores, dense, published peak
@@ -140,6 +157,200 @@ ONLINE2_CPU_WORDS = {
     "test_0253": ("w00004 w15350 w00017 w00005 w05207 w00445 w15999 w10969 "
                   "w00000 w00004 w00002 w06160 w07682 w05743 w05489 w00223"),
 }
+# the alignment of each of the 600 training utterances (sorted by name) as the
+# port computes it on the CPU, as the CRC-32 of its tids (int32, little
+# endian), 8 hex digits an utterance, "--------" where it failed:
+# tests/test_torch_align.py::test_the_training_set_aligns_as_the_jax_package
+# (whose tids equal the JAX package's on the same loglikes, frame for frame)
+FAILED_DIGEST = "--------"
+ALIGN_CPU_DIGESTS = {
+    "align_tri": (
+        "152a5217c9d3c24c5df1a7ab246449a71dde9951ab29ddbcce14cc4a7eb62eab7b31bdb9a748d71c"
+        "768a20a1e909729166567694314852574e1bff2f661fba5e68a1fabbbb80d50cf0f42e9b1b4d1ac8"
+        "11348e84c19e8f8d483fbf687eb5c2b105e78e7fa31572eaa2e175ba6c7359f741a4417a869b6775"
+        "0935f6f55b880474cf191f15a7192d4986cd0678b193206064d01aeea6c41c1c492995fe174224e2"
+        "c2e5e05971bc2a51e25e2f2047bfa5fcfeef1a737732906f205ef056c215fed96c496d6dae918df4"
+        "4058aebb6f42cd9bc4f603736a993f8eac4ad63bda6f89e244c61c5429f29332ccc97cfe993aaf89"
+        "c5c63fa43abde8fb15bf21fd7984e63798d09e396ce35c0c370e200e95e89a0ef55d14f7e9b03a38"
+        "80a7d2206048c381011119c790354d99be63907f9bdf119147cc607211a7115702720cbc0b4900d8"
+        "031a1f03a9405b1ca1b49be5f7234840bc9b0c797111e86fb6f1eacf2dc83637cc65c07d77a243ec"
+        "08e4801ecb0cd70e7c264a33af30af09804475ed37e374a99a9958ae690c694d7f24a99f704b010a"
+        "0566b1e7c4a94add3920a5dc4c669d036ddccab17e5c0ac140163f93269e781a23d5406a2e8a010a"
+        "9c83a1cad6bab390609fa81a1f10179778f01b91999f717738c52ab65656059824ef3bf2d667387e"
+        "6899d761b38913b9412673ec1322fc8e9478cbb640205dd3dbac1ea632b706db04d3d3aa0c55864f"
+        "4ead1144675713c18bab85220a631c1befe99c5b28f7d6d156a269c7ada662177c083aac824969b1"
+        "db29fb86237f21b132eca6d30d8fafefac6fe6811cd8f571fb2d59313d71cfd1fdd353e10beb4d0d"
+        "4833c2fb70ab8b853067eba5fbcd6d86457e3d6d80a3ba56334f8bccb76a4403bf4072452e756032"
+        "609a1b2d30fcc111cc7f5ce430d496971e3f4cd2c897a884d62ee0b82dc5c7c70e17f5058b0539ce"
+        "e532b892f655b2e1738b79e1d53539a7a5813fd47ffdac5ed4804e31160f1a55ec3a5c3c7be4cd80"
+        "3d24ac9b47eaa96a49db43896cf4588b92c4f1a87b5337a619b5125ff672c917374deb79be16a986"
+        "616e53828e55afc247e98a4939781f49b0ae26ad65d2a352cfd403d4f92baedb5106f0e75fbd10aa"
+        "26e699436e8cd90f0ecf08697c5f5e76fd167e24aa613172bf2577dbc26eb04df344d7e9da1293cb"
+        "54918ceea3ec1b07a0cc6d289306eb5487b15c7b6d4adbe098852fc61a28c7f2e679325b0121cdb1"
+        "d79a34a1ea16d5778156fa705d7138e421ae8bac23c7bab7a859c1ef298313cdf383e8598359b862"
+        "d073a738ff24d7d9b11a89c05ea963e3ca4e7dafea372d2dacdf08762a75b24f235a6f3b1ca2a48b"
+        "80c534548479d24401d783133ff08e0471598e9c0f328e600e1b5ea7ec49e59817a73983692daf9c"
+        "113e0d227ca466fb50cd939b1562f1379fa9e63f31d69013db2253ad33aa116b6246c3f214ea1a54"
+        "22b5930bbf7e97ec329cad9f1a85ba251377064e2ec67a51655041b687f54a789521b955825a86fb"
+        "24092eaec59af9c82df6e574f4a22f4606e391fe25cebac26f2e7e30bc6f335e873226d54c6058e0"
+        "48fee32b365e426a713778d862c6a2efa2803685227ea770f07f2329fa4093db9e61934054a5e317"
+        "860db3824bbffe49a0e4d00a6d37fce3f0aad3615b6734e2903175f0dc22cae8dbe0c197e41f1557"
+        "06f3a907773ef296fe229892d135544d5e51d529f3c6ae2cd83bf154edf64f02041162a44269d9a1"
+        "3bd5ec48d15fcdcd753d51f22326fb11301c85cdf878e40560acb2895875e2e7f65a5f91348a7810"
+        "f9bd2ea88d3fddfd81e13ac110280711a21e30ccfa30fe04154ddcafd37208c444e37777536feadd"
+        "73ad29738aa966cb951709f54ed23069189c8ad0cddce62b3aa391106b69d903d8f265bb5d4edbd9"
+        "e5369b095500835e150e3403f93770d336f51fdd8fe416dd47df4140a113442e00eacc4e358cb81e"
+        "9218cc845edbc55733a6ddb0b9adfa548ba7afea7c15d4ca0655d27a5bd6fff551637205b9266a2b"
+        "f19ee83533454d28714e8edcb029ec99997219257e842c69aeaaf64ca646ba24c63c26fe302afca9"
+        "69693a59d386e1ebeb2e615656b25323d93a2cb19eb8556285ab9bb03a4b6ba1f673557c5136b825"
+        "cdfba2284eaa45e98deae6409ebf2c45de789b5ae57e641fc4d8396957cfa7e3138d1411ad6f55c3"
+        "c0167922ec3f6e818b3ad0d1b5d2d13322a081acec6eb35b8c139afefb107d9114742be5386b51d4"
+        "4e23b2aa3b7be16d8c86d38275fc446c9728749e3e098bfa9f7d6736d335a91f19dff1939b11aead"
+        "33fbebde5e156920fb306e22c326b1ee1b57fbed95ea2331bef89d0ac8323ffb8ea31fbe5d0cd0df"
+        "927eee2edc542c3eb0c31f5e118fc15f0efcd5f374332581715a122e39bdb2c449362cb8ced575bf"
+        "b33e56cf1a3d134ef30dbf83f98a7db2f9ede22d332d86fdf2bee607f74eb64e6dbc523ea97bf011"
+        "a1a13c453d85ba8e5d112311d84dfc68332d7e39209d78c7e445b11b8b9cc44dcf593f0bc7c87d6b"
+        "2874ff5dd0987edde288721f809724240f5af5b9d17ba0f44d7d30628704881695591b74f1eeb04e"
+        "ec3eaec8073b7198bfec6daa108c8e6489155cd084ee6e887296e3a059736327723c587fb4d6dce2"
+        "25fbd335ff9eb29989f4732168d8f4d25febeebc881b5aa4aca3678766f521b9dc406978aa8e3937"
+        "e58b9bb7d4ca7199e2db1e2d10b12a29600ce893ac4fe827399f30ca48a3d1d5270e619cdbf03d09"
+        "dd586a66fc464027084eabda5772c964187dbc3de51c8ecb60b67bb13152871257654650c591e5a5"
+        "d4afe868084074bee3846184342954ed94f4ac182439443983cc8eb988bd546dcea1a0ecd6505497"
+        "e46111f781c22d8cb4c97c15af8442280a45728b970382e2e966a57fd25036ea6755363180e1248d"
+        "a525527c32fa279833b0bb66efe6a54a14de85392ed05e61a2d1142319820c86b16446ef6a0706a7"
+        "9362eb2c742c5bde2c7cf618d5ff64695e4db1fa9af6c635ce96bc110e74e16311afabdc37796cc1"
+        "e1644f7d352383dafb856b46328cd9dfb06db5198b59de55dafef54719ff0398c76dddefcbd93f79"
+        "cf6e963cd79daf2986b3a847f7b183d58236664606bf280615def64953ff18c147bf662cd53be5ad"
+        "50b4e232f2185e2220f3857ab80220290e65f05ece4c9be7ddf5ed4aa046f13c1c014fd0a4f1e54f"
+        "92bdb0898514858eeb347b1acb3faa9e5a0554d2514ca3907c2ef1c7c7182fb4f5ac5a768f238e29"
+        "3d95a23165dbd381e99dd1003a05e98c26faa010abace4346a006da1a0ae83487b6f14d99f396b23"
+        "0690b2d77d1dddc5acd86e675dc551852966f1eeb9cdf07e4509e359791650239fbdff2836b49b0d"),
+    "align_mono": (
+        "d2b6c6bcfdc64e72ab30c668b6add90a5338d66f5fe398bc13a3dbc1b04a60d97cd451a3afd93191"
+        "67c6bbaed93a776b608f10b56b01a64dce70d1822809392122f28a9dd500db58ca92c79a9d8aa1c3"
+        "7f11f743b7f7b19381721d00738f9fe6a9c95ec7ad900d1b34b365439713307a84d7ee4c2f73cbe1"
+        "8216f145e4bbc95e323f0f3e3c097782e80d928dc8d832cc4bdf2dd7bd2c91f092a92480ae260b81"
+        "b50b788768e08e6ac2ff9a5c240c75f378576733eddcf4d2aaf56f2f08be0390e822abc982225cef"
+        "24e1d4042dbff62c07de9b8e73edecaca97fe1d5a6cc1ec82a9f66b3c4d421dadf3b6c5879bb3b07"
+        "76975f839ce4e5a5f0afe5bcb9944ba9f3d13c91ce2f3a0a70fb8a5f5040902c61982d8f6817ba7c"
+        "b9103fadc000d798416a8ae93b738ef83a35164e27b1227306aaee8fef24f15e43c16d050dae1e0b"
+        "7c7d69096ea69da72f6e0e7c7e695eea5a74e9f568641bbc69dadf76282368caea2d4563898c26b4"
+        "53e7f87daf1fbe8e386824aee7107d60218e6b1a55122f18753496d1d57b5ea387190fea9273fca8"
+        "c597eed3107416c8b847a32729dec4cc46d81afdd67745f5dd9414d71b899f312523a0946b23382a"
+        "3a39624063cdfb4df0a6e01ae542c3557b856090d4c22802999c8c6f836bc000e5c93434db938cda"
+        "7ceb5b94df4576edfadd299924f8f17432eb93b5ddeb599ec52b80779a9444a1fbd855ba42e78a22"
+        "b4da9e99f854a9878a608787a4971f6e1c511c523f8c0b2616719c356bd48f27c1d0fd5e6a336e04"
+        "9c970c496291e81e0118700a809916a7e76eb6bb1d61b6b395b2ec01d34cc56ede984bcf95a96208"
+        "382231449687553031a32c2de83f7e269d5c68339d6ece5f6aeeb63f4accf19159a115afa8d79881"
+        "903706015798036b9853984a447dc1d4c3bd81711fee28f0e6998d23f7e88c1f4cc7a13dbe8f95af"
+        "88a94eec2f84c8b17032a8978cd034d0b9c3e2a0a20ae0f2a780f21082969623846ec4c4675d8b62"
+        "078f741e71ff1a0e02dc3f9a05d95f84ec0abf97d97fe30c5667d2ff157b28c8940002a33dfa19f8"
+        "116323870589629c671031875c5c272917e4f57d9461fa293d6554f08f89bb2d50f6c22f86f243c6"
+        "b50abf70d0986042249c3241e5b8f6c275c8bc1ffaf99e64d393bc5c3fceef4e974ef525808f4d2d"
+        "511c03da36340cf6e2bb66c708adab5433ecedac26aa8e183a08704bd1bb609ce4d969bddafa88d4"
+        "d52b8e76132bbdedcd786928241786c93df08e907ad9d68857b37052f60c94021b92b43dfeea6859"
+        "91212d8e83f0339a6ba91f0d9d913a1fe39b7af5257352352d21a1044fc62627b564743d70668760"
+        "2ccf6709787bfc26082e6d3695a60a6876ef7ac544591fad49b025920ceb23e53f9578fd0e58835e"
+        "3692b5b11e6635e01b900c7fc7bfa7d16c28e7bd898d848916598485549d7104cadbc88d67e958d0"
+        "95631d96273c28106da9001f7201bf7736916a8be66d9f69a97bcf94848025f4490a37444fd15c55"
+        "b5f983bb21e7766e5c34725ba121179da5f3b1c57c8e3c00301360d7ce87091ff6b32fa497266936"
+        "e40110eb6e273a7eaf0ce16fbc4dd6fa231675c6b4b0c8895fa43f71c570d314721d8c7711f33774"
+        "c2679a9ae0a4c096cda45e212156068d0fb8d44397393588f4511bd6a266a60f2276cc5cd44d535c"
+        "4ece61152c61c15c2f9ff26fe740e59c29fc3be9dce0cfcf43d8a239559d9ee6628e0663de13afcb"
+        "aa3c9d47124a63f7d4a21604676a1600803fa10da0b4b484f168afc854b90d0568fd47180ab653c5"
+        "51f8404c1a69447960707b9a03800c4c3ebfcaa777aec9345dd5a4951de191c836d50153c2762800"
+        "c1f9abd23c17b24ee0918780cffcc3e40465cdc707eabad3d7c3fe9ad065a5ad966ac4c3f9dc450e"
+        "819772a600a9d760cb04dd81c564d259c09d01288696ca03cc2244238329c2a7cacdeeb6ecb8ed2a"
+        "2cc1437b9ee86fe19ff6b1a7a596672a76518527f5ed5842c441f1e863a3c5f629130bca471507f3"
+        "8e833eab6f51fc0b244337c98040bb866d9c0f57e4a5bdb056406add6060b326d00f73d61d25a523"
+        "dabb453969add3fd8063a1313c5e17fc61152e72360fca78b9a81ec6613ade3143685f824e0249a6"
+        "f9de484e8c7511897bd425c6f0a192bce3f539db99f63055eee75b6be5c9d7e560920d22721598dd"
+        "a548c84f2a7c9bafa7c47f515109bc8433d936e50bd564e8d0ce7304723c0d580430d9271e453696"
+        "2e4296825debf2fde4aec415a0c3222c8e3ddfc58398ee9b3755b359848ae5dfd806b21c5865e325"
+        "202e0a73ee29d40fe7cbd8da0fdb6bee323e8413aac033c2e2f77379cd8a2a59d17a6653fbc1aed5"
+        "c582a9481a8f2a3944d01d09bc29dddfb7f640bf52b8af2f1b9f41e0728eed3395dd3e482e05a841"
+        "d3793656b38d5b81ef58e8c3597792c619f26db6f5d34cfa0b7f9e2d97ab3b562a07d21ef886e95c"
+        "ccf996a5da443b3bd8dcad61d6beab90b18418f48df111a5635354958b04d40a078a69b065b7f6f8"
+        "620824754161e944605ed69f451b41abe4c620cc1226475e6346f7323998b147a0857a6a045b900b"
+        "55d4978d78bf685b895e820dbad609e346de6e09f1b354c20597463e6952bb68063b3c3f9a412c8c"
+        "88103dd6e1795c583796e1078762d795a4ad85b2c690a5966405036350239e024ad231f34cbf4570"
+        "0edc1a9294aadb60bb17df63269c310149b37b63cd30163deb3b2335c74190a84fc71910e59ddfad"
+        "02acd066629d82293a94302977858ea3c3bedfa6e624ce56cc282c3e7effe4f78fd0ba365d9ad393"
+        "3763b8231f69974038d854383ecf683226171876460f943de0860afec25b7e66f6446d31ffaa50bb"
+        "ff028063fbea1a6b5a69b7c96252bd758daf47774167f606fa1853d45658fcbfa163814b32274da9"
+        "a59807058b3ab37dff4e78547782802149f738bfcf79e915ce771356221c81b0fcf5f8894c8ab16d"
+        "bca449aff92302933fef799aa332665c30cfad5298a240e0b3c8019d626d057f024c5403c17b8611"
+        "7993efe1fc4e4aeeb93563d3012718657464d0143370c652d4052020cc51f2c02d2449737f493d25"
+        "a30a873a6cb3880166b1703170fdaa3e6eb07550c328eff97bb0e16fb8c801f172481e5d6f259df2"
+        "97a95217bcafbed8f11cb5437a0082de55f94c9f2423f566cb1de3e3fe040481aec7c95204d1a937"
+        "a63780a17d9e3e6c12ee0d98981cb5371e1365ffaa0939291db8f7d9a36984b159e4d37efb4bd197"
+        "68cf67f6d3ad0c8779008186ef1c2836741a22a2ac54ee6fb3a554b11936effe4d40e86fb79248b4"
+        "1c8e3372a20c00f74a23603068de4700b8b0fda07edd8c760fdf38d648cb5f657e5698a089c72521"),
+    "align_equal": (
+        "75f208a303afde8d55c635357e48dce6f6e80af6276baa925cb0caa93159d4caf14be4ae6f5a913b"
+        "2733c26b5b5ebec34f0c6be6e0ca265a29f2dd45dd099cf51780a720b6e3e863cddd5a108e374829"
+        "12d4829b9c43da9917e08f2540b7b32544efb12d8f92ab055184ffb6143a4b2d3e28cc65cda320ac"
+        "e3d74b1a7f31f36047d0ad7fd003860c1d7e0258eeecf063e80b59d4feb7baba0cb2c2640ed14162"
+        "bfa1b7fcbbfc64f45c699c4cd9538f3d70e791134a00af27ebe8b131e2712e82816fb45a21aea538"
+        "feb5aa84ee20df70e38315022792c674e94779ed116f5c724616369db21505f6cee7bb8b7fc2ad92"
+        "e05e611296e5db91b502fd696ff02b4a2fc94d7cd4f19ed2b9f47e2ab828f54519598efd0cb037ab"
+        "ac447c4052fcecc463fcc6207337fe3f14af482f61031db086f61582deb4a7153e3d8afc56673793"
+        "60aaa1276e4e6c057dacd04ba484402e498370dce2c2cda5a915e6a5b9bbfa28cc63c91b8b4ce378"
+        "6f498691f781b21cd314743eedcaa322e81eb0c09a61f6ba8c5b9b0bf41db51aaaa92c7d50f945ee"
+        "9f7f6baef55aefdb897545adfe4920ed25a26b3a2d51e56fd61f0bd08b6717c482e4b1ad0fc3cb8d"
+        "8723f8ec5e7abec170bc13fc5f04d8fec4402d45b3b3bde65595dea644d79db39347836a427e9dee"
+        "73164fc545e38226109e00100af101c42469aaf1e9d8cdd47bec1bd833f4348dca488f8c14296f5c"
+        "1e91a5b3083288a24d4135d9de1f14cd09233a660abf8a923393ba1544c3350e4a9004fbd0caba70"
+        "c49b87728893a032eb99918cb1e7925e45f9f0048566035cd22954a9890f033a95655e631682b70d"
+        "3c7c3795d09b15fa86a4308b3d377ce499062d5fc6a83aef0d8e48d958ae3e240fd38a40771ef09e"
+        "4a7682a2e7528c84fd660743cbaaf734b56b60c948021891e4b079bc197e62b42144d173420892e1"
+        "f88333e77c1256ffdce592dbf85253cc927e1cc92baed2a420cdb32a79d8e3c92997ad9422683663"
+        "97dbbbfe9139d4c17fd7838dd60a37f535845d7d593a81f722b0918272cf1441a4fce4fe04b5bf4d"
+        "06a7a55f073fa2e5b4371332cd58f78b0170c359aad5a67217fe8555fd51b752b7050439318f9873"
+        "f17584942cf65e3837bb9f904419825765260c36fcf6274a29b9d27c0c182a36649ab33181807a94"
+        "c2d42f2fd34c8b3572e1ed75338ec2e9d09aeb16148df442505591e4ed20444ec2ae7fa8615eff1f"
+        "30692a07988fcd786a95c89307dee59746572022dd118df60118cdbfecbb9426a79e6bd120ea7dfd"
+        "7610562b4a991caef64d7735c51c1617b2f711934204e9dcc07e8a1b9765278c769057db3232ed53"
+        "ed230150dd392d83cc16a190efaf8e8bba67fcbb316ab9e77b10c22154e155425638a1506a1e6dd3"
+        "801d5a2f28e91b80b49f67c60f05dcfa1eb2ac3d4dc655791daf01652694690787de405373ffc21b"
+        "80ee40b572368ac95da77aa29774e306da1ed5fd104b50f247896dcdef8bed099b97ed8b37cec1ff"
+        "52357cbee8c65ab7b2f2d94d7c3fcafa6881bf8130ef361723cda4d1c5b7704e26710f90834c08f4"
+        "d24c1dd20d83f89a9d34ab1c1aa7e768363cae274d608609df51c277e774a2b9015e1eb798988a16"
+        "70d1737e2fbe6fa18bfd063a3e236f4d92cc79d59c8382f12c0c49c6925dedac5bdc9dbd1ab06818"
+        "7e886d3d14e8354e9ee020fc3a462c3ca3ac4523b21336924cb73d7dd8abc819717c4d07d5628bb8"
+        "23cdf3544b31d827ba6466a59e8e4c8823fc455147dc4ff4e3d8730b7c3183f879dbfc219b1c571c"
+        "42c6571d3b82ebe18698369f02fc2f9110ef7c5c83aa8b3948a36d7e0d47cdb220573e63e471fde0"
+        "5e90686af2ee97edf39a6316ea06ddb62bb8395e3d28dd3156291bbed816e3b329d273546fe9bbc5"
+        "381e900d106f70e9ea37c8904e70b09fed9ccb63666f885698b6b938a2a269aea8f8cce24c4b8028"
+        "d34b4d539bd0a671abba6f3f7332ea566d28bbfdc1bdeabd562b1678c6c7ab3d0fb456609331a065"
+        "3a045fb7c17673ea0001a2b2c264d0c3fceb90c49f2fe2f2652bd3e01f36dea50ff36a25b9a2f6db"
+        "0eebf9752aa2e1a29d0e8ea2cc5ab665158b6356006ec3399c7dcb9dbeda44e8d20b1f6ef2962c69"
+        "08e7437c68b79dabeca20e527754e74961a3ee864edee6ca7d8977af153ddf1a1e05fa933f682b6d"
+        "2f8894b6da0b4a921a747bfdbd477e28091eb2284d97f1daaed83c0d378728a9be6d7d119d7fe6ef"
+        "6edf914c75d253a8b9b1e6c33fd113fe1e434a294d99f6e2fb5a1524157679eab177fc508696d062"
+        "3dc8ad360185d4e6f42b20737ef6269c7f63cd0de6b85c2282bbacff09e7362fd99310fd3a46ec79"
+        "d1fd3a40a83dc65263b72b4c8b292db5d1d6bb65739e01f36fd7c15e3fe88cd0523d6665be2fb8b8"
+        "1949f747c588a550cadf8d6b2b2c33a6b87d010b2edb5bab9ec4b0150dd4506c8da82dec5befab2a"
+        "e5f28b23767778df1011b7268d519f52a5fdca557e7d1ca23da30e80e1dbd72877736a507137eb54"
+        "ffb812f99b94c7acc26a48dc8c001f82018099680985b78003b6178ff38565b4012911b8367d58d8"
+        "8a02ab191ebb0067457d5511d22384ad18a4f3940f577917f91a0e6d3d260a3deff78eaa557f0e34"
+        "48814c240781c4b46d11ca6fa8006b494c92fa17ae45630fc08f0b61f932b5ac943fa53fde099d8f"
+        "0893a743c02530f61c2bab1983ebe6f0d0311bcacf11d19847e723a8162a3a8528cf826d7e0b0a07"
+        "55501158bfeb12467a97e1e6489d216d0e5ee24361c622b3f57fe6a7d2077806e399e0d4e92fea60"
+        "f302a2f20131a50de39846f584b0283f3bfeebe9fea12eb6de00826b72121a2669a779b8872bf639"
+        "b4843d919573110d51eb6bf1e70370b5a48a470470107b71b89a6b16fb02eba3c628491a412a0b5f"
+        "997be5dcecd6162a63f8bfc0f36e7085c7a53cc4d58bf3c0660d5b5ebf5744db61b29e16ff5ba233"
+        "17fe70047d6b8c6cdf6e105ab075071dcbc177ff9cb4dea5d5b5c45826b0b989fe73d197baa744a4"
+        "4c9bd7940088ea98924251169a997034aaf68257394a6ea3b0b48df238348de162a84bf14f2c8e02"
+        "fa92caa643b856f75d167de371decef214467ea18c3d848ddc02dc0f8683a6b6032d3dfcb2faa1d8"
+        "73fdcc46c595e0095bfa5c848050b9230e35521a58672c285dd3aae92591c14f0ac550e344515c3e"
+        "0516129d036e4db9f315b9695e2cb53d2d89ee5d021fd8e15177733dcc52ae0003866e2856dda671"
+        "724ba683e4544fb4a08043b7c53d7e60679cf90086d4199e6b78589fe612ed01a6c4a51bf61327a0"
+        "32f2484507a7984006d6677c451bcd4dcad058d90ec2f06599bcf00688b5728d180116f4424807f8"),
+}
+# bench.py's run_toy: 1,024 utterances of 10 s of noise at 16 kHz
+TOY_BATCH, TOY_SECONDS = 1024, 10.0
+TOY_LATTICE_UTTS, TOY_LATTICE_MAX_ACTIVE = 16, 256
 GMM_MAX_ERRORS = 2  # 0.07 % of 2,868 words; the JAX package makes 0 with tri.mdl
 GMM_TOL = (2e-3, 2e-3)  # |kernel - plain| <= atol + rtol·|plain| (tests/test_ops.py)
 MFCC_TOL = 1e-3  # |kernel - plain| on every cepstrum (tests/test_ops.py: 1e-3 + 1e-3·|ref|)
@@ -170,6 +381,46 @@ def time_ms(torch, fn, reps: int = 30, warm: int = 3, plug=None) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ali_digest(tids) -> str:
+    """An alignment's digest, as ALIGN_CPU_DIGESTS holds them."""
+    return FAILED_DIGEST if tids is None else f"{zlib.crc32(tids.astype('<i4').tobytes()):08x}"
+
+
+def cpu_digests(name: str) -> list:
+    d = re.sub(r"\s", "", ALIGN_CPU_DIGESTS[name])
+    return [d[i: i + 8] for i in range(0, len(d), 8)]
+
+
+def committed_agreement(np, convert, path: str, alignments: dict, tid2pdf) -> tuple:
+    """(frames with the same pdf, frames compared) between `alignments` and
+    a committed alignment pickle (gzip, {utt: tids}) of the same model."""
+    with gzip.open(path, "rb") as f:
+        committed = convert.StubUnpickler(f).load()
+    same = compared = 0
+    for k, a in alignments.items():
+        if k in committed:
+            b = np.asarray(committed[k])
+            n = min(len(a), len(b))
+            same += int((tid2pdf[a[:n]] == tid2pdf[b[:n]]).sum())
+            compared += n
+    return same, compared
+
+
+def end_state_words(np, csr, res) -> list:
+    """The words on the eps path from a lattice-mode decode's end state to
+    the final state (`final_olabels`), its end state found again among its
+    last frame's kept states as decode_batch chooses it.  The decoder's
+    words end with them; lat.lattice_from_decode, like the JAX package's,
+    gives a lattice's finals no words (ROADMAP queue 3), so its best path
+    plus these is the decoder's words."""
+    states, costs = res.frame_states[-1], res.frame_costs[-1]
+    fw = np.where(np.isfinite(csr.final_weight), csr.final_weight, 1e10)
+    total = np.where(states >= 0, costs + fw[np.maximum(states, 0)], np.inf)
+    if not total.min() < 1e10:
+        return []
+    return list(csr.final_olabels[int(states[np.argmin(total)])])
 
 
 def check_gather(torch, gather, plain, cases, seed: int = 0):
@@ -474,16 +725,18 @@ def main() -> int:
     from old_kaldi_git_tpu_torch import convert
     from old_kaldi_git_tpu_torch.decoder.csr import build_tile_graph
     from old_kaldi_git_tpu_torch.decoder.viterbi import (
-        ViterbiOptions, _token_budget, decode_batch_tokens)
+        ViterbiOptions, _token_budget, align_batch, align_shape, decode_batch,
+        decode_batch_tokens)
     from old_kaldi_git_tpu_torch.device import card_name_and_power_limit
     from old_kaldi_git_tpu_torch.feat import MfccOptions, extract_frames
     from old_kaldi_git_tpu_torch.feat.window import num_frames
+    from old_kaldi_git_tpu_torch.fst import native
     from old_kaldi_git_tpu_torch.ivector.extractor import OnlineIvectorExtractor
     from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
     from old_kaldi_git_tpu_torch.online.streaming import (
-        OnlineFeaturePipeline, StreamingTokenDecoder)
+        OnlineFeaturePipeline, StreamingDecoder, StreamingTokenDecoder)
     from old_kaldi_git_tpu_torch.lat.lattice import (
-        lattice_best_path, lattice_from_token_records)
+        lattice_best_path, lattice_from_decode, lattice_from_token_records)
     from old_kaldi_git_tpu_torch.ops import _build
     from old_kaldi_git_tpu_torch.ops.gather_kernel import (
         batched_table_gather, batched_table_gather_plain)
@@ -491,7 +744,7 @@ def main() -> int:
     from old_kaldi_git_tpu_torch.ops.mfcc_kernel import (
         fused_mfcc_from_frames, fused_mfcc_reference, make_mfcc_weights, mel_spans,
         mfcc_route)
-    from old_kaldi_git_tpu_torch.recipes import decode, minilib
+    from old_kaldi_git_tpu_torch.recipes import decode, minilib, toy
     from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
     from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer, edit_distance
 
@@ -499,12 +752,17 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_name_and_power_limit()
 
-    # ---- phase 1: device, build --------------------------------------------
-    _build.build()
+    # ---- phase 1: device, build: the CUDA kernels and, beside them in a
+    # thread, the native graph library the training graphs need
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        graph_lib = pool.submit(native.build)
+        _build.build()
+        graph_lib.result()
     logs = _build.build_logs()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "kernel_build_seconds": round(_build.build_seconds, 2),
+          "graph_library_build_seconds": round(native.build_seconds, 2),
           "ptxas": {"gather": ptxas_by_entry(logs.get("gather", "")),
                     "mfcc": ptxas_by_entry(logs.get("mfcc", "")),
                     "gmm": ptxas_by_depth(logs.get("gmm", ""))}})
@@ -1218,6 +1476,276 @@ def main() -> int:
     del odec, sdec, cdec
     torch.cuda.empty_cache()
 
+    # ---- phases 15-17: forced alignment of the 600-utterance training set
+    # (waveform → features through K2 → loglikes through K3 → per-utterance
+    # training graphs → the alignment scan, K1 three times a frame) with
+    # tri.mdl, mono.mdl and as the equal alignment; counts set to 0 just
+    # before each, features included
+    topts = minilib.MinilibOptions()
+    twaves, ttext = minilib.training_set(topts)
+    taudio_s = sum(len(w) for w in twaves.values()) / minilib.SAMP_FREQ
+    t0 = time.perf_counter()
+    lang = minilib.make_lang(topts)
+    lang_s = time.perf_counter() - t0
+    a_launches, a_results, a_differ = {}, {}, {}
+    for name, model, equal, committed in (
+            ("align_tri", "tri", False, "tri_ali.pkl"),
+            ("align_mono", "mono", False, "mono_ali.pkl"),
+            ("align_equal", "mono", True, "mono_ali.pkl")):
+        zero_counts()
+        gmm_loglikes.launches = 0
+        t0 = time.perf_counter()
+        tfeats = minilib.compute_feats(twaves, device=dev)
+        torch.cuda.synchronize()
+        fe_s = time.perf_counter() - t0
+        res = minilib.align_training_set("exp/minilib", tfeats, ttext, model=model,
+                                         equal=equal, lang=lang, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(name)
+        launches["gmm"] = gmm_loglikes.launches
+        keys = sorted(tfeats)
+        got = [ali_digest(res.alignments.get(k)) for k in keys]
+        want = cpu_digests(name)
+        differ = [k for k, g, w in zip(keys, got, want) if g != w]
+        frames = sum(f.shape[0] for f in tfeats.values())
+        tid2pdf = convert.load_am_gmm_model(f"exp/minilib/{model}.mdl",
+                                            device="cpu").tm.tid_to_pdf_array()
+        same, compared = committed_agreement(np, convert, f"exp/minilib/{committed}",
+                                             res.alignments, tid2pdf)
+        emit({"phase": name, "card": card, "model": f"exp/minilib/{model}.mdl",
+              "equal_alignment": equal, "utterances": len(keys), "frames": frames,
+              "failures": len(res.failed), "cpu_failures": want.count(FAILED_DIGEST),
+              "frames_scanned": res.frames_scanned, "audio_seconds": taudio_s,
+              "wall_seconds": wall, "front_end_seconds": fe_s, "lang_build_seconds": lang_s,
+              **res.seconds,
+              "align_audio_seconds_per_second": taudio_s / res.seconds["align_seconds"],
+              "utterances_differing_from_cpu": differ,
+              f"pdf_agreement_with_{committed}": same / max(compared, 1),
+              "frames_compared_with_committed": compared,
+              "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+              "gather_launches": launches["gather"], "mfcc_launches": launches["mfcc"],
+              "gmm_launches": launches["gmm"],
+              "mfcc_launches_by_route": launches["mfcc_by_route"]})
+        if launches["gather"] != 3 * res.frames_scanned:
+            raise RuntimeError(f"{name}: {launches['gather']} gather launches for "
+                               f"{res.frames_scanned} frames (three a frame expected)")
+        if launches["mfcc"] == 0 or (launches["gmm"] == 0) != equal:
+            raise RuntimeError(f"{name} did not go through its kernels: {launches}")
+        if len(res.failed) != want.count(FAILED_DIGEST):
+            raise RuntimeError(f"{name}: {len(res.failed)} failures, the CPU "
+                               f"{want.count(FAILED_DIGEST)}")
+        a_launches[name], a_results[name], a_differ[name] = launches, res, differ
+        del tfeats
+    torch.cuda.empty_cache()
+
+    # ---- phase 18: where an utterance's tids differ from the CPU's, its
+    # loglikes computed on the CPU, aligned on both devices: they must agree
+    trace = {}
+    t0 = time.perf_counter()
+    for name, differ in a_differ.items():
+        if not differ:
+            continue
+        res = a_results[name]
+        model, equal = ("tri", False) if name == "align_tri" else ("mono", name == "align_equal")
+        cfeats = minilib.compute_feats({k: twaves[k] for k in differ}, device="cpu")
+        ckeys, cpad, cnf = pad_feature_batch(cfeats)
+        cpu_gmm = convert.load_am_gmm_model(f"exp/minilib/{model}.mdl", device="cpu")
+        cll = (torch.zeros((len(ckeys), cpad.shape[1], cpu_gmm.am.num_pdfs)) if equal
+               else cpu_gmm.am.loglikes_batch(torch.from_numpy(cpad)))
+        vopts = ViterbiOptions(acoustic_scale=1.0 if equal else 0.1)
+        graphs = [res.graphs[k] for k in ckeys]
+        on_cpu = align_batch(graphs, cll, cnf, vopts, device="cpu")
+        on_card = align_batch(graphs, cll.to(dev), cnf, vopts, device=dev)
+        want = dict(zip(sorted(twaves), cpu_digests(name)))
+        trace[name] = {k: {"card": ali_digest(res.alignments.get(k)), "cpu": want[k],
+                           "cpu_search_on_cpu_loglikes": ali_digest(a),
+                           "card_search_on_cpu_loglikes": ali_digest(b),
+                           "scores_equal": sa == sb}
+                       for k, a, b, sa, sb in zip(ckeys, on_cpu[0], on_card[0],
+                                                  on_cpu[1], on_card[1])}
+    emit({"phase": "align_trace", "card": card, "by_phase": trace,
+          "seconds": time.perf_counter() - t0})
+    for name, by_utt in trace.items():
+        for k, t in by_utt.items():
+            if (t["card_search_on_cpu_loglikes"] != t["cpu_search_on_cpu_loglikes"]
+                    or not t["scores_equal"]):
+                raise RuntimeError(f"{name} {k}: the card's alignment on the CPU's "
+                                   f"loglikes is not the CPU's: {t}")
+
+    # ---- phase 19: K1 and K3 at the alignment's shapes against their plain
+    # versions: K1 on the frame's loglike row (read in place), the alpha
+    # before and after it, at the padded [B, S] and [B, A] of each model's
+    # graphs; K3 on the training set's padded features with tri.mdl and
+    # mono.mdl (mono: 125 pdfs of more Gaussians each, another packing)
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    k1_align, k3_align = {}, {}
+    tfeats = minilib.compute_feats(twaves, device=dev)
+    _, tpad, tnf = pad_feature_batch(tfeats)
+    tx = torch.from_numpy(tpad.reshape(-1, tpad.shape[-1])).to(dev)
+    del tfeats, tpad
+    ab = len(tnf)
+    k1_align_err = 0.0
+    for name in ("align_tri", "align_mono"):
+        S, A = align_shape(list(a_results[name].graphs.values()))
+        gmm_model = convert.load_am_gmm_model(
+            f"exp/minilib/{'tri' if name == 'align_tri' else 'mono'}.mdl", device=dev)
+        Pa = gmm_model.am.num_pdfs
+        k1_align_err = max(k1_align_err, check_gather(
+            torch, batched_table_gather, batched_table_gather_plain,
+            [(ab, Pa, A, 3, 1), (ab, S, A, 1, 0), (ab, Pa, A - 3, 3, 2)], seed=9))
+        k1_align[name] = {"loglikes": gather_at(ab, Pa, A, int(tnf.max())),
+                          "alpha": gather_at(ab, S, A, 1)}
+        gw_a = gmm_model.am.weights()
+        err, share = check_gmm(torch, gmm_loglikes, gmm_loglikes_plain, [(tx, gw_a)])
+        n3, d3 = tx.shape
+        flops = 2 * n3 * gw_a.num_gauss * (2 * d3 + 1)
+        nbytes = 4 * (n3 * d3 + n3 * gw_a.num_pdfs) + sum(
+            t.numel() * t.element_size()
+            for t in (gw_a.tiles, gw_a.segments, gw_a.seg_offsets, gw_a.work,
+                      gw_a.work_offsets))
+        ops_ms = 1e3 * TF32_SPLIT_PRODUCTS * flops / H100_TF32_FLOPS
+        bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_PER_S
+        k3_align[name] = {
+            "shape": {"frames": n3, "dim": d3, "pdfs": gw_a.num_pdfs,
+                      "gaussians": gw_a.num_gauss, "tiles": gw_a.num_tiles,
+                      "padded_mixtures": gw_a.max_mix},
+            "max_abs_err": err, "worst_share_of_tolerance": share,
+            "kernel_ms": time_ms(torch, lambda: gmm_loglikes(tx, gw_a), reps=5, plug=plug),
+            "plain_ms": time_ms(torch, lambda: gmm_loglikes_plain(tx, gw_a), reps=1,
+                                warm=1, plug=plug),
+            "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        del gmm_model, gw_a
+    del plug, tx
+    torch.cuda.empty_cache()
+    emit({"phase": "align_kernels", "card": card, "batch": ab,
+          "gather": {"exact": k1_align_err == 0.0, "max_abs_err": k1_align_err,
+                     **k1_align},
+          "gmm": k3_align, "tolerance": f"{GMM_TOL[0]} + {GMM_TOL[1]}*|plain|",
+          "timing": "mean of back-to-back launches, inputs resident in L2"})
+
+    # ---- phases 20-22: the fused toy pipeline (bench.py's run_toy), its
+    # lattice mode and the dense StreamingDecoder on the toy graph
+    t0 = time.perf_counter()
+    toy_system = toy.build_toy_system(device=dev)
+    toy_build_s = time.perf_counter() - t0
+    tgen = torch.Generator(device="cuda").manual_seed(1)
+    toy_waves = 2000.0 * torch.randn((TOY_BATCH, int(TOY_SECONDS * 16000)), device=dev,
+                                     generator=tgen)
+    toy.decode_toy(toy_system, toy_waves[:2])  # warm-up: cuBLAS handles, kernels loaded
+    zero_counts()
+    t0 = time.perf_counter()
+    ystages = {}
+    yres = toy.decode_toy(toy_system, toy_waves, timings=ystages)
+    torch.cuda.synchronize()
+    ywall = time.perf_counter() - t0
+    y_launches = read_counts("decode_toy")
+    y_peak = torch.cuda.max_memory_allocated()
+    # K2 at the toy's shape: every frame of the 1,024 waves at W = 512
+    yframes, _ = extract_frames(toy_waves, opts16.frame_opts)
+    yframes = yframes.reshape(-1, yframes.shape[-1])
+    del toy_waves
+    y_err, y_err64, _ = check_mfcc(torch, fused_mfcc_from_frames, fused_mfcc_reference,
+                                   [(yframes, w16, w16d, True)])
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    yn = yframes.shape[0]
+    y_bytes_ms = 1e3 * 4 * yn * (512 + w16[3].shape[1]) / H100_HBM_BYTES_PER_S
+    y_ops_ms = 1e3 * mfcc_flops(yn, 512, int(mel_spans(w16[2].cpu().numpy())[:, 1].sum()),
+                                w16[2].shape[1], w16[3].shape[1]) / H100_FP64_FLOPS
+    k2_toy = {"shape": [yn, 512], "max_abs_err": y_err,
+              "max_abs_err_vs_float64_plain": y_err64,
+              "kernel_ms": time_ms(torch, lambda: fused_mfcc_from_frames(yframes, w16),
+                                   reps=5, plug=plug),
+              "plain_ms": time_ms(torch, lambda: fused_mfcc_reference(yframes, w16),
+                                  reps=2, warm=1, plug=plug),
+              "library_ms": None, "bound_ms": max(y_bytes_ms, y_ops_ms),
+              "bound_by": "operations" if y_ops_ms >= y_bytes_ms else "bytes"}
+    del yframes, plug
+    torch.cuda.empty_cache()
+    emit({"phase": "decode_toy", "card": card, "batch": TOY_BATCH,
+          "seconds_each": TOY_SECONDS, "graph_states": toy_system.csr.num_states,
+          "graph_arcs": toy_system.csr.num_arcs, "K": toy_system.csr.num_states,
+          "beam": toy.BEAM, "decoded": sum(r is not None for r in yres),
+          "wall_seconds": ywall, **ystages,
+          "audio_seconds_per_second": TOY_BATCH * TOY_SECONDS / ywall,
+          "build_seconds": toy_build_s, "mfcc_at_this_shape": k2_toy,
+          "peak_device_memory_bytes": y_peak,
+          "gather_launches": y_launches["gather"], "mfcc_launches": y_launches["mfcc"],
+          "mfcc_launches_by_route": y_launches["mfcc_by_route"]})
+    if y_launches["mfcc"] == 0:
+        raise RuntimeError(f"the toy pipeline did not go through the MFCC kernel: {y_launches}")
+    del yres
+
+    lrng = np.random.default_rng(5)
+    vocab = sorted(w for w in toy_system.lang.words.symbols() if w.startswith("w"))
+    lsents = [[vocab[i] for i in lrng.integers(0, len(vocab), lrng.integers(2, 7))]
+              for _ in range(TOY_LATTICE_UTTS)]
+    lll, lnf = toy.synthetic_loglikes(toy_system, lsents, seed=6)
+    lopts = ViterbiOptions(beam=toy.BEAM, max_active=TOY_LATTICE_MAX_ACTIVE,
+                           acoustic_scale=1.0)
+    zero_counts()
+    t0 = time.perf_counter()
+    card_res = decode_batch(toy_system.csr, lll, lnf, lopts, want_lattice=True, device=dev)
+    torch.cuda.synchronize()
+    lwall = time.perf_counter() - t0
+    tl_launches = read_counts("toy_lattice")
+    cpu_res = decode_batch(toy_system.csr, lll, lnf, lopts, want_lattice=True, device="cpu")
+    t0 = time.perf_counter()
+    ldiff, lbest, lright, larcs = [], [], 0, 0
+    for i, (r, c) in enumerate(zip(card_res, cpu_res)):
+        if (r is None) != (c is None) or (r is not None and r.words != c.words):
+            ldiff.append(i)
+        lat = None if r is None else lattice_from_decode(
+            toy_system.csr, lll[i, : lnf[i]], r.frame_states, r.frame_costs, 1.0,
+            lattice_beam=8.0)
+        larcs += 0 if lat is None else lat.num_arcs
+        if lat is None or (lattice_best_path(lat, 1.0, 1.0)[0]
+                           + end_state_words(np, toy_system.csr, r)) != r.words:
+            lbest.append(i)
+        lright += r is not None and [toy_system.lang.words[w] for w in r.words] == lsents[i]
+    emit({"phase": "toy_lattice", "card": card, "utterances": len(lsents),
+          "frames": int(lnf.sum()), "max_active": TOY_LATTICE_MAX_ACTIVE,
+          "K": min(TOY_LATTICE_MAX_ACTIVE, toy_system.csr.num_states),
+          "decode_seconds": lwall, "lattice_build_seconds": time.perf_counter() - t0,
+          "lattice_arcs": larcs, "utterances_with_the_sentence": int(lright),
+          "words_differing_from_cpu": ldiff, "best_path_differing_from_decoder": lbest,
+          "gather_launches": tl_launches["gather"]})
+    if ldiff or lbest:
+        raise RuntimeError(f"toy lattices: card words differ from the CPU's on {ldiff}, "
+                           f"best paths differ from the decoder's on {lbest}")
+
+    sopts = ViterbiOptions(beam=toy.BEAM, max_active=toy_system.csr.num_states,
+                           acoustic_scale=1.0)
+    want = decode_batch(toy_system.csr, lll, lnf, sopts, device=dev)
+    sdense = StreamingDecoder(toy_system.csr, lambda x: x, [toy_system.lang.silence_id],
+                              toy_system.tm.tid_to_phone_array(), sopts,
+                              chunk_quantum=STREAM_CHUNK, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    sd_differ, sd_frames = [], 0
+    for i in range(len(lsents)):
+        sdense.reset()
+        x = lll[i, : lnf[i]]
+        for lo in range(0, len(x), STREAM_CHUNK):
+            sdense.advance(x[lo: lo + STREAM_CHUNK], final=lo + STREAM_CHUNK >= len(x))
+        sd_frames += len(x)
+        if sdense.best_words() != (want[i].words if want[i] is not None else []):
+            sd_differ.append(i)
+    torch.cuda.synchronize()
+    sd_wall = time.perf_counter() - t0
+    sd_launches = read_counts("stream_dense")
+    emit({"phase": "stream_dense", "card": card, "utterances": len(lsents),
+          "frames": sd_frames, "chunk_frames": STREAM_CHUNK, "K": sdense.K,
+          "wall_seconds": sd_wall, "ms_per_frame": 1e3 * sd_wall / sd_frames,
+          "utterances_differing_from_batch": sd_differ,
+          "gather_launches": sd_launches["gather"]})
+    if sd_differ:
+        raise RuntimeError(f"stream_dense: utterances {sd_differ} differ from the batch decode")
+    del sdense, toy_system
+    torch.cuda.empty_cache()
+
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
@@ -1225,7 +1753,10 @@ def main() -> int:
          "launches": (k1_launches + g_launches["gather"] + c_launches["gather"]
                       + l_launches + r_launches["gather"] + iv_launches["gather"]
                       + civ_launches["gather"] + s_launches["stream"]["gather"]
-                      + s_launches["stream_chain"]["gather"] + o_launches["gather"]),
+                      + s_launches["stream_chain"]["gather"] + o_launches["gather"]
+                      + sum(a["gather"] for a in a_launches.values())
+                      + y_launches["gather"] + tl_launches["gather"]
+                      + sd_launches["gather"]),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -1234,20 +1765,27 @@ def main() -> int:
                               "decode_chain_ivec": civ_launches["gather"],
                               "stream": s_launches["stream"]["gather"],
                               "stream_chain": s_launches["stream_chain"]["gather"],
-                              "online2": o_launches["gather"]},
-         "max_abs_err": k1_err, "ms": k1_ms,
+                              "online2": o_launches["gather"],
+                              **{n: a["gather"] for n, a in a_launches.items()},
+                              "decode_toy": y_launches["gather"],
+                              "toy_lattice": tl_launches["gather"],
+                              "stream_dense": sd_launches["gather"]},
+         "max_abs_err": max(k1_err, k1_align_err), "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
          "at_other_shapes": {"decode_chain": k1_chain, "rescore": k1_rescore,
                              "decode_ivec": k1_ivec, "stream": k1_stream,
-                             "stream_chain": k1_stream_chain}},
+                             "stream_chain": k1_stream_chain,
+                             **{f"{n}_{k}": v for n, g in k1_align.items()
+                                for k, v in g.items()}}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
          "launches": (k2_launches + g_launches["mfcc"] + c_launches["mfcc"]
                       + r_launches["mfcc"] + iv_launches["mfcc"] + civ_launches["mfcc"]
                       + s_launches["stream"]["mfcc"] + s_launches["stream_chain"]["mfcc"]
-                      + o_launches["mfcc"]),
+                      + o_launches["mfcc"] + sum(a["mfcc"] for a in a_launches.values())
+                      + y_launches["mfcc"] + tl_launches["mfcc"] + sd_launches["mfcc"]),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -1255,26 +1793,34 @@ def main() -> int:
                               "decode_chain_ivec": civ_launches["mfcc"],
                               "stream": s_launches["stream"]["mfcc"],
                               "stream_chain": s_launches["stream_chain"]["mfcc"],
-                              "online2": o_launches["mfcc"]},
+                              "online2": o_launches["mfcc"],
+                              **{n: a["mfcc"] for n, a in a_launches.items()},
+                              "decode_toy": y_launches["mfcc"],
+                              "toy_lattice": tl_launches["mfcc"],
+                              "stream_dense": sd_launches["mfcc"]},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
-                 s_launches["stream"], s_launches["stream_chain"], o_launches))
+                 s_launches["stream"], s_launches["stream_chain"], o_launches,
+                 *a_launches.values(), y_launches, tl_launches, sd_launches))
              for r in k2_routes},
-         "max_abs_err": k2_err, "ms": k2_ms,
+         "max_abs_err": max(k2_err, y_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": "operations" if k2_ops_ms >= k2_bytes_ms else "bytes",
-         "library_ms": None},
+         "library_ms": None, "at_other_shapes": {"decode_toy": k2_toy}},
         {"name": "gmm_loglikes", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gmm.cu",
          "replaces": "old_kaldi_git_tpu/ops/gmm_kernel.py:125",
-         "launches": k3_tdnn_launches + g_launches["gmm"],
+         "launches": (k3_tdnn_launches + g_launches["gmm"]
+                      + sum(a["gmm"] for a in a_launches.values())),
          "launches_by_path": {"decode": k3_tdnn_launches,
-                              "decode_gmm": g_launches["gmm"]},
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+                              "decode_gmm": g_launches["gmm"],
+                              **{n: a["gmm"] for n, a in a_launches.items()}},
+         "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]),
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": max(k3_ops_ms, k3_bytes_ms),
          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
-         "library_ms": None},
+         "library_ms": None, "at_other_shapes": k3_align},
     ]})
     if args.noisy:
         waves, text = minilib.make_test_set(minilib.MinilibOptions(),

@@ -9,7 +9,8 @@ Three things:
   an Unpickler whose `find_class` maps every `old_kaldi_git_tpu.*` class to
   a plain stub that keeps the pickled `__dict__`.  `final.am` pickles
   `models.tdnn.TdnnConfig`/`TdnnLayerSpec`; `tree.pkl` pickles
-  `(ContextDependency, TransitionModel)`.
+  `(ContextDependency, TransitionModel)`, whose tree becomes the port's
+  classes through `context_dependency_from_pickle`.
 * GMM models: `am_diag_gmm_from_jax` from per-pdf (weights, means, vars)
   arrays, as the JAX package's DiagGmms hold them; `load_am_gmm_model` reads
   a binary `.mdl` (TransitionModel + AmDiagGmm) with the port's own reader.
@@ -28,6 +29,9 @@ from old_kaldi_git_tpu_torch.device import DeviceLike
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm, AmGmmModel, DiagGmm
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
 from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnLayerSpec, TdnnModel
+from old_kaldi_git_tpu_torch.tree.context_dep import ContextDependency
+from old_kaldi_git_tpu_torch.tree.event_map import (
+    ConstantEventMap, EventMap, SplitEventMap, TableEventMap)
 
 JAX_PACKAGE = "old_kaldi_git_tpu"
 
@@ -180,3 +184,25 @@ def load_am_gmm_model(path: str, device: DeviceLike = None) -> AmGmmModel:
     """A GMM `.mdl` written by the JAX package (or by Kaldi) → the port's
     AmGmmModel, read without the JAX package."""
     return AmGmmModel.load(path, device)
+
+
+def _event_map_from_stub(node: Any) -> EventMap:
+    """A pickled TableEventMap / SplitEventMap / ConstantEventMap stub (and
+    its children) → the port's EventMap classes."""
+    kind = type(node).__name__
+    if kind == "ConstantEventMap":
+        return ConstantEventMap(int(node.answer))
+    if kind == "TableEventMap":
+        return TableEventMap(int(node.key), {int(v): _event_map_from_stub(c)
+                                             for v, c in node.table.items()})
+    if kind == "SplitEventMap":
+        return SplitEventMap(int(node.key), {int(v) for v in node.yes_set},
+                             _event_map_from_stub(node.yes),
+                             _event_map_from_stub(node.no))
+    raise ValueError(f"not an EventMap stub: {kind}")
+
+
+def context_dependency_from_pickle(stub: Any) -> ContextDependency:
+    """The stub of a pickled ContextDependency (`tree.pkl`'s first item) →
+    the port's ContextDependency."""
+    return ContextDependency(int(stub.N), int(stub.P), _event_map_from_stub(stub.root))

@@ -1,1 +1,2 @@
-"""Decoding-graph arrays and the token-sparse beam search of the port."""
+"""Decoding-graph arrays, the graph compiler and the searches of the port:
+token-sparse, dense and top-K beam decoding, and forced alignment."""

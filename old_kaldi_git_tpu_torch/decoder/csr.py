@@ -4,9 +4,9 @@ old_kaldi_git_tpu/decoder/csr.py that the decoder reads).
 The decoder consumes graphs as CSR arrays whose epsilon arcs were eliminated
 up front by forwarding: every state's outgoing arc set is
 { eps-closure ∘ emitting arc }, with closure weights folded in and the
-closure's output labels remembered on the host for word recovery.  Building
-such a graph from an FST stays with the graph plane; this module holds the
-container, the flat output-label store and the per-state tile layout.
+closure's output labels remembered on the host for word recovery.  This
+module holds the container, the flat output-label store, the per-state tile
+layout and the conversion from a native FST handle (`fst_to_csr_native`).
 """
 
 from __future__ import annotations
@@ -168,3 +168,24 @@ def build_tile_graph(graph: CsrGraph, md: int = 4,
         100.0 * (ap - graph.num_arcs) / max(1, ap),
     )
     return tg
+
+
+def fst_to_csr_native(nfst, tid_to_pdf: np.ndarray) -> CsrGraph:
+    """CsrGraph of a native FST handle (fst/native.py NativeFst): its
+    eps-forwarded CSR export, with each arc's pdf looked up from its tid."""
+    (start, row_ptr, tid, weight, nextstate, final_weight, olab_off,
+     olab_val, folab_off, folab_val) = nfst.to_csr_arrays()
+    csr = CsrGraph(
+        start=start,
+        row_ptr=row_ptr,
+        tid=tid,
+        pdf=tid_to_pdf[tid].astype(np.int32) if len(tid) else tid.copy(),
+        weight=weight,
+        nextstate=nextstate,
+        final_weight=np.where(np.isfinite(final_weight), final_weight,
+                              np.inf).astype(np.float32),
+        arc_olabels=FlatOlabels(olab_off, olab_val),
+        final_olabels=FlatOlabels(folab_off, folab_val),
+    )
+    csr._olabel_mask = olab_off[1:] > olab_off[:-1]
+    return csr

@@ -1,0 +1,113 @@
+"""Decoding graphs and per-utterance training graphs, straight to CSR form.
+
+Counterpart of old_kaldi_git_tpu/decoder/graph.py (reference
+utils/mkgraph.sh and src/decoder/training-graph-compiler.{h,cc}), on the
+native library's handles only (fst/native.py; no Python graph algorithms):
+
+  LG   = minimizeencoded(determinizestar(L_disambig ∘ G, log))
+         [+ pushspecial for a decoding graph]
+  CLG  = composecontext(LG, N, P)            [+ ilabel_info]
+  Ha   = make-h-transducer(ilabel_info, tree, model)
+  HCLGa= minimizeencoded(rmepslocal(rmsymbols(determinizestar(Ha ∘ CLG))))
+  HCLG = connect(add-self-loops(HCLGa, self_loop_scale))
+
+and the eps-forwarded (folded) CSR export.  Training graphs run the same
+pipeline with G = the linear acceptor over the transcript (optional silence
+comes from L), with L_disambig converted to a native handle once per
+compiler.  The split-eps export and the on-disk HCLG of the JAX package's
+`mkgraph_csr` are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+
+from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph, fst_to_csr_native
+from old_kaldi_git_tpu_torch.fst.lang import Lang
+from old_kaldi_git_tpu_torch.fst.native import NativeFst
+from old_kaldi_git_tpu_torch.fst.vector_fst import VectorFst
+from old_kaldi_git_tpu_torch.hmm.hmm_utils import make_h_transducer
+from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
+from old_kaldi_git_tpu_torch.tree.context_dep import ContextDependency
+from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
+
+log = get_logger("graph")
+
+
+def _hclg_csr(lg: NativeFst, lang: Lang, ctx_dep: ContextDependency,
+              tm: TransitionModel, transition_scale: float,
+              self_loop_scale: float, tid_to_pdf: np.ndarray) -> CsrGraph:
+    """LG → CLG → HCLG → folded CsrGraph, on native handles."""
+    subseq = max(lang.phones.ids()) + 1
+    clg, ilabel_info = lg.compose_context(
+        ctx_dep.N, ctx_dep.P, lang.disambig_phone_ids, subseq)
+    ha, disambig_tids = make_h_transducer(ilabel_info, ctx_dep, tm, transition_scale)
+    hclga = NativeFst.from_vector_fst(ha).compose(clg)
+    del clg
+    hclga = hclga.determinize_star()
+    hclga.rm_symbols(disambig_tids, side="input")
+    hclga.remove_eps_local()
+    hclga = hclga.minimize_encoded()
+    hclg = hclga.add_self_loops(tm, self_loop_scale)
+    del hclga
+    hclg.connect()
+    return fst_to_csr_native(hclg, tid_to_pdf)
+
+
+def mkgraph_csr(lang: Lang, g: VectorFst, ctx_dep: ContextDependency,
+                tm: TransitionModel, transition_scale: float = 1.0,
+                self_loop_scale: float = 0.1) -> CsrGraph:
+    """A decoding graph HCLG from a grammar G, as the folded CsrGraph that
+    `decode_batch` takes (reference utils/mkgraph.sh)."""
+    lg = NativeFst.from_vector_fst(lang.L_disambig).compose(NativeFst.from_vector_fst(g))
+    lg = lg.determinize_star(use_log=True).minimize_encoded()
+    lg.push_special()
+    log.info("mkgraph: LG has %d states / %d arcs", lg.num_states, lg.num_arcs)
+    csr = _hclg_csr(lg, lang, ctx_dep, tm, transition_scale, self_loop_scale,
+                    tm.tid_to_pdf_array())
+    log.info("mkgraph: HCLG has %d states / %d arcs", csr.num_states, csr.num_arcs)
+    return csr
+
+
+class GraphCompiler:
+    """Per-utterance training graphs (reference TrainingGraphCompiler)."""
+
+    def __init__(self, lang: Lang, ctx_dep: ContextDependency, tm: TransitionModel,
+                 transition_scale: float = 1.0, self_loop_scale: float = 0.1):
+        self.lang = lang
+        self.ctx_dep = ctx_dep
+        self.tm = tm
+        self.transition_scale = transition_scale
+        self.self_loop_scale = self_loop_scale
+        self._l_native = None  # native handle of L_disambig, made once
+        self._tid2pdf = tm.tid_to_pdf_array()
+
+    def _word_ids(self, words: Sequence[str]) -> List[int]:
+        missing = [w for w in words if w not in self.lang.words]
+        if missing:
+            raise KaldiError(f"words not in lexicon: {missing}")
+        return [self.lang.words[w] for w in words]
+
+    def compile_csr_from_text(self, words: Sequence[str]) -> CsrGraph:
+        """One transcript's training graph as a folded CsrGraph (reference
+        TrainingGraphCompiler::CompileGraphFromText)."""
+        word_ids = self._word_ids(words)
+        if self._l_native is None:
+            self._l_native = NativeFst.from_vector_fst(self.lang.L_disambig)
+        # the linear acceptor over the transcript, straight to arrays
+        n = len(word_ids) + 1
+        row_ptr = np.minimum(np.arange(n + 1, dtype=np.int32), n - 1)
+        lab = np.asarray(word_ids, np.int32)
+        finals = np.full(n, np.inf, np.float32)
+        finals[n - 1] = 0.0
+        g = NativeFst.from_arrays(0, row_ptr, lab, lab, np.zeros(n - 1, np.float32),
+                                  np.arange(1, n, dtype=np.int32), finals)
+        lg = self._l_native.compose(g)
+        lg = lg.determinize_star(use_log=True).minimize_encoded()
+        return _hclg_csr(lg, self.lang, self.ctx_dep, self.tm, self.transition_scale,
+                         self.self_loop_scale, self._tid2pdf)
+
+    def compile_csr_graphs(self, transcripts: Sequence[Sequence[str]]) -> List[CsrGraph]:
+        return [self.compile_csr_from_text(t) for t in transcripts]

@@ -38,9 +38,14 @@ take the token-sparse search above; graphs whose [B, S] cost vector fits take
     top-K mode (K < S): the K best states by (cost, state id), beam gate,
     [T, B, K] kept states and their winning arcs stored.
 
-`decode_batch` takes folded graphs and the best path only: its lattices
-(`_decode_scan`) and split graphs raise NotImplementedError until their
-slices of the port.
+Its lattice mode (`_decode_scan`, K = min(max_active, S)) also keeps every
+frame's kept states and costs for lat.lattice_from_decode.  `decode_batch`
+takes folded graphs; split graphs decode through `decode_batch_tokens`.
+
+`align_batch` is forced alignment (reference gmm-align-compiled): each
+utterance against its own small training graph, the dense relaxation over
+padded [B, A] arcs with all three per-arc lookups through the gather kernel,
+and the backtrace on the device.
 """
 
 from __future__ import annotations
@@ -95,7 +100,11 @@ class DecodeResult:
     words: List[int]
     alignment: np.ndarray  # tids, [T]
     cost: float
-    # bounded device-emitted lattice arcs (want_lattice=True)
+    # per-frame surviving tokens of decode_batch's lattice mode: [T, K]
+    # state ids (-1 = dead) and their forward costs
+    frame_states: Optional[np.ndarray] = None
+    frame_costs: Optional[np.ndarray] = None
+    # bounded device-emitted lattice arcs (token-sparse lattice mode)
     token_lattice: Optional[TokenLattice] = None
 
 
@@ -712,6 +721,8 @@ def results_from_arcs(
     use_final: np.ndarray,  # [B] bool
     costs: np.ndarray,  # [B]
     num_frames: np.ndarray,  # [B]
+    frame_states: Optional[np.ndarray] = None,  # [T, B, K] (lattice mode)
+    frame_costs: Optional[np.ndarray] = None,
 ) -> List[Optional[DecodeResult]]:
     """Host tail of a batched decode: winning-arc chains → words/alignments.
 
@@ -741,7 +752,9 @@ def results_from_arcs(
         if use_final[b]:
             words.extend(graph.final_olabels[int(end_states[b])])
         results.append(DecodeResult(
-            words=words, alignment=tids.astype(np.int32), cost=float(costs[b])))
+            words=words, alignment=tids.astype(np.int32), cost=float(costs[b]),
+            frame_states=None if frame_states is None else frame_states[:nf_b, b],
+            frame_costs=None if frame_costs is None else frame_costs[:nf_b, b]))
     return results
 
 
@@ -805,54 +818,111 @@ def _relax(alpha: torch.Tensor, ll_t: torch.Tensor, frm: torch.Tensor,
     return new_alpha, best_arc
 
 
+def _gate_frame(new_alpha: torch.Tensor, beam: float, K: int, S: int,
+                state_ids: torch.Tensor):
+    """Beam and max-active gating of one frame's [B, S] costs.  Dense mode
+    (K >= S): the beam alone; returns (gated [B, S], None, gated, keep
+    [B, S]).  Top-K mode: the K best states by (cost, state id), then the
+    beam below the best; returns (gated [B, S] with BIG outside the kept
+    set, their states [B, K] int64, their costs (BIG where not kept), keep
+    [B, K]).  `new_alpha` is overwritten in top-K mode."""
+    if K >= S:
+        best = new_alpha.amin(dim=1, keepdim=True)
+        keep = new_alpha <= best + beam
+        gated = torch.where(keep, new_alpha, BIG)
+        return gated, None, gated, keep
+    top_key = torch.topk(_cost_state_key(new_alpha, state_ids), K, dim=1,
+                         largest=False, sorted=True).values
+    top_idx = top_key.bitwise_and_(0xFFFFFFFF)
+    top_cost = new_alpha.gather(1, top_idx)
+    keep = top_cost <= top_cost[:, :1] + beam
+    top_cost = torch.where(keep, top_cost, BIG)
+    gated = new_alpha.fill_(BIG).scatter_(1, top_idx, top_cost)
+    return gated, top_idx, top_cost, keep
+
+
+def _decode_scan_impl(
+    frm: torch.Tensor, pdf: torch.Tensor, w: torch.Tensor, ns: torch.Tensor,
+    alpha: torch.Tensor, loglikes: torch.Tensor, num_frames: torch.Tensor,
+    acoustic_scale: float, beam: float, K: int, S: int,
+    bp_out: Tuple[Optional[torch.Tensor], torch.Tensor, Optional[torch.Tensor]],
+    t0: int = 0,
+) -> torch.Tensor:
+    """The dense frame-synchronous beam search from the cost vector `alpha`
+    [B, S] over the loglike frames [B, T, P]: per frame `_relax` over every
+    arc, then `_gate_frame`.  Graph arrays are per-arc [A] tensors (frm,
+    pdf int64; w float32; ns int64).
+
+    Backpointers go in place into the caller's buffers `bp_out` =
+    (bp_state, bp_arc, bp_cost), at rows t0 + t: the kept states [B, K]
+    (None: dense mode without them, where a row's index is its state),
+    their winning arcs ([B, K], or [B, S] in dense mode), and their costs
+    (None when not wanted); −1 / −1 / BIG where a state was not kept or
+    the frame is past an utterance's end.  Frames past every utterance's
+    end are not run, and their rows are not written.  Returns alpha after
+    the last frame."""
+    bp_state, bp_arc, bp_cost = bp_out
+    B, T, _ = loglikes.shape
+    A = frm.shape[0]
+    dev = loglikes.device
+    arc_ids = torch.arange(A, dtype=torch.int32, device=dev)
+    ns_idx = ns[None, :].expand(B, A)
+    state_ids = torch.arange(S, dtype=torch.int64, device=dev)
+    t_end = min(T, int(num_frames.max().item())) if B else 0
+    for t in range(t_end):
+        new_alpha, best_arc = _relax(alpha, loglikes[:, t], frm, pdf, w, ns,
+                                     ns_idx, arc_ids, acoustic_scale, S)
+        gated, top_idx, top_cost, keep = _gate_frame(new_alpha, beam, K, S, state_ids)
+        active = (t < num_frames)[:, None]
+        alpha = torch.where(active, gated, alpha)
+        kept = active & keep
+        if top_idx is None:
+            bp_arc[t0 + t] = torch.where(kept, best_arc, -1)
+            if bp_state is not None:
+                bp_state[t0 + t] = torch.where(kept, state_ids.to(torch.int32), -1)
+        else:
+            bp_arc[t0 + t] = torch.where(kept, best_arc.gather(1, top_idx), -1)
+            bp_state[t0 + t] = torch.where(kept, top_idx.to(torch.int32), -1)
+        if bp_cost is not None:
+            bp_cost[t0 + t] = torch.where(kept, top_cost, BIG)
+        del new_alpha, best_arc, gated, top_idx, top_cost, keep
+    return alpha
+
+
+def _start_alpha(B: int, S: int, start: int, device: torch.device) -> torch.Tensor:
+    alpha = torch.full((B, S), BIG, dtype=torch.float32, device=device)
+    alpha[:, start] = 0.0
+    return alpha
+
+
+def _top_tokens(alpha: torch.Tensor, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K best states of each row of `alpha` [B, S] and their costs,
+    ordered by (cost, state id), as lax.top_k(−alpha, K) gives them."""
+    state_ids = torch.arange(alpha.shape[1], dtype=torch.int64, device=alpha.device)
+    key = torch.topk(_cost_state_key(alpha, state_ids), K, dim=1, largest=False,
+                     sorted=True).values
+    idx = key.bitwise_and_(0xFFFFFFFF)
+    return idx, alpha.gather(1, idx)
+
+
 def _decode_and_backtrace(
     frm: torch.Tensor, pdf: torch.Tensor, w: torch.Tensor, ns: torch.Tensor,
     start: int, loglikes: torch.Tensor, num_frames: torch.Tensor,
     acoustic_scale: float, beam: float, fw: torch.Tensor, K: int, S: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense (K >= S) or top-K (K < S) beam decode, end-state choice and
-    backtrace on the device.  Graph arrays are per-arc [A] tensors (frm, pdf
-    int64; w float32; ns int64) and fw [S] float32 (BIG = not final).
+    backtrace on the device (fw [S] float32, BIG = not final).
 
     Returns (end_states [B] int64, has_final [B] bool, costs [B] float32,
-    arcs [T, B] int32 with −1 on inactive or failed frames).  Frames past
-    every utterance's end are not run; their backpointers stay −1, as the
-    JAX scan's masked frames leave them."""
+    arcs [T, B] int32 with −1 on inactive or failed frames)."""
     B, T, _ = loglikes.shape
-    A = frm.shape[0]
     dev = loglikes.device
-    alpha = torch.full((B, S), BIG, dtype=torch.float32, device=dev)
-    alpha[:, start] = 0.0
-    arc_ids = torch.arange(A, dtype=torch.int32, device=dev)
-    ns_idx = ns[None, :].expand(B, A)
     dense = K >= S
     bp_arc = torch.full((T, B, S if dense else K), -1, dtype=torch.int32, device=dev)
-    if not dense:
-        bp_state = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
-        state_ids = torch.arange(S, dtype=torch.int64, device=dev)
-    t_end = min(T, int(num_frames.max().item())) if B else 0
-    for t in range(t_end):
-        new_alpha, best_arc = _relax(alpha, loglikes[:, t], frm, pdf, w, ns,
-                                     ns_idx, arc_ids, acoustic_scale, S)
-        active = (t < num_frames)[:, None]
-        if dense:
-            best = new_alpha.amin(dim=1, keepdim=True)
-            gated = torch.where(new_alpha <= best + beam, new_alpha, BIG)
-            alpha = torch.where(active, gated, alpha)
-            bp_arc[t] = torch.where(active & (gated < BIG), best_arc, -1)
-            continue
-        top_key = torch.topk(_cost_state_key(new_alpha, state_ids), K, dim=1,
-                             largest=False, sorted=True).values
-        top_idx = top_key.bitwise_and_(0xFFFFFFFF)
-        top_cost = new_alpha.gather(1, top_idx)
-        keep = top_cost <= top_cost[:, :1] + beam
-        top_cost = torch.where(keep, top_cost, BIG)
-        gated = new_alpha.fill_(BIG).scatter_(1, top_idx, top_cost)
-        alpha = torch.where(active, gated, alpha)
-        kept = active & keep
-        bp_state[t] = torch.where(kept, top_idx.to(torch.int32), -1)
-        bp_arc[t] = torch.where(kept, best_arc.gather(1, top_idx), -1)
-        del top_key, top_idx, top_cost, keep, gated, best_arc
+    bp_state = None if dense else torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
+    alpha = _decode_scan_impl(frm, pdf, w, ns, _start_alpha(B, S, start, dev), loglikes,
+                              num_frames, acoustic_scale, beam, K, S,
+                              (bp_state, bp_arc, None))
     total = alpha + fw[None, :]
     has_final = total.amin(dim=1) < BIG
     best_total = torch.where(has_final[:, None], total, alpha)
@@ -864,12 +934,34 @@ def _decode_and_backtrace(
         return end_states, has_final, costs, arcs
     arcs = torch.full((T, B), -1, dtype=torch.int32, device=dev)
     state = end_states
+    t_end = min(T, int(num_frames.max().item())) if B else 0
     for t in range(t_end - 1, -1, -1):
         arc = bp_arc[t].gather(1, state[:, None])[:, 0]
         act = (t < num_frames) & (arc >= 0)
         arcs[t] = torch.where(act, arc, -1)
         state = torch.where(act, frm[arc.clamp(min=0).long()], state)
     return end_states, has_final, costs, arcs
+
+
+def _decode_scan(frm, pdf, w, ns, start: int, loglikes: torch.Tensor,
+                 num_frames: torch.Tensor, acoustic_scale: float, beam: float,
+                 K: int, S: int):
+    """The lattice mode's search: the dense scan from the start state with
+    every frame's kept states, winning arcs and costs stored.
+
+    Returns (tok_state [B, K], tok_cost [B, K]: the last frame's K best
+    states; bp_state, bp_arc [T, B, K] int32 and bp_cost [T, B, K]
+    float32)."""
+    B, T, _ = loglikes.shape
+    dev = loglikes.device
+    bp_state = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
+    bp_arc = torch.full((T, B, K), -1, dtype=torch.int32, device=dev)
+    bp_cost = torch.full((T, B, K), BIG, dtype=torch.float32, device=dev)
+    alpha = _decode_scan_impl(frm, pdf, w, ns, _start_alpha(B, S, start, dev), loglikes,
+                              num_frames, acoustic_scale, beam, K, S,
+                              (bp_state, bp_arc, bp_cost))
+    tok_state, tok_cost = _top_tokens(alpha, K)
+    return tok_state, tok_cost, bp_state, bp_arc, bp_cost
 
 
 def _dense_graph_arrays(graph: CsrGraph, device: torch.device):
@@ -904,18 +996,22 @@ def decode_batch(
     the regime `decode_regime` picks; one DecodeResult per row, None where
     the beam died or the backtrace broke.
 
+    want_lattice=True runs the dense scan at K = min(max_active, S) (never
+    the beam-only K = S of dense mode unless max_active reaches S) and
+    returns each utterance's per-frame kept states and costs
+    (`frame_states`, `frame_costs`, [T, K]) for lat.lattice_from_decode;
+    those [T, B, K] tensors cross to the host only in this mode.  On a
+    graph too large for a [B, S] cost vector it takes the token-sparse
+    lattice records (`token_lattice`) instead.
+
     `device=None` means the GPU, as in decode_batch_tokens.  timings: a
     dict that receives `search_seconds` (search and backtrace, ended by the
     copy of the [T, B] arcs to the host) and `host_tail_seconds` (words and
     alignments from the arcs)."""
-    if want_lattice:
-        raise NotImplementedError(
-            "lattices of decode_batch (_decode_scan) are not ported yet: they "
-            "come with the lattice and rescoring slice")
     if graph.eps_ns is not None:
         raise NotImplementedError(
-            "split-eps (chain) graphs are not ported yet: they come with "
-            "the chain decode slice")
+            "split-eps (chain) graphs decode through decode_batch_tokens; the "
+            "dense and top-K regimes take folded graphs")
     opts = opts or ViterbiOptions()
     if device is None and isinstance(loglikes, torch.Tensor) and loglikes.is_cuda:
         dev = loglikes.device
@@ -923,24 +1019,219 @@ def decode_batch(
         dev = resolve_device(device)
     loglikes = torch.as_tensor(loglikes, dtype=torch.float32).to(dev)
     B, T, P = loglikes.shape
-    regime, K = decode_regime(B, T, graph.num_states, opts.max_active)
+    regime, K = decode_regime(B, T, graph.num_states, opts.max_active, want_lattice)
     clock = StageClock(dev, timings)
     if regime == "tokens":
-        results = decode_batch_tokens(graph, loglikes, num_frames, opts, device=dev)
+        results = decode_batch_tokens(graph, loglikes, num_frames, opts,
+                                      want_lattice=want_lattice, device=dev)
         clock.lap("search_seconds")
         return results
     num_frames = np.asarray(num_frames, np.int32)
     frm, pdf, w, ns, fw = _dense_graph_arrays(graph, dev)
     if graph.num_arcs and int(graph.pdf.max()) >= P:
         raise KaldiError(f"graph pdf ids reach {int(graph.pdf.max())}, loglikes have {P}")
-    end, final, cost, arcs = _decode_and_backtrace(
-        frm, pdf, w, ns, graph.start, loglikes,
-        torch.from_numpy(num_frames).to(dev), float(opts.acoustic_scale),
-        float(opts.beam), fw, K, graph.num_states)
-    arcs = arcs.cpu().numpy()
+    nf_dev = torch.from_numpy(num_frames).to(dev)
+    frame_states = frame_costs = None
+    if want_lattice:
+        tok_state, tok_cost, bp_state, bp_arc, bp_cost = _decode_scan(
+            frm, pdf, w, ns, graph.start, loglikes, nf_dev,
+            float(opts.acoustic_scale), float(opts.beam), K, graph.num_states)
+        tok_state_h = tok_state.cpu().numpy()
+        tok_cost_h = tok_cost.cpu().numpy()
+        fw_h = fw.cpu().numpy()
+        end = np.zeros(B, np.int32)
+        cost = np.zeros(B, np.float64)
+        final = np.zeros(B, bool)
+        for b in range(B):
+            total = tok_cost_h[b] + fw_h[tok_state_h[b]]
+            if total.min() >= BIG:
+                total = tok_cost_h[b]
+            else:
+                final[b] = True
+            slot = int(np.argmin(total))
+            cost[b] = float(total[slot])
+            end[b] = tok_state_h[b, slot]
+        arcs = _backtrace_scan(bp_state, bp_arc, frm, torch.from_numpy(end).to(dev),
+                               nf_dev).cpu().numpy()
+        frame_states = bp_state.cpu().numpy()
+        frame_costs = bp_cost.cpu().numpy()
+    else:
+        end_d, final_d, cost_d, arcs_d = _decode_and_backtrace(
+            frm, pdf, w, ns, graph.start, loglikes, nf_dev, float(opts.acoustic_scale),
+            float(opts.beam), fw, K, graph.num_states)
+        arcs = arcs_d.cpu().numpy()
+        end = end_d.cpu().numpy().astype(np.int32)
+        final = final_d.cpu().numpy()
+        cost = cost_d.cpu().numpy().astype(np.float64)
     clock.lap("search_seconds")
-    results = results_from_arcs(
-        graph, arcs, end.cpu().numpy().astype(np.int32), final.cpu().numpy(),
-        cost.cpu().numpy().astype(np.float64), num_frames)
+    results = results_from_arcs(graph, arcs, end, final, cost, num_frames,
+                                frame_states=frame_states, frame_costs=frame_costs)
     clock.lap("host_tail_seconds")
     return results
+
+
+# ---------------------------------------------------------------------------
+# dense alignment over per-utterance graphs (align_batch)
+# ---------------------------------------------------------------------------
+
+def align_shape(graphs: Sequence[CsrGraph]) -> Tuple[int, int]:
+    """(S, A): the padded states and arcs a batch of graphs aligns at, the
+    largest counts rounded up to 64 and 512 as the JAX package pads them."""
+    return (-(-max(g.num_states for g in graphs) // 64) * 64,
+            -(-max(g.num_arcs for g in graphs) // 512) * 512)
+
+
+def _pad_graphs(graphs: Sequence[CsrGraph]):
+    """Per-utterance graphs → padded [B, A] arc arrays (source state, tid,
+    pdf, weight, next state), [B] start states and [B, S] final weights (BIG
+    = not final), at `align_shape`.  Padding arcs carry BIG weights and
+    source, pdf and next state 0, so they never win a scatter-min."""
+    B = len(graphs)
+    S, A = align_shape(graphs)
+    frm = np.zeros((B, A), np.int32)
+    tid = np.zeros((B, A), np.int32)
+    pdf = np.zeros((B, A), np.int32)
+    w = np.full((B, A), BIG, np.float32)
+    ns = np.zeros((B, A), np.int32)
+    start = np.zeros(B, np.int64)
+    final = np.full((B, S), BIG, np.float32)
+    for b, g in enumerate(graphs):
+        a = g.num_arcs
+        frm[b, :a] = np.repeat(np.arange(g.num_states), np.diff(g.row_ptr))
+        tid[b, :a] = g.tid
+        pdf[b, :a] = g.pdf
+        w[b, :a] = g.weight
+        ns[b, :a] = g.nextstate
+        start[b] = g.start
+        final[b, : g.num_states] = np.where(np.isfinite(g.final_weight),
+                                            g.final_weight, BIG)
+    return frm, tid, pdf, w, ns, start, final, S
+
+
+def _align_scan(frm: torch.Tensor, pdf: torch.Tensor, w: torch.Tensor,
+                ns: torch.Tensor, start: torch.Tensor, loglikes: torch.Tensor,
+                num_frames: torch.Tensor, acoustic_scale: float, S: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Dense Viterbi over every arc of every utterance's own graph: per frame
+
+      cand [B, A] = alpha[frm] + w − acoustic_scale·ll_t[pdf]
+      → scatter-min into the next states; winner = the largest arc id whose
+        cand is within 1e-6 of its next state's new cost (scatter-max)
+
+    with all three per-arc lookups through the gather kernel (K1): the
+    frame's loglike row read in place from [B, T, P], then the [B, S] cost
+    vector before and after the frame.  The reductions are order-free
+    (min, max), so they are exact on every device.  Frames past an
+    utterance's end keep its costs and store −1 winners; frames past every
+    utterance's end are not run.
+
+    Returns (alpha [B, S] after the last frame, winners [T, B, S] int32,
+    frames run)."""
+    B, A = frm.shape
+    T = loglikes.shape[1]
+    dev = loglikes.device
+    alpha = torch.full((B, S), BIG, dtype=torch.float32, device=dev)
+    alpha[torch.arange(B, device=dev), start] = 0.0
+    ns64 = ns.long()
+    arc_ids = torch.arange(A, dtype=torch.int32, device=dev)[None, :]
+    best_arcs = torch.full((T, B, S), -1, dtype=torch.int32, device=dev)
+    t_end = min(T, int(num_frames.max().item())) if B else 0
+    for t in range(t_end):
+        ac = batched_table_gather(loglikes[:, t], pdf).mul_(acoustic_scale)
+        cand = batched_table_gather(alpha, frm).add_(w).sub_(ac)
+        del ac
+        cand.clamp_(max=BIG)
+        new_alpha = torch.full((B, S), BIG, dtype=torch.float32, device=dev)
+        new_alpha.scatter_reduce_(1, ns64, cand, "amin")
+        hit = cand <= batched_table_gather(new_alpha, ns).add_(1e-6)
+        hit &= cand < BIG
+        arc_src = torch.where(hit, arc_ids, -1)
+        best = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+        best.scatter_reduce_(1, ns64, arc_src, "amax")
+        active = (t < num_frames)[:, None]
+        alpha = torch.where(active, new_alpha, alpha)
+        best_arcs[t] = torch.where(active, best, -1)
+    return alpha, best_arcs, t_end
+
+
+def _align_and_backtrace(frm, tid, pdf, w, ns, start, final, loglikes, num_frames,
+                         acoustic_scale: float, S: int):
+    """Forward scan, end-state choice and backtrace on the device, so only
+    [B] scores and [T, B] transition-ids and flags reach the host (the
+    [T, B, S] winners stay on the device).
+
+    Returns (scores [B], tids [T, B] int32 with −1 on inactive frames, ok
+    [T, B]: False only where an active frame had no winner, frames run)."""
+    alpha, best_arcs, t_end = _align_scan(frm, pdf, w, ns, start, loglikes,
+                                          num_frames, acoustic_scale, S)
+    T, B = best_arcs.shape[:2]
+    tot = alpha + final
+    state = tot.argmin(dim=1)
+    scores = tot.gather(1, state[:, None])[:, 0]
+    tids = torch.full((T, B), -1, dtype=torch.int32, device=alpha.device)
+    ok = torch.ones((T, B), dtype=torch.bool, device=alpha.device)
+    for t in range(t_end - 1, -1, -1):
+        arc = best_arcs[t].gather(1, state[:, None])[:, 0]
+        in_range = t < num_frames
+        good = in_range & (arc >= 0)
+        a_cl = arc.clamp(min=0).long()[:, None]
+        tids[t] = torch.where(good, tid.gather(1, a_cl)[:, 0], -1)
+        state = torch.where(good, frm.gather(1, a_cl)[:, 0].long(), state)
+        ok[t] = good | ~in_range
+    return scores, tids, ok, t_end
+
+
+def align_batch(
+    graphs: Sequence[CsrGraph],
+    loglikes: Union[np.ndarray, torch.Tensor],
+    num_frames: Sequence[int],
+    opts: Optional[ViterbiOptions] = None,
+    device: DeviceLike = None,
+    timings: Optional[Dict[str, float]] = None,
+) -> Tuple[List[Optional[np.ndarray]], List[float]]:
+    """Viterbi-align each utterance to its own graph (reference
+    gmm-align-compiled; the JAX package's align_batch).
+
+    loglikes: [B, T, P]; num_frames: valid frames per utterance.  Returns
+    (alignments: tid arrays, None where the utterance could not reach a
+    final state or its backtrace broke; per-utterance best cost, inf on
+    failure).  `device=None` means the GPU, or the device of a CUDA
+    loglike tensor; the CPU only by name.  timings: a dict that receives
+    `align_seconds` (scan and backtrace, ended by the copy of the [T, B]
+    tids to the host) and `align_frames`, the frames scanned (each runs
+    the gather kernel three times)."""
+    opts = opts or ViterbiOptions()
+    if device is None and isinstance(loglikes, torch.Tensor) and loglikes.is_cuda:
+        dev = loglikes.device
+    else:
+        dev = resolve_device(device)
+    clock = StageClock(dev, timings)
+    loglikes = torch.as_tensor(loglikes, dtype=torch.float32).to(dev)
+    B, T, P = loglikes.shape
+    if len(graphs) != B:
+        raise KaldiError(f"{len(graphs)} graphs for a batch of {B}")
+    if any(g.num_arcs and int(g.pdf.max()) >= P for g in graphs):
+        raise KaldiError(f"a graph's pdf ids reach past the loglikes' {P}")
+    frm, tid, pdf, w, ns, start, final, S = _pad_graphs(graphs)
+    num_frames = np.asarray(num_frames, np.int32)
+    dev_arrays = [torch.from_numpy(a).to(dev) for a in (frm, tid, pdf, w, ns, start, final)]
+    scores, tids, ok, t_end = _align_and_backtrace(
+        *dev_arrays, loglikes, torch.from_numpy(num_frames).to(dev),
+        float(opts.acoustic_scale), S)
+    h_scores = scores.cpu().numpy()
+    h_tids = tids.cpu().numpy()
+    h_ok = ok.cpu().numpy()
+    clock.lap("align_seconds")
+    clock.add("align_frames", t_end)
+    alignments: List[Optional[np.ndarray]] = []
+    costs: List[float] = []
+    for b in range(B):
+        nf = int(num_frames[b])
+        if h_scores[b] >= BIG or not bool(h_ok[:nf, b].all()):
+            log.warning("alignment failed for utterance %d", b)
+            alignments.append(None)
+            costs.append(np.inf)
+            continue
+        alignments.append(np.ascontiguousarray(h_tids[:nf, b]))
+        costs.append(float(h_scores[b]))
+    return alignments, costs

@@ -1,1 +1,2 @@
-"""HMM topology and transition model: the read side a GMM decode needs."""
+"""HMM topology, transition model and H-transducer: what a GMM decode and
+the training-graph compiler need."""

@@ -1,16 +1,17 @@
-"""HMM topologies, read side (own copy of the part of
-old_kaldi_git_tpu/hmm/topology.py that TransitionModel.read uses).
+"""HMM topologies (own copy of the parts of old_kaldi_git_tpu/hmm/topology.py
+that TransitionModel.read and the graph compiler use).
 
 Parity with reference src/hmm/hmm-topology.h: per-phone state lists, each
 state a pdf-class and (next-state, prob) transitions; the last state is
-non-emitting.  Binary layout of HmmTopology::Write (old-Kaldi vintage, one
-pdf-class per state).
+non-emitting; the default Kaldi topology (3-state Bakis for speech phones,
+5-state left-to-right for silence).  Binary layout of HmmTopology::Write
+(old-Kaldi vintage, one pdf-class per state).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import BinaryIO, Dict, List, Tuple
+from typing import BinaryIO, Dict, List, Sequence, Tuple
 
 from old_kaldi_git_tpu_torch.utils import io_funcs as iof
 from old_kaldi_git_tpu_torch.utils.log import KaldiError
@@ -28,6 +29,17 @@ class HmmTopology:
     def __init__(self, entries: Dict[int, List[HmmState]]):
         self._entries = entries  # phone → states
 
+    @staticmethod
+    def standard(phones: Sequence[int], silence_phones: Sequence[int] = (),
+                 num_states: int = 3, sil_num_states: int = 5) -> "HmmTopology":
+        """Default Kaldi topology: `num_states`-state Bakis chain
+        (self-loop 0.75 / forward 0.25) for speech phones; a
+        `sil_num_states` left-to-right topology with skips for silence."""
+        sil = set(silence_phones)
+        bakis = _bakis_entry(num_states)
+        sil_entry = _silence_entry(sil_num_states)
+        return HmmTopology({p: sil_entry if p in sil else bakis for p in phones})
+
     @property
     def phones(self) -> List[int]:
         return sorted(self._entries)
@@ -36,6 +48,10 @@ class HmmTopology:
         if phone not in self._entries:
             raise KaldiError(f"no topology entry for phone {phone}")
         return self._entries[phone]
+
+    def num_pdf_classes(self, phone: int) -> int:
+        return 1 + max(s.pdf_class for s in self.topology_for_phone(phone)
+                       if s.pdf_class != NO_PDF)
 
     @staticmethod
     def read(f: BinaryIO) -> "HmmTopology":
@@ -65,3 +81,26 @@ class HmmTopology:
                 raise KaldiError(f"topology: bad entry index for phone {p}")
             by_phone[int(p)] = entries[idx]
         return HmmTopology(by_phone)
+
+
+def _bakis_entry(num_states: int) -> List[HmmState]:
+    states = [HmmState(pdf_class=i, transitions=[(i, 0.75), (i + 1, 0.25)])
+              for i in range(num_states)]
+    states.append(HmmState(pdf_class=NO_PDF, transitions=[]))
+    return states
+
+
+def _silence_entry(num_states: int) -> List[HmmState]:
+    """State 0 can self-loop or skip ahead to any of 1..n-2 (short silences
+    pass quickly, like the stock 5-state topology); the others are a
+    left-to-right chain."""
+    if num_states < 3:
+        return _bakis_entry(num_states)
+    n = num_states
+    targets0 = [0] + list(range(1, n - 1))
+    p0 = 1.0 / len(targets0)
+    states = [HmmState(0, [(t, p0) for t in targets0])]
+    for i in range(1, n):
+        states.append(HmmState(i, [(i, 0.75), (i + 1, 0.25)]))
+    states.append(HmmState(NO_PDF, []))
+    return states

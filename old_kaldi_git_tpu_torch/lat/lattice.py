@@ -1,13 +1,15 @@
-"""Lattices rebuilt from the token-sparse decoder's records, best path and
+"""Lattices rebuilt from a decoder's kept tokens or records, best path and
 oracle.
 
 Own copy of the parts of old_kaldi_git_tpu/lat/lattice.py on the rescoring
-path (reference src/lat: kaldi Lattice, GetRawLattice, lattice-best-path,
+and dense-lattice paths (reference src/lat: kaldi Lattice, GetRawLattice, lattice-best-path,
 lattice-oracle): host code, plain Python and numpy.
 
   Lattice                     ~ kaldi Lattice (tids in, words out, (graph,
                                 acoustic) weight pair), stored topsorted by
                                 frame
+  lattice_from_decode         ~ GetRawLattice, from the per-frame kept
+                                tokens of decode_batch's lattice mode
   lattice_from_token_records  ~ GetRawLattice, from the records the decoder
                                 emitted on the device
   lattice_best_path           ~ lattice-best-path (with lm/acoustic scales)
@@ -67,6 +69,106 @@ class Lattice:
 
     def combined(self, arc: LatticeArc, lm_scale: float, ac_scale: float) -> float:
         return lm_scale * arc.graph_cost + ac_scale * arc.acoustic_cost
+
+
+def lattice_from_decode(
+    graph: CsrGraph,
+    loglikes: np.ndarray,  # [T, P] for this utterance
+    frame_states: np.ndarray,  # [T, K] state ids (-1 dead)
+    frame_costs: np.ndarray,  # [T, K] forward costs
+    acoustic_scale: float,
+    lattice_beam: float = 10.0,
+) -> Optional[Lattice]:
+    """Rebuild the raw lattice over surviving tokens.
+
+    For each frame t and surviving state s', add an arc from every frame
+    t-1 token s such that the decode graph has s→s' and the via-cost is
+    within lattice_beam of s''s stored forward cost.  Arc weights keep the
+    graph cost and the (unscaled) acoustic cost separately.
+    """
+    T = frame_states.shape[0]
+    if T == 0:
+        return None
+    src_of_arc = np.repeat(
+        np.arange(graph.num_states, dtype=np.int32), graph.out_degree()
+    )
+    lat = Lattice()
+    start = lat.add_state(time=-1)
+    lat.start = start
+
+    # state id in the lattice for (t, slot)
+    slot_state: List[Dict[int, int]] = []
+    BIG = 1e10
+
+    def get_lat_state(t: int, slot: int) -> int:
+        d = slot_state[t]
+        if slot not in d:
+            d[slot] = lat.add_state(time=t)
+        return d[slot]
+
+    prev_map: Dict[int, int] = {}  # graph state -> slot at t-1
+    for t in range(T):
+        slot_state.append({})
+        states_t = frame_states[t]
+        costs_t = frame_costs[t]
+        cur_alive = [
+            (k, int(s)) for k, s in enumerate(states_t) if s >= 0 and costs_t[k] < BIG
+        ]
+        cur_map = {s: k for k, s in cur_alive}
+        if t == 0:
+            # arcs from the virtual start (graph.start) to frame-0 tokens
+            lo, hi = graph.row_ptr[graph.start], graph.row_ptr[graph.start + 1]
+            for a in range(lo, hi):
+                ns = int(graph.nextstate[a])
+                if ns in cur_map:
+                    k = cur_map[ns]
+                    ac = -float(loglikes[0, graph.pdf[a]])
+                    _emit(lat, graph, start, get_lat_state(0, k), a, ac)
+        else:
+            # candidate arcs: all arcs out of alive prev states
+            prev_items = list(prev_map.items())
+            if prev_items:
+                pstates = np.asarray([s for s, _ in prev_items])
+                lo = graph.row_ptr[pstates]
+                hi = graph.row_ptr[pstates + 1]
+                for (ps, pk), l, h in zip(prev_items, lo, hi):
+                    p_cost = frame_costs[t - 1, pk]
+                    for a in range(l, h):
+                        ns = int(graph.nextstate[a])
+                        k = cur_map.get(ns)
+                        if k is None:
+                            continue
+                        ac = -float(loglikes[t, graph.pdf[a]])
+                        via = (
+                            p_cost + graph.weight[a] + acoustic_scale * ac
+                        )
+                        if via <= costs_t[k] + lattice_beam:
+                            _emit(
+                                lat, graph,
+                                get_lat_state(t - 1, pk), get_lat_state(t, k),
+                                a, ac,
+                            )
+        prev_map = {s: k for k, s in cur_alive}
+
+    # finals on the last frame's tokens
+    any_final = False
+    for s, k in prev_map.items():
+        st = slot_state[T - 1].get(k)
+        if st is None:
+            continue
+        fw = graph.final_weight[s]
+        if np.isfinite(fw):
+            lat.finals[st] = (float(fw), 0.0)
+            any_final = True
+    if not any_final:
+        for s, k in prev_map.items():
+            st = slot_state[T - 1].get(k)
+            if st is not None:
+                lat.finals[st] = (0.0, 0.0)
+    _connect(lat)
+    if lat.num_arcs == 0:
+        return None
+    return lat
 
 
 def lattice_from_token_records(graph: CsrGraph, rec: TokenLattice

@@ -17,6 +17,10 @@ import torch
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnModel
 
+# flax's lecun_normal: a normal truncated at ±2σ, σ chosen so that the
+# truncated draw has variance 1/fan_in
+_TRUNCATED_STD = 0.87962566103423978
+
 
 class AmNnet:
     def __init__(self, config: TdnnConfig, model: TdnnModel,
@@ -47,6 +51,26 @@ class AmNnet:
         a tensor on the model's device."""
         out = torch.log_softmax(self.model(self._as_input(feats)), dim=-1)
         return out if self.log_priors is None else out - self.log_priors
+
+    @staticmethod
+    def init(config: TdnnConfig, seed: int = 0, device: DeviceLike = None,
+             log_priors: Optional[np.ndarray] = None) -> "AmNnet":
+        """A freshly initialised model (the JAX package's AmNnet.init): every
+        affine weight drawn as flax's default (lecun normal, truncated at
+        ±2σ) from a torch.Generator seeded with `seed`, biases 0, batch-norm
+        statistics mean 0 and variance 1.  The values are not flax's: the
+        two generators differ."""
+        gen = torch.Generator().manual_seed(seed)
+        model = TdnnModel(config)
+        with torch.no_grad():
+            for module in model.modules():
+                if isinstance(module, torch.nn.Linear):
+                    std = (1.0 / module.in_features) ** 0.5 / _TRUNCATED_STD
+                    torch.nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std,
+                                                2 * std, generator=gen)
+                    if module.bias is not None:
+                        module.bias.zero_()
+        return AmNnet(config, model, log_priors, device=device)
 
     @staticmethod
     def load(path: str, device: DeviceLike = None) -> "AmNnet":

@@ -185,3 +185,20 @@ class TdnnModel(nn.Module):
         if self.config.final_hidden_dim:
             x = self.prefinal(x)
         return self.output(x)
+
+
+def make_tdnnf(input_dim: int, num_outputs: int, hidden_dim: int = 768,
+               bottleneck_dim: int = 96, num_layers: int = 9, time_stride: int = 1,
+               subsampled_stride: int = 0, num_full_rate_layers: int = 3) -> TdnnConfig:
+    """TDNN-F stack (the JAX package's make_tdnnf): a spliced tdnn layer at
+    offsets (-1, 0, 1), num_layers − 1 tdnnf layers at `time_stride` (those
+    past num_full_rate_layers at `subsampled_stride` when it is set), and a
+    prefinal layer of hidden_dim."""
+    layers = [TdnnLayerSpec("tdnn", hidden_dim, (-1, 0, 1))]
+    for i in range(num_layers - 1):
+        ts = time_stride
+        if subsampled_stride and i + 1 > num_full_rate_layers:
+            ts = subsampled_stride
+        layers.append(TdnnLayerSpec("tdnnf", hidden_dim, offsets=(0,),
+                                    bottleneck_dim=bottleneck_dim, time_stride=ts))
+    return TdnnConfig(input_dim, num_outputs, tuple(layers), final_hidden_dim=hidden_dim)

@@ -18,11 +18,14 @@ and src/feat/online-feature.h):
                             the backpointers written in place into
                             preallocated device buffers; best path and
                             endpointing on request.
+  StreamingDecoder        ~ the same over a dense [1, S] beam state
+                            (decoder/viterbi._decode_scan_impl: every arc
+                            relaxed each frame), for graphs of up to some
+                            10^5 states.
   EndpointRule            ~ online-endpoint.h OnlineEndpointRule.
 
 The JAX package runs each chunk as one jitted program; here it is a plain
-sequence of calls on the device.  The dense StreamingDecoder is not ported
-yet.
+sequence of calls on the device.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ import torch
 
 from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph, build_tile_graph
 from old_kaldi_git_tpu_torch.decoder.viterbi import (
-    BIG, ViterbiOptions, _backtrace_scan, _decode_scan_tokens, _eps_hop_table,
-    _token_budget, split_words_for_arc_seq, start_closure)
+    BIG, ViterbiOptions, _backtrace_scan, _decode_scan_impl, _decode_scan_tokens,
+    _dense_graph_arrays, _eps_hop_table, _start_alpha, _token_budget, _top_tokens,
+    split_words_for_arc_seq, start_closure)
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.feat import Mfcc, MfccOptions, compute_deltas
 from old_kaldi_git_tpu_torch.utils.log import KaldiError
@@ -243,31 +247,30 @@ class StreamingTokenDecoder:
         self.rctx = am_right_context
         self.rules = endpoint_rules or default_endpoint_rules()
         self.K = max(4, min(self.opts.max_active, graph.num_states))
-        self._tg = build_tile_graph(graph)
-        self.E = _token_budget(graph, self.K, self._tg.md)  # the tile budget ET
         self.max_frames = max_frames
         self.chunk_quantum = chunk_quantum
-        self._tile_ptr, self._tiles, self._frm = self._tg.device_arrays(self.device)
         self._fw = np.where(np.isfinite(graph.final_weight), graph.final_weight, BIG)
-        self._eps_hops, self._D = None, 0
-        self._seeds = [(graph.start, 0.0)]
-        if graph.eps_ns is not None:
-            self._eps_hops, self._D = _eps_hop_table(graph, self.device)
-            self._seeds = start_closure(graph, self._D)
+        self._init_search()
         # a fixed window length: a multiple of 16·fsf keeps the subsample
         # grid aligned
         self.window_frames = (-(-(self.lctx + chunk_quantum + self.rctx)
                                 // (16 * self.fsf)) * 16 * self.fsf)
         self.reset()
 
+    def _init_search(self) -> None:
+        """The graph's tile layout and, on a split-eps graph, its hop table
+        and the start state's eps closure, on the device."""
+        graph = self.graph
+        self._tg = build_tile_graph(graph)
+        self.E = _token_budget(graph, self.K, self._tg.md)  # the tile budget ET
+        self._tile_ptr, self._tiles, self._frm = self._tg.device_arrays(self.device)
+        self._eps_hops, self._D = None, 0
+        self._seeds = [(graph.start, 0.0)]
+        if graph.eps_ns is not None:
+            self._eps_hops, self._D = _eps_hop_table(graph, self.device)
+            self._seeds = start_closure(graph, self._D)
+
     def reset(self) -> None:
-        ts0 = np.full((1, self.K), -1, np.int32)
-        tc0 = np.full((1, self.K), BIG, np.float32)
-        for i, (s_i, c_i) in enumerate(self._seeds[: self.K]):
-            ts0[:, i] = s_i
-            tc0[:, i] = c_i
-        self._tok_state = torch.from_numpy(ts0).to(self.device)
-        self._tok_cost = torch.from_numpy(tc0).to(self.device)
         self._feat_buf = np.zeros((0, 0), np.float32)
         self._frames_decoded = 0
         rows = -(-self.max_frames // self.fsf)
@@ -275,16 +278,30 @@ class StreamingTokenDecoder:
                                    device=self.device)
         self._bpa_buf = torch.full((rows, 1, self.K), -1, dtype=torch.int32,
                                    device=self.device)
+        self._reset_search()
 
-    def _chunk(self, window: np.ndarray, t_off: int, n_valid: int, t0: int) -> None:
-        """One chunk: the acoustic model over the [1, W, D] window, the
-        chunk's search frames read in place from its output, the token-sparse
-        search from the carried tokens, backpointers into rows t0.. of the
-        buffers."""
+    def _reset_search(self) -> None:
+        ts0 = np.full((1, self.K), -1, np.int32)
+        tc0 = np.full((1, self.K), BIG, np.float32)
+        for i, (s_i, c_i) in enumerate(self._seeds[: self.K]):
+            ts0[:, i] = s_i
+            tc0[:, i] = c_i
+        self._tok_state = torch.from_numpy(ts0).to(self.device)
+        self._tok_cost = torch.from_numpy(tc0).to(self.device)
+
+    def _window_loglikes(self, window: np.ndarray, t_off: int) -> torch.Tensor:
+        """The acoustic model over the [1, W, D] window; the chunk's search
+        frames [1, chunk/fsf, P] as a view of its output."""
         qs = self.chunk_quantum // self.fsf  # search frames a chunk
         x = torch.from_numpy(np.ascontiguousarray(window[None])).to(self.device)
         ll = self.am(x)[0]  # [W/fsf, P]
-        ll_new = ll[t_off: t_off + qs][None]  # [1, qs, P], a view
+        return ll[t_off: t_off + qs][None]
+
+    def _chunk(self, window: np.ndarray, t_off: int, n_valid: int, t0: int) -> None:
+        """One chunk: the chunk's search frames read in place from the
+        acoustic model's output, the token-sparse search from the carried
+        tokens, backpointers into rows t0.. of the buffers."""
+        ll_new = self._window_loglikes(window, t_off)
         nv = torch.full((1,), n_valid, dtype=torch.int32, device=self.device)
         self._tok_state, self._tok_cost, _, _, _ = _decode_scan_tokens(
             self._tile_ptr, self._tiles, self.graph.start, ll_new, nv,
@@ -337,8 +354,7 @@ class StreamingTokenDecoder:
         if self._frames_decoded == 0:
             return [], []
         nf_s = -(-self._frames_decoded // self.fsf)  # search frames
-        tok_state = self._tok_state[0].cpu().numpy()
-        tok_cost = self._tok_cost[0].cpu().numpy()
+        tok_state, tok_cost = self._final_tokens()
         cb = np.where(tok_state >= 0, tok_cost, BIG)
         total = cb + self._fw[np.maximum(tok_state, 0)]
         use_final = bool(total.min() < BIG)
@@ -355,7 +371,7 @@ class StreamingTokenDecoder:
         )[:nf_s, 0].cpu().numpy()
         if (arcs < 0).any():
             return [], []
-        arcs = self._tg.pad2orig[arcs]  # padded tile slots → graph arcs
+        arcs = self._graph_arcs(arcs)
         if self.graph.eps_ns is not None:
             words = split_words_for_arc_seq(self.graph, arcs, state)
             if words is None:
@@ -367,6 +383,14 @@ class StreamingTokenDecoder:
         if use_final:
             words = words + list(self.graph.final_olabels[state])
         return words, [int(self.graph.tid[a]) for a in arcs]
+
+    def _final_tokens(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The carried [K] token states (−1 = empty) and costs, on the host."""
+        return self._tok_state[0].cpu().numpy(), self._tok_cost[0].cpu().numpy()
+
+    def _graph_arcs(self, arcs: np.ndarray) -> np.ndarray:
+        """Backpointer arc ids → graph arc ids (padded tile slots here)."""
+        return self._tg.pad2orig[arcs]
 
     def best_words(self) -> List[int]:
         return self._backtrace()[0]
@@ -385,3 +409,45 @@ class StreamingTokenDecoder:
         utt_sec = self._frames_decoded * self.frame_shift
         sil_sec = self.trailing_silence_frames() * self.frame_shift
         return any(r.triggered(utt_sec, sil_sec, len(words) > 0) for r in self.rules)
+
+
+class StreamingDecoder(StreamingTokenDecoder):
+    """Streaming decode with a dense beam state (the JAX package's
+    StreamingDecoder): the [1, S] cost vector carried across chunks and
+    every arc of the graph relaxed each frame (decoder/viterbi.py
+    `_decode_scan_impl`, K = min(max_active, S) kept states a frame), so
+    it suits graphs up to some 10^5 states; StreamingTokenDecoder is the
+    large-graph decoder.  The acoustic window, the held-back right context,
+    the in-place backpointers, best path and endpointing are
+    StreamingTokenDecoder's; the best path's words include the final
+    state's output labels, as the batch decode's do.  Folded graphs only."""
+
+    def _init_search(self) -> None:
+        if self.graph.eps_ns is not None:
+            raise NotImplementedError(
+                "the dense StreamingDecoder takes folded graphs; split-eps "
+                "graphs stream through StreamingTokenDecoder")
+        self._frm, self._pdf, self._w, self._ns, _ = _dense_graph_arrays(
+            self.graph, self.device)
+
+    def _reset_search(self) -> None:
+        self._alpha = _start_alpha(1, self.graph.num_states, self.graph.start,
+                                   self.device)
+
+    def _chunk(self, window: np.ndarray, t_off: int, n_valid: int, t0: int) -> None:
+        """One chunk: the dense scan from the carried [1, S] costs over the
+        chunk's search frames, backpointers into rows t0.. of the buffers."""
+        ll_new = self._window_loglikes(window, t_off)
+        nv = torch.full((1,), n_valid, dtype=torch.int32, device=self.device)
+        self._alpha = _decode_scan_impl(
+            self._frm, self._pdf, self._w, self._ns, self._alpha, ll_new, nv,
+            float(self.opts.acoustic_scale), float(self.opts.beam), self.K,
+            self.graph.num_states, (self._bps_buf, self._bpa_buf, None), t0)
+
+    def _final_tokens(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The K best states of the carried costs, as lax.top_k gives them."""
+        state, cost = _top_tokens(self._alpha, self.K)
+        return state[0].to(torch.int32).cpu().numpy(), cost[0].cpu().numpy()
+
+    def _graph_arcs(self, arcs: np.ndarray) -> np.ndarray:
+        return arcs

@@ -21,7 +21,13 @@ iVector systems (`final_ivec.am`, `chain_ivec.mdl`) take the same features
 with online iVectors from the diagonal-UBM extractor `final.ie` appended
 (`use_ivectors=True`).
 
-The evaluation audio is synthesised from the option seeds with numpy, by an
+And the first step of training: forced alignment of the 600-utterance
+training set (`training_set`, `align_training_set`) with `tri.mdl` or
+`mono.mdl`, or as the equal alignment: a training graph per utterance from
+the lang bundle (`make_lang`) and the model's tree, GMM loglikes, the
+alignment scan.
+
+The evaluation and training audio is synthesised from the option seeds with numpy, by an
 own copy of the JAX package's synthesis (bit-equal waves and text), so
 nothing is downloaded.
 """
@@ -39,9 +45,13 @@ import torch
 
 from old_kaldi_git_tpu_torch import convert
 from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph, FlatOlabels
-from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch_tokens
+from old_kaldi_git_tpu_torch.decoder.graph import GraphCompiler
+from old_kaldi_git_tpu_torch.decoder.viterbi import (
+    ViterbiOptions, align_batch, decode_batch_tokens)
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.feat import Mfcc, MfccOptions, compute_deltas
+from old_kaldi_git_tpu_torch.fst.lang import Lang, Lexicon
+from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
 from old_kaldi_git_tpu_torch.ivector.extractor import (
     IvectorExtractor, extract_online_ivectors)
 from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
@@ -52,7 +62,9 @@ from old_kaldi_git_tpu_torch.lm.arpa import parse_arpa
 from old_kaldi_git_tpu_torch.lm.ngram import estimate_ngram_lm
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
 from old_kaldi_git_tpu_torch.recipes.chain import ChainModel
+from old_kaldi_git_tpu_torch.recipes.gmm_common import GmmTrainOptions, align_all
 from old_kaldi_git_tpu_torch.recipes.nnet3 import append_ivector_feats
+from old_kaldi_git_tpu_torch.tree.context_dep import monophone_context_dependency
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
@@ -74,6 +86,7 @@ class MinilibOptions:
     num_phones: int = 40
     num_words: int = 20_000
     lm_sentences: int = 250_000
+    num_train: int = 600
     num_test: int = 256
     seed: int = 42
     lm_order: int = 3
@@ -273,6 +286,24 @@ def synth_set(
                                      noise=noise)
         text[utt] = words
     return waves, text
+
+
+def training_set(opts: MinilibOptions) -> Tuple[Dict[str, np.ndarray],
+                                               Dict[str, List[str]]]:
+    """The training set the GMM stages of the JAX package's build_system use
+    (and align): opts.num_train sentences of 4-10 words, synthesised as
+    `train_0000`…"""
+    sents = make_text(opts, opts.num_train, opts.seed + 4, min_len=4, max_len=11)
+    return synth_set(opts, sents, "train", opts.seed + 5)
+
+
+def make_lang(opts: Optional[MinilibOptions] = None) -> Lang:
+    """The lang bundle of the system (20k-word lexicon, SIL, silence
+    probability 0.5), built from the lexicon as the JAX package rebuilds its
+    uncommitted lang.pkl cache."""
+    opts = opts or MinilibOptions()
+    return Lang(Lexicon.from_dict(make_lexicon(opts)), silence_phone=SILENCE_PHONE,
+                sil_prob=0.5)
 
 
 # The NOISY evaluation regime: the clean corpus decodes at 0.03-0.07% WER,
@@ -695,3 +726,77 @@ def rescore_and_score(
              after.report(),
              f" (lattice oracle WER {oracle_wer:.2f})" if compute_oracle else "")
     return before.wer, after.wer
+
+
+# ---------------------------------------------------------------------------
+# forced alignment of the training set
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AlignmentResult:
+    alignments: Dict[str, np.ndarray]  # utt → transition-ids, one a frame
+    failed: List[str]  # utterances that found no path (no entry above)
+    scores: Dict[str, float]  # utt → best path cost
+    seconds: Dict[str, float]  # by stage: lang, graphs, features, loglikes, align
+    frames_scanned: int  # frames the alignment scan ran (K1 three times each)
+    graphs: Dict[str, CsrGraph]  # utt → its training graph
+
+
+def align_training_set(workdir: str, feats: Dict[str, np.ndarray],
+                       text: Dict[str, List[str]], model: str = "tri",
+                       equal: bool = False, lang: Optional[Lang] = None,
+                       device: DeviceLike = None) -> AlignmentResult:
+    """Forced alignment of in-memory features against their transcripts
+    (reference compile-train-graphs, then gmm-align-compiled, or
+    align-equal-compiled with `equal`; the JAX package's train tools'
+    `_batch_align`).
+
+    model "tri": `tri.mdl` on the tree of `tree.pkl`; "mono": `mono.mdl` on
+    the monophone tree of its topology over the lang's real phones, as the
+    mono recipe builds it.  The alignment runs at GmmTrainOptions' acoustic
+    scale (0.1); `equal` aligns on zero loglikes at acoustic scale 1.0, as
+    mono training starts.  `lang` is built from the lexicon when not given
+    (its seconds are then the "lang" stage).  Each stage ends with a device
+    synchronise."""
+    dev = resolve_device(device)
+    seconds: Dict[str, float] = {}
+    clock = StageClock(dev, seconds)
+    if lang is None:
+        lang = make_lang()
+    clock.lap("lang_seconds")
+    gmm = AmGmmModel.load(os.path.join(workdir, f"{model}.mdl"), device=dev)
+    if model == "tri":
+        ctx_dep = convert.context_dependency_from_pickle(
+            convert.load_pickle(os.path.join(workdir, "tree.pkl"))[0])
+    elif model == "mono":
+        topo = gmm.tm.topo
+        phones = lang.real_phone_ids
+        ctx_dep = monophone_context_dependency(
+            phones, {p: topo.num_pdf_classes(p) for p in phones})
+    else:
+        raise KaldiError(f"unknown GMM model {model!r}: 'tri' or 'mono'")
+    keys = sorted(feats)
+    compiler = GraphCompiler(lang, ctx_dep, gmm.tm)
+    graphs = compiler.compile_csr_graphs([text[k] for k in keys])
+    clock.lap("graphs_seconds")
+    _, padded, nf = pad_feature_batch(feats, keys)
+    x = torch.from_numpy(padded).to(dev)
+    clock.lap("features_seconds")
+    if equal:
+        # zero loglikes at scale 1.0: each utterance's cheapest path of its
+        # length through its graph
+        ll = torch.zeros((len(keys), x.shape[1], gmm.am.num_pdfs), device=dev)
+        clock.lap("loglikes_seconds")
+        alis, costs = align_batch(graphs, ll, nf, ViterbiOptions(acoustic_scale=1.0),
+                                  device=dev, timings=seconds)
+    else:
+        alis, costs = align_all(
+            gmm.am, graphs, x, nf,
+            ViterbiOptions(acoustic_scale=GmmTrainOptions().acoustic_scale),
+            timings=seconds)
+    frames = int(seconds.pop("align_frames"))
+    return AlignmentResult(
+        alignments={k: a for k, a in zip(keys, alis) if a is not None},
+        failed=[k for k, a in zip(keys, alis) if a is None],
+        scores={k: c for k, c in zip(keys, costs)},
+        seconds=seconds, frames_scanned=frames, graphs=dict(zip(keys, graphs)))

@@ -1,0 +1,84 @@
+"""ContextDependency: the phone-context → pdf-id mapping.
+
+Own copy of old_kaldi_git_tpu/tree/context_dep.py without its
+serialisation: the committed tree comes from `tree.pkl` through
+convert.context_dependency_from_pickle.
+
+Parity with reference src/tree/context-dep.h: wraps (N, P, EventMap root).
+compute(phone_window, pdf_class) → pdf-id; get_pdf_info enumerates which
+(phone, pdf_class) pairs can reach each pdf (needed by the TransitionModel).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from old_kaldi_git_tpu_torch.tree.event_map import (
+    KEY_PDF_CLASS,
+    ConstantEventMap,
+    EventMap,
+    TableEventMap,
+    make_event,
+)
+from old_kaldi_git_tpu_torch.utils.log import KaldiError
+
+
+class ContextDependency:
+    def __init__(self, N: int, P: int, root: EventMap):
+        self.N = N  # context width (1 = mono, 3 = triphone)
+        self.P = P  # central position (0-based)
+        self.root = root
+
+    @property
+    def num_pdfs(self) -> int:
+        return self.root.max_result() + 1
+
+    def compute(self, phone_window: Sequence[int], pdf_class: int) -> Optional[int]:
+        """phone_window has length N; position P is the phone being modeled.
+        Out-of-utterance context positions hold 0 (epsilon)."""
+        if len(phone_window) != self.N:
+            raise KaldiError(f"context window must have {self.N} phones")
+        pairs = [(KEY_PDF_CLASS, pdf_class)] + [
+            (i, p) for i, p in enumerate(phone_window)
+        ]
+        ans = self.root.map(make_event(pairs))
+        if ans is None:
+            raise KaldiError(
+                f"tree has no answer for window {list(phone_window)} "
+                f"pdf-class {pdf_class}"
+            )
+        return ans
+
+    def get_pdf_info(
+        self, phones: Sequence[int], num_pdf_classes: Dict[int, int]
+    ) -> List[Set[Tuple[int, int]]]:
+        """For each pdf-id, the set of (central phone, pdf_class) pairs that can
+        reach it (reference ContextDependency::GetPdfInfo)."""
+        info: List[Set[Tuple[int, int]]] = [set() for _ in range(self.num_pdfs)]
+        phone_set = set(phones)
+        ctx_values = phone_set | {0}
+        for phone in phones:
+            for pdf_class in range(num_pdf_classes[phone]):
+                event_sets = {KEY_PDF_CLASS: {pdf_class}}
+                for pos in range(self.N):
+                    event_sets[pos] = {phone} if pos == self.P else ctx_values
+                for pdf in self.root.multi_map(event_sets):
+                    info[pdf].add((phone, pdf_class))
+        return info
+
+
+def monophone_context_dependency(
+    phones: Sequence[int], num_pdf_classes: Dict[int, int]
+) -> ContextDependency:
+    """Trivial tree: each (phone, pdf_class) gets its own pdf
+    (reference MonophoneContextDependency, gmm-init-mono)."""
+    table: Dict[int, EventMap] = {}
+    pdf = 0
+    for phone in sorted(phones):
+        sub: Dict[int, EventMap] = {}
+        for pc in range(num_pdf_classes[phone]):
+            sub[pc] = ConstantEventMap(pdf)
+            pdf += 1
+        table[phone] = TableEventMap(KEY_PDF_CLASS, sub)
+    return ContextDependency(1, 0, TableEventMap(0, table))
+

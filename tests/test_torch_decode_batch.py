@@ -179,8 +179,9 @@ def test_regime_thresholds_are_the_jax_packages():
 def test_token_regime_goes_to_the_token_sparse_search(monkeypatch):
     seen = {}
 
-    def fake_tokens(graph, loglikes, num_frames, opts, device=None):
+    def fake_tokens(graph, loglikes, num_frames, opts, want_lattice=False, device=None):
         seen["shape"] = tuple(loglikes.shape)
+        seen["want_lattice"] = want_lattice
         return []
 
     monkeypatch.setattr(tvit, "decode_regime", lambda *a, **k: ("tokens", 4))
@@ -188,7 +189,7 @@ def test_token_regime_goes_to_the_token_sparse_search(monkeypatch):
     g = tcsr.CsrGraph(**_ragged_graph(0))
     assert tvit.decode_batch(g, np.zeros((2, 3, 9), np.float32), [3, 3],
                              device="cpu") == []
-    assert seen["shape"] == (2, 3, 9)
+    assert seen == {"shape": (2, 3, 9), "want_lattice": False}
 
 
 def test_cost_state_key_orders_like_the_pair():
@@ -208,8 +209,11 @@ def test_unported_modes_and_devices_raise(monkeypatch):
     kw = _ragged_graph(0)
     ll = np.zeros((1, 2, 9), np.float32)
     g = tcsr.CsrGraph(**kw)
-    with pytest.raises(NotImplementedError, match="lattice"):
-        tvit.decode_batch(g, ll, [2], want_lattice=True, device="cpu")
+    # the lattice mode is ported: K = min(max_active, S), per-frame tokens
+    (res,) = tvit.decode_batch(g, ll, [2], tvit.ViterbiOptions(max_active=7),
+                               want_lattice=True, device="cpu")
+    assert res.frame_states.shape == res.frame_costs.shape == (2, 7)
+    assert (res.frame_states[:, 0] >= 0).all() and (res.frame_costs < 1e10).any()
     split = tcsr.CsrGraph(**kw, eps_ns=np.full(60, -1, np.int32))
     with pytest.raises(NotImplementedError, match="chain"):
         tvit.decode_batch(split, ll, [2], device="cpu")

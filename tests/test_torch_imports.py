@@ -33,7 +33,10 @@ def test_port_has_the_slice_modules():
                  "ops.gmm_kernel", "recipes.decode", "recipes.chain",
                  "lat.lattice", "lat.determinize", "lat.rescore", "lm.arpa",
                  "lm.ngram", "ivector.extractor", "online.streaming",
-                 "models.streaming_am", "recipes.nnet3"):
+                 "models.streaming_am", "recipes.nnet3", "fst.vector_fst",
+                 "fst.symbols", "fst.lang", "fst.native", "tree.event_map",
+                 "tree.context_dep", "hmm.hmm_utils", "decoder.graph",
+                 "recipes.gmm_common", "recipes.toy"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 
