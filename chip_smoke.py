@@ -42,7 +42,18 @@ alignment scan with the gather kernel three times a frame), each
 utterance's tids held to the port's alignment on the CPU (digests in this
 script); any utterance that differs is aligned once more on loglikes
 computed on the CPU, on both devices.  Then the gather and GMM kernels at
-the alignment's shapes, and bench.py's toy system (recipes/toy.py): 1,024
+the alignment's shapes.  Then GMM training: yesno config 1 end to end at
+its defaults (recipes/yesno.run_yesno: 31 utterances, flat-start monophones,
+20 iterations towards 120 Gaussians, then the unigram decode at WER 0.00),
+and minilib stages 3 and 4 on the training set (minilib.train_mono_system:
+25 iterations towards 500 Gaussians, 17 alignment passes;
+minilib.train_tri_system: the 2,000-leaf tree from the committed mono.mdl
+and mono_ali.pkl, 8 iterations towards 4,000 Gaussians), each held to the
+port's run on the CPU (Gaussian counts and like/frame, constants in this
+script; the tree's leaves as a record), with the seconds of each stage;
+and the three kernels at the training shapes (K3 on the flat-start, the
+trained mono and tri models and the largest mixture, K1 at the yesno
+alignment's shapes, K2 on the yesno waves).  Then bench.py's toy system (recipes/toy.py): 1,024
 utterances of 10 s of noise at 16 kHz through the MFCC kernel, a TDNN-F
 and the dense search at K = S; its lattice mode on loglikes synthesised
 from known sentences, whose lattices' best paths must be the decoder's
@@ -65,7 +76,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
-import gzip
 import json
 import os
 import re
@@ -348,6 +358,267 @@ ALIGN_CPU_DIGESTS = {
         "724ba683e4544fb4a08043b7c53d7e60679cf90086d4199e6b78589fe612ed01a6c4a51bf61327a0"
         "32f2484507a7984006d6677c451bcd4dcad058d90ec2f06599bcf00688b5728d180116f4424807f8"),
 }
+# GMM training on the card is held to the port's run on the CPU: like/frame
+# within TRAIN_LIKE_TOL nats at every iteration.  Flat-start EM parts on
+# float order: the port on the CPU fed the JAX package's features (up to
+# 3.9e-3 from its own) parts from its own record by up to 0.111 nats a frame
+# in minilib mono (0.015 at the end, and one Gaussian fewer); the allowance
+# is three times that.  Whether the card computes an EM step as the CPU
+# does is held exactly by train_step.  Mono's Gaussian counts equal at every
+# iteration, tri's final count within TRI_GAUSS_REL (a leaf that differs
+# moves the removal of Gaussians under 10 counts)
+TRAIN_LIKE_TOL = 0.35
+TRI_GAUSS_REL = 0.01
+# one EM step from the same inputs on the card and the CPU: float64 sums in
+# another order (index_add_'s atomics), the M-step's E[x²] − mean² losing
+# up to two digits: the statistics, the like and the new parameters within
+# 1e-9 of the largest of each
+STEP_TOL = 1e-9
+# the port's CPU runs: per iteration, the Gaussians before the update and
+# the like/frame of the statistics, and the final count; tri also the
+# largest mixture and its tree's leaves (leaf_digests):
+# tests/test_torch_train_recipes.py::test_yesno_config_1_at_its_defaults_on_the_cpu,
+# ::test_minilib_stage_3_on_the_cpu, ::test_minilib_stage_4_on_the_cpu
+YESNO_CPU_RECORD = {
+    "gaussians": [
+        20, 25, 30, 35, 40, 45, 50, 55, 60, 65, 70, 75, 80, 85, 90, 95, 100, 105, 110,
+        115],
+    "gaussians_final": 120,
+    "like_per_frame": [
+        -125.2726425064064, -108.95874306768079, -100.22972579257663,
+        -94.64486053905189, -89.87872531824684, -86.29366407232654, -83.6913255473734,
+        -82.63501886756785, -81.52483032389756, -80.50402391375728, -79.29281390154758,
+        -78.58717905347534, -78.14988026118174, -77.56211359581849, -76.9262030340627,
+        -76.36958885880112, -75.81849303567434, -75.30019121937725, -75.02060012827944,
+        -74.83927222616829],
+}
+MONO_CPU_RECORD = {
+    "gaussians": [
+        125, 143, 161, 179, 197, 215, 233, 251, 269, 287, 305, 323, 341, 359, 377, 395,
+        413, 431, 449, 467, 485, 485, 485, 485, 485],
+    "gaussians_final": 485,
+    "like_per_frame": [
+        -137.86565699621244, -133.23243689221542, -122.46004551812473,
+        -114.20264545874362, -111.63793436252072, -110.01633266666569,
+        -108.79751901436659, -108.13266141723928, -107.59529653911139,
+        -107.0530243694233, -106.53930817492426, -106.07218395076058,
+        -105.6001380211171, -105.23630555528062, -104.84721846857434,
+        -104.49780537832856, -104.19904036287082, -103.94389468655476,
+        -103.71964046343726, -103.48561895617165, -103.2332605288495,
+        -103.02645560514617, -102.8524109162841, -102.68551421961917,
+        -102.5959923303624],
+    "largest_mixture": 38,
+}
+TRI_CPU_RECORD = {
+    "gaussians": [
+        2000, 2100, 2200, 2300, 2400, 2500, 2600, 2700],
+    "gaussians_final": 2800,
+    "like_per_frame": [
+        -97.90422758201223, -97.20976408358885, -96.73137105623762, -96.15602546814367,
+        -95.31119820394531, -94.71507697014924, -94.16210537544917, -93.70010946530162],
+    "largest_mixture": 52,
+    "leaf_digests": (
+        "000f14a20023d0760070e812007d5ef10087bee3008caebe00acc86a00d2246500e790dd00fe6666"
+        "010dac39012029210135ed5401413767017f6c4701fa87b102174bae021fd0c502330d0602841e02"
+        "02c7d94f02e8d5dc0311cba60357133c036b836303893d9403a3a98703d4fbbb040ec3460413252d"
+        "043a8f0e043df9e5045457e704676b69046efacf047bacc8048cce5a04bfc6fa04d5f65204d81419"
+        "0503d82b05357c83054dee170552f815055ac4650573de62058c5df005a74fb205ad4cd905bc6123"
+        "05c9fa2005ecc1820601dc5a066bd7630678d26a068a346906a6263a06e58ce506f21af607279625"
+        "073cdfb40746523f0751485b0783a68807b60a2107bb79e807dfd38c07fe52a8085d907808611adf"
+        "08863795089f061b08dc279808e1b3f9093efa15098bdb60099458950999ba91099b6184099ce9e6"
+        "09a868c209bb718109d0df9709e0609309e41b8709f2ee460a1e58c40a2b3c840a4b3ff80a68b61a"
+        "0a8402530ab241550b2ac7560b813f1e0b8157c80b90c60f0b927d820baca5590c19619d0c381f7f"
+        "0c691e7e0c7393720c86355d0c9970dc0c9b2eb40d0f87f40d3a04a20d56e91b0d7453440d83d652"
+        "0d9d70570dae74f90dd0fecf0e6eab6d0e6ee18d0e75a2230e81a78b0e9f91390ea162c30eb70b77"
+        "0ed72b470f3c462c0f60cdd60f6eceb90f7074620f9727530f9801ce0fc05ddd0ff1bab11041c4f0"
+        "1046b23e105c039f106b2a4f108645231095c5de10abc4ff10ac4f1c10b2658010c2117b10e79c5e"
+        "11063357112f6f611185741a120c68cf122f796312342262127ecc1612b0328813031c99130cffdb"
+        "131fb0ef1346e451134926fe136a9637137f96a7140054a1140870e2142fb8de14b42b8714e5f703"
+        "14f8033b158237af1598664b15b48db515e2ab7b164b5902165b98f8169112e41693a8c016a8da92"
+        "16af5d8716bbb10b16d64d5116fb8608170b42eb1724ce2a173a8059175d9f8017943320179d83c2"
+        "17b5cdd11803e69d1803f9101816833b1836b46a186aa88218725a4c1884c59a188a86f1189948fa"
+        "18d72e5018ecaaaf193867d81944c52c19862c3d19bcbb1119d220731a3f410e1a43bace1a489007"
+        "1ae8e9d61b05e2481b07b1291b0a9c011b1cee261b480d0e1b48c0f21b902ec91b9306cc1b99893f"
+        "1ba755721bb9657d1bd2c7fe1c2f218e1c4a7a8c1c734ed41ca5065d1cf30a961d1046771d2f4547"
+        "1d6440701dde81ce1de057c31dff5d151e313a351e4162291e4f43cd1e685ab71e803a8d1f3399f5"
+        "1f57dc281f9e99501fa3e87f1faac0861fb20ee71fd76c582019bf7a201d74a9203e852b204eade7"
+        "205edcfc20654c6d208db93f20a5981420b8b13a20d8fdf520df929d20fc022f20ffd5d5210378e8"
+        "210ea5fd211d0c8c21409f8b21a610d821d313342240be3a2242093922429b9b226f44162278e2f9"
+        "22af715b22c0891522d6d1892307c69f2312edd12340f4ea2377924523bedfaa23e9240d24147c23"
+        "244ef84824b5c92424b859dd24d7161624e6731324ee9f7124f277eb250764ea250d70f525234dff"
+        "25724362258bf7b525c0be7625d95a6c262773d426542eaf266aff612699caac26da1828270f9113"
+        "272f93cc27394bcb273eb8ba2758b8c3275e3e8d276c0ef027ad1fde27b2c80027c4a7eb27ca5154"
+        "27f2c14c2804dbf22817c3fa28186573282fe3dc285c1e5f28722d7f28d8811128f350912937de64"
+        "29397b5f2968bf9e298f80e02994ee2029a8748329b6496229cbed0029f977de2a08ed722a1326b4"
+        "2a3471d32a36993c2a5c5f0b2a789af72ac7ae3a2acd036b2b07f5fe2b3f97742b419ebd2b9166ef"
+        "2c04b8792c674b802c7984412cfed6332d2812cd2d2f766d2d3c3dff2d7bdf432d7fa0a92d9b2b53"
+        "2da7e2962dadbb8b2e0e12712e0ee81c2e48fcc62e5a8f7e2e5ecf022eba991a2ebe8e122ec8e915"
+        "2f464de22f4a09592f53582e2f6fbacc2fa410062fa7a7cc2fbba4202fc7236e2fc8123f2ff49caa"
+        "301c845d3041e8b23083dd8e309c6f6330c986c130ec79e130ff87403111c6293119609a3137c117"
+        "315912df319e62cb31ab81e031ad9a4431c5ffbd320a05253252c4ee325ac2353284603132996c30"
+        "329a1811329b369b32bd6b0b330f325a3358e97b33ead30f344fb2ee3454252e346c8e90349a865d"
+        "34b063bb34d2503f352a70853576a79b35c6a35e35cf0a4635db6c2636165e1236560450366f5d06"
+        "366fa03f3689ddcf36cc1384372ad01437312afc3774fa4e37767bc43781b55837a60a7f37a8bec6"
+        "37accb7a3801232a381bb8b9385da6d038ef892d3907dbf53923ff2c395cc76a398f043f39d87ae6"
+        "39dcaa4d3a254b643a9cef753ad583363ad755763ae8b26a3aef8b973af3e5a23b236a193b2d456a"
+        "3b54e8c63b8b373b3bcd55d03bd6a06a3bd9f2663bdb158f3bdc768e3bed3c1c3c1b7be43c3e0c3e"
+        "3c7e9cb13c880ded3c8b791e3cc017f93cd546653cea2cbc3d5d83ea3d69ef633d721d773d879505"
+        "3d8cb0963d936cfb3d9ccd8a3dac4d063dcdad383dd21ee43de2d9af3de6e33d3e0b38ae3e19d071"
+        "3e254d953e2c375d3e3027343e40b3ac3eb4a7e73eb636223ebd8da93ec3bf9b3edc2dcc3eeaa190"
+        "3ef0b9683f09520e3f0b1b833f0e66403f2d77dc3f2f7f983f6155fb3f8c3d6b40194b314032bc25"
+        "40394b00403b5cfe404a83c2405751f640774d2d4095a9144097adc740cbf81840e3655640e4bc26"
+        "410a58f3410fe0c941334024417d92cb41ab14cc41cbb08841f8880342107c97428e51f842913c5c"
+        "42a3fdf842a8e2284363db2c4369d29e437b2b15438f3c934395b3ae43f3f8be4406232e443bb28e"
+        "44459020445d6bfe4468b3ce446e27c744e0f60c44e972bd44fa0c6d4518fe624536f6774543a2ac"
+        "455227ce455ba4d645d0408145decbd545f4d6fe4628b646465ebde446a97f4646c7530146e5acdf"
+        "4703261b47093608470ed7c447261d63476781914776adb24779347a477d66d947cb915247f7250f"
+        "4802e56f481cea6848337a714834e16e483744f448516fbd4854e7be487c76df48dcb9fc490db391"
+        "498a519f498e7a7a49a9d50f49b4b08b49b4e10849d574974a2c6d3a4a3066ed4a7439114a76cf1b"
+        "4a8efa9a4aa3fdf74ab42eca4adc45734af345254b27254f4b6202684b77eb3e4b7d0cfc4ba95e84"
+        "4bcd12d34c4d89604c4f3c694c65abd84c7be5e74c82f8944ca785054cb42d964cd00d954ce5adf7"
+        "4d33ec524d4667b14d6060644d7a03ac4d8c74ec4d93858e4db90db44dc1471c4dc171284dcd8e0f"
+        "4dfe6b524e1c91b64e2650fe4e32b3724e3a38134e8ee5a54eb5b1b64ee49eef4ee6a9f14f0e32c1"
+        "4f2efec14f4408a64f8ce54b4fbf651d50057bcb5009e1be5015fd42502abfd7503056ee504fc572"
+        "509855f850a90add50b04f8050c68251511cd3c75126750451368425515c2d0b515c7497515ec582"
+        "51839ff6518726e251917ea75192a6f95197f88a5199bfd151b94fbb51bffd4f522fa1365244d403"
+        "52464240527072eb5284109f52d3f498530173d7532bc2a5533d5c4c5384771053ed5d0053edbeff"
+        "540b9bb1540e91c85434c52a544cabd5544d774f54611dce54a17ea854a4a4a454b2eb7554b9d03e"
+        "54d2882b54ed837054f0b67d550c10625510d3b755157083554811665548e02c556e78ab5579bd81"
+        "55a314c155c1d26455d7786d55ef92be5600002456125d40562b9d5c564e0eb3565352b15661186f"
+        "56b6868a56c15e0056e9e687570d119d571c85f95722920d57393e52576b2212579217b057b8ddbf"
+        "57d61b9457fc584e580bd8425827fd2f585b08dd585e910c588ba7fa58e6c6d358e9b85d5907fd9d"
+        "590a75bb590c95c859147f09591ea413596c361f596e429f598b0550598f610a59eb8da85a15333d"
+        "5a2289e05a35228e5a6b406b5a8c95985abba3555adef2795ae8d8155af502ab5b2480dc5b2cd462"
+        "5b4199115b5f390b5b6fa09d5b936e125bfd61f95c1276c55c1ac7045c722a7a5c81f6cd5c95c4f5"
+        "5cb61d2f5ccf40845cdc344e5ce5142e5ce8f9cf5cf1c1b55cfc783b5d15e6115d2139085d9d79e1"
+        "5d9fe3645da50f555dfd73d35e5f672e5e83a4105ebb48fe5ee61eff5f1cc0cb5f46b7945f4bc4b5"
+        "5f65a48e5f77b4f15f89c94d5f9a16835fa25cf55faa30dd5fbc866f5fdaace45ff041285ffa8932"
+        "603c2d97604059c96040a9ef604d095a604fcab9608fcdea60a936ff6114d712611fbd5f612f8c1f"
+        "61448fde6149a9ae61607e5561a192ac61a9206061d7847f62222700624ef03562a12eef62cb6a9e"
+        "62e5844e62f903236325eec8635f70e16388bd1463b20e1563c1cb8963d8529763d8b3aa6418e83f"
+        "6433e46b645a602b6463e050647e696364a7a64864becddb64bf651864c35ec964e1d30c651ee05f"
+        "6533adc4657fefd365b753d865c240cc65c5e4e76605f3ee66278a27666f390e66ab615f66b67f86"
+        "66fc8ab0671e86fe6729f769674e6ecb67af732267bb57f267ccddd368006e31681279a6681bef9b"
+        "683356f8683884dd68478a5668b955c568cd9bfc68f7ca24690c13576942a278697b939869888e6c"
+        "69d5ad5b69f20c6e6a405e176a7c94696adda4e86af937aa6affeaef6b55bd466b61d5916b6ae970"
+        "6bd7063e6c1db39f6c446c6f6c5974af6c6cc6666c92c70c6d0543666d3799fa6d4b2ef96d569d77"
+        "6d59c3646d7a07036dac720b6ddab20a6e0a2fd26e17157b6e1973a66e9c828e6e9e5ef96ec1c098"
+        "6ec5c8a16ec645706ed0abf36ede8ce06f182d426f2575e36f3000846f463ef96f5484fd6f75dc1c"
+        "6f9cdc1f6fb96b026fc3b5646fe50174700169897014e7d9703c5adc705bd18670623070708073ea"
+        "709403247095ea93709740db70d1e4f570e7f5a670fdc459710564757105aa63711f51bb712cfa89"
+        "712d89f571650b3a71721b05717679f07179ea6b718d9e5f719bfeb0719d49ee71d8bf76720b6114"
+        "721b84b7724416fe72558820727dcdbf728eaf2d728ebd4b7290b6e972936c3b72a6893672b45500"
+        "72d4a7b172f8bbd37343dcc3737e811f7392552973b6571173c607f573e60ffa7404b2517406bf38"
+        "7431340e7456e05f7471b77d749542577495649d74c8e55274e6ed1174ec164574f45eed74fb7804"
+        "7506edbc7546765f7561a3ab7562c3bb75667c1d75a18f9f75b3e34c75eeaadc76349df67639647a"
+        "7646032f764b340c764fd0a276626cab76648b19766a2b0d766fb03b76ade3e576bb787e76c4d160"
+        "76ef17f176fc517876fd12c4771ddd397787ab0777ab32e977d2f71d77dde21f77e4626578097653"
+        "785e7d4c787a5d8478a4e65f78d84a1278fcdff479098d277914f21d796f1a027985aaa279d719f1"
+        "79e18b2479e4203b7abf9b2b7adc9ad27adf8a897b02a7a27b0369e07b1dc5427b26d5507b35881b"
+        "7b3629477b4b4e487b63a2ca7b99503c7bbeb9207bc9db437bd9389a7c0b37637c33b75b7c600912"
+        "7c6080447c9f62cb7c9f7e147cafb67c7ceebafc7cef5bed7d4737457d4b5ad47daa9fe47db90b80"
+        "7dc0ec937e0c25087e2c42bb7e55e7227e5754157e6d092d7e734d097e86e98f7ed54d867ee12851"
+        "7eeb2c9c7ef435077f2eddda7f33238f7f5b0e597f6e4d2c7f77d2ac7f8f148a7f915b0b7fd6f5f1"
+        "80dc98be80e6ef5c8143e07f8161c025818da9468194bf4f819b814081a043cf81aada5b81c3c4ff"
+        "81c5e06681c614f881c6178781d5154781fa37ca82077381823f6dbc824ee01b82743d748288198a"
+        "82a5c60582b9eba482e2c30c82f1ba888315bee88352307c83797c1e839b91d383f92040844a479a"
+        "845ca5ba84618f468468dbfd847bf66384932670849467e28499760f84aad6ca84cee8c384d879e8"
+        "84e0525785448ef5855d074285606b308568714b857099db85a72f0e85e9c88f865100d786c3ab3a"
+        "86d30bac86eeb1f68722420c8748a497875e58988791f1b087929c2f87b0920587db354887ea1ed3"
+        "87ec40a487eccc3187ee067b8822fe598834de99886d330f8879cfe888fbd271892b7e60898dfa43"
+        "89a2085b89df50a989e14bed8a0803388a158ae38a2293588a3de08f8a4521748a4980718a847fec"
+        "8a9e397e8abe29108acd0a2f8b179e1e8b2dda868b392c8e8b4260c98b5e4e918b6735b38b7f1e0d"
+        "8bdd561a8c2ff7ab8c40a1588c5789388cb419498cd2314b8d0767328d140e7f8d61d08c8da17164"
+        "8db762328deec6e88df392d68dfd65bc8e43900f8e566c0e8e56dd698e86b3db8e9987fd8efc0874"
+        "8efef29f8f0e95b68f1037f58f20bbd98f54c3c68f5f183b8f833e488f9703a48fa077b18fb0f464"
+        "90b232e090ba59e190d9074f90f03c6291034dfd910a4bc0912c391a9142b6f1917bebc5917d9dc6"
+        "91cc695591d88d74925f1d07926f75d49275991792996ded92bba6ec92d951da92fd8d229303f816"
+        "932c1272935b69b3938a9d1c93b27d5893c8e79c93d92a7d93fdefc6941f04ee944a0b30946c40c6"
+        "9473cf589496ab0f94f87ac1950522219515e53e951a8fa695384bf495dca689960f5215961975f0"
+        "9627cd669650bc2c9651c15c96abfcd096f211a996f9274d970da06a97678d579777670e979dcd80"
+        "97a57d9397bac45f97cd3bca981528799830c358985fdab598b926b398bf48f599192985993aaf28"
+        "999f2156999f742599a343eb99e62db299fdb57b9a09246f9a15e15f9a6e29de9ab159fb9ab215ec"
+        "9ab4553e9ac7f3109b143db69b1b2d9d9b4e1fd89b7db4259b8d0a6c9b9c20c19b9d164f9ba3ce11"
+        "9ba755399bf646799c17bd1c9c44bffc9c5777769c5b45649c8cd5849cce15ba9d3b81789dc2c928"
+        "9dda42d49de688639dea9e649dec712a9df5e0d49e20b2039f0227fd9f133fda9f28c9599f46c134"
+        "9f49e2319fa905ec9fb023069fb21891a0099eb8a012a552a05ac297a092b814a0addcb8a0e18f41"
+        "a123a0c6a146607ba1526c87a156e69fa1a8113ca1b9e008a1d6a73fa1f70102a2065e19a23001a2"
+        "a239a121a2cbd034a2fcc5e2a31fddfea338a87da35210c1a398fc5aa3eb3edca401865ea44088a7"
+        "a4472adfa457d71ca460b9dda4bffb64a4c2ced5a4ce0c62a50deb71a524fbfda527ebe3a547c74b"
+        "a5bc9613a5dc1a95a64f5fd0a68ba40ca6bff7d0a6e5c40ca6e8a444a6f7d9e9a70817e9a70b1ebb"
+        "a7118980a7302f23a73b16dea73c62dfa74662a1a78016f0a783e6a2a79addf2a79b08f7a7a3e2af"
+        "a7c90ef1a7d94945a7ea962aa80806c6a808aee5a826a81ca829a9f8a8568935a8740833a8afb32d"
+        "a8b0f19da8d8387ea946bd5ea979613aa991b644a99a01aca9a5e499a9bd1134a9dd2fe5aa9cb187"
+        "aabe8ebfaac478a9aac64984aae3382dab07c284ab1dfa6bab246e26ab2f2583ab3de9d1ab82de3a"
+        "ab8a31d6ab903be1ab93234dabca45cfabdb93c8abdc8fecabddfb1fac284a49ac2c3185ac5988bd"
+        "ac69a18bac6c73d7ac9f6cd6aca47c40acea2864acf23f8aacf91bf3ad2218bcad53e2adad5e0f3f"
+        "ad6e454ead780146ad815b91ad91937bada50200adb40e15adbe5ea9adc04e5bae020028ae0d8508"
+        "ae22edf6ae4d44d1ae83551eae8dc04eae9a3000aeb0f4ecaebb1844aebdb180aee7d115af377fa6"
+        "af4fda80af77f6fcafbb117cafd68850b0511d6cb0629584b0741bb6b07ef827b0901ba7b0df9caa"
+        "b0e31fddb10768a8b10b5e39b1188058b147d786b191cf4bb1b2e07fb201dd65b204e3cfb234ffcc"
+        "b26ecc69b290095eb2b077d0b2ccb458b2d2254db3068a69b30de278b3427cb5b363d7d5b375ef92"
+        "b377a3d6b3a13d3fb3a1c79cb3a39a7ab3ab9facb3b9e716b3bd0fc0b41ea08cb420949cb43ddcdf"
+        "b493dca4b4f9cd17b50e8accb517937db5183a7ab5253589b5553885b5629234b567330cb5680fda"
+        "b576844bb5ba4735b5c914e0b5ed5fecb610dd2db61555ffb61b8280b654fb6ab67ece5cb6faa38c"
+        "b70fef2ab72c73e8b77ec0e5b7817c78b782f2a1b78353c2b7ab724db7b7c0d5b7f1e2c2b80830c9"
+        "b8317d57b8349955b85e2c56b8ec29dfb8fa15aab91c1584b9263170b9310c9ab93cc533b968d7ee"
+        "b9a9a225b9ef84c1ba04040aba1b1d79ba2203f9ba2c19efba35a6a1ba72e96fba74d14ebb10495e"
+        "bb125335bb2ecfc0bb3ee21ebbb78559bbc59e11bbecf684bbee487fbc48d2eabc528967bc5a2417"
+        "bc71246cbc827374bc9bb441bd08dd8dbd502963bd7f6b2bbd85b567bd955cd6bdd2c6ffbde4f68e"
+        "be219ee6be34d6cebe3edbb1be751b5bbe9149e4beab55c9bec4fd34bef34ad8bf1c77f1bf663b43"
+        "bf694cb2bf9a4598bfc7ef0ac008f0d8c00c8d1bc04d55b4c08189f3c0998243c0be3ad7c0cf4ac4"
+        "c0f50c26c104f944c1103ce9c11f8082c1530056c2040e92c20fb121c22dd22dc242b1a9c2676ea4"
+        "c2a68822c2ab708bc2fc608dc319e37dc334e845c3554389c3776083c37ddb8dc3bcc180c3cd314b"
+        "c3db544cc44b8682c47609e1c495d97bc4a87ca4c4ed74b1c4f2ce21c52f51bac57dfb42c583f043"
+        "c58a77cfc5a51143c5dea0fbc5f5b34dc6130fdcc620dab4c627936dc63ee9aec64a2236c64eb012"
+        "c66d2a21c698e811c6b5892bc70b2b3cc75c7248c7adc495c7e551e7c7ec778cc7f15e42c80e4ec3"
+        "c824d354c83ab905c84c6085c87e93ccc89623bac8a97c20c8b8e77fc8be37dcc8cc9b13c8f771d7"
+        "c8fedf95c919df25c95714c5c977c741c9862f34c991955fc99e367ec9b2a3e1c9bc6a73c9c930b0"
+        "c9d8fb3cc9d92397c9e64af3c9eb4b42ca4f992fca77d80fca7c6239ca85b470cadf868acaef8ea8"
+        "cb20536fcb3d91d8cb549fc2cb805b1acb8f42aacbad4444cbb8ca7acbc9209ecbe0e0cccbeee3f2"
+        "cc3694d7cca8e316ccaa0468ccb2342fccdbc385cce0b4d9ccea3a5bccfa0e90cd241712cd50203f"
+        "cd557522cd55a65fcd6b0d71cda6caf7cdce75aacde7a28acdf97caace0a6bcfce0e1577ce20f922"
+        "ce2de427ce30e585ce406375ce459341ce4c7307ce8a79d7cebd78facec0ebe1ced31f69ceeddc50"
+        "cf08f61acf3c30ffcf735b03cf790661cf808244cf81d525cfa8226fcfccdd24cfe08ba5d0154c86"
+        "d046ffa1d060e039d066b8afd0863fdad0876659d0917273d0a6d2e7d0d52991d10c9f64d1318879"
+        "d13e018fd1509e05d19a92f1d1b881a1d1d14f7fd1ec3a7dd20d5ca5d21a76e2d2201f71d232efe2"
+        "d23d2d4dd25ad189d2763ec4d2d771ded2e4858ad2f6dfffd2fd4d64d3149a6bd355abd6d36bee12"
+        "d3a53812d3abdf6cd3c41842d40a4508d41dd6fad494e2dad4e96406d4f53a8ed51737afd53018bb"
+        "d54208f4d5563613d6080202d63e06bed65919ead6596fbad666be7cd66abeded6a259d0d6babfa4"
+        "d705809ed7169827d7232ab3d7291ad8d7458131d79d1d5dd855580cd8beae30d8e0caf9d902e34a"
+        "d90eed38d93e042ed9acc2efd9bf1497d9bf5d7fda1643e1da194eecda59bc58da8ced8eda8f88f2"
+        "da9758ebda97a5f9da9a6a61daa8e4d6dace817adad778c5dae0defadafc067ddb0151e0db1a3981"
+        "db25d6c3db325ba9db325d37db3dadfadb709dfcdb8bb753dbdc80dfdbee6744dbf3282cdc0a36f0"
+        "dc1ce58edc22ca0cdc352770dc55714edc790d53dc97e093dcbb8c09dcd7272cdce08caddce49e85"
+        "dcf48258dcfb9329dd19b48fdd44b1a1dd6f9851ddf9e863deba2cbadebae636debf2ea6dec42b0e"
+        "dec5ec94ded34885dee49207deede5e3df219120df318d97df70569bdf7480dddf975971dfab32a0"
+        "dfacd39edfdd3867dfe67ca1dfec4631e00ef5d5e0711672e0bbb522e0cb14c1e0cef6f6e128044f"
+        "e16567cae17c09e9e1a05fa0e1b10a58e1dfbd58e217c311e24d3061e2886ef4e291f9cde29b4699"
+        "e29f9753e2e43d29e2ef0a94e2f2aa66e38567aae3ba53f7e3c9cf6be3e81bf1e3f48e9fe4289ec8"
+        "e4517395e47a7d78e4826698e497c5d4e4ba0970e4d88a8ce55dd973e56d1995e58ac1a2e5c0810e"
+        "e5d83d3be5e8fde3e61b1f29e65edd3fe67eb936e6b04239e6c92146e71ba3c7e7209a77e73b5290"
+        "e746aee0e767f52ae7707bffe77e17ece786fb10e78a3bb3e7e24cb0e7e86a07e83718bde84cb44c"
+        "e8527a3de8a15fe3e8a2d878e8d848f1e9112b1ee9233329e948b56ce94d7385e9670813e98798fe"
+        "e98a4df9e9a5360ae9c522a8e9d96a8de9f5526eea14b55dea2529e4ea2b69ccea4427d5ea450fe0"
+        "ea59c20eea5f3a0fea714edeea74fef8eac50478ead7be91eada55b5eb300b3aeb659dd5ebc68586"
+        "ebd04359ebf45886ec08f9bdec23c07cec8931c0ec8d0d31ecd87f03ecdbbaffed1a489eed608422"
+        "ed6bc49bed6e92d5ed991785eda24aededae439bedd4529eedd66580ede3f304ee004f3fee1c3bb2"
+        "ee4a954fee59a3edee7d9957ee7e208eee7e93cdee9bc25ceeb2b208eebdd2e5eed1094feed6044e"
+        "ef089a9cef2e921aef32f823ef394b94ef8b11eeefa74aa9efd977aaefefaafaf00666d1f006f2f0"
+        "f06b51b0f072676af0909ae8f0a0ababf0ad772df0fa2bbbf10c6740f11c7284f148898ff191e393"
+        "f1973edef19f5cbdf1ea51e1f202c51cf23ae244f2461eb2f252f7e4f26452ecf26f82aff2a634a5"
+        "f2a85c36f2caf157f2e7bcadf2efe12ef3048fc3f30c3793f30d9797f3547b41f37647b7f3b9dedc"
+        "f3d796bff456ea38f45d58eef472f36af47847c2f4a65403f4bf3744f4d156f7f4fce08af55f65ab"
+        "f56a8ae1f5b6a255f5cd39f9f5d5b048f5dcd3e3f5dda83af601225bf622c3a8f66224bbf688ab17"
+        "f6b4efa2f6ca0b17f6e8b0cdf6f48859f710624ff7268f95f7aad480f7bb6e5cf7d9de16f8153480"
+        "f815f44cf8207e17f846552af84bc775f84d8887f85cf546f8d378ddf8d7c2c5f8da24e4f91b12ab"
+        "f9396dfcf93efbe3f943c168f94bd49ff96f2776f982bfbdf9886595f98b8543f99e79e1f9b51ed9"
+        "f9c26292f9ef0480fa02f253fa39e11dfa3dfdc0fa8f52a9faa3066dfac66bc6fad13d28faf2982f"
+        "fb633b15fb710b44fb77c73dfb915557fbbbcd24fbc39915fbdf218ffbf999d2fbfa8d3cfc032868"
+        "fc176b82fc35f6f1fc4eb377fc603e1cfc8902c1fc9d457afcad6949fcbfecf9fcd4ca81fd0793c9"
+        "fd0fc5dbfd142719fd171574fd5099a0fd6161f8fd8693c5fd94c80cfde89eeffe0d80d1fe5ea1df"
+        "fe7582a4fea6cf3ffec1aca2fed38de7fedb2e2bfef3b118ff32162fff61685effaba693ffe7e90c"),
+}
 # bench.py's run_toy: 1,024 utterances of 10 s of noise at 16 kHz
 TOY_BATCH, TOY_SECONDS = 1024, 10.0
 TOY_LATTICE_UTTS, TOY_LATTICE_MAX_ACTIVE = 16, 256
@@ -393,17 +664,17 @@ def cpu_digests(name: str) -> list:
     return [d[i: i + 8] for i in range(0, len(d), 8)]
 
 
-def committed_agreement(np, convert, path: str, alignments: dict, tid2pdf) -> tuple:
-    """(frames with the same pdf, frames compared) between `alignments` and
-    a committed alignment pickle (gzip, {utt: tids}) of the same model."""
-    with gzip.open(path, "rb") as f:
-        committed = convert.StubUnpickler(f).load()
+def alignment_agreement(np, alignments: dict, committed: dict, label, committed_label
+                        ) -> tuple:
+    """(frames with the same label, frames compared) between `alignments`
+    and a committed alignment ({utt: tids}), each through its own model's
+    tid → label array (pdf or phone)."""
     same = compared = 0
     for k, a in alignments.items():
         if k in committed:
             b = np.asarray(committed[k])
             n = min(len(a), len(b))
-            same += int((tid2pdf[a[:n]] == tid2pdf[b[:n]]).sum())
+            same += int((label[a[:n]] == committed_label[b[:n]]).sum())
             compared += n
     return same, compared
 
@@ -534,6 +805,38 @@ def check_gmm(torch, kernel, plain, cases):
                                f"{tuple(feats.shape)} ({share:.3f} of its allowance)")
         del out, ref, err
     return worst, worst_share
+
+
+def k3_at(torch, kernel, plain, gw, x, plug) -> dict:
+    """K3 on frames x [N, D] with packed rows gw: held against its plain
+    version, then timed (kernel; plain version, chunked; the product alone,
+    torch.matmul of the [N, K] frame rows by the packed [columns, K] rows in
+    fp32, TF32 off, without the logsumexp), with its bound: the larger of
+    three TF32 products at 495 TFLOP/s and its bytes at 3.35 TB/s."""
+    err, share = check_gmm(torch, kernel, plain, [(x, gw)])
+    n, d = x.shape
+    flops = 2 * n * gw.num_gauss * (2 * d + 1)
+    nbytes = 4 * (n * d + n * gw.num_pdfs) + sum(
+        t.numel() * t.element_size()
+        for t in (gw.tiles, gw.segments, gw.seg_offsets, gw.work, gw.work_offsets))
+    ops_ms = 1e3 * TF32_SPLIT_PRODUCTS * flops / H100_TF32_FLOPS
+    bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_PER_S
+    ext = torch.zeros((n, gw.depth), device="cuda")
+    ext[:, :d], ext[:, d:2 * d], ext[:, 2 * d] = x, x * x, 1.0
+    cols_t = sum(gw.columns()).T.contiguous()
+    out = {"shape": {"frames": n, "dim": d, "pdfs": gw.num_pdfs, "gaussians": gw.num_gauss,
+                     "tiles": gw.num_tiles, "padded_mixtures": gw.max_mix},
+           "max_abs_err": err, "worst_share_of_tolerance": share,
+           "kernel_ms": time_ms(torch, lambda: kernel(x, gw), reps=5, plug=plug),
+           "plain_ms": time_ms(torch, lambda: plain(x, gw), reps=1, warm=1, plug=plug),
+           "library_ms": None,
+           "product_only_ms": time_ms(torch, lambda: torch.matmul(ext, cols_t), reps=5,
+                                      plug=plug),
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms, "flops": flops, "bytes": nbytes}
+    del ext, cols_t
+    return out
 
 
 def check_gmm_refusals(torch, kernel, feats, weights, wide) -> int:
@@ -744,7 +1047,16 @@ def main() -> int:
     from old_kaldi_git_tpu_torch.ops.mfcc_kernel import (
         fused_mfcc_from_frames, fused_mfcc_reference, make_mfcc_weights, mel_spans,
         mfcc_route)
-    from old_kaldi_git_tpu_torch.recipes import decode, minilib, toy
+    from old_kaldi_git_tpu_torch.decoder.graph import GraphCompiler
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm
+    from old_kaldi_git_tpu_torch.hmm.topology import HmmTopology
+    from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
+    from old_kaldi_git_tpu_torch.recipes import decode, minilib, toy, yesno
+    from old_kaldi_git_tpu_torch.gmm.mle import (
+        AccumAmDiagGmm, mixup, mle_am_diag_gmm_update)
+    from old_kaldi_git_tpu_torch.recipes.gmm_common import GmmTrainOptions
+    from old_kaldi_git_tpu_torch.tree.build_tree import accumulate_tree_stats, leaf_digests
+    from old_kaldi_git_tpu_torch.tree.context_dep import monophone_context_dependency
     from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
     from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer, edit_distance
 
@@ -1511,8 +1823,9 @@ def main() -> int:
         frames = sum(f.shape[0] for f in tfeats.values())
         tid2pdf = convert.load_am_gmm_model(f"exp/minilib/{model}.mdl",
                                             device="cpu").tm.tid_to_pdf_array()
-        same, compared = committed_agreement(np, convert, f"exp/minilib/{committed}",
-                                             res.alignments, tid2pdf)
+        same, compared = alignment_agreement(
+            np, res.alignments, convert.load_pickle(f"exp/minilib/{committed}"), tid2pdf,
+            tid2pdf)
         emit({"phase": name, "card": card, "model": f"exp/minilib/{model}.mdl",
               "equal_alignment": equal, "utterances": len(keys), "frames": frames,
               "failures": len(res.failed), "cpu_failures": want.count(FAILED_DIGEST),
@@ -1597,28 +1910,9 @@ def main() -> int:
         k1_align[name] = {"loglikes": gather_at(ab, Pa, A, int(tnf.max())),
                           "alpha": gather_at(ab, S, A, 1)}
         gw_a = gmm_model.am.weights()
-        err, share = check_gmm(torch, gmm_loglikes, gmm_loglikes_plain, [(tx, gw_a)])
-        n3, d3 = tx.shape
-        flops = 2 * n3 * gw_a.num_gauss * (2 * d3 + 1)
-        nbytes = 4 * (n3 * d3 + n3 * gw_a.num_pdfs) + sum(
-            t.numel() * t.element_size()
-            for t in (gw_a.tiles, gw_a.segments, gw_a.seg_offsets, gw_a.work,
-                      gw_a.work_offsets))
-        ops_ms = 1e3 * TF32_SPLIT_PRODUCTS * flops / H100_TF32_FLOPS
-        bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_PER_S
-        k3_align[name] = {
-            "shape": {"frames": n3, "dim": d3, "pdfs": gw_a.num_pdfs,
-                      "gaussians": gw_a.num_gauss, "tiles": gw_a.num_tiles,
-                      "padded_mixtures": gw_a.max_mix},
-            "max_abs_err": err, "worst_share_of_tolerance": share,
-            "kernel_ms": time_ms(torch, lambda: gmm_loglikes(tx, gw_a), reps=5, plug=plug),
-            "plain_ms": time_ms(torch, lambda: gmm_loglikes_plain(tx, gw_a), reps=1,
-                                warm=1, plug=plug),
-            "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        k3_align[name] = k3_at(torch, gmm_loglikes, gmm_loglikes_plain, gw_a, tx, plug)
         del gmm_model, gw_a
-    del plug, tx
+    del plug
     torch.cuda.empty_cache()
     emit({"phase": "align_kernels", "card": card, "batch": ab,
           "gather": {"exact": k1_align_err == 0.0, "max_abs_err": k1_align_err,
@@ -1626,7 +1920,279 @@ def main() -> int:
           "gmm": k3_align, "tolerance": f"{GMM_TOL[0]} + {GMM_TOL[1]}*|plain|",
           "timing": "mean of back-to-back launches, inputs resident in L2"})
 
-    # ---- phases 20-22: the fused toy pipeline (bench.py's run_toy), its
+    # ---- phases 20-23: GMM training.  Counts set to 0 just before each of
+    # the three, read just after.  train_yesno: config 1 end to end at its
+    # defaults (features of 41 utterances through K2, flat-start monophone
+    # training with K3 and the alignment scan's K1 on every pass, mkgraph,
+    # the decode).  train_mono / train_tri: minilib stages 3 and 4 on the
+    # training set's features through K2; tri starts from the committed
+    # mono.mdl and mono_ali.pkl.  Each is held to the port's CPU run
+    # (*_CPU_RECORD): Gaussian counts, like/frame within TRAIN_LIKE_TOL
+    def like_gaps(history, record):
+        if len(history) != len(record["like_per_frame"]):
+            raise RuntimeError(f"{len(history)} iterations, the CPU record "
+                               f"{len(record['like_per_frame'])}")
+        return [abs(h["like_per_frame"] - w)
+                for h, w in zip(history, record["like_per_frame"])]
+
+    def stage_line(t, iters, audio_s):
+        """the stages' seconds (align_seconds is the scan; a pass is
+        loglikes_seconds + align_seconds), per iteration, and audio-s/s"""
+        align_s = t["loglikes_seconds"] + t["align_seconds"]
+        return {**{k: v for k, v in t.items() if k.endswith("seconds")},
+                "align_passes": t["align_passes"], "frames_scanned": t["align_frames"],
+                "accumulate_seconds_per_iteration": t["accumulate_seconds"] / iters,
+                "update_seconds_per_iteration": t["update_seconds"] / iters,
+                "align_audio_seconds_per_second": t["align_passes"] * audio_s / align_s,
+                "accumulate_audio_seconds_per_second":
+                    iters * audio_s / t["accumulate_seconds"]}
+
+    train_faults = []  # every training phase runs; a fault ends the run after them
+    ytrain_waves, ytrain_text, _, _ = yesno.make_corpus()
+    yaudio_s = sum(len(w) for w in ytrain_waves.values()) / yesno.SAMP_FREQ
+    zero_counts()
+    gmm_loglikes.launches = 0
+    y_hist, y_tim = [], {}
+    t0 = time.perf_counter()
+    ystats = yesno.run_yesno(device=dev, history=y_hist, timings=y_tim)
+    torch.cuda.synchronize()
+    y_wall = time.perf_counter() - t0
+    ty_launches = read_counts("train_yesno")
+    ty_launches["gmm"] = gmm_loglikes.launches
+    y_gaps = like_gaps(y_hist, YESNO_CPU_RECORD)
+    emit({"phase": "train_yesno", "card": card, "wer_percent": ystats.wer,
+          "errors": ystats.errors, "ref_words": ystats.ref_len, "wall_seconds": y_wall,
+          **stage_line(y_tim, len(y_hist), yaudio_s),
+          "gaussians": [h["gaussians"] for h in y_hist],
+          "gaussians_final": y_hist[-1]["gaussians_after"],
+          "like_per_frame": [h["like_per_frame"] for h in y_hist],
+          "max_like_gap_to_cpu": max(y_gaps), "like_tolerance": TRAIN_LIKE_TOL,
+          "gather_launches": ty_launches["gather"], "mfcc_launches": ty_launches["mfcc"],
+          "gmm_launches": ty_launches["gmm"],
+          "mfcc_launches_by_route": ty_launches["mfcc_by_route"]})
+    if not (ystats.ref_len > 0 and ystats.wer == 0.0):
+        train_faults.append(f"train_yesno: {ystats.report()}, not WER 0.00")
+    if ([h["gaussians"] for h in y_hist] != YESNO_CPU_RECORD["gaussians"]
+            or y_hist[-1]["gaussians_after"] != YESNO_CPU_RECORD["gaussians_final"]):
+        train_faults.append("train_yesno: Gaussian counts differ from the CPU's")
+    if max(y_gaps) > TRAIN_LIKE_TOL:
+        train_faults.append(f"train_yesno: like/frame {max(y_gaps)} from the CPU's")
+    if (ty_launches["gather"] < 3 * y_tim["align_frames"] or ty_launches["mfcc"] == 0
+            or ty_launches["gmm"] <= y_tim["align_passes"]):
+        train_faults.append(f"train_yesno did not go through its kernels: {ty_launches}")
+
+    # alignment passes by the schedules: mono aligns first, at each realign
+    # iteration within its 25 and last; tri starts from converted
+    # alignments and realigns at 1, 3, 5, 7 and last
+    mono_passes = 2 + sum(0 < r < topts.mono_iters for r in GmmTrainOptions().realign_iters)
+    tri_passes = 1 + len(range(1, topts.tri_iters, 2))
+    tr_launches, tr_results = {}, {}
+    for name, train, record, iters, passes, committed in (
+            ("train_mono", minilib.train_mono_system, MONO_CPU_RECORD,
+             topts.mono_iters, mono_passes, "mono"),
+            ("train_tri", minilib.train_tri_system, TRI_CPU_RECORD,
+             topts.tri_iters, tri_passes, "tri")):
+        zero_counts()
+        gmm_loglikes.launches = 0
+        t0 = time.perf_counter()
+        tfeats = minilib.compute_feats(twaves, device=dev)
+        torch.cuda.synchronize()
+        fe_s = time.perf_counter() - t0
+        res = train(None, tfeats, ttext, lang, topts, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(name)
+        launches["gmm"] = gmm_loglikes.launches
+        gaps = like_gaps(res.history, record)
+        gauss = [h["gaussians"] for h in res.history]
+        final_gauss = res.model.am.num_gauss
+        # agreement with the committed alignment of the same stage: by pdf
+        # (mono: the same tree), and by phone
+        cmodel = convert.load_am_gmm_model(f"exp/minilib/{committed}.mdl", device="cpu")
+        calis = convert.load_pickle(f"exp/minilib/{committed}_ali.pkl")
+        agree = {label: (lambda sc: sc[0] / max(sc[1], 1))(alignment_agreement(
+            np, res.alignments, calis, getattr(res.model.tm, f"tid_to_{label}_array")(),
+            getattr(cmodel.tm, f"tid_to_{label}_array")()))
+            for label in (("phone", "pdf") if name == "train_mono" else ("phone",))}
+        line = {"phase": name, "card": card, "utterances": len(tfeats),
+                "aligned": len(res.alignments), "audio_seconds": taudio_s,
+                "wall_seconds": wall, "front_end_seconds": fe_s,
+                **stage_line(res.timings, iters, taudio_s),
+                "align_passes_by_schedule": passes,
+                "gather_launches_expected": 3 * res.timings["align_frames"],
+                "gaussians": gauss, "gaussians_final": final_gauss,
+                "like_per_frame": [h["like_per_frame"] for h in res.history],
+                "max_like_gap_to_cpu": max(gaps), "like_tolerance": TRAIN_LIKE_TOL,
+                "largest_mixture": max(p.num_mix for p in res.model.am.pdfs),
+                f"agreement_with_committed_{committed}_ali": agree,
+                "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+                "gather_launches": launches["gather"], "mfcc_launches": launches["mfcc"],
+                "gmm_launches": launches["gmm"],
+                "mfcc_launches_by_route": launches["mfcc_by_route"]}
+        if name == "train_tri":
+            # the tree's leaves by the events they hold, against the CPU's
+            stats = {}
+            mono_tm = convert.load_am_gmm_model("exp/minilib/mono.mdl", device="cpu").tm
+            for k, a in convert.load_pickle("exp/minilib/mono_ali.pkl").items():
+                accumulate_tree_stats(a, tfeats[k], mono_tm, stats=stats)
+            digests = leaf_digests(res.tree, stats)
+            cpu_leaves = set(re.findall(".{8}", TRI_CPU_RECORD["leaf_digests"]))
+            tree_s = sum(res.timings[k] for k in ("tree_stats_seconds", "tree_seconds",
+                                                  "tree_init_seconds"))
+            line.update({"leaves": res.tree.num_pdfs,
+                         "leaves_differing_from_cpu": sum(d not in cpu_leaves
+                                                          for d in digests),
+                         "tree_stage_seconds": tree_s, "tree_stage_share": tree_s / wall,
+                         "final_gaussians_cpu": TRI_CPU_RECORD["gaussians_final"]})
+        emit(line)
+        if len(res.alignments) != len(tfeats):
+            train_faults.append(f"{name}: {len(res.alignments)} of {len(tfeats)} aligned")
+        if max(gaps) > TRAIN_LIKE_TOL:
+            train_faults.append(f"{name}: like/frame {max(gaps)} from the CPU's")
+        if name == "train_mono" and (gauss != record["gaussians"]
+                                     or final_gauss != record["gaussians_final"]):
+            train_faults.append(f"{name}: Gaussian counts differ from the CPU's")
+        if name == "train_tri" and (
+                res.tree.num_pdfs != topts.tree_leaves
+                or abs(final_gauss - record["gaussians_final"])
+                > TRI_GAUSS_REL * record["gaussians_final"]):
+            train_faults.append(f"{name}: {res.tree.num_pdfs} leaves, {final_gauss} "
+                                f"Gaussians (the CPU {record['gaussians_final']})")
+        if (res.timings["align_passes"] != passes
+                or launches["gather"] != 3 * res.timings["align_frames"]
+                or launches["gmm"] != passes or launches["mfcc"] == 0):
+            train_faults.append(f"{name}: launches {launches} for "
+                                f"{res.timings['align_passes']} passes of "
+                                f"{res.timings['align_frames']} frames")
+        tr_launches[name], tr_results[name] = launches, res
+        del tfeats
+    torch.cuda.empty_cache()
+
+    # ---- phase 23: one EM step from the same inputs on both devices (the
+    # committed mono.mdl and mono_ali.pkl, the features computed on the CPU):
+    # the statistics, the M-step and a mixup must agree within STEP_TOL,
+    # the numbers that the training phases' iterations repeat; and the
+    # card's statistics, taken twice, must be the same bits
+    cfeats = minilib.compute_feats(twaves, device="cpu")
+    mono_ali = convert.load_pickle("exp/minilib/mono_ali.pkl")
+    skeys = sorted(mono_ali)
+    sframes = torch.from_numpy(np.concatenate([cfeats[k] for k in skeys]))
+    sali = np.concatenate([np.asarray(mono_ali[k], np.int64) for k in skeys])
+    del cfeats
+    step = {}
+    for where in ("cpu", "cuda"):
+        m = convert.load_am_gmm_model("exp/minilib/mono.mdl", device=where)
+        t0 = time.perf_counter()
+        acc = AccumAmDiagGmm(m.am)
+        like = acc.accumulate_corpus(m.am, sframes.to(where), m.tm.tid_to_pdf_array()[sali])
+        torch.cuda.synchronize()
+        acc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        new = mle_am_diag_gmm_update(m.am, acc)
+        new = mixup(new, new.num_gauss + 18, occs=acc.pdf_occupancy(), seed=0)
+        torch.cuda.synchronize()
+        step[where] = {"accs": [t.cpu().numpy() for t in (acc.occ, acc.mean_acc, acc.var_acc)],
+                       "like": like, "model": new, "accumulate_seconds": acc_s,
+                       "update_seconds": time.perf_counter() - t0}
+    # the card's statistics once more: they must repeat bit for bit
+    again = AccumAmDiagGmm(m.am)
+    again_like = again.accumulate_corpus(m.am, sframes.to("cuda"), m.tm.tid_to_pdf_array()[sali])
+    repeats = again_like == step["cuda"]["like"] and all(
+        np.array_equal(t.cpu().numpy(), a)
+        for t, a in zip((again.occ, again.mean_acc, again.var_acc), step["cuda"]["accs"]))
+    del again, m
+    sc, sg = step["cpu"], step["cuda"]
+    acc_gap = max(float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-300))
+                  for g, c in zip(sg["accs"], sc["accs"]))
+    like_gap = abs(sg["like"] - sc["like"]) / abs(sc["like"])
+    same_mix = ([p.num_mix for p in sg["model"].pdfs] == [p.num_mix for p in sc["model"].pdfs])
+    param_gap = max(float(np.abs(getattr(g, f) - getattr(c, f)).max()
+                          / max(np.abs(getattr(c, f)).max(), 1e-300))
+                    for g, c in zip(sg["model"].pdfs, sc["model"].pdfs)
+                    for f in ("weights", "means", "vars")) if same_mix else None
+    emit({"phase": "train_step", "card": card, "frames": int(sframes.shape[0]),
+          "model": "exp/minilib/mono.mdl", "alignment": "exp/minilib/mono_ali.pkl",
+          "stats_gap_relative_to_largest": acc_gap, "like_gap_relative": like_gap,
+          "same_gaussian_counts": same_mix, "param_gap_relative_to_largest": param_gap,
+          "tolerance": STEP_TOL, "card_statistics_repeat_bit_for_bit": repeats,
+          "accumulate_seconds": {"card": sg["accumulate_seconds"],
+                                 "cpu": sc["accumulate_seconds"]},
+          "update_seconds": {"card": sg["update_seconds"], "cpu": sc["update_seconds"]}})
+    if not (same_mix and max(acc_gap, like_gap, param_gap) <= STEP_TOL and repeats):
+        train_faults.append("train_step: one EM step on the card differs from the CPU's "
+                            "or from itself")
+    del step, sc, sg, sframes
+
+    # ---- phase 24: the kernels at the training shapes.  K3 on the training
+    # set's padded frames with the flat-start mono model (one Gaussian a
+    # pdf), the trained mono and tri models, and the largest mixture of
+    # either alone; K1 at the yesno alignment's shapes (loglike row, alpha);
+    # K2 on the yesno training waves' frames
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    tfeats = minilib.compute_feats(twaves, device=dev)
+    allf = np.concatenate([tfeats[k] for k in sorted(tfeats)])
+    flat = AmDiagGmm.init_mono(tr_results["train_mono"].model.am.num_pdfs, allf.mean(axis=0),
+                               allf.var(axis=0) + 1e-3, perturb=0.01, device=dev)
+    del tfeats, allf
+    biggest = max((p for r in tr_results.values() for p in r.model.am.pdfs),
+                  key=lambda p: p.num_mix)
+    k3_train = {}
+    for name, am in (("flat_start_mono", flat),
+                     ("trained_mono", tr_results["train_mono"].model.am),
+                     ("trained_tri", tr_results["train_tri"].model.am),
+                     ("largest_mixture", AmDiagGmm([biggest], dev))):
+        k3_train[name] = k3_at(torch, gmm_loglikes, gmm_loglikes_plain, am.weights(), tx,
+                               plug)
+    del tx
+    ylang = yesno.make_lang()
+    yphones = ylang.real_phone_ids
+    ytopo = HmmTopology.standard(yphones, silence_phones=[ylang.silence_id])
+    yctx = monophone_context_dependency(yphones, {p: ytopo.num_pdf_classes(p)
+                                                  for p in yphones})
+    ytm = TransitionModel.from_context_dependency(yctx, ytopo)
+    ygraphs = GraphCompiler(ylang, yctx, ytm).compile_csr_graphs(
+        [ytrain_text[k] for k in sorted(ytrain_text)])
+    yS, yA = align_shape(ygraphs)
+    yT = max(num_frames(len(w), opts8.frame_opts) for w in ytrain_waves.values())
+    yB, yP = len(ygraphs), yctx.num_pdfs
+    k1_yesno_err = check_gather(torch, batched_table_gather, batched_table_gather_plain,
+                                [(yB, yP, yA, yT, 1), (yB, yS, yA, 1, 0)], seed=13)
+    k1_yesno = {"loglikes": gather_at(yB, yP, yA, yT), "alpha": gather_at(yB, yS, yA, 1)}
+    ykeys = sorted(ytrain_waves)
+    ybatch = np.zeros((len(ykeys), max(len(w) for w in ytrain_waves.values())), np.float32)
+    for i, k in enumerate(ykeys):
+        ybatch[i, : len(ytrain_waves[k])] = ytrain_waves[k]
+    yframes, _ = extract_frames(torch.from_numpy(ybatch).to(dev), opts8.frame_opts)
+    yframes = yframes.reshape(-1, yframes.shape[-1]).contiguous()
+    k2_yesno_err, k2_yesno_err64, _ = check_mfcc(
+        torch, fused_mfcc_from_frames, fused_mfcc_reference, [(yframes, w8, w8d, True)])
+    yn = yframes.shape[0]
+    k2_yesno = {"shape": [yn, yframes.shape[1]], "max_abs_err": k2_yesno_err,
+                "max_abs_err_vs_float64_plain": k2_yesno_err64,
+                "kernel_ms": time_ms(torch, lambda: fused_mfcc_from_frames(yframes, w8),
+                                     reps=20, plug=plug),
+                "plain_ms": time_ms(torch, lambda: fused_mfcc_reference(yframes, w8),
+                                    reps=5, plug=plug),
+                "library_ms": None,
+                "rfft_only_ms": time_ms(torch, lambda: torch.fft.rfft(yframes, dim=1),
+                                        reps=20, plug=plug),
+                "bytes": 4 * yn * (yframes.shape[1] + c)}
+    yb_ms = 1e3 * k2_yesno["bytes"] / H100_HBM_BYTES_PER_S
+    yo_ms = 1e3 * mfcc_flops(yn, yframes.shape[1], spans8, nb, c) / H100_FP64_FLOPS
+    k2_yesno.update({"bound_ms": max(yb_ms, yo_ms),
+                     "bound_by": "operations" if yo_ms >= yb_ms else "bytes"})
+    del plug, yframes
+    torch.cuda.empty_cache()
+    emit({"phase": "train_kernels", "card": card,
+          "gmm": k3_train, "tolerance": f"{GMM_TOL[0]} + {GMM_TOL[1]}*|plain|",
+          "gather_yesno": {"exact": k1_yesno_err == 0.0, "shape_BSA": [yB, yS, yA],
+                           "frames": yT, **k1_yesno},
+          "mfcc_yesno": k2_yesno,
+          "timing": "mean of back-to-back launches, inputs resident in L2"})
+    if train_faults:
+        raise RuntimeError("GMM training: " + "; ".join(train_faults))
+
+    # ---- phases 25-27: the fused toy pipeline (bench.py's run_toy), its
     # lattice mode and the dense StreamingDecoder on the toy graph
     t0 = time.perf_counter()
     toy_system = toy.build_toy_system(device=dev)
@@ -1660,7 +2226,13 @@ def main() -> int:
                                    reps=5, plug=plug),
               "plain_ms": time_ms(torch, lambda: fused_mfcc_reference(yframes, w16),
                                   reps=2, warm=1, plug=plug),
-              "library_ms": None, "bound_ms": max(y_bytes_ms, y_ops_ms),
+              "library_ms": None,
+              "rfft_only_ms": time_ms(torch, lambda: torch.fft.rfft(yframes, dim=1),
+                                      reps=5, plug=plug),
+              "rfft_only": "torch.fft.rfft of the same frames in fp32: the spectrum "
+                           "alone, not the function",
+              "bytes": 4 * yn * (512 + w16[3].shape[1]),
+              "bound_ms": max(y_bytes_ms, y_ops_ms),
               "bound_by": "operations" if y_ops_ms >= y_bytes_ms else "bytes"}
     del yframes, plug
     torch.cuda.empty_cache()
@@ -1755,6 +2327,8 @@ def main() -> int:
                       + civ_launches["gather"] + s_launches["stream"]["gather"]
                       + s_launches["stream_chain"]["gather"] + o_launches["gather"]
                       + sum(a["gather"] for a in a_launches.values())
+                      + ty_launches["gather"]
+                      + sum(t["gather"] for t in tr_launches.values())
                       + y_launches["gather"] + tl_launches["gather"]
                       + sd_launches["gather"]),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
@@ -1767,6 +2341,8 @@ def main() -> int:
                               "stream_chain": s_launches["stream_chain"]["gather"],
                               "online2": o_launches["gather"],
                               **{n: a["gather"] for n, a in a_launches.items()},
+                              "train_yesno": ty_launches["gather"],
+                              **{n: t["gather"] for n, t in tr_launches.items()},
                               "decode_toy": y_launches["gather"],
                               "toy_lattice": tl_launches["gather"],
                               "stream_dense": sd_launches["gather"]},
@@ -1777,7 +2353,8 @@ def main() -> int:
                              "decode_ivec": k1_ivec, "stream": k1_stream,
                              "stream_chain": k1_stream_chain,
                              **{f"{n}_{k}": v for n, g in k1_align.items()
-                                for k, v in g.items()}}},
+                                for k, v in g.items()},
+                             **{f"train_yesno_{k}": v for k, v in k1_yesno.items()}}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
@@ -1785,6 +2362,7 @@ def main() -> int:
                       + r_launches["mfcc"] + iv_launches["mfcc"] + civ_launches["mfcc"]
                       + s_launches["stream"]["mfcc"] + s_launches["stream_chain"]["mfcc"]
                       + o_launches["mfcc"] + sum(a["mfcc"] for a in a_launches.values())
+                      + ty_launches["mfcc"] + sum(t["mfcc"] for t in tr_launches.values())
                       + y_launches["mfcc"] + tl_launches["mfcc"] + sd_launches["mfcc"]),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
@@ -1795,6 +2373,8 @@ def main() -> int:
                               "stream_chain": s_launches["stream_chain"]["mfcc"],
                               "online2": o_launches["mfcc"],
                               **{n: a["mfcc"] for n, a in a_launches.items()},
+                              "train_yesno": ty_launches["mfcc"],
+                              **{n: t["mfcc"] for n, t in tr_launches.items()},
                               "decode_toy": y_launches["mfcc"],
                               "toy_lattice": tl_launches["mfcc"],
                               "stream_dense": sd_launches["mfcc"]},
@@ -1802,25 +2382,32 @@ def main() -> int:
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
                  s_launches["stream"], s_launches["stream_chain"], o_launches,
-                 *a_launches.values(), y_launches, tl_launches, sd_launches))
+                 *a_launches.values(), ty_launches, *tr_launches.values(), y_launches,
+                 tl_launches, sd_launches))
              for r in k2_routes},
-         "max_abs_err": max(k2_err, y_err), "ms": k2_ms,
+         "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": "operations" if k2_ops_ms >= k2_bytes_ms else "bytes",
-         "library_ms": None, "at_other_shapes": {"decode_toy": k2_toy}},
+         "library_ms": None,
+         "at_other_shapes": {"decode_toy": k2_toy, "train_yesno": k2_yesno}},
         {"name": "gmm_loglikes", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gmm.cu",
          "replaces": "old_kaldi_git_tpu/ops/gmm_kernel.py:125",
          "launches": (k3_tdnn_launches + g_launches["gmm"]
-                      + sum(a["gmm"] for a in a_launches.values())),
+                      + sum(a["gmm"] for a in a_launches.values())
+                      + ty_launches["gmm"] + sum(t["gmm"] for t in tr_launches.values())),
          "launches_by_path": {"decode": k3_tdnn_launches,
                               "decode_gmm": g_launches["gmm"],
-                              **{n: a["gmm"] for n, a in a_launches.items()}},
-         "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]),
+                              **{n: a["gmm"] for n, a in a_launches.items()},
+                              "train_yesno": ty_launches["gmm"],
+                              **{n: t["gmm"] for n, t in tr_launches.items()}},
+         "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]
+                            + [v["max_abs_err"] for v in k3_train.values()]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": max(k3_ops_ms, k3_bytes_ms),
          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
-         "library_ms": None, "at_other_shapes": k3_align},
+         "library_ms": None,
+         "at_other_shapes": {**k3_align, **{f"train_{k}": v for k, v in k3_train.items()}}},
     ]})
     if args.noisy:
         waves, text = minilib.make_test_set(minilib.MinilibOptions(),

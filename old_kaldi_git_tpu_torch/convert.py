@@ -19,6 +19,7 @@ Three things:
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import pickle
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -66,8 +67,11 @@ class StubUnpickler(pickle.Unpickler):
 
 
 def load_pickle(path: str) -> Any:
-    """Unpickle one of the committed artifacts with JAX-package classes as stubs."""
+    """Unpickle one of the committed artifacts with JAX-package classes as
+    stubs; a gzip file (`mono_ali.pkl`, `tri_ali.pkl`) is read through gzip."""
     with open(path, "rb") as f:
+        gz = f.peek(2)[:2] == b"\x1f\x8b"
+    with (gzip.open(path, "rb") if gz else open(path, "rb")) as f:
         return StubUnpickler(f).load()
 
 

@@ -6,15 +6,16 @@ the computer maps [B, num_samples] → [B, T, D].
 
 The spectrum path (DFT → power → mel → log → liftered DCT) runs through the
 fused kernel of old_kaldi_git_tpu_torch.ops.mfcc_kernel; the column c0 is then
-overwritten with the raw log energy.  Fbank, spectrogram and PLP are not
-ported yet.
+overwritten with the raw log energy.  `compute_utterance_feats` is the
+recipes' batched front end (MFCC, per-utterance CMN, optional deltas).
+Fbank, spectrogram and PLP are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -26,6 +27,8 @@ from old_kaldi_git_tpu_torch.feat.window import (
     num_frames,
 )
 from old_kaldi_git_tpu_torch.utils.parse_options import options_dataclass
+
+FEAT_CHUNK = 128  # utterances per front-end batch
 
 
 def dct_matrix(num_rows: int, num_cols: int) -> np.ndarray:
@@ -106,3 +109,42 @@ class Mfcc:
                 log_energy = torch.clamp(log_energy, min=math.log(o.energy_floor))
             ceps[..., 0] = log_energy  # in place: ceps is this call's own buffer
         return ceps
+
+
+def compute_utterance_feats(waves: Dict[str, np.ndarray], samp_freq: float,
+                            device: torch.device, deltas: bool = True,
+                            chunk: int = FEAT_CHUNK) -> Dict[str, np.ndarray]:
+    """{utt: wave} → {utt: [T, 13] float32 MFCC with per-utterance CMN, and
+    deltas ([T, 39]) with `deltas`}, undithered.  Each chunk of `chunk`
+    utterances (sorted by key) is padded to its own longest wave, framed and
+    run through the MFCC kernel as one [B·T, W] call; CMN and deltas run on
+    the same device.  Frames past an utterance's end repeat its last frame
+    before the deltas, so the edge regression equals the unbatched one."""
+    from old_kaldi_git_tpu_torch.feat.functions import compute_deltas
+
+    opts = MfccOptions()
+    opts.frame_opts.samp_freq = samp_freq
+    opts.frame_opts.dither = 0.0
+    mfcc = Mfcc(opts)
+    keys = sorted(waves)
+    out: Dict[str, np.ndarray] = {}
+    for c0 in range(0, len(keys), chunk):
+        part = keys[c0: c0 + chunk]
+        mlen = max(waves[k].shape[0] for k in part)
+        batch = np.zeros((len(part), mlen), np.float32)
+        for i, k in enumerate(part):
+            batch[i, : waves[k].shape[0]] = waves[k]
+        nf_h = np.asarray([mfcc.num_frames(waves[k].shape[0]) for k in part])
+        feats = mfcc(torch.from_numpy(batch).to(device))  # [B, T, 13]
+        T = feats.shape[1]
+        nf = torch.from_numpy(nf_h).to(device)
+        t_idx = torch.arange(T, device=device)[None, :]
+        idx = torch.minimum(t_idx, (nf - 1).clamp(min=0)[:, None])
+        feats = feats.gather(1, idx[:, :, None].expand(-1, -1, feats.shape[2]))
+        mask = (t_idx < nf[:, None]).to(feats.dtype)
+        mean = (feats * mask[:, :, None]).sum(1) / nf.clamp(min=1)[:, None]
+        feats = feats - mean[:, None, :]
+        res = (compute_deltas(feats) if deltas else feats).cpu().numpy()
+        for i, k in enumerate(part):
+            out[k] = res[i, : nf_h[i]].astype(np.float32)
+    return out

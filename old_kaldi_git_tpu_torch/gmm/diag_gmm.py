@@ -1,4 +1,4 @@
-"""Diagonal-covariance GMMs, decode side.
+"""Diagonal-covariance GMMs.
 
 Counterpart of old_kaldi_git_tpu/gmm/diag_gmm.py (reference
 src/gmm/{diag-gmm.h,am-diag-gmm.h}): DiagGmm holds float64 weights, means and
@@ -10,7 +10,10 @@ float32 once, as the JAX package's `stacked()` does: the packed rows are the
 JAX package's to the bit.  A single DiagGmm also scores frames itself
 (`component_loglikes`, `loglikes`, `posteriors`) in float64 on the frames'
 device: the iVector extractor's UBM needs its per-component posteriors at
-that precision.  Inference only; no EM update.
+that precision.  Training (gmm/mle.py) makes a new AmDiagGmm on the same
+device after every update, whose rows are packed anew on first use; the
+flat start is `AmDiagGmm.init_mono`, and the writers emit the JAX package's
+bytes (float32 gconsts, weights, means·inv_vars, inv_vars).
 """
 
 from __future__ import annotations
@@ -97,6 +100,20 @@ class DiagGmm:
         p = torch.exp(comp - comp.max(dim=1, keepdim=True).values)
         return p / p.sum(dim=1, keepdim=True)
 
+    def write(self, f: BinaryIO) -> None:
+        """<DiagGMM> <GCONSTS> FV <WEIGHTS> FV <MEANS_INVVARS> FM
+        <INV_VARS> FM </DiagGMM>, each cast to float32."""
+        iof.write_token(f, "<DiagGMM>")
+        iof.write_token(f, "<GCONSTS>")
+        iof.write_vector(f, self.gconsts.astype(np.float32))
+        iof.write_token(f, "<WEIGHTS>")
+        iof.write_vector(f, self.weights.astype(np.float32))
+        iof.write_token(f, "<MEANS_INVVARS>")
+        iof.write_matrix(f, self.means_invvars.astype(np.float32))
+        iof.write_token(f, "<INV_VARS>")
+        iof.write_matrix(f, self.inv_vars.astype(np.float32))
+        iof.write_token(f, "</DiagGMM>")
+
     @staticmethod
     def read(f: BinaryIO) -> "DiagGmm":
         """<DiagGMM> [<GCONSTS> FV] <WEIGHTS> FV <MEANS_INVVARS> FM
@@ -140,6 +157,22 @@ class AmDiagGmm:
     def num_gauss(self) -> int:
         return sum(p.num_mix for p in self.pdfs)
 
+    @staticmethod
+    def init_mono(num_pdfs: int, glob_mean: np.ndarray, glob_var: np.ndarray,
+                  perturb: float = 0.0, seed: int = 0,
+                  device: DeviceLike = None) -> "AmDiagGmm":
+        """The flat start (reference gmm-init-mono): one Gaussian a pdf at
+        the global mean and variance, each mean moved by perturb·σ·N(0, 1)
+        from `default_rng(seed)`, drawn pdf by pdf."""
+        rng = np.random.default_rng(seed)
+        pdfs = []
+        for _ in range(num_pdfs):
+            mean = glob_mean.copy()
+            if perturb > 0:
+                mean = mean + perturb * np.sqrt(glob_var) * rng.normal(size=mean.shape)
+            pdfs.append(DiagGmm(np.ones(1), mean[None, :], glob_var[None, :].copy()))
+        return AmDiagGmm(pdfs, device)
+
     def stacked(self) -> Tuple[np.ndarray, np.ndarray, int]:
         """(W [P·M, 2D+1] float32, mask [P, M] bool, M), the JAX package's
         layout: M is the largest mixture count rounded up to a power of two,
@@ -175,6 +208,14 @@ class AmDiagGmm:
         out = gmm_loglikes(flat, self.weights())
         return out.view(*feats.shape[:-1], self.num_pdfs)
 
+    def write(self, f: BinaryIO) -> None:
+        iof.write_token(f, "<DIMENSION>")
+        iof.write_int32(f, self.dim)
+        iof.write_token(f, "<NUMPDFS>")
+        iof.write_int32(f, self.num_pdfs)
+        for pdf in self.pdfs:
+            pdf.write(f)
+
     @staticmethod
     def read(f: BinaryIO, device: DeviceLike = None) -> "AmDiagGmm":
         """<DIMENSION> d <NUMPDFS> n, then n DiagGMMs (no wrapper token)."""
@@ -196,6 +237,16 @@ class AmGmmModel:
     def __init__(self, tm: TransitionModel, am: AmDiagGmm):
         self.tm = tm
         self.am = am
+
+    def write(self, f: BinaryIO) -> None:
+        """`final.mdl`'s layout: the transition model, then the GMMs."""
+        self.tm.write(f)
+        self.am.write(f)
+
+    def save(self, path: str) -> None:
+        with open(path, "wb") as f:
+            iof.init_kaldi_output_stream(f, True)
+            self.write(f)
 
     @staticmethod
     def read(f: BinaryIO, device: DeviceLike = None) -> "AmGmmModel":

@@ -1,9 +1,13 @@
-"""H-transducer construction.
+"""H-transducer construction and alignment utilities.
 
-Own copy of the part of old_kaldi_git_tpu/hmm/hmm_utils.py that the graph
-compiler uses: GetHTransducer (reference src/hmm/hmm-utils.h; Ha, without
-self-loops, with disambig pass-through).  AddSelfLoops runs in the native
-library (fst/native.py `NativeFst.add_self_loops`).
+Own copy of the parts of old_kaldi_git_tpu/hmm/hmm_utils.py that the graph
+compiler and GMM training use: GetHTransducer (reference
+src/hmm/hmm-utils.h; Ha, without self-loops, with disambig pass-through),
+SplitToPhones, the alignment → phones / pdfs maps and ConvertAlignment
+(same topology).  AddSelfLoops runs in the native library (fst/native.py
+`NativeFst.add_self_loops`).  The alignment utilities work on an
+utterance's whole tid array at once, through the transition model's
+per-tid arrays.
 
 Probability convention (documented; matches the reference's scaling scheme):
   * H arcs carry weight = transition_scale * -log(p / (1 - p_self)) — the
@@ -18,6 +22,8 @@ from __future__ import annotations
 
 import math
 from typing import List, Sequence, Tuple
+
+import numpy as np
 
 from old_kaldi_git_tpu_torch.fst.vector_fst import EPS, INF, Arc, VectorFst
 from old_kaldi_git_tpu_torch.hmm.topology import NO_PDF
@@ -102,3 +108,64 @@ def make_h_transducer(
             if piece.finals[s] != INF:
                 fst.add_arc(offset + s, Arc(EPS, EPS, piece.finals[s], loop))
     return fst, disambig_tids
+
+
+# ---------------------------------------------------------------------------
+# alignment utilities
+# ---------------------------------------------------------------------------
+
+def phone_starts(tm: TransitionModel, alignment: Sequence[int]) -> np.ndarray:
+    """[T] bool: frame t begins a phone.  The graphs put a self-loop at the
+    destination of its forward arc (reorder = true), so a phone begins at a
+    tid that leaves hmm-state 0 and is not a self-loop; the first frame
+    always begins one."""
+    ali = np.asarray(alignment, np.int64)
+    arr = tm.tid_arrays()
+    starts = (arr["hmm_state"][ali] == 0) & (arr["self_loop"][ali] == 0)
+    if len(ali):
+        starts[0] = True
+    return starts
+
+
+def split_to_phones(tm: TransitionModel, alignment: Sequence[int]) -> List[List[int]]:
+    """A tid sequence split into per-phone segments (reference
+    SplitToPhones)."""
+    ali = np.asarray(alignment, np.int64)
+    bounds = np.flatnonzero(phone_starts(tm, ali))
+    return [seg.tolist() for seg in np.split(ali, bounds[1:])] if len(ali) else []
+
+
+def alignment_to_phones(tm: TransitionModel, alignment: Sequence[int]) -> List[int]:
+    ali = np.asarray(alignment, np.int64)
+    return tm.tid_arrays()["phone"][ali[phone_starts(tm, ali)]].tolist()
+
+
+def alignment_to_pdfs(tm: TransitionModel, alignment: Sequence[int]) -> List[int]:
+    return tm.tid_to_pdf_array()[np.asarray(alignment, np.int64)].tolist()
+
+
+def convert_alignment(alignment: Sequence[int], tm_old: TransitionModel,
+                      tm_new: TransitionModel, ctx_dep_new: ContextDependency) -> np.ndarray:
+    """An alignment re-mapped to a new tree with the same topology
+    (reference ConvertAlignment, same-topology path): each frame keeps its
+    phone, hmm-state and transition index, and takes the pdf that the new
+    tree gives its phone window (0 beyond the utterance) and pdf-class.
+    Returns int32 tids."""
+    ali = np.asarray(alignment, np.int64)
+    if not len(ali):
+        return np.zeros(0, np.int32)
+    old = tm_old.tid_arrays()
+    starts = phone_starts(tm_old, ali)
+    seg = np.cumsum(starts) - 1
+    N, P = ctx_dep_new.N, ctx_dep_new.P
+    phones = old["phone"][ali[starts]].tolist()
+    padded = [0] * P + phones + [0] * (N - 1 - P)
+    hmm_state = old["hmm_state"][ali]
+    # one tree lookup per (phone, hmm-state) visit
+    keys, first, inverse = np.unique(np.stack([seg, hmm_state], axis=1), axis=0,
+                                     return_index=True, return_inverse=True)
+    base = np.empty(len(keys), np.int64)
+    for i, (s, h) in enumerate(keys.tolist()):
+        pdf = ctx_dep_new.compute(padded[s: s + N], int(old["pdf_class"][ali[first[i]]]))
+        base[i] = tm_new.state2id[tm_new.tuple_to_tstate(phones[s], h, pdf)]
+    return (base[inverse.reshape(-1)] + old["tindex"][ali]).astype(np.int32)

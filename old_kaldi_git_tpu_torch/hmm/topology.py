@@ -1,5 +1,5 @@
 """HMM topologies (own copy of the parts of old_kaldi_git_tpu/hmm/topology.py
-that TransitionModel.read and the graph compiler use).
+that TransitionModel's reader and writer and the graph compiler use).
 
 Parity with reference src/hmm/hmm-topology.h: per-phone state lists, each
 state a pdf-class and (next-state, prob) transitions; the last state is
@@ -81,6 +81,35 @@ class HmmTopology:
                 raise KaldiError(f"topology: bad entry index for phone {p}")
             by_phone[int(p)] = entries[idx]
         return HmmTopology(by_phone)
+
+    def write(self, f: BinaryIO) -> None:
+        """The layout `read` takes.  Phones with identical entries share one
+        entry, numbered in phone order, as the reference stores them."""
+        phones = self.phones
+        entries: List[List[HmmState]] = []
+        idx_vec = [-1] * (max(phones) + 1)
+        for p in phones:
+            entry = self._entries[p]
+            for i, e in enumerate(entries):
+                if e == entry:
+                    idx_vec[p] = i
+                    break
+            else:
+                entries.append(entry)
+                idx_vec[p] = len(entries) - 1
+        iof.write_token(f, "<Topology>")
+        iof.write_integer_vector(f, phones)
+        iof.write_integer_vector(f, idx_vec)
+        iof.write_int32(f, len(entries))
+        for entry in entries:
+            iof.write_int32(f, len(entry))
+            for st in entry:
+                iof.write_int32(f, st.pdf_class)
+                iof.write_int32(f, len(st.transitions))
+                for ns, prob in st.transitions:
+                    iof.write_int32(f, ns)
+                    iof.write_float(f, prob)
+        iof.write_token(f, "</Topology>")
 
 
 def _bakis_entry(num_states: int) -> List[HmmState]:

@@ -1,20 +1,22 @@
-"""TransitionModel (own copy of the parts of
-old_kaldi_git_tpu/hmm/transition_model.py that a decode and the graph
-compiler need).
+"""TransitionModel (own copy of old_kaldi_git_tpu/hmm/transition_model.py:
+what a decode, the graph compiler and GMM training need).
 
 Parity with reference src/hmm/transition-model.h: transition-ids (tids,
 1-based, 0 = epsilon) index (transition-state, transition-index) pairs; a
 transition-state is a (phone, hmm-state, pdf) tuple.  The decoder needs the
 tid → pdf map; the graph compiler the tuple → transition-state index, the
-self-loop tids and the log transition probs.  A model is read from a `.mdl`
-or built from a tree and a topology (`from_context_dependency`, reference
-TransitionModel(ctx_dep, topo), with the topology's priors as its probs).
+self-loop tids and the log transition probs; training the per-tid arrays
+of hmm_utils (`tid_arrays`), the occupancy counts and the MLE update
+(reference TransitionModel::MleUpdate, floor 0.01), and the writer.  A model
+is read from a `.mdl` or built from a tree and a topology
+(`from_context_dependency`, reference TransitionModel(ctx_dep, topo), with
+the topology's priors as its probs and the tree's pdf count).
 """
 
 from __future__ import annotations
 
 import math
-from typing import BinaryIO, Dict, List, Tuple
+from typing import BinaryIO, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -25,10 +27,13 @@ from old_kaldi_git_tpu_torch.utils.log import KaldiError
 
 class TransitionModel:
     def __init__(self, topo: HmmTopology, tuples: List[Tuple[int, int, int]],
-                 log_probs: np.ndarray):
+                 log_probs: np.ndarray, num_pdfs: Optional[int] = None):
+        """num_pdfs: the tree's pdf count; None takes 1 + the largest pdf of
+        the tuples, as a `.mdl` reader derives it (the file stores none)."""
         self.topo = topo
         self.tuples = tuples  # (phone, hmm_state, pdf) per transition-state
-        self.num_pdfs = 1 + max((t[2] for t in tuples), default=-1)
+        self.num_pdfs = (1 + max((t[2] for t in tuples), default=-1)
+                         if num_pdfs is None else num_pdfs)
         self._index: Dict[Tuple[int, int, int], int] = {t: i for i, t in enumerate(tuples)}
         # state2id[ts] = first tid of transition-state ts; one tid per
         # transition of its hmm-state
@@ -40,6 +45,7 @@ class TransitionModel:
         self.id2state = np.zeros(self.num_tids + 1, np.int32)
         self.id2state[1:] = np.repeat(np.arange(len(tuples), dtype=np.int32), counts)
         self.log_probs = log_probs  # [num_tids+1] float64
+        self._tid_arrays: Optional[Dict[str, np.ndarray]] = None
         if len(log_probs) != self.num_tids + 1:
             raise KaldiError(
                 f"TransitionModel: {len(log_probs)} log-probs for "
@@ -48,7 +54,8 @@ class TransitionModel:
     @staticmethod
     def from_context_dependency(ctx_dep, topo: HmmTopology) -> "TransitionModel":
         """One transition-state per (phone, hmm-state, pdf) that the tree
-        can reach, sorted; log-probs from the topology's priors."""
+        can reach, sorted; log-probs from the topology's priors; as many
+        pdfs as the tree has."""
         phones = topo.phones
         num_pdf_classes = {p: topo.num_pdf_classes(p) for p in phones}
         tuples = []
@@ -62,7 +69,7 @@ class TransitionModel:
                  for _ns, prob in topo.topology_for_phone(p)[h].transitions]
         log_probs = np.zeros(len(probs) + 1, np.float64)
         log_probs[1:] = [math.log(max(prob, 1e-20)) for prob in probs]
-        return TransitionModel(topo, tuples, log_probs)
+        return TransitionModel(topo, tuples, log_probs, num_pdfs=ctx_dep.num_pdfs)
 
     def tuple_to_tstate(self, phone: int, hmm_state: int, pdf: int) -> int:
         key = (phone, hmm_state, pdf)
@@ -99,6 +106,61 @@ class TransitionModel:
     def tid_to_phone_array(self) -> np.ndarray:
         """[num_tids+1] int32; entry 0 is -1 (epsilon)."""
         return self._per_tid(0)
+
+    def tid_arrays(self) -> Dict[str, np.ndarray]:
+        """Per tid ([num_tids+1] int32, entry 0 -1): phone, hmm_state, pdf,
+        pdf_class, tindex (its index among its state's transitions) and
+        self_loop (1 for a self-loop), built once."""
+        if self._tid_arrays is None:
+            tindex = np.full(self.num_tids + 1, -1, np.int32)
+            tindex[1:] = (np.arange(1, self.num_tids + 1)
+                          - np.asarray(self.state2id)[self.id2state[1:]])
+            pdf_class = np.full(self.num_tids + 1, -1, np.int32)
+            self_loop = np.full(self.num_tids + 1, -1, np.int32)
+            for tid in range(1, self.num_tids + 1):
+                phone, hmm_state, _ = self.tuples[self.id2state[tid]]
+                st = self.topo.topology_for_phone(phone)[hmm_state]
+                pdf_class[tid] = st.pdf_class
+                self_loop[tid] = st.transitions[tindex[tid]][0] == hmm_state
+            self._tid_arrays = {"phone": self._per_tid(0), "hmm_state": self._per_tid(1),
+                                "pdf": self._per_tid(2), "pdf_class": pdf_class,
+                                "tindex": tindex, "self_loop": self_loop}
+        return self._tid_arrays
+
+    # -- MLE update (reference TransitionModel::MleUpdate) ---------------------
+    def accumulate(self, alignment: Sequence[int], stats: np.ndarray) -> np.ndarray:
+        """Adds each tid's frame count to `stats` (float64 [num_tids+1])."""
+        ali = np.asarray(alignment, np.int64)
+        if len(ali):
+            stats += np.bincount(ali, minlength=len(stats)).astype(stats.dtype)
+        return stats
+
+    def mle_update(self, stats: np.ndarray, floor: float = 0.01) -> float:
+        """Each transition-state's probs ∝ its tids' counts floored at
+        `floor`; returns the total count."""
+        stats = np.asarray(stats, dtype=np.float64)
+        counts = np.maximum(stats[1:], floor)
+        sums = np.add.reduceat(counts, np.asarray(self.state2id[:-1]) - 1)
+        self.log_probs[1:] = np.log(counts / sums[self.id2state[1:]])
+        return float(stats.sum())
+
+    def write(self, f: BinaryIO) -> None:
+        """<TransitionModel> <Topology>… <Triples> n (phone hmm-state pdf)×n
+        </Triples> <LogProbs> FV </LogProbs> </TransitionModel>: the
+        layout `read` takes, the log-probs as float32."""
+        iof.write_token(f, "<TransitionModel>")
+        self.topo.write(f)
+        iof.write_token(f, "<Triples>")
+        iof.write_int32(f, len(self.tuples))
+        for phone, hmm_state, pdf in self.tuples:
+            iof.write_int32(f, phone)
+            iof.write_int32(f, hmm_state)
+            iof.write_int32(f, pdf)
+        iof.write_token(f, "</Triples>")
+        iof.write_token(f, "<LogProbs>")
+        iof.write_vector(f, self.log_probs.astype(np.float32))
+        iof.write_token(f, "</LogProbs>")
+        iof.write_token(f, "</TransitionModel>")
 
     @staticmethod
     def read(f: BinaryIO) -> "TransitionModel":

@@ -4,8 +4,8 @@ the serving path of the port.
 Counterpart of old_kaldi_git_tpu/recipes/minilib.py, the part that decodes:
 it LOADS a system that the JAX package built (20k-word lexicon, pruned
 trigram, triphone tree, a 1M-state HCLG as CSR arrays, a TDNN-F CE model) and
-decodes the held-out set with measured WER.  Building and training stay with
-the JAX package for now.
+decodes the held-out set with measured WER.  Building the lexicon's LM,
+the graphs and the neural models stays with the JAX package for now.
 
   waveform → compute_feats (13 MFCC through the fused kernel, per-utterance
   CMN, deltas → 39) → AmNnet.loglikes_batch → decode_batch_tokens → words
@@ -21,11 +21,13 @@ iVector systems (`final_ivec.am`, `chain_ivec.mdl`) take the same features
 with online iVectors from the diagonal-UBM extractor `final.ie` appended
 (`use_ivectors=True`).
 
-And the first step of training: forced alignment of the 600-utterance
-training set (`training_set`, `align_training_set`) with `tri.mdl` or
-`mono.mdl`, or as the equal alignment: a training graph per utterance from
-the lang bundle (`make_lang`) and the model's tree, GMM loglikes, the
-alignment scan.
+And GMM training on the 600-utterance training set (`training_set`):
+forced alignment with `tri.mdl` or `mono.mdl`, or as the equal alignment
+(`align_training_set`: a training graph per utterance from the lang bundle,
+`make_lang`, and the model's tree, GMM loglikes, the alignment scan); the
+JAX package's build_system stages 3 and 4, `train_mono_system` (flat-start
+monophones) and `train_tri_system` (the triphone tree and its training,
+from the committed `mono.mdl` and `mono_ali.pkl`).
 
 The evaluation and training audio is synthesised from the option seeds with numpy, by an
 own copy of the JAX package's synthesis (bit-equal waves and text), so
@@ -49,7 +51,7 @@ from old_kaldi_git_tpu_torch.decoder.graph import GraphCompiler
 from old_kaldi_git_tpu_torch.decoder.viterbi import (
     ViterbiOptions, align_batch, decode_batch_tokens)
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
-from old_kaldi_git_tpu_torch.feat import Mfcc, MfccOptions, compute_deltas
+from old_kaldi_git_tpu_torch.feat.compute import FEAT_CHUNK, compute_utterance_feats
 from old_kaldi_git_tpu_torch.fst.lang import Lang, Lexicon
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
 from old_kaldi_git_tpu_torch.ivector.extractor import (
@@ -63,8 +65,11 @@ from old_kaldi_git_tpu_torch.lm.ngram import estimate_ngram_lm
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
 from old_kaldi_git_tpu_torch.recipes.chain import ChainModel
 from old_kaldi_git_tpu_torch.recipes.gmm_common import GmmTrainOptions, align_all
+from old_kaldi_git_tpu_torch.recipes.mono import MonoTrainOptions, train_mono
+from old_kaldi_git_tpu_torch.recipes.triphone import train_deltas
 from old_kaldi_git_tpu_torch.recipes.nnet3 import append_ivector_feats
-from old_kaldi_git_tpu_torch.tree.context_dep import monophone_context_dependency
+from old_kaldi_git_tpu_torch.tree.context_dep import (
+    ContextDependency, monophone_context_dependency)
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
@@ -74,14 +79,14 @@ from old_kaldi_git_tpu_torch.utils.timing import StageClock
 log = get_logger("minilib")
 
 SAMP_FREQ = 8000.0
-FEAT_CHUNK = 128  # utterances per front-end batch
 
 
 @options_dataclass
 class MinilibOptions:
-    """The fields that shape the lexicon, the text, the held-out set and the
-    LM text that rescoring estimates its full LM from (the JAX package's
-    options also hold its training settings)."""
+    """The fields that shape the lexicon, the text, the held-out and training
+    sets, the LM text that rescoring estimates its full LM from, and the GMM
+    stages (the JAX package's options also hold its LM pruning and its
+    neural models' training settings)."""
 
     num_phones: int = 40
     num_words: int = 20_000
@@ -90,6 +95,11 @@ class MinilibOptions:
     num_test: int = 256
     seed: int = 42
     lm_order: int = 3
+    tree_leaves: int = 2000
+    tri_iters: int = 8
+    mono_iters: int = 25
+    mono_totgauss: int = 500
+    tri_totgauss: int = 4000
 
 
 # ---------------------------------------------------------------------------
@@ -229,37 +239,11 @@ def silence_phone_id(lexicon: Dict[str, str]) -> int:
 
 def compute_feats(waves: Dict[str, np.ndarray],
                   device: DeviceLike = None) -> Dict[str, np.ndarray]:
-    """{utt: wave} → {utt: [T, 39] float32}.  Each chunk of FEAT_CHUNK
-    utterances (sorted by key) is padded to its own longest wave, framed and
-    run through the MFCC kernel as one [B·T, W] call; CMN and deltas run on
-    the same device.  Frames past an utterance's end repeat its last frame
-    before the deltas, so the edge regression equals the unbatched one."""
-    dev = resolve_device(device)
-    opts = MfccOptions()
-    opts.frame_opts.samp_freq = SAMP_FREQ
-    opts.frame_opts.dither = 0.0
-    mfcc = Mfcc(opts)
-    keys = sorted(waves)
-    out: Dict[str, np.ndarray] = {}
-    for c0 in range(0, len(keys), FEAT_CHUNK):
-        chunk = keys[c0: c0 + FEAT_CHUNK]
-        mlen = max(waves[k].shape[0] for k in chunk)
-        batch = np.zeros((len(chunk), mlen), np.float32)
-        for i, k in enumerate(chunk):
-            batch[i, : waves[k].shape[0]] = waves[k]
-        nf_h = np.asarray([mfcc.num_frames(waves[k].shape[0]) for k in chunk])
-        feats = mfcc(torch.from_numpy(batch).to(dev))  # [B, T, 13]
-        T = feats.shape[1]
-        nf = torch.from_numpy(nf_h).to(dev)
-        t_idx = torch.arange(T, device=dev)[None, :]
-        idx = torch.minimum(t_idx, (nf - 1).clamp(min=0)[:, None])
-        feats = feats.gather(1, idx[:, :, None].expand(-1, -1, feats.shape[2]))
-        mask = (t_idx < nf[:, None]).to(feats.dtype)
-        mean = (feats * mask[:, :, None]).sum(1) / nf.clamp(min=1)[:, None]
-        deltas = compute_deltas(feats - mean[:, None, :]).cpu().numpy()
-        for i, k in enumerate(chunk):
-            out[k] = deltas[i, : nf_h[i]].astype(np.float32)
-    return out
+    """{utt: wave} → {utt: [T, 39] float32}: 13 MFCC at 8 kHz through the MFCC
+    kernel, per-utterance CMN, deltas (feat/compute.py
+    `compute_utterance_feats`, in chunks of FEAT_CHUNK utterances)."""
+    return compute_utterance_feats(waves, SAMP_FREQ, resolve_device(device),
+                                   chunk=FEAT_CHUNK)
 
 
 def compute_ivectors(ext: IvectorExtractor, feats: Dict[str, np.ndarray],
@@ -800,3 +784,68 @@ def align_training_set(workdir: str, feats: Dict[str, np.ndarray],
         failed=[k for k, a in zip(keys, alis) if a is None],
         scores={k: c for k, c in zip(keys, costs)},
         seconds=seconds, frames_scanned=frames, graphs=dict(zip(keys, graphs)))
+
+
+# ---------------------------------------------------------------------------
+# GMM training: the JAX package's build_system stages 3 (mono) and 4 (tri)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainResult:
+    model: AmGmmModel
+    alignments: Dict[str, np.ndarray]  # utt → transition-ids, one a frame
+    timings: Dict[str, float]  # by stage (gmm_training_loop's keys and the set-up's)
+    history: List[dict]  # one dict an iteration (gmm_training_loop)
+    tree: Optional[ContextDependency] = None  # the triphone tree (train_tri_system)
+
+
+def train_mono_system(workdir_out: Optional[str], feats: Dict[str, np.ndarray],
+                      text: Dict[str, List[str]], lang: Lang,
+                      opts: Optional[MinilibOptions] = None,
+                      device: DeviceLike = None) -> TrainResult:
+    """Stage 3 of the JAX package's build_system: flat-start monophone
+    training on `feats` (the training set's, `training_set` and
+    `compute_feats`) for opts.mono_iters iterations towards
+    opts.mono_totgauss Gaussians, on `device`.  With `workdir_out`, writes
+    `mono.mdl` there."""
+    opts = opts or MinilibOptions()
+    timings: Dict[str, float] = {}
+    history: List[dict] = []
+    model, ali = train_mono(feats, text, lang,
+                            MonoTrainOptions(num_iters=opts.mono_iters,
+                                             totgauss=opts.mono_totgauss),
+                            device=device, timings=timings, history=history)
+    if workdir_out:
+        os.makedirs(workdir_out, exist_ok=True)
+        model.save(os.path.join(workdir_out, "mono.mdl"))
+    return TrainResult(model, ali, timings, history)
+
+
+def train_tri_system(workdir_out: Optional[str], feats: Dict[str, np.ndarray],
+                     text: Dict[str, List[str]], lang: Lang,
+                     opts: Optional[MinilibOptions] = None,
+                     device: DeviceLike = None,
+                     mono_workdir: str = "exp/minilib") -> TrainResult:
+    """Stage 4 of the JAX package's build_system: the triphone tree of
+    opts.tree_leaves leaves (thresh 20) from `mono.mdl` and `mono_ali.pkl`
+    in `mono_workdir` (the committed system's by default, as the JAX stage
+    reads its own stage 3), then opts.tri_iters iterations realigning at
+    1, 3, 5, … towards opts.tri_totgauss Gaussians, on `device`.  With
+    `workdir_out`, writes `tri.mdl` there."""
+    opts = opts or MinilibOptions()
+    dev = resolve_device(device)
+    timings: Dict[str, float] = {}
+    history: List[dict] = []
+    clock = StageClock(dev, timings)
+    mono = AmGmmModel.load(os.path.join(mono_workdir, "mono.mdl"), device=dev)
+    mono_ali = convert.load_pickle(os.path.join(mono_workdir, "mono_ali.pkl"))
+    clock.lap("load_seconds")
+    model, tree, ali = train_deltas(
+        feats, text, lang, mono, mono_ali, num_leaves=opts.tree_leaves,
+        opts=GmmTrainOptions(num_iters=opts.tri_iters, totgauss=opts.tri_totgauss,
+                             realign_iters=tuple(range(1, opts.tri_iters, 2))),
+        device=dev, timings=timings, history=history)
+    if workdir_out:
+        os.makedirs(workdir_out, exist_ok=True)
+        model.save(os.path.join(workdir_out, "tri.mdl"))
+    return TrainResult(model, ali, timings, history, tree)

@@ -1,12 +1,14 @@
-"""Read side of Kaldi's binary object format (own copy of the parts of
-old_kaldi_git_tpu/utils/io_funcs.py that reading a `.mdl` needs).
+"""Kaldi's binary object format (own copy of the parts of
+old_kaldi_git_tpu/utils/io_funcs.py that reading and writing a `.mdl`
+need).
 
 Parity with reference src/base/io-funcs.h and src/matrix/kaldi-matrix.cc:
 the `\\0B` binary header, whitespace-terminated tokens, size-marked int32 and
 float scalars, the raw int32 vectors inside model objects, and "FM "/"DM "
 matrices and "FV "/"DV " vectors.  Little-endian throughout.
 
-Streams are read forward only: a look-ahead uses the buffered reader's
+Writers emit the JAX package's bytes exactly, so a `.mdl` written by either
+package loads in the other.  Streams are read forward only: a look-ahead uses the buffered reader's
 `peek()`, never `tell()`/`seek()`, so pipes work as files do.
 """
 
@@ -142,3 +144,58 @@ def read_vector(f: BinaryIO) -> np.ndarray:
     n = read_int32(f)
     raw = _read_exact(f, n * dtype.itemsize, "vector data")
     return np.frombuffer(raw, dtype.newbyteorder("<")).astype(dtype)
+
+
+# ---------------------------------------------------------------------------
+# writers
+# ---------------------------------------------------------------------------
+
+def init_kaldi_output_stream(f: BinaryIO, binary: bool = True) -> None:
+    if binary:
+        f.write(BINARY_HEADER)
+
+
+def write_token(f: BinaryIO, token: str) -> None:
+    if not token or any(c.isspace() for c in token):
+        raise KaldiError(f"invalid token {token!r}")
+    f.write(token.encode("utf-8") + b" ")
+
+
+def write_int32(f: BinaryIO, value: int) -> None:
+    f.write(b"\x04" + struct.pack("<i", value))
+
+
+def write_float(f: BinaryIO, value: float) -> None:
+    f.write(b"\x04" + struct.pack("<f", value))
+
+
+def write_double(f: BinaryIO, value: float) -> None:
+    f.write(b"\x08" + struct.pack("<d", value))
+
+
+def write_integer_vector(f: BinaryIO, values) -> None:
+    """Reference WriteIntegerVector inside model objects: element size 4, a
+    raw int32 count, raw int32 elements."""
+    values = np.asarray(values, dtype=np.int32)
+    f.write(b"\x04" + struct.pack("<i", int(values.size)))
+    if values.size:
+        f.write(values.astype("<i4").tobytes())
+
+
+def write_matrix(f: BinaryIO, mat: np.ndarray, dtype=np.float32) -> None:
+    """An "FM " (float32) or "DM " (float64) matrix."""
+    mat = np.ascontiguousarray(np.asarray(mat), dtype=dtype)
+    if mat.ndim != 2:
+        raise KaldiError(f"write_matrix needs 2-D, got shape {mat.shape}")
+    write_token(f, "FM" if dtype == np.float32 else "DM")
+    write_int32(f, mat.shape[0])
+    write_int32(f, mat.shape[1])
+    f.write(mat.astype("<f4" if dtype == np.float32 else "<f8").tobytes())
+
+
+def write_vector(f: BinaryIO, vec: np.ndarray, dtype=np.float32) -> None:
+    """An "FV " (float32) or "DV " (float64) vector."""
+    vec = np.ascontiguousarray(np.asarray(vec), dtype=dtype).reshape(-1)
+    write_token(f, "FV" if dtype == np.float32 else "DV")
+    write_int32(f, vec.shape[0])
+    f.write(vec.astype("<f4" if dtype == np.float32 else "<f8").tobytes())

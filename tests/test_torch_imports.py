@@ -36,7 +36,9 @@ def test_port_has_the_slice_modules():
                  "models.streaming_am", "recipes.nnet3", "fst.vector_fst",
                  "fst.symbols", "fst.lang", "fst.native", "tree.event_map",
                  "tree.context_dep", "hmm.hmm_utils", "decoder.graph",
-                 "recipes.gmm_common", "recipes.toy"):
+                 "recipes.gmm_common", "recipes.toy", "gmm.mle",
+                 "tree.build_tree", "recipes.mono", "recipes.triphone",
+                 "recipes.yesno"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 
