@@ -75,7 +75,9 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import copy
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -374,6 +376,17 @@ TRI_GAUSS_REL = 0.01
 # up to two digits: the statistics, the like and the new parameters within
 # 1e-9 of the largest of each
 STEP_TOL = 1e-9
+# neural training (minilib stages 5, 7, 8): 4 CE epochs and 20 chain epochs,
+# each with a finite objective (CE falling); both trained models decode the
+# clean held-out set at WER <= MAX_WER_PERCENT
+CE_EPOCHS, CHAIN_EPOCHS = 4, 20
+# one neural train step from the same inputs on the card and the CPU (fp32
+# in both, products without TF32): losses within NNET_STEP_TOL relative (a
+# chain loss or objective, num − den over the frames, within it of the
+# larger term per frame), the parameters after the card's optimizer takes
+# the CPU's gradients within it absolute; the card's gradients no further
+# from the CPU's float64 gradients than the CPU's float32 ones
+NNET_STEP_TOL = 1e-4
 # the port's CPU runs: per iteration, the Gaussians before the update and
 # the like/frame of the statistics, and the final count; tri also the
 # largest mixture and its tree's leaves (leaf_digests):
@@ -2192,6 +2205,346 @@ def main() -> int:
     if train_faults:
         raise RuntimeError("GMM training: " + "; ".join(train_faults))
 
+    # ---- phases 25-28: neural training, minilib stages 5, 7 and 8, each
+    # path's launch counts set to 0 just before it and read just after.
+    # train_ce: the training set's features through K2, CE training of the
+    # TDNN-F final.am from tri_ali.pkl's labels (4 epochs), then the clean
+    # held-out decode with the card-trained model on hclg.npz (K1, K2).
+    # train_chain: the biphone chain tree, den graph and 20 LF-MMI epochs,
+    # the model's own split-eps chain HCLG, and its decode (K1, K2).
+    # train_ce_step / train_chain_step: one step from the committed models'
+    # parameters on the card and on the CPU, which must agree
+    from old_kaldi_git_tpu_torch.chain.loss import (
+        ChainLossOptions, denominator_logprob, numerator_logprob)
+    from old_kaldi_git_tpu_torch.chain.supervision import (
+        alignment_to_supervision, chain_xent_labels, pad_supervisions)
+    from old_kaldi_git_tpu_torch.hmm.hmm_utils import alignment_to_pdfs
+    from old_kaldi_git_tpu_torch.models import train as nnet_train
+    from old_kaldi_git_tpu_torch.recipes.chain import (
+        METRICS as CHAIN_METRICS, ChainModel, chain_objective, make_chain_step)
+
+    nnet_faults = []  # every neural phase runs; a fault ends the run after them
+    zero_counts()
+    t0 = time.perf_counter()
+    tfeats = minilib.compute_feats(twaves, device=dev)
+    torch.cuda.synchronize()
+    ce_fe_s = time.perf_counter() - t0
+    ce_hist, ce_tim = [], {}
+    ce_am = minilib.train_am_system(None, tfeats, topts, device=dev, history=ce_hist,
+                                    timings=ce_tim)
+    torch.cuda.synchronize()
+    ce_wall = time.perf_counter() - t0
+    ce_launches = {"train": read_counts("train_ce")}
+    ce_peak = torch.cuda.max_memory_allocated()
+    zero_counts()
+    ce_stages = {}
+    ce_wer, _ = minilib.decode_and_score(
+        dataclasses.replace(system, am=ce_am), beam=BEAM, max_active=MAX_ACTIVE,
+        acoustic_scale=ACOUSTIC_SCALE, batch=BATCH, timings=ce_stages)
+    ce_launches["decode"] = read_counts("train_ce_decode")
+    ce_stats = minilib.decode_and_score.last_stats
+    ce_loss = [h["loss"] for h in ce_hist]
+    emit({"phase": "train_ce", "card": card, "model": "TDNN-F 39 -> 512 (bottleneck 64) "
+          f"x {topts.num_layers} -> {ce_am.config.num_outputs} pdfs of tri.mdl",
+          "utterances": len(tfeats), "epochs": len(ce_hist), "steps": ce_tim["steps"],
+          "steps_by_epoch": [h["steps"] for h in ce_hist], "ce_by_epoch": ce_loss,
+          "accuracy_by_epoch": [h["acc"] for h in ce_hist], "wall_seconds": ce_wall,
+          "front_end_seconds": ce_fe_s, "train_seconds": ce_tim["train_seconds"],
+          "priors_seconds": ce_tim["priors_seconds"],
+          "step_ms": 1e3 * ce_tim["train_seconds"] / ce_tim["steps"],
+          "steps_per_second": ce_tim["steps"] / ce_tim["train_seconds"],
+          "peak_device_memory_bytes": ce_peak,
+          "mfcc_launches": ce_launches["train"]["mfcc"],
+          "decode": {"graph": "exp/minilib/hclg.npz", "max_active": MAX_ACTIVE,
+                     "batch": BATCH, "wer_percent": ce_wer, "errors": ce_stats["errors"],
+                     "ref_words": ce_stats["ref_words"],
+                     "utterances_with_errors": ce_stats["utterances_with_errors"],
+                     **ce_stages, "gather_launches": ce_launches["decode"]["gather"],
+                     "mfcc_launches": ce_launches["decode"]["mfcc"]}})
+    if not (len(ce_hist) == CE_EPOCHS and all(np.isfinite(ce_loss))
+            and all(b < a for a, b in zip(ce_loss, ce_loss[1:]))):
+        nnet_faults.append(f"train_ce: CE by epoch {ce_loss}, not {CE_EPOCHS} finite and "
+                           "falling")
+    if ce_wer > MAX_WER_PERCENT:
+        nnet_faults.append(f"train_ce: WER {ce_wer} % above {MAX_WER_PERCENT} %")
+    if not (ce_launches["train"]["mfcc"] > 0 and ce_launches["decode"]["gather"] > 0
+            and ce_launches["decode"]["mfcc"] > 0):
+        nnet_faults.append(f"train_ce did not go through its kernels: {ce_launches}")
+    del ce_am
+
+    del tfeats
+    zero_counts()
+    t0 = time.perf_counter()
+    tfeats = minilib.compute_feats(twaves, device=dev)
+    torch.cuda.synchronize()
+    ch_fe_s = time.perf_counter() - t0
+    ch_hist, ch_rep = [], {}
+    ch_system = minilib.train_chain_system(tfeats, lang, topts, device=dev, history=ch_hist,
+                                           report=ch_rep)
+    torch.cuda.synchronize()
+    ch_wall = time.perf_counter() - t0
+    ch_launches = {"train": read_counts("train_chain")}
+    ch_peak = torch.cuda.max_memory_allocated()
+    del tfeats
+    zero_counts()
+    ch_stages = {}
+    ch_wer, _ = minilib.decode_and_score_chain(
+        ch_system, beam=BEAM, max_active=CHAIN_MAX_ACTIVE, batch=CHAIN_BATCH,
+        timings=ch_stages)
+    ch_launches["decode"] = read_counts("train_chain_decode")
+    ch_stats = minilib.decode_and_score_chain.last_stats
+    ch_objf = [h["objf"] for h in ch_hist]
+    chain_s = sum(ch_rep[k] for k in ("g_seconds", "lg_seconds", "hclg_seconds",
+                                      "export_seconds"))
+    # K1 at the card-trained chain model's decode shape (its own pdfs and
+    # graph), against its plain version
+    ntg = build_tile_graph(ch_system.csr)
+    Pn = ch_system.model.am.config.num_outputs
+    En = _token_budget(ch_system.csr, Kc, ntg.md) * ntg.md
+    k1_trained_chain_err = check_gather(
+        torch, batched_table_gather, batched_table_gather_plain,
+        [(CHAIN_BATCH, Pn, En, 256, 7), (CHAIN_BATCH, Pn, En, 1, 0)], seed=17)
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    k1_trained_chain = gather_at(CHAIN_BATCH, Pn, En, 256)
+    del plug
+    emit({"phase": "train_chain", "card": card,
+          "tree_pdfs": ch_rep["tree_pdfs"], "committed_chain_mdl_pdfs": chain.model.am.config.num_outputs,
+          "den_states": ch_rep["den_states"], "den_arcs": ch_rep["den_arcs"],
+          "supervision_failures": ch_rep["supervision_failures"],
+          "epochs": len(ch_hist), "steps": ch_rep["steps"],
+          "objf_by_epoch": ch_objf, "xent_by_epoch": [h["xent"] for h in ch_hist],
+          "wall_seconds": ch_wall, "front_end_seconds": ch_fe_s,
+          "objects_seconds": ch_rep["objects_seconds"],
+          "supervision_seconds": ch_rep["supervision_seconds"],
+          "train_seconds": ch_rep["train_seconds"],
+          "step_ms": 1e3 * ch_rep["train_seconds"] / ch_rep["steps"],
+          "steps_per_second": ch_rep["steps"] / ch_rep["train_seconds"],
+          "peak_device_memory_bytes": ch_peak,
+          "mfcc_launches": ch_launches["train"]["mfcc"],
+          "graph": {"g_seconds": ch_rep["g_seconds"], "g_states": ch_rep["g_states"],
+                    "g_arcs": ch_rep["g_arcs"], "lg_seconds": ch_rep["lg_seconds"],
+                    "hclg_seconds": ch_rep["hclg_seconds"],
+                    "export_seconds": ch_rep["export_seconds"], "seconds": chain_s,
+                    "states": ch_rep["hclg_states"], "emitting_arcs": ch_rep["hclg_arcs"],
+                    "backoff_arcs": ch_rep["hclg_backoff_arcs"],
+                    "eps_depth": ch_system.csr.eps_depth},
+          "gather_kernel_at_decode_shape": {"exact": k1_trained_chain_err == 0.0,
+                                            **k1_trained_chain},
+          "decode": {"max_active": CHAIN_MAX_ACTIVE, "batch": CHAIN_BATCH,
+                     "wer_percent": ch_wer, "errors": ch_stats["errors"],
+                     "ref_words": ch_stats["ref_words"],
+                     "utterances_with_errors": ch_stats["utterances_with_errors"],
+                     **ch_stages, "gather_launches": ch_launches["decode"]["gather"],
+                     "mfcc_launches": ch_launches["decode"]["mfcc"]}})
+    if not (len(ch_hist) == CHAIN_EPOCHS and all(np.isfinite(ch_objf))):
+        nnet_faults.append(f"train_chain: objf by epoch {ch_objf}, not {CHAIN_EPOCHS} "
+                           "finite")
+    if ch_wer > MAX_WER_PERCENT:
+        nnet_faults.append(f"train_chain: WER {ch_wer} % above {MAX_WER_PERCENT} %")
+    if k1_trained_chain_err != 0.0:
+        nnet_faults.append(f"train_chain: K1 differs from its plain version by "
+                           f"{k1_trained_chain_err}")
+    if not (ch_launches["train"]["mfcc"] > 0 and ch_launches["decode"]["gather"] > 0
+            and ch_launches["decode"]["mfcc"] > 0):
+        nnet_faults.append(f"train_chain did not go through its kernels: {ch_launches}")
+    del ch_system
+    torch.cuda.empty_cache()
+
+    # one step from the same inputs on both devices, the features computed
+    # on the CPU: a CE step from final.am on the first 16 chunks of 16
+    # utterances, a chain step from chain.mdl on 8 utterances.  Held: the
+    # loss; the gradients at the committed parameters, the card's no
+    # further from the CPU's float64 gradients than the CPU's own float32
+    # ones (in l2, relative); the parameters after the card's optimizer
+    # takes the CPU's gradients.  Recorded: the parameters after each
+    # device's whole step.  Adam's first update is lr·g/(|g| + 1e-8), about
+    # ±lr wherever |g| > 1e-7, so an element whose gradient lies under the
+    # float32 error of its sums (a bias ahead of a batch-norm is exactly 0)
+    # takes its sign from each device's order of adds
+    tri = convert.load_am_gmm_model("exp/minilib/tri.mdl", device="cpu")
+    tri_ali = convert.load_pickle("exp/minilib/tri_ali.pkl")
+    skeys = sorted(twaves)[:16]
+    sfeats = minilib.compute_feats({k: twaves[k] for k in skeys}, device="cpu")
+    slabels = {k: np.asarray(alignment_to_pdfs(tri.tm, tri_ali[k]), np.int32) for k in skeys}
+    bf, bl, bm = next(nnet_train._chunk_batches(sfeats, slabels, 140, 16,
+                                                np.random.default_rng(0)))
+
+    def l2_gap(a, b):
+        """||a − b|| / ||b|| over every tensor of two {name: tensor} dicts"""
+        num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in b)
+        return (num / sum(float((v.double() ** 2).sum()) for v in b.values())) ** 0.5
+
+    def probe(model, loss_of):
+        """the loss, metrics and gradients at a model's parameters, on a copy"""
+        model = copy.deepcopy(model)
+        loss, metrics = loss_of(model)
+        loss.backward()
+        return (loss.item(), {k: v.item() for k, v in metrics.items()},
+                {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+
+    def step_on(model, loss_of, make_step, num_steps):
+        """a device's loss and gradients at the starting parameters, its
+        optimizer, the starting parameters, and the parameters after the
+        real step"""
+        loss, metrics, grads = probe(model, loss_of)
+        opt = nnet_train.make_optimizer(nnet_train.NnetTrainOptions(num_epochs=CE_EPOCHS),
+                                        num_steps)
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
+        t0 = time.perf_counter()
+        step_loss = make_step(model, opt)
+        return {"loss": loss, "metrics": metrics, "grads": grads, "opt": opt,
+                "start": start, "seconds": time.perf_counter() - t0, "step_loss": step_loss,
+                "after": {k: p.detach().cpu() for k, p in model.named_parameters()}}
+
+    def parity(cpu, card, ref64):
+        """the gaps the step phases hold and record"""
+        with torch.no_grad():  # the card's optimizer from the CPU's gradients
+            params = card["start"]
+            grads = {k: g.to(params[k].device) for k, g in cpu["grads"].items()}
+            upd, _ = card["opt"].update(grads, card["opt"].init(params), params)
+            cross = {k: (params[k] + upd[k]).cpu() for k in params}
+        apart = {k: (card["after"][k] - a).abs() > NNET_STEP_TOL
+                 for k, a in cpu["after"].items()}
+        gmax = max(float(g.abs().max()) for g in ref64[2].values())
+        return {"loss_relative": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                "gradient_l2_relative_card_vs_cpu_float64": l2_gap(card["grads"], ref64[2]),
+                "gradient_l2_relative_cpu_float32_vs_float64": l2_gap(cpu["grads"], ref64[2]),
+                "gradient_l2_relative_card_vs_cpu": l2_gap(card["grads"], cpu["grads"]),
+                "update_from_cpu_gradients_absolute": max(
+                    float((cross[k] - a).abs().max()) for k, a in cpu["after"].items()),
+                "whole_step_parameters_absolute": max(
+                    float((card["after"][k] - a).abs().max())
+                    for k, a in cpu["after"].items()),
+                "whole_step_elements_apart": sum(int(f.sum()) for f in apart.values()),
+                "elements": sum(a.numel() for a in cpu["after"].values()),
+                "largest_float64_gradient_of_an_element_apart_relative": max(
+                    [float(ref64[2][k][f].abs().max()) / gmax for k, f in apart.items()
+                     if f.any()] or [0.0])}
+
+    def held(gaps):
+        return (gaps["loss_relative"] <= NNET_STEP_TOL
+                and gaps["update_from_cpu_gradients_absolute"] <= NNET_STEP_TOL
+                and gaps["gradient_l2_relative_card_vs_cpu_float64"]
+                <= gaps["gradient_l2_relative_cpu_float32_vs_float64"])
+
+    def ce_loss_of(where, dtype=torch.float32):
+        x, y, m = (torch.as_tensor(a, device=where) for a in (bf, bl, bm))
+        return lambda mdl: nnet_train.ce_loss(mdl, x.to(dtype), y, m.to(dtype))
+
+    def ce_model(where, dtype=torch.float32):
+        return AmNnet.load("exp/minilib/final.am", device=where).model.to(dtype).train()
+
+    def ce_step(model, opt):
+        _, metrics = nnet_train.make_ce_train_step(model, opt)(
+            nnet_train.TrainState(opt.init(dict(model.named_parameters())), 0), bf, bl, bm)
+        return float(metrics["loss"])
+
+    ce_runs = {w: step_on(ce_model(w), ce_loss_of(w), ce_step, 204) for w in ("cpu", "cuda")}
+    ce_ref = probe(ce_model("cpu", torch.float64), ce_loss_of("cpu", torch.float64))
+    ce_gaps = parity(ce_runs["cpu"], ce_runs["cuda"], ce_ref)
+    emit({"phase": "train_ce_step", "card": card, "model": "exp/minilib/final.am",
+          "batch": list(bf.shape), "frames": int(bm.sum()), "loss": ce_runs["cpu"]["loss"],
+          "loss_float64": ce_ref[0], **ce_gaps, "tolerance": NNET_STEP_TOL,
+          "step_seconds": {w: ce_runs[w]["seconds"] for w in ce_runs}})
+    if not held(ce_gaps):
+        nnet_faults.append(f"train_ce_step: card vs CPU {ce_gaps}")
+    del ce_runs, ce_ref
+
+    ckeys = skeys[:8]
+    cms = {w: ChainModel.load("exp/minilib/chain.mdl", device=w) for w in ("cpu", "cuda")}
+    sups = [alignment_to_supervision(tri_ali[k], tri.tm, cms["cpu"].ctx_dep, 3,
+                                     den=cms["cpu"].den) for k in ckeys]
+    csup = pad_supervisions(sups)
+    cxent = np.stack([chain_xent_labels(tri_ali[k], tri.tm, cms["cpu"].ctx_dep, 3,
+                                        csup[1].shape[1]) for k in ckeys])
+    cx = np.zeros((len(ckeys), 3 * csup[1].shape[1], 39), np.float32)
+    for i, k in enumerate(ckeys):
+        cx[i, : len(sfeats[k])] = sfeats[k][: cx.shape[1]]
+    cargs = (cx, *csup, cxent)
+
+    def chain_loss_of(where, dtype=torch.float32):
+        t = [torch.as_tensor(a, device=where) for a in cargs]
+        t[0], t[5] = t[0].to(dtype), t[5].to(dtype)  # features, advance weights
+
+        def loss_of(mdl):
+            logits = mdl(t[0], output_stride=3)[:, : csup[1].shape[1]]
+            loss, *values = chain_objective(logits, cms[where].den, ChainLossOptions(), *t[1:])
+            return loss, dict(zip(CHAIN_METRICS, values))
+        return loss_of
+
+    def chain_step(where):
+        def run(model, opt):
+            _, loss, _ = make_chain_step(model, cms[where].den, opt, ChainLossOptions(), 3)(
+                nnet_train.TrainState(opt.init(dict(model.named_parameters())), 0), *cargs)
+            return loss.cpu()
+        return run
+
+    def chain_model(where, dtype=torch.float32):
+        return copy.deepcopy(cms[where].am.model).to(dtype).train()
+
+    ch_runs = {w: step_on(chain_model(w), chain_loss_of(w), chain_step(w), 75 * CHAIN_EPOCHS)
+               for w in ("cpu", "cuda")}
+    again = step_on(chain_model("cuda"), chain_loss_of("cuda"), chain_step("cuda"),
+                    75 * CHAIN_EPOCHS)
+    ch_ref = probe(chain_model("cpu", torch.float64), chain_loss_of("cpu", torch.float64))
+    cc, cg = ch_runs["cpu"], ch_runs["cuda"]
+    ch_gaps = parity(cc, cg, ch_ref)
+    frames = int(csup[2].sum())
+    scale = max(abs(cc["metrics"]["num"]), abs(cc["metrics"]["den"])) * len(ckeys) / frames
+    ch_gaps.update(
+        num_relative=abs(cg["metrics"]["num"] - cc["metrics"]["num"]) / abs(cc["metrics"]["num"]),
+        den_relative=abs(cg["metrics"]["den"] - cc["metrics"]["den"]) / abs(cc["metrics"]["den"]),
+        objf_relative_to_term_per_frame=abs(cg["metrics"]["objf"] - cc["metrics"]["objf"])
+        / scale,
+        loss_relative_to_term_per_frame=abs(cg["loss"] - cc["loss"]) / scale)
+    repeats = (torch.equal(again["step_loss"], cg["step_loss"])
+               and all(torch.equal(again["after"][k], a) for k, a in cg["after"].items()))
+    # the objective's cost a step at this batch's shape, forward and
+    # backward, by CUDA events over back-to-back calls (the host's launches
+    # included: what a step pays): the denominator and the numerator eager,
+    # and the whole objective eager and as the captured graphs the chain
+    # step replays
+    den = cms["cuda"].den
+    lg = torch.randn((len(ckeys), csup[1].shape[1], den.num_pdfs), device="cuda",
+                     generator=gen)
+    tsup = [torch.as_tensor(a, device="cuda") for a in cargs[1:]]
+
+    def fwd_bwd(fn):
+        def run():
+            x = lg.detach().requires_grad_()
+            fn(x).sum().backward()
+        return time_ms(torch, run, reps=5, warm=2)
+
+    objective = lambda x, *a: chain_objective(x, den, ChainLossOptions(), *a)  # noqa: E731
+    graphed = torch.cuda.make_graphed_callables(objective, (lg.clone().requires_grad_(), *tsup))
+    objective_ms = {
+        "denominator_eager": fwd_bwd(lambda x: denominator_logprob(x, tsup[2], den, 0.1)),
+        "numerator_eager": fwd_bwd(lambda x: numerator_logprob(
+            x, tsup[0], tsup[1], tsup[2], tsup[3], tsup[4], float(den.loop_log_prob))),
+        "objective_eager": fwd_bwd(lambda x: objective(x, *tsup)[0]),
+        "objective_graphed": fwd_bwd(lambda x: graphed(x, *tsup)[0])}
+    del lg, graphed
+    emit({"phase": "train_chain_step", "card": card, "model": "exp/minilib/chain.mdl",
+          "utterances": ckeys, "frames_subsampled": frames,
+          "den_states": int(cms["cpu"].den.num_states), "den_arcs": int(len(cms["cpu"].den.pdf)),
+          **{k: cc["metrics"][k] for k in ("objf", "num", "den", "xent")},
+          "objf_float64": ch_ref[1]["objf"], **ch_gaps, "tolerance": NNET_STEP_TOL,
+          "card_step_repeats_bit_for_bit": repeats,
+          "objective_shape": [len(ckeys), csup[1].shape[1], den.num_pdfs],
+          "objective_forward_backward_ms": objective_ms,
+          "step_seconds": {"card": [cg["seconds"], again["seconds"]], "cpu": cc["seconds"]}})
+    # the loss and objective are differences of num and den: held against
+    # the larger term per frame, not against themselves
+    ch_gaps_held = dict(ch_gaps, loss_relative=ch_gaps["loss_relative_to_term_per_frame"])
+    if not (held(ch_gaps_held) and max(ch_gaps["num_relative"], ch_gaps["den_relative"],
+                                       ch_gaps["objf_relative_to_term_per_frame"])
+            <= NNET_STEP_TOL):
+        nnet_faults.append(f"train_chain_step: card vs CPU {ch_gaps}")
+    del ch_runs, again, ch_ref, cc, cg, cms, sfeats
+    torch.cuda.empty_cache()
+    if nnet_faults:
+        raise RuntimeError("neural training: " + "; ".join(nnet_faults))
+
     # ---- phases 25-27: the fused toy pipeline (bench.py's run_toy), its
     # lattice mode and the dense StreamingDecoder on the toy graph
     t0 = time.perf_counter()
@@ -2330,7 +2683,9 @@ def main() -> int:
                       + ty_launches["gather"]
                       + sum(t["gather"] for t in tr_launches.values())
                       + y_launches["gather"] + tl_launches["gather"]
-                      + sd_launches["gather"]),
+                      + sd_launches["gather"]
+                      + sum(n["gather"] for p in (ce_launches, ch_launches)
+                            for n in p.values())),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -2345,8 +2700,11 @@ def main() -> int:
                               **{n: t["gather"] for n, t in tr_launches.items()},
                               "decode_toy": y_launches["gather"],
                               "toy_lattice": tl_launches["gather"],
-                              "stream_dense": sd_launches["gather"]},
-         "max_abs_err": max(k1_err, k1_align_err), "ms": k1_ms,
+                              "stream_dense": sd_launches["gather"],
+                              **{f"{name}_{n}": c["gather"] for name, p in (
+                                  ("train_ce", ce_launches), ("train_chain", ch_launches))
+                                 for n, c in p.items()}},
+         "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err), "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
          "at_other_shapes": {"decode_chain": k1_chain, "rescore": k1_rescore,
@@ -2354,7 +2712,8 @@ def main() -> int:
                              "stream_chain": k1_stream_chain,
                              **{f"{n}_{k}": v for n, g in k1_align.items()
                                 for k, v in g.items()},
-                             **{f"train_yesno_{k}": v for k, v in k1_yesno.items()}}},
+                             **{f"train_yesno_{k}": v for k, v in k1_yesno.items()},
+                             "train_chain_decode": k1_trained_chain}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
@@ -2363,7 +2722,9 @@ def main() -> int:
                       + s_launches["stream"]["mfcc"] + s_launches["stream_chain"]["mfcc"]
                       + o_launches["mfcc"] + sum(a["mfcc"] for a in a_launches.values())
                       + ty_launches["mfcc"] + sum(t["mfcc"] for t in tr_launches.values())
-                      + y_launches["mfcc"] + tl_launches["mfcc"] + sd_launches["mfcc"]),
+                      + y_launches["mfcc"] + tl_launches["mfcc"] + sd_launches["mfcc"]
+                      + sum(n["mfcc"] for p in (ce_launches, ch_launches)
+                            for n in p.values())),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -2377,13 +2738,16 @@ def main() -> int:
                               **{n: t["mfcc"] for n, t in tr_launches.items()},
                               "decode_toy": y_launches["mfcc"],
                               "toy_lattice": tl_launches["mfcc"],
-                              "stream_dense": sd_launches["mfcc"]},
+                              "stream_dense": sd_launches["mfcc"],
+                              **{f"{name}_{n}": c["mfcc"] for name, p in (
+                                  ("train_ce", ce_launches), ("train_chain", ch_launches))
+                                 for n, c in p.items()}},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
                  s_launches["stream"], s_launches["stream_chain"], o_launches,
                  *a_launches.values(), ty_launches, *tr_launches.values(), y_launches,
-                 tl_launches, sd_launches))
+                 tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values()))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,

@@ -1,6 +1,6 @@
 """Weights and state carried across from the JAX package's artifacts.
 
-Three things:
+Four things:
 
 * `am_nnet_from_jax`: a flax variable tree (as numpy) → the port's AmNnet.
   flax `Dense.kernel` is [in, out], `nn.Linear.weight` is [out, in];
@@ -14,6 +14,12 @@ Three things:
 * GMM models: `am_diag_gmm_from_jax` from per-pdf (weights, means, vars)
   arrays, as the JAX package's DiagGmms hold them; `load_am_gmm_model` reads
   a binary `.mdl` (TransitionModel + AmDiagGmm) with the port's own reader.
+* training state: flax parameter trees → the port's parameter names
+  (`torch_params_from_flax`), optax's Adam state
+  (`optimizer_state_from_jax`), and a `chain.mdl`'s tree, transition model
+  and denominator graph (`transition_model_from_pickle`,
+  `den_graph_from_pickle`), so a test can start both packages from one
+  point.
 """
 
 from __future__ import annotations
@@ -26,8 +32,11 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from old_kaldi_git_tpu_torch.chain.den_graph import DenominatorGraph
 from old_kaldi_git_tpu_torch.device import DeviceLike
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm, AmGmmModel, DiagGmm
+from old_kaldi_git_tpu_torch.hmm.topology import HmmState, HmmTopology
+from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
 from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnLayerSpec, TdnnModel
 from old_kaldi_git_tpu_torch.tree.context_dep import ContextDependency
@@ -210,3 +219,65 @@ def context_dependency_from_pickle(stub: Any) -> ContextDependency:
     """The stub of a pickled ContextDependency (`tree.pkl`'s first item) →
     the port's ContextDependency."""
     return ContextDependency(int(stub.N), int(stub.P), _event_map_from_stub(stub.root))
+
+
+# ---------------------------------------------------------------------------
+# training state
+# ---------------------------------------------------------------------------
+
+def torch_params_from_flax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A flax parameter tree {layer: {sub: {kernel, bias}}} (or {output:
+    {kernel, bias}}) → {torch parameter name: float32 array} in nn.Linear's
+    orientation: `kernel` [in, out] becomes `weight` [out, in]."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}.")
+            elif k == "kernel":
+                out[f"{prefix}weight"] = np.array(np.asarray(v, np.float32).T)
+            else:
+                out[f"{prefix}{k}"] = np.array(v, np.float32)
+
+    walk(params, "")
+    return out
+
+
+def optimizer_state_from_jax(opt_state: Any, device: DeviceLike = "cpu") -> Dict[str, Any]:
+    """optax's chain state for `make_optimizer` with Adam → the port's
+    NnetOptimizer state: the count and Adam's moments by torch name.  The
+    Adam count and the schedule's count move together in the JAX package's
+    step, so one count stands for both."""
+    adam = [s for s in _flatten_states(opt_state) if hasattr(s, "mu") and hasattr(s, "nu")]
+    if len(adam) != 1:
+        raise ValueError(f"expected one Adam state in the optax chain, found {len(adam)}")
+    moments = {name: {k: torch.from_numpy(v).to(device)
+                      for k, v in torch_params_from_flax(getattr(adam[0], name)).items()}
+               for name in ("mu", "nu")}
+    return {"count": int(np.asarray(adam[0].count)), **moments}
+
+
+def _flatten_states(state: Any) -> list:
+    if isinstance(state, (tuple, list)) and not hasattr(state, "mu"):
+        return [x for s in state for x in _flatten_states(s)]
+    return [state]
+
+
+def transition_model_from_pickle(stub: Any) -> TransitionModel:
+    """A pickled TransitionModel stub (its topology, tuples and
+    log-probs) → the port's TransitionModel."""
+    entries = {int(p): [HmmState(int(st.pdf_class), [(int(n), float(q))
+                                                     for n, q in st.transitions])
+                        for st in states]
+               for p, states in stub.topo._entries.items()}
+    return TransitionModel(HmmTopology(entries), [tuple(int(x) for x in t) for t in stub.tuples],
+                           np.asarray(stub.log_probs, np.float64), int(stub.num_pdfs))
+
+
+def den_graph_from_pickle(stub: Any) -> DenominatorGraph:
+    """A pickled DenominatorGraph stub → the port's DenominatorGraph."""
+    fields = {f.name for f in dataclasses.fields(DenominatorGraph)}
+    d = {k: v for k, v in vars(stub).items() if k in fields}
+    d["arc_lookup"] = {(int(a), int(b)): int(s) for (a, b), s in stub.arc_lookup.items()}
+    return DenominatorGraph(**d)

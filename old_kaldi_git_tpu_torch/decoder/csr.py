@@ -6,7 +6,9 @@ up front by forwarding: every state's outgoing arc set is
 { eps-closure ∘ emitting arc }, with closure weights folded in and the
 closure's output labels remembered on the host for word recovery.  This
 module holds the container, the flat output-label store, the per-state tile
-layout and the conversion from a native FST handle (`fst_to_csr_native`).
+layout and the conversions from a native FST handle: folded
+(`fst_to_csr_native`) and split-eps from its raw arrays
+(`fst_to_split_csr_arrays`, the chain graph's backoff shape).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from old_kaldi_git_tpu_torch.utils.log import get_logger
+from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
 
 log = get_logger("csr")
 
@@ -188,4 +190,94 @@ def fst_to_csr_native(nfst, tid_to_pdf: np.ndarray) -> CsrGraph:
         final_olabels=FlatOlabels(folab_off, folab_val),
     )
     csr._olabel_mask = olab_off[1:] > olab_off[:-1]
+    return csr
+
+
+def fst_to_split_csr_arrays(start: int, row_ptr: np.ndarray, il: np.ndarray,
+                            ol: np.ndarray, w: np.ndarray, ns: np.ndarray,
+                            finals: np.ndarray, tid_to_pdf: np.ndarray,
+                            max_depth: int = 8) -> CsrGraph:
+    """A SPLIT-eps CsrGraph from raw FST arrays (il 0 = eps), the JAX
+    package's export array for array.
+
+    Every state must have at most one eps out-arc and the eps chains must
+    be acyclic and at most max_depth deep (the LM-backoff shape: trigram
+    state → bigram → unigram); otherwise KaldiError.  The emitting arcs
+    stay un-duplicated, and each state's final weight is folded over its
+    eps chain (the best of at most depth + 1 prefixes), with the chain's
+    words as its final output labels."""
+    S = len(row_ptr) - 1
+    src = np.repeat(np.arange(S, dtype=np.int64), np.diff(row_ptr))
+    eps = il == 0
+    eps_out = np.bincount(src[eps], minlength=S)
+    if eps_out.max(initial=0) > 1:
+        raise KaldiError(f"split-eps export needs <=1 eps out-arc per state "
+                         f"(max {int(eps_out.max())})")
+    eps_ns = np.full(S, -1, np.int32)
+    eps_w = np.full(S, np.float32(1e10), np.float32)
+    eps_olab = np.zeros(S, np.int32)
+    es = src[eps]
+    eps_ns[es], eps_w[es], eps_olab[es] = ns[eps], w[eps], ol[eps]
+    depth = 0
+    cur = eps_ns.astype(np.int64)
+    while (cur >= 0).any():
+        depth += 1
+        if depth > max_depth:
+            raise KaldiError(f"eps chains deeper than {max_depth} (cycle?)")
+        m = cur >= 0
+        nxt = np.full(S, -1, np.int64)
+        nxt[m] = eps_ns[cur[m]]
+        cur = nxt
+    keep = ~eps
+    order = np.argsort(src[keep], kind="stable")
+    e_src = src[keep][order]
+    e_il = il[keep].astype(np.int32)[order]
+    e_ol = ol[keep].astype(np.int32)[order]
+    e_w = w[keep].astype(np.float32)[order]
+    e_ns = ns[keep].astype(np.int32)[order]
+    new_rp = np.zeros(S + 1, np.int64)
+    np.cumsum(np.bincount(e_src, minlength=S), out=new_rp[1:])
+    has = e_ol != 0
+    olab_off = np.zeros(len(e_il) + 1, np.int64)
+    np.cumsum(has.astype(np.int64), out=olab_off[1:])
+    # final weights folded over the eps chain: an argmin over its prefixes
+    fin = np.where(np.isfinite(finals), finals, np.inf).astype(np.float64)
+    cand = np.full((depth + 1, S), np.inf)
+    cand[0] = fin
+    cum = np.zeros(S)
+    u = np.arange(S, dtype=np.int64)
+    alive = np.ones(S, bool)
+    for k in range(1, depth + 1):
+        alive = alive & (eps_ns[np.maximum(u, 0)] >= 0) & (u >= 0)
+        cum = cum + np.where(alive, eps_w[np.maximum(u, 0)], np.inf)
+        u = np.where(alive, eps_ns[np.maximum(u, 0)], -1)
+        cand[k] = np.where(alive, cum + fin[np.maximum(u, 0)], np.inf)
+    best_k = np.argmin(cand, axis=0)
+    fw_folded = cand[best_k, np.arange(S)]
+    folab: Dict[int, List[int]] = {}
+    for s in np.nonzero((best_k > 0) & np.isfinite(fw_folded))[0].tolist():
+        labs, u2 = [], s
+        for _ in range(int(best_k[s])):
+            if eps_olab[u2]:
+                labs.append(int(eps_olab[u2]))
+            u2 = int(eps_ns[u2])
+        if labs:
+            folab[s] = labs
+    folab_off = np.zeros(S + 1, np.int64)
+    for s, labs in folab.items():
+        folab_off[s + 1] = len(labs)
+    np.cumsum(folab_off, out=folab_off)
+    folab_val = np.asarray([x for s in sorted(folab) for x in folab[s]], np.int32)
+    csr = CsrGraph(
+        start=int(start), row_ptr=new_rp.astype(np.int32), tid=e_il,
+        pdf=tid_to_pdf[e_il].astype(np.int32) if len(e_il) else e_il.copy(),
+        weight=e_w, nextstate=e_ns,
+        final_weight=np.where(np.isfinite(fw_folded), fw_folded, np.inf).astype(np.float32),
+        arc_olabels=FlatOlabels(olab_off.astype(np.int32), e_ol[has]),
+        final_olabels=FlatOlabels(folab_off.astype(np.int32), folab_val),
+        eps_ns=eps_ns, eps_w=eps_w, eps_olab=eps_olab, eps_depth=depth)
+    csr._olabel_mask = has
+    log.info("csr(split-eps): %d states, %d emit arcs + %d backoff arcs (depth %d, "
+             "max emit out-degree %d)", S, csr.num_arcs, int((eps_ns >= 0).sum()),
+             depth, int(csr.out_degree().max(initial=0)))
     return csr

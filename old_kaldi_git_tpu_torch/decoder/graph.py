@@ -11,20 +11,23 @@ native library's handles only (fst/native.py; no Python graph algorithms):
   HCLGa= minimizeencoded(rmepslocal(rmsymbols(determinizestar(Ha ∘ CLG))))
   HCLG = connect(add-self-loops(HCLGa, self_loop_scale))
 
-and the eps-forwarded (folded) CSR export.  Training graphs run the same
-pipeline with G = the linear acceptor over the transcript (optional silence
-comes from L), with L_disambig converted to a native handle once per
-compiler.  The split-eps export and the on-disk HCLG of the JAX package's
-`mkgraph_csr` are not ported.
+and the eps-forwarded (folded) CSR export, or with `split_eps` the
+split-eps one (the chain graph's: emitting arcs un-duplicated, one backoff
+arc a state).  Training graphs run the same pipeline with G = the linear
+acceptor over the transcript (optional silence comes from L), with
+L_disambig converted to a native handle once per compiler.  The on-disk
+HCLG of the JAX package's `mkgraph_csr` (`fst_out`) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph, fst_to_csr_native
+from old_kaldi_git_tpu_torch.decoder.csr import (
+    CsrGraph, fst_to_csr_native, fst_to_split_csr_arrays)
 from old_kaldi_git_tpu_torch.fst.lang import Lang
 from old_kaldi_git_tpu_torch.fst.native import NativeFst
 from old_kaldi_git_tpu_torch.fst.vector_fst import VectorFst
@@ -38,8 +41,14 @@ log = get_logger("graph")
 
 def _hclg_csr(lg: NativeFst, lang: Lang, ctx_dep: ContextDependency,
               tm: TransitionModel, transition_scale: float,
-              self_loop_scale: float, tid_to_pdf: np.ndarray) -> CsrGraph:
-    """LG → CLG → HCLG → folded CsrGraph, on native handles."""
+              self_loop_scale: float, tid_to_pdf: np.ndarray,
+              split_eps: bool = False,
+              timings: Optional[Dict[str, float]] = None) -> CsrGraph:
+    """LG → CLG → HCLG → CsrGraph, folded or split-eps, on native handles.
+    A graph whose eps arcs are not backoff-shaped is folded, with a
+    warning, as the JAX package does.  timings: receives `hclg_seconds`
+    and `export_seconds` (host clock)."""
+    t0 = time.perf_counter()
     subseq = max(lang.phones.ids()) + 1
     clg, ilabel_info = lg.compose_context(
         ctx_dep.N, ctx_dep.P, lang.disambig_phone_ids, subseq)
@@ -53,20 +62,39 @@ def _hclg_csr(lg: NativeFst, lang: Lang, ctx_dep: ContextDependency,
     hclg = hclga.add_self_loops(tm, self_loop_scale)
     del hclga
     hclg.connect()
-    return fst_to_csr_native(hclg, tid_to_pdf)
+    t1 = time.perf_counter()
+    csr = None
+    if split_eps:
+        try:
+            csr = fst_to_split_csr_arrays(*hclg.to_raw_arrays(), tid_to_pdf)
+        except KaldiError as e:
+            log.warning("split-eps export failed (%s); folding", e)
+    csr = csr or fst_to_csr_native(hclg, tid_to_pdf)
+    if timings is not None:
+        timings["hclg_seconds"] = timings.get("hclg_seconds", 0.0) + t1 - t0
+        timings["export_seconds"] = (timings.get("export_seconds", 0.0)
+                                     + time.perf_counter() - t1)
+    return csr
 
 
 def mkgraph_csr(lang: Lang, g: VectorFst, ctx_dep: ContextDependency,
                 tm: TransitionModel, transition_scale: float = 1.0,
-                self_loop_scale: float = 0.1) -> CsrGraph:
-    """A decoding graph HCLG from a grammar G, as the folded CsrGraph that
-    `decode_batch` takes (reference utils/mkgraph.sh)."""
+                self_loop_scale: float = 0.1, split_eps: bool = False,
+                timings: Optional[Dict[str, float]] = None) -> CsrGraph:
+    """A decoding graph HCLG from a grammar G (reference utils/mkgraph.sh):
+    the folded CsrGraph that `decode_batch` takes, or with `split_eps` the
+    split-eps one that `decode_batch_tokens` takes (chain graphs:
+    self_loop_scale 1.0).  timings: receives the host-clock seconds of
+    `lg_seconds`, `hclg_seconds` (C, H, self-loops) and `export_seconds`."""
+    t0 = time.perf_counter()
     lg = NativeFst.from_vector_fst(lang.L_disambig).compose(NativeFst.from_vector_fst(g))
     lg = lg.determinize_star(use_log=True).minimize_encoded()
     lg.push_special()
     log.info("mkgraph: LG has %d states / %d arcs", lg.num_states, lg.num_arcs)
+    if timings is not None:
+        timings["lg_seconds"] = timings.get("lg_seconds", 0.0) + time.perf_counter() - t0
     csr = _hclg_csr(lg, lang, ctx_dep, tm, transition_scale, self_loop_scale,
-                    tm.tid_to_pdf_array())
+                    tm.tid_to_pdf_array(), split_eps, timings)
     log.info("mkgraph: HCLG has %d states / %d arcs", csr.num_states, csr.num_arcs)
     return csr
 

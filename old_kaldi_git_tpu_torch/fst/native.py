@@ -84,6 +84,8 @@ def _load():
         "okt_fst_destroy": ([vp], None),
         "okt_fst_num_states": ([vp], i32),
         "okt_fst_num_arcs": ([vp], i64),
+        "okt_fst_start": ([vp], i32),
+        "okt_fst_export": ([vp] * 7, None),
         "okt_compose": ([vp, vp], vp),
         "okt_determinize_star": ([vp, ctypes.c_int, i64], vp),
         "okt_minimize_encoded": ([vp], vp),
@@ -233,6 +235,19 @@ class NativeFst:
         return NativeFst(_load().okt_add_self_loops(
             self._h, _ptr(tid_tstate), tm.num_tids, _ptr(ts_self_tid),
             _ptr(ts_loop_w), _ptr(ts_fwd_w), num_ts))
+
+    def to_raw_arrays(self) -> Tuple:
+        """The arcs as stored, epsilons included: (start, row_ptr, ilabels,
+        olabels, weights, nextstates, finals) with finals +inf = not final
+        (the split-eps CSR export builds from these)."""
+        lib = _load()
+        n, a = self.num_states, self.num_arcs
+        row_ptr = np.zeros(n + 1, np.int32)
+        il, ol, ns = (np.zeros(a, np.int32) for _ in range(3))
+        w = np.zeros(a, np.float32)
+        finals = np.zeros(n, np.float32)
+        lib.okt_fst_export(self._h, *(_ptr(x) for x in (row_ptr, il, ol, w, ns, finals)))
+        return lib.okt_fst_start(self._h), row_ptr, il, ol, w, ns, finals
 
     def to_csr_arrays(self) -> Tuple:
         """Eps-forwarded CSR export: (start, row_ptr, tid, weight, nextstate,

@@ -4,14 +4,15 @@ Own copy of the containers of old_kaldi_git_tpu/fst/vector_fst.py (`Arc`,
 `VectorFst`, `linear_fst`; reference OpenFst VectorFst<StdArc>).  Weights are
 floats (tropical: plus=min, times=+, zero=inf, one=0); labels are ints with
 0 = epsilon.  The graph algorithms run in the native library
-(fst/native.py); these containers only carry small FSTs (L, G, H) to it.
+(fst/native.py); these containers carry FSTs (L, G, H, the chain phone
+LM) to it, and `connect` trims a G or a phone LM built here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 INF = math.inf
 NO_STATE = -1
@@ -46,6 +47,9 @@ class VectorFst:
     def set_final(self, s: int, weight: float = 0.0) -> None:
         self.finals[s] = weight
 
+    def is_final(self, s: int) -> bool:
+        return self.finals[s] != INF
+
     @property
     def num_states(self) -> int:
         return len(self.arcs)
@@ -62,6 +66,44 @@ class VectorFst:
             lambda a: (a.olabel, a.ilabel))
         for lst in self.arcs:
             lst.sort(key=key)
+
+
+    def connect(self) -> None:
+        """Trim states not both accessible and coaccessible (OpenFst
+        Connect), keeping the survivors' order; `last_connect_map` maps old
+        state ids to new ones, for callers tracking per-state metadata."""
+        if self.start == NO_STATE:
+            self.arcs, self.finals = [], []
+            return
+        n = self.num_states
+        acc = [False] * n
+        acc[self.start] = True
+        stack = [self.start]
+        while stack:
+            s = stack.pop()
+            for a in self.arcs[s]:
+                if not acc[a.nextstate]:
+                    acc[a.nextstate] = True
+                    stack.append(a.nextstate)
+        rev: List[List[int]] = [[] for _ in range(n)]
+        for s in range(n):
+            for a in self.arcs[s]:
+                rev[a.nextstate].append(s)
+        coacc = [self.is_final(s) for s in range(n)]
+        stack = [s for s in range(n) if coacc[s]]
+        while stack:
+            s = stack.pop()
+            for src in rev[s]:
+                if not coacc[src]:
+                    coacc[src] = True
+                    stack.append(src)
+        keep = [s for s in range(n) if acc[s] and coacc[s]]
+        remap: Dict[int, int] = {old: new for new, old in enumerate(keep)}
+        self.arcs = [[Arc(a.ilabel, a.olabel, a.weight, remap[a.nextstate])
+                      for a in self.arcs[old] if a.nextstate in remap] for old in keep]
+        self.finals = [self.finals[old] for old in keep]
+        self.start = remap.get(self.start, NO_STATE)
+        self.last_connect_map = remap
 
 
 def linear_fst(labels: List[int], olabels: Optional[List[int]] = None) -> VectorFst:

@@ -4,18 +4,27 @@ Counterpart of old_kaldi_git_tpu/models/am_nnet.py (reference
 src/nnet3/am-nnet-simple.h AmNnetSimple + nnet-am-decodable-simple): holds
 the model, its priors and its device; produces pseudo-loglikelihoods
 log p(x|pdf) ∝ log softmax(logits) − log prior for the decoder, batched
-[B, T, num_pdfs].  Inference only; float32.
+[B, T, num_pdfs]; float32.  Training (models/train.py) runs the same
+modules in train mode; `set_priors_from_posteriors` sets the priors after
+it, and `save` writes the port's own format, which `load` reads beside the
+JAX package's pickles.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
-from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnModel
+from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnLayerSpec, TdnnModel
+
+# first bytes of a file `torch.save` writes (a zip archive); the JAX
+# package's models are plain pickles
+_ZIP_MAGIC = b"PK"
+SAVE_FORMAT = "old_kaldi_git_tpu_torch.AmNnet/1"
 
 # flax's lecun_normal: a normal truncated at ±2σ, σ chosen so that the
 # truncated draw has variance 1/fan_in
@@ -52,6 +61,37 @@ class AmNnet:
         out = torch.log_softmax(self.model(self._as_input(feats)), dim=-1)
         return out if self.log_priors is None else out - self.log_priors
 
+    @torch.inference_mode()
+    def set_priors_from_posteriors(self, feats_sample, num_frames=None) -> None:
+        """Priors = the model's average posterior over a sample of the
+        training data [B, T, D], frames past `num_frames` [B] left out
+        (reference nnet3-adjust-priors / ComputePriors); floored at 1e-8
+        after normalising, as the JAX package does."""
+        post = torch.softmax(self.model(self._as_input(feats_sample)), dim=-1)
+        if num_frames is not None:
+            nf = torch.as_tensor(np.asarray(num_frames), device=self.device)
+            mask = (torch.arange(post.shape[1], device=self.device)[None, :]
+                    < nf[:, None]).to(post.dtype)
+            post = post * mask[:, :, None]
+            denom = mask.sum()
+        else:
+            denom = post.shape[0] * post.shape[1]
+        p = (post.sum(dim=(0, 1)) / denom).double().cpu().numpy()
+        p = np.maximum(p / p.sum(), 1e-8)
+        self.log_priors = torch.from_numpy(np.log(p).astype(np.float32)).to(self.device)
+
+    def save(self, path: str) -> None:
+        """The port's own format (torch.save of plain types and tensors):
+        the config's fields, the weights and batch-norm statistics by name,
+        the priors and the iVector dims."""
+        torch.save({
+            "format": SAVE_FORMAT,
+            "config": dataclasses.asdict(self.config),
+            "state_dict": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+            "log_priors": None if self.log_priors is None else self.log_priors.cpu(),
+            "ivector_dim": self.ivector_dim,
+        }, path)
+
     @staticmethod
     def init(config: TdnnConfig, seed: int = 0, device: DeviceLike = None,
              log_priors: Optional[np.ndarray] = None) -> "AmNnet":
@@ -74,8 +114,25 @@ class AmNnet:
 
     @staticmethod
     def load(path: str, device: DeviceLike = None) -> "AmNnet":
-        """Load a model pickled by the JAX package's AmNnet.save, without
-        importing that package (see convert.py)."""
-        from old_kaldi_git_tpu_torch import convert
+        """Load a model written by `save`, or one pickled by the JAX
+        package's AmNnet.save, without importing that package (see
+        convert.py)."""
+        with open(path, "rb") as f:
+            magic = f.read(len(_ZIP_MAGIC))
+        if magic != _ZIP_MAGIC:
+            from old_kaldi_git_tpu_torch import convert
 
-        return convert.load_am_nnet(path, device=device)
+            return convert.load_am_nnet(path, device=device)
+        d = torch.load(path, map_location="cpu", weights_only=True)
+        if d.get("format") != SAVE_FORMAT:
+            raise ValueError(f"{path}: not a {SAVE_FORMAT} file")
+        fields = dict(d["config"])
+        fields["layers"] = tuple(
+            TdnnLayerSpec(**{**layer, "offsets": tuple(layer["offsets"])})
+            for layer in fields["layers"])
+        config = TdnnConfig(**fields)
+        model = TdnnModel(config)
+        model.load_state_dict(d["state_dict"])
+        priors = d["log_priors"]
+        return AmNnet(config, model, None if priors is None else priors.numpy(),
+                      device=device, ivector_dim=int(d["ivector_dim"]))

@@ -1,26 +1,95 @@
-"""Chain (LF-MMI) acoustic models, decode side.
+"""Chain (LF-MMI) acoustic models: loading, training, decode graph, decode.
 
-Counterpart of the loader of old_kaldi_git_tpu/recipes/chain.py
-(`ChainModel`, `ChainModel.load`): a `chain.mdl` pickle holds the network
-(`am`: config, flax variables, priors, iVector dim), the tree and transition
-model, the denominator graph, the frame-subsampling factor and per-layer
-learning-rate factors.  Decoding needs the network, the tid → pdf map of the
-transition model (chain graphs are saved without their pdf column) and the
-subsampling factor; streaming also its tid → phone map.  The tree, the
-denominator graph and the learning-rate factors are training state and are
-read but not converted.  Chain models decode their raw logits at acoustic
-scale 1.0: no log-softmax, no priors.
+Counterpart of old_kaldi_git_tpu/recipes/chain.py (reference
+steps/nnet3/chain/train.py and local/chain/run_tdnn.sh): GMM alignments →
+the chain topology and tree → phone LM → denominator graph → supervision →
+LF-MMI training of a TDNN-F at frame-subsampling 3 → a chain decode graph
+(self-loop-scale 1.0) → decode at acoustic scale 1.0 on the raw logits (no
+log-softmax, no priors).
+
+A `chain.mdl` pickle of the JAX package holds the network (`am`: config,
+flax variables, priors, iVector dim), the tree and transition model, the
+denominator graph, the frame-subsampling factor and per-layer learning-rate
+factors; `ChainModel.load` converts all of it but the factors, which no
+ported path reads.  A model the port trains carries its own tree, transition
+model and den graph, so its decode graph is built from them
+(`make_chain_decode_graph`), not read from the committed `chain_hclg.npz`.
+The flat-start variant (`train_chain_e2e`), `combine_chain_models` and the
+natural-gradient optimizers are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from old_kaldi_git_tpu_torch import convert
-from old_kaldi_git_tpu_torch.device import DeviceLike
+from old_kaldi_git_tpu_torch.chain.den_graph import DenominatorGraph, make_denominator_graph
+from old_kaldi_git_tpu_torch.chain.loss import ChainLossOptions, chain_loss
+from old_kaldi_git_tpu_torch.chain.phone_lm import estimate_phone_lm
+from old_kaldi_git_tpu_torch.chain.supervision import (
+    alignment_to_supervision, chain_xent_labels, pad_supervisions)
+from old_kaldi_git_tpu_torch.chain.topology import chain_topology
+from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph
+from old_kaldi_git_tpu_torch.decoder.graph import mkgraph_csr
+from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch
+from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
+from old_kaldi_git_tpu_torch.fst.lang import Lang
+from old_kaldi_git_tpu_torch.fst.vector_fst import VectorFst
+from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+from old_kaldi_git_tpu_torch.hmm.hmm_utils import alignment_to_phones
+from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+from old_kaldi_git_tpu_torch.models.tdnn import apply_orthonormal_constraints, make_tdnnf
+from old_kaldi_git_tpu_torch.models.train import (
+    NnetOptimizer, NnetTrainOptions, TrainState, backstitch_step, check_divergence,
+    make_optimizer, snapshot)
+from old_kaldi_git_tpu_torch.recipes.nnet3 import append_ivector_feats
+from old_kaldi_git_tpu_torch.tree.build_tree import accumulate_tree_stats, build_tree
+from old_kaldi_git_tpu_torch.tree.context_dep import (
+    ContextDependency, monophone_context_dependency)
+from old_kaldi_git_tpu_torch.tree.event_map import KEY_PDF_CLASS, make_event
+from old_kaldi_git_tpu_torch.utils.log import get_logger
+from old_kaldi_git_tpu_torch.utils.parse_options import options_dataclass
+
+log = get_logger("chain")
+
+ORTHONORMAL_INTERVAL = 4  # steps between tdnnf re-constraints (the JAX loop's)
+
+
+@options_dataclass
+class ChainTrainOptions:
+    num_epochs: int = 10
+    minibatch_size: int = 8
+    frame_subsampling_factor: int = 3
+    left_tolerance: int = 5
+    right_tolerance: int = 5
+    phone_lm_order: int = 2
+    hidden_dim: int = 256
+    bottleneck_dim: int = 64
+    num_layers: int = 5
+    initial_lr: float = 1e-3
+    final_lr: float = 1e-4
+    optimizer: str = "adam"  # adam | sgd
+    leaky_hmm_coefficient: float = 0.1
+    l2_regularize: float = 5e-5
+    xent_regularize: float = 0.1
+    backstitch_scale: float = 0.0
+    backstitch_interval: int = 1
+    max_lr_retries: int = 2
+    seed: int = 0
+    # 1 = per-phone pdfs; 2 = left-biphone tree from the alignment's stats
+    # (build_tree.sh --context-width=2 --central-position=1)
+    tree_context_width: int = 1
+    tree_max_leaves: int = 500
+    tree_thresh: float = 100.0
+    # tdnnf layers past this index use time_stride = frame_subsampling_factor,
+    # so the trunk past them runs at the subsampled rate; 0 = stride 1
+    num_full_rate_layers: int = 3
 
 
 @dataclasses.dataclass
@@ -29,16 +98,280 @@ class ChainModel:
     tid_to_pdf: np.ndarray  # [num_tids + 1] int32, entry 0 = -1
     frame_subsampling_factor: int
     tid_to_phone: np.ndarray  # [num_tids + 1] int32, entry 0 = -1
+    ctx_dep: Optional[ContextDependency] = None
+    tm: Optional[TransitionModel] = None
+    den: Optional[DenominatorGraph] = None
+
+    @staticmethod
+    def from_parts(am: AmNnet, ctx_dep: ContextDependency, tm: TransitionModel,
+                   den: DenominatorGraph, fsf: int) -> "ChainModel":
+        return ChainModel(am, tm.tid_to_pdf_array(), fsf, tm.tid_to_phone_array(),
+                          ctx_dep, tm, den)
 
     @staticmethod
     def load(path: str, device: DeviceLike = None) -> "ChainModel":
         """A `ChainModel.save` pickle of the JAX package, read without it."""
         d = convert.load_pickle(path)
         am = d["am"]
-        return ChainModel(
+        return ChainModel.from_parts(
             convert.am_nnet_from_jax(
                 vars(am["config"]), am["variables"], am["log_priors"],
                 device=device, ivector_dim=int(am.get("ivector_dim", 0))),
-            convert.tid_to_pdf_from_transition_model(d["tm"]),
-            int(d["fsf"]),
-            convert.tid_to_phone_from_transition_model(d["tm"]))
+            convert.context_dependency_from_pickle(d["ctx_dep"]),
+            convert.transition_model_from_pickle(d["tm"]),
+            convert.den_graph_from_pickle(d["den"]), int(d["fsf"]))
+
+
+METRICS = ("objf", "num", "den", "l2", "xent")
+
+
+def chain_objective(logits: torch.Tensor, den: DenominatorGraph,
+                    loss_opts: ChainLossOptions, b_pdf, b_allowed, b_nf, b_sl, b_adv,
+                    b_xent) -> Tuple[torch.Tensor, ...]:
+    """LF-MMI (+ xent) loss of chain logits already cut to the supervision's
+    frames, then its metrics in METRICS' order, detached (xent 0 without
+    the regulariser)."""
+    loss, metrics = chain_loss(logits, den, b_pdf, b_allowed, b_nf, b_sl, b_adv, loss_opts)
+    xent = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    if loss_opts.xent_regularize > 0:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, b_xent[..., None].long())[..., 0]
+        mask = (torch.arange(logits.shape[1], device=logits.device)[None, :]
+                < b_nf[:, None]).to(logits.dtype)
+        xent = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        loss = loss + loss_opts.xent_regularize * xent
+    metrics["xent"] = xent
+    return (loss, *(metrics[k].detach() for k in METRICS))
+
+
+def make_chain_step(model: torch.nn.Module, den: DenominatorGraph,
+                    optimizer: NnetOptimizer, loss_opts: ChainLossOptions, fsf: int,
+                    backstitch_scale: float = 0.0, backstitch_interval: int = 1):
+    """LF-MMI (+ xent) step: (state, feats [B, T, D], pdf_seq, allowed,
+    num_frames, seq_len, advance_lp, xent labels[, lr_scale]) → (state, loss,
+    metrics), tensors on the model's device, the model updated in place.
+
+    On the card the objective (the den and num recursions: about 15 small
+    launches a frame each way) runs as CUDA graphs of its forward and
+    backward, one pair for each input shape, captured at first use
+    (torch.cuda.make_graphed_callables); the network and the update run as
+    they are.  The graphs replay the same kernels on the same inputs, so the
+    numbers are the eager ones."""
+    dev = next(model.parameters()).device
+    graphed: Dict[tuple, object] = {}
+
+    def objective(logits, *sup):
+        fn = lambda x, *a: chain_objective(x, den, loss_opts, *a)  # noqa: E731
+        if dev.type != "cuda":
+            return fn(logits, *sup)
+        key = tuple(tuple(t.shape) for t in (logits, *sup))
+        if key not in graphed:
+            sample = (logits.detach().clone().requires_grad_(), *sup)
+            graphed[key] = torch.cuda.make_graphed_callables(fn, sample)
+        # the graph's outputs are its static buffers, which the next replay
+        # overwrites: copies leave the step
+        return tuple(o.clone() for o in graphed[key](logits, *sup))
+
+    def loss_fn(bf, sup, gen):
+        logits = model(bf, output_stride=fsf, dropout_gen=gen)[:, : sup[1].shape[1]]
+        loss, *values = objective(logits, *sup)
+        return loss, dict(zip(METRICS, values))
+
+    def step(state: TrainState, bf, b_pdf, b_allowed, b_nf, b_sl, b_adv, b_xent,
+             lr_scale: float = 1.0):
+        bf, *sup = [torch.as_tensor(a, device=dev)
+                    for a in (bf, b_pdf, b_allowed, b_nf, b_sl, b_adv, b_xent)]
+        gen = torch.Generator(device=dev).manual_seed(state.step)
+        return backstitch_step(model, lambda: loss_fn(bf, sup, gen), optimizer, state,
+                               lr_scale, backstitch_scale, backstitch_interval)
+
+    return step
+
+
+def build_chain_objects(gmm_model: AmGmmModel, alignments: Dict[str, np.ndarray],
+                        lang: Lang, opts: ChainTrainOptions,
+                        feats: Optional[Dict[str, np.ndarray]] = None
+                        ) -> Tuple[ContextDependency, TransitionModel, DenominatorGraph]:
+    """Chain topology and tree, phone LM, denominator graph.
+    tree_context_width=2 with `feats` builds a left-biphone tree from the
+    GMM alignment's statistics with every pdf-class pooled to the chain
+    topology's one (reference steps/nnet3/chain/build_tree.sh)."""
+    phones = lang.real_phone_ids
+    topo = chain_topology(phones)
+    if opts.tree_context_width == 2 and feats is not None:
+        stats: dict = {}
+        for k, ali in alignments.items():
+            if ali is None or k not in feats:
+                continue
+            accumulate_tree_stats(ali, feats[k], gmm_model.tm, N=2, P=1, stats=stats)
+        pooled: dict = {}
+        for event, st in stats.items():
+            d = dict(event)
+            d[KEY_PDF_CLASS] = 0
+            ev = make_event(sorted(d.items()))
+            if ev in pooled:
+                pooled[ev].add(st)
+            else:
+                pooled[ev] = st.copy()
+        ctx_dep = build_tree(pooled, phones, {p: 1 for p in phones}, N=2, P=1,
+                             max_leaves=opts.tree_max_leaves, thresh=opts.tree_thresh)
+        log.info("chain biphone tree: %d pdfs", ctx_dep.num_pdfs)
+    else:
+        ctx_dep = monophone_context_dependency(phones, {p: 1 for p in phones})
+    tm = TransitionModel.from_context_dependency(ctx_dep, topo)
+    phone_seqs = [alignment_to_phones(gmm_model.tm, ali)
+                  for ali in alignments.values() if ali is not None]
+    den = make_denominator_graph(estimate_phone_lm(phone_seqs, opts.phone_lm_order), ctx_dep)
+    return ctx_dep, tm, den
+
+
+def train_chain(gmm_model: AmGmmModel, feats: Dict[str, np.ndarray],
+                alignments: Dict[str, np.ndarray], lang: Lang,
+                opts: Optional[ChainTrainOptions] = None,
+                ivectors: Optional[Dict[str, np.ndarray]] = None,
+                device: DeviceLike = None, history: Optional[List[dict]] = None,
+                report: Optional[dict] = None) -> ChainModel:
+    """LF-MMI training of a fresh TDNN-F (its weights drawn from a
+    torch.Generator seeded with opts.seed) on `device` (None: the GPU).
+
+    history: receives one dict an accepted epoch (`epoch`, `objf`, `xent`,
+    `steps`).  report: receives `tree_pdfs`, `den_states`, `den_arcs`,
+    `supervision_failures` (the utterances skipped, with a warning, as the
+    JAX package skips them), `steps`, and the host-clock seconds of
+    `objects_seconds` (tree, LM, den graph), `supervision_seconds` and
+    `train_seconds`."""
+    opts = opts or ChainTrainOptions()
+    dev = resolve_device(device)
+    report = {} if report is None else report
+    t0 = time.perf_counter()
+    # the tree is built from the features without iVectors
+    ctx_dep, tm, den = build_chain_objects(gmm_model, alignments, lang, opts, feats=feats)
+    report.update(tree_pdfs=ctx_dep.num_pdfs, den_states=den.num_states,
+                  den_arcs=int(len(den.pdf)), objects_seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ivector_dim = 0
+    if ivectors is not None:
+        feats = append_ivector_feats(feats, ivectors)
+        ivector_dim = int(np.asarray(next(iter(ivectors.values()))).shape[-1])
+    keys = sorted(k for k, a in alignments.items() if a is not None and k in feats)
+    sups, sup_keys, failed = [], [], []
+    for k in keys:
+        try:
+            sups.append(alignment_to_supervision(
+                alignments[k], gmm_model.tm, ctx_dep, opts.frame_subsampling_factor,
+                opts.left_tolerance, opts.right_tolerance, den=den))
+            sup_keys.append(k)
+        except Exception as e:  # a pathological utterance is skipped, as in the reference
+            log.warning("supervision failed for %s: %s", k, e)
+            failed.append(k)
+    report["supervision_failures"] = failed
+    pdf_seq, allowed, sup_frames, seq_len, advance_lp = pad_supervisions(sups)
+    fsf = opts.frame_subsampling_factor
+    D = next(iter(feats.values())).shape[1]
+    # features padded at the full rate; logits subsampled inside the step
+    Tfull = -(-max(feats[k].shape[0] for k in sup_keys) // fsf) * fsf
+    feats_padded = np.zeros((len(sup_keys), Tfull, D), np.float32)
+    xent_labels = np.zeros((len(sup_keys), allowed.shape[1]), np.int32)
+    for i, k in enumerate(sup_keys):
+        feats_padded[i, : feats[k].shape[0]] = feats[k]
+        xent_labels[i] = chain_xent_labels(alignments[k], gmm_model.tm, ctx_dep, fsf,
+                                           allowed.shape[1])
+    data = [torch.from_numpy(a).to(dev) for a in (
+        feats_padded, pdf_seq, allowed, sup_frames, seq_len, advance_lp, xent_labels)]
+    report["supervision_seconds"] = time.perf_counter() - t0
+
+    config = make_tdnnf(D, ctx_dep.num_pdfs, opts.hidden_dim, opts.bottleneck_dim,
+                        opts.num_layers,
+                        subsampled_stride=fsf if opts.num_full_rate_layers else 0,
+                        num_full_rate_layers=opts.num_full_rate_layers)
+    am = AmNnet.init(config, seed=opts.seed, device=dev)
+    model = am.model.train()
+    log.info("train_chain: %d utts, %d chain pdfs, den %d states/%d arcs", len(sup_keys),
+             ctx_dep.num_pdfs, den.num_states, len(den.pdf))
+    loss_opts = ChainLossOptions(leaky_hmm_coefficient=opts.leaky_hmm_coefficient,
+                                 l2_regularize=opts.l2_regularize,
+                                 xent_regularize=opts.xent_regularize)
+    B = opts.minibatch_size
+    num_steps = opts.num_epochs * max(1, len(sup_keys) // B)
+    optimizer = make_optimizer(NnetTrainOptions(initial_lr=opts.initial_lr,
+                                                final_lr=opts.final_lr,
+                                                optimizer=opts.optimizer), num_steps)
+    state = TrainState(optimizer.init(dict(model.named_parameters())), 0)
+    step_fn = make_chain_step(model, den, optimizer, loss_opts, fsf,
+                              opts.backstitch_scale, opts.backstitch_interval)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(opts.seed)
+    order = np.arange(len(sup_keys))
+    epoch, retries, lr_scale, prev_loss = 0, 0, 1.0, None
+    while epoch < opts.num_epochs:
+        snap = snapshot(model, state)
+        rng.shuffle(order)
+        # full batches; a dataset smaller than one minibatch is one batch
+        batches = [order[i: i + B] for i in range(0, len(order) - B + 1, B)] or [order]
+        objs, xents = [], []
+        for idx in batches:
+            ix = torch.from_numpy(idx).to(dev)
+            state, _loss, metrics = step_fn(state, *(a.index_select(0, ix) for a in data),
+                                            lr_scale)
+            objs.append(metrics["objf"])
+            xents.append(metrics.get("xent", torch.zeros((), device=dev)))
+            if state.step % ORTHONORMAL_INTERVAL == 0:
+                apply_orthonormal_constraints(model)
+        obj_v = torch.stack(objs).double().cpu().numpy()  # one copy an epoch
+        xent_v = torch.stack(xents).double().cpu().numpy()
+        mean_loss = -float(np.mean(obj_v))  # the objective is maximised
+        e = epoch
+
+        def accept():
+            log.info("chain epoch %d: objf %.4f xent %.4f (%d steps)", e, -mean_loss,
+                     float(np.mean(xent_v)), len(obj_v))
+            if history is not None:
+                history.append({"epoch": e, "objf": -mean_loss,
+                                "xent": float(np.mean(xent_v)), "steps": len(obj_v)})
+
+        state, prev_loss, epoch, retries, lr_scale = check_divergence(
+            model, state, snap, mean_loss, prev_loss, epoch, retries, lr_scale,
+            opts.max_lr_retries, accept)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    report.update(steps=state.step, train_seconds=time.perf_counter() - t0)
+    out = AmNnet(config, model.eval(), None, device=dev, ivector_dim=ivector_dim)
+    return ChainModel.from_parts(out, ctx_dep, tm, den, fsf)
+
+
+def make_chain_decode_graph(chain: ChainModel, lang: Lang, g: VectorFst,
+                            split_eps: bool = False,
+                            timings: Optional[Dict[str, float]] = None) -> CsrGraph:
+    """The chain model's decoding graph from its own tree and transition
+    model: self-loop-scale 1.0 (reference mkgraph for chain models), folded,
+    or split-eps for `decode_batch_tokens`.  timings: mkgraph_csr's."""
+    return mkgraph_csr(lang, g, chain.ctx_dep, chain.tm, self_loop_scale=1.0,
+                       split_eps=split_eps, timings=timings)
+
+
+def decode_chain(chain: ChainModel, graph: CsrGraph, lang: Lang,
+                 feats: Dict[str, np.ndarray], beam: float = 16.0,
+                 max_active: int = 7000, acoustic_scale: float = 1.0,
+                 ivectors: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, List[str]]:
+    """One batch decode of `feats` on a folded graph with `decode_batch`, on
+    the model's device: logits at frame-subsampling, acoustic scale 1.0."""
+    if chain.am.ivector_dim and ivectors is None:
+        raise ValueError(f"chain model expects {chain.am.ivector_dim}-dim i-vectors; "
+                         "pass ivectors=")
+    if ivectors is not None:
+        feats = append_ivector_feats(feats, ivectors)
+    keys = sorted(feats)
+    fsf = chain.frame_subsampling_factor
+    T = -(-max(feats[k].shape[0] for k in keys) // fsf) * fsf
+    padded = np.zeros((len(keys), T, feats[keys[0]].shape[1]), np.float32)
+    nf = np.zeros(len(keys), np.int32)
+    for i, k in enumerate(keys):
+        padded[i, : feats[k].shape[0]] = feats[k]
+        nf[i] = -(-feats[k].shape[0] // fsf)
+    logits = chain.am.logits(padded, output_stride=fsf)
+    results = decode_batch(graph, logits, nf, ViterbiOptions(
+        beam=beam, max_active=max_active, acoustic_scale=acoustic_scale),
+        device=chain.am.device)
+    return {k: ([lang.words[w] for w in res.words] if res else [])
+            for k, res in zip(keys, results)}

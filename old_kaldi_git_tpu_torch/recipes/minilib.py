@@ -4,8 +4,8 @@ the serving path of the port.
 Counterpart of old_kaldi_git_tpu/recipes/minilib.py, the part that decodes:
 it LOADS a system that the JAX package built (20k-word lexicon, pruned
 trigram, triphone tree, a 1M-state HCLG as CSR arrays, a TDNN-F CE model) and
-decodes the held-out set with measured WER.  Building the lexicon's LM,
-the graphs and the neural models stays with the JAX package for now.
+decodes the held-out set with measured WER.  Building the lexicon's LM and
+the flagship HCLG stays with the JAX package for now.
 
   waveform → compute_feats (13 MFCC through the fused kernel, per-utterance
   CMN, deltas → 39) → AmNnet.loglikes_batch → decode_batch_tokens → words
@@ -29,6 +29,13 @@ JAX package's build_system stages 3 and 4, `train_mono_system` (flat-start
 monophones) and `train_tri_system` (the triphone tree and its training,
 from the committed `mono.mdl` and `mono_ali.pkl`).
 
+And neural training from the committed `tri.mdl` and `tri_ali.pkl`: stage 5,
+`train_am_system` (CE training of the TDNN-F `final.am`, which decodes on
+`hclg.npz`: its pdfs are tri.mdl's), and stages 7 and 8,
+`train_chain_system` (the biphone chain tree, den graph and LF-MMI training
+of the chain TDNN-F, then that model's own split-eps chain HCLG from the
+pruned trigram), which returns a ChainSystem for `decode_and_score_chain`.
+
 The evaluation and training audio is synthesised from the option seeds with numpy, by an
 own copy of the JAX package's synthesis (bit-equal waves and text), so
 nothing is downloaded.
@@ -40,6 +47,7 @@ import dataclasses
 import gzip
 import math
 import os
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,14 +68,17 @@ from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
 from old_kaldi_git_tpu_torch.lat.lattice import (
     lattice_best_path, lattice_from_token_records, lattice_oracle)
 from old_kaldi_git_tpu_torch.lat.rescore import lmrescore_compact_lattice
-from old_kaldi_git_tpu_torch.lm.arpa import parse_arpa
+from old_kaldi_git_tpu_torch.lm.arpa import arpa_to_fst, parse_arpa
 from old_kaldi_git_tpu_torch.lm.ngram import estimate_ngram_lm
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
-from old_kaldi_git_tpu_torch.recipes.chain import ChainModel
+from old_kaldi_git_tpu_torch.models.tdnn import make_tdnnf
+from old_kaldi_git_tpu_torch.models.train import NnetTrainOptions
+from old_kaldi_git_tpu_torch.recipes.chain import (
+    ChainModel, ChainTrainOptions, make_chain_decode_graph, train_chain)
 from old_kaldi_git_tpu_torch.recipes.gmm_common import GmmTrainOptions, align_all
 from old_kaldi_git_tpu_torch.recipes.mono import MonoTrainOptions, train_mono
 from old_kaldi_git_tpu_torch.recipes.triphone import train_deltas
-from old_kaldi_git_tpu_torch.recipes.nnet3 import append_ivector_feats
+from old_kaldi_git_tpu_torch.recipes.nnet3 import append_ivector_feats, train_tdnn
 from old_kaldi_git_tpu_torch.tree.context_dep import (
     ContextDependency, monophone_context_dependency)
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
@@ -84,9 +95,9 @@ SAMP_FREQ = 8000.0
 @options_dataclass
 class MinilibOptions:
     """The fields that shape the lexicon, the text, the held-out and training
-    sets, the LM text that rescoring estimates its full LM from, and the GMM
-    stages (the JAX package's options also hold its LM pruning and its
-    neural models' training settings)."""
+    sets, the LM text that rescoring estimates its full LM from, the GMM
+    stages and the neural ones (the JAX package's options also hold its LM
+    pruning and its iVector extractor's settings)."""
 
     num_phones: int = 40
     num_words: int = 20_000
@@ -100,6 +111,12 @@ class MinilibOptions:
     mono_iters: int = 25
     mono_totgauss: int = 500
     tri_totgauss: int = 4000
+    # TDNN-F acoustic models (stage 5's CE model, stage 7's chain model)
+    hidden_dim: int = 512
+    bottleneck_dim: int = 64
+    num_layers: int = 6
+    num_epochs: int = 4
+    chain_epochs: int = 20
 
 
 # ---------------------------------------------------------------------------
@@ -849,3 +866,76 @@ def train_tri_system(workdir_out: Optional[str], feats: Dict[str, np.ndarray],
         os.makedirs(workdir_out, exist_ok=True)
         model.save(os.path.join(workdir_out, "tri.mdl"))
     return TrainResult(model, ali, timings, history, tree)
+
+
+# ---------------------------------------------------------------------------
+# neural training: the JAX package's build_system stages 5, 7 and 8
+# ---------------------------------------------------------------------------
+
+def _tri_system(gmm_workdir: str) -> Tuple[AmGmmModel, Dict[str, np.ndarray]]:
+    """tri.mdl (its transition model and pdf count) and tri_ali.pkl."""
+    return (AmGmmModel.load(os.path.join(gmm_workdir, "tri.mdl"), device="cpu"),
+            convert.load_pickle(os.path.join(gmm_workdir, "tri_ali.pkl")))
+
+
+def train_am_system(workdir_out: Optional[str], feats: Dict[str, np.ndarray],
+                    opts: Optional[MinilibOptions] = None, device: DeviceLike = None,
+                    gmm_workdir: str = "exp/minilib", history: Optional[List[dict]] = None,
+                    timings: Optional[Dict[str, float]] = None) -> AmNnet:
+    """Stage 5 of the JAX package's build_system: CE training of the TDNN-F
+    make_tdnnf(39, tri.mdl's pdfs, opts.hidden_dim, opts.bottleneck_dim,
+    opts.num_layers) for opts.num_epochs epochs (NnetTrainOptions' other
+    defaults) on `feats` (the training set's) labelled by tri_ali.pkl
+    through tri.mdl's transition model, on `device`; priors from its
+    posteriors.  With `workdir_out`, writes `final.am` there in the port's
+    format.  history, timings: train_ce's."""
+    opts = opts or MinilibOptions()
+    tri, ali = _tri_system(gmm_workdir)
+    config = make_tdnnf(39, tri.am.num_pdfs, opts.hidden_dim, opts.bottleneck_dim,
+                        opts.num_layers)
+    am = train_tdnn(tri, feats, ali, opts=NnetTrainOptions(num_epochs=opts.num_epochs),
+                    config=config, device=device, history=history, timings=timings)
+    if workdir_out:
+        os.makedirs(workdir_out, exist_ok=True)
+        am.save(os.path.join(workdir_out, "final.am"))
+    return am
+
+
+def chain_train_options(opts: MinilibOptions) -> ChainTrainOptions:
+    """Stage 7's options: opts.chain_epochs epochs of minibatch 8, the TDNN-F
+    widths of opts, an order-3 phone LM, a left-biphone tree of up to
+    opts.tree_leaves leaves."""
+    return ChainTrainOptions(
+        num_epochs=opts.chain_epochs or opts.num_epochs, minibatch_size=8,
+        hidden_dim=opts.hidden_dim, bottleneck_dim=opts.bottleneck_dim,
+        num_layers=opts.num_layers, phone_lm_order=3, tree_context_width=2,
+        tree_max_leaves=opts.tree_leaves)
+
+
+def train_chain_system(feats: Dict[str, np.ndarray], lang: Lang,
+                       opts: Optional[MinilibOptions] = None, device: DeviceLike = None,
+                       gmm_workdir: str = "exp/minilib",
+                       history: Optional[List[dict]] = None,
+                       report: Optional[dict] = None) -> ChainSystem:
+    """Stages 7 and 8 of the JAX package's build_system, in memory: train_chain
+    on `feats` (the training set's) with tri.mdl and tri_ali.pkl at
+    `chain_train_options(opts)` on `device`, then the trained model's own
+    chain graph (G from the pruned trigram `arpa.txt.gz`, mkgraph at
+    self-loop-scale 1.0, split-eps).  history, report: train_chain's; report
+    also receives `g_seconds`, `g_states`, `g_arcs`, mkgraph_csr's stage
+    seconds, `hclg_states`, `hclg_arcs` and `hclg_backoff_arcs`."""
+    opts = opts or MinilibOptions()
+    report = {} if report is None else report
+    tri, ali = _tri_system(gmm_workdir)
+    model = train_chain(tri, feats, ali, lang, chain_train_options(opts), device=device,
+                        history=history, report=report)
+    t0 = time.perf_counter()
+    with gzip.open(os.path.join(gmm_workdir, "arpa.txt.gz"), "rt") as f:
+        g = arpa_to_fst(parse_arpa(f.read()), lang.words)
+    report.update(g_seconds=time.perf_counter() - t0, g_states=g.num_states,
+                  g_arcs=g.num_arcs)
+    csr = make_chain_decode_graph(model, lang, g, split_eps=True, timings=report)
+    report.update(hclg_states=csr.num_states, hclg_arcs=csr.num_arcs,
+                  hclg_backoff_arcs=int((csr.eps_ns >= 0).sum()) if csr.eps_ns is not None
+                  else 0)
+    return ChainSystem(word_table(make_lexicon(opts)), csr, model)

@@ -38,7 +38,9 @@ def test_port_has_the_slice_modules():
                  "tree.context_dep", "hmm.hmm_utils", "decoder.graph",
                  "recipes.gmm_common", "recipes.toy", "gmm.mle",
                  "tree.build_tree", "recipes.mono", "recipes.triphone",
-                 "recipes.yesno"):
+                 "recipes.yesno", "models.train", "chain", "chain.topology",
+                 "chain.phone_lm", "chain.den_graph", "chain.supervision",
+                 "chain.loss"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 
