@@ -82,6 +82,7 @@ import json
 import os
 import re
 import sys
+import tempfile
 import time
 import zlib
 
@@ -387,6 +388,29 @@ CE_EPOCHS, CHAIN_EPOCHS = 4, 20
 # the CPU's gradients within it absolute; the card's gradients no further
 # from the CPU's float64 gradients than the CPU's float32 ones
 NNET_STEP_TOL = 1e-4
+# iVector training (minilib stage 9) on the card's features: the UBM's
+# average loglike within IVEC_UBM_TOL nats of the port's CPU run at every
+# iteration, the extractor's mean |w|² within IVEC_W2_REL relative; one UBM
+# EM step and one extractor EM step from the same inputs on the card and the
+# CPU within STEP_TOL (float64, sums in another order); the online iVectors
+# of a kind-1 (full-covariance) extractor, card vs CPU, within IVEC_ONLINE_TOL
+IVEC_UBM_TOL, IVEC_W2_REL, IVEC_ONLINE_TOL = 0.01, 0.05, 1e-4
+# the port's stage 9 on the CPU (the training set's CPU features): per
+# iteration, the UBM's average loglike and the extractor's mean |w|², from
+# minilib.train_ivector_system(None, minilib.compute_feats(
+# minilib.training_set(MinilibOptions())[0], device="cpu"), device="cpu",
+# history=h)
+IVEC_TRAIN_CPU_RECORD = {
+    "ubm": [-129.35153138635258, -123.31051731018962, -120.49180412966719,
+            -119.0183402049245, -118.33832334290962, -117.84610659950661],
+    "extractor": [0.06803470193478653, 0.47706195973572874, 0.6013541746593194,
+                  0.6799989040479931]}
+# combination: the card's search at its full length (60 CE / 40 chain Adam
+# steps); card vs CPU on the first COMBINE_CPU_STEPS steps from the same
+# inputs (the CPU's 60 CE steps over 64 utterances would take minutes),
+# weights within COMBINE_WEIGHT_TOL; compute_prob and compute_chain_prob
+# card vs CPU within NNET_STEP_TOL relative
+COMBINE_CPU_STEPS, COMBINE_WEIGHT_TOL = 3, 1e-3
 # the port's CPU runs: per iteration, the Gaussians before the update and
 # the like/frame of the statistics, and the final count; tri also the
 # largest mixture and its tree's leaves (leaf_digests):
@@ -2270,7 +2294,6 @@ def main() -> int:
     if not (ce_launches["train"]["mfcc"] > 0 and ce_launches["decode"]["gather"] > 0
             and ce_launches["decode"]["mfcc"] > 0):
         nnet_faults.append(f"train_ce did not go through its kernels: {ce_launches}")
-    del ce_am
 
     del tfeats
     zero_counts()
@@ -2347,7 +2370,6 @@ def main() -> int:
     if not (ch_launches["train"]["mfcc"] > 0 and ch_launches["decode"]["gather"] > 0
             and ch_launches["decode"]["mfcc"] > 0):
         nnet_faults.append(f"train_chain did not go through its kernels: {ch_launches}")
-    del ch_system
     torch.cuda.empty_cache()
 
     # one step from the same inputs on both devices, the features computed
@@ -2540,10 +2562,393 @@ def main() -> int:
                                        ch_gaps["objf_relative_to_term_per_frame"])
             <= NNET_STEP_TOL):
         nnet_faults.append(f"train_chain_step: card vs CPU {ch_gaps}")
+    # ---- phases 29-33: iVector training (minilib stages 9-11) and the tools
+    # beside training (natural-gradient SGD, combination, diagnostics), each
+    # path's launch counts set to 0 just before it and read just after; a
+    # fault ends the run after these phases.  train_ivector: the training
+    # set's features through K2, the UBM and the extractor (final.ie), one EM
+    # step of each on both devices, final.ie written and read back, and a
+    # full-covariance UBM and its kind-1 extractor; train_ce_ivec (stage 10)
+    # and train_chain_ivec (stage 11) on those features with online iVectors
+    # from the card's final.ie, then the clean held-out decodes (K1, K2), the
+    # chain+iVec model on train_chain's graph once its tree is train_chain's
+    from old_kaldi_git_tpu_torch.gmm.full_gmm import train_full_ubm
+    from old_kaldi_git_tpu_torch.ivector import extractor as ivx
+    from old_kaldi_git_tpu_torch.models import diagnostics
+    from old_kaldi_git_tpu_torch.models.egs import get_chain_egs
+    from old_kaldi_git_tpu_torch.models.natural_gradient import NgCollector
+    from old_kaldi_git_tpu_torch.models.tdnn import make_tdnnf
+    from old_kaldi_git_tpu_torch.recipes.chain import combine_chain_models, train_chain
+    from old_kaldi_git_tpu_torch.recipes.nnet3 import train_tdnn
+    from old_kaldi_git_tpu_torch.tree.context_dep import tree_key
+
+    tool_faults = []
+
+    def rel64(a, b):
+        a, b = (torch.as_tensor(v).double().cpu() for v in (a, b))
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+    zero_counts()
+    t0 = time.perf_counter()
+    tfeats = minilib.compute_feats(twaves, device=dev)
+    torch.cuda.synchronize()
+    iv_fe_s = time.perf_counter() - t0
+    iv_hist = {}
+    t1 = time.perf_counter()
+    ext = minilib.train_ivector_system(None, tfeats, topts, device=dev, history=iv_hist)
+    torch.cuda.synchronize()
+    iv_train_s = time.perf_counter() - t1
+    tiv_launches = read_counts("train_ivector")
+    ubm_like = [h["avg_loglike"] for h in iv_hist["ubm"]]
+    ext_w2 = [h["mean_w2"] for h in iv_hist["extractor"]]
+    ubm_gaps = [abs(a - b) for a, b in zip(ubm_like, IVEC_TRAIN_CPU_RECORD["ubm"])]
+    w2_gaps = [abs(a - b) / b for a, b in zip(ext_w2, IVEC_TRAIN_CPU_RECORD["extractor"])]
+    utts = [tfeats[k] for k in sorted(tfeats)]
+    pooled = torch.from_numpy(np.concatenate(utts)[::4].astype(np.float64))
+    ubm_step = {w: ivx.ubm_em_step(ext.ubm, pooled.to(w)) for w in ("cpu", "cuda")}
+    exts = {w: ivx.IvectorExtractor(ext.ubm, ext.T, w) for w in ("cpu", "cuda")}
+    estep = {w: ivx.acc_ivector_extractor_stats(exts[w], utts) for w in exts}
+    mstep = {w: ivx.est_ivector_extractor(exts[w], *estep[w][:2]).T for w in exts}
+    step_gaps = {
+        "ubm": max(rel64(getattr(ubm_step["cuda"], n), getattr(ubm_step["cpu"], n))
+                   for n in ("weights", "means", "vars")),
+        "extractor_estep": max(rel64(a, b) for a, b in zip(estep["cuda"], estep["cpu"])),
+        "extractor_mstep": rel64(mstep["cuda"], mstep["cpu"])}
+    del exts, estep, mstep
+    with tempfile.TemporaryDirectory() as d:
+        ext.save(os.path.join(d, "final.ie"))
+        back = ivx.IvectorExtractor.load(os.path.join(d, "final.ie"), device=dev)
+    ie_back = {"T_equal": bool(torch.equal(back.T, ext.T)),
+               "ubm_relative_to_float32": max(
+                   rel64(getattr(back.ubm, n), getattr(ext.ubm, n).astype(np.float32))
+                   for n in ("weights", "means", "vars"))}
+    t1 = time.perf_counter()
+    full_hist, full_w2 = [], []
+    fubm = train_full_ubm(ext.ubm, utts, num_iters=4, num_gselect=20, device=dev,
+                          history=full_hist)
+    fext = ivx.train_ivector_extractor(fubm, utts, ivector_dim=topts.ivector_dim,
+                                       num_iters=4, device=dev, history=full_w2)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t1
+    hkeys = sorted(system.test_waves)[:16]
+    hfeats = minilib.compute_feats({k: system.test_waves[k] for k in hkeys}, device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        fext.save(os.path.join(d, "final_full.ie"))
+        fback = {w: ivx.IvectorExtractor.load(os.path.join(d, "final_full.ie"), device=w)
+                 for w in ("cpu", "cuda")}
+    online_gap = max(
+        float((ivx.extract_online_ivectors(fback["cuda"], hfeats[k], topts.ivector_period)
+               .cpu() - ivx.extract_online_ivectors(fback["cpu"], hfeats[k],
+                                                    topts.ivector_period)).abs().max())
+        for k in hkeys)
+    full_kind = 1 if isinstance(fback["cpu"].ubm, type(fubm)) else 0
+    emit({"phase": "train_ivector", "card": card, "utterances": len(utts),
+          "ubm_gaussians": ext.ubm.num_mix, "ivector_dim": ext.ivector_dim,
+          "pooled_frames": int(pooled.shape[0]), "front_end_seconds": iv_fe_s,
+          "train_seconds": iv_train_s, "ubm_avg_loglike_by_iter": ubm_like,
+          "ubm_gap_to_cpu_record_nats": ubm_gaps, "mean_w2_by_iter": ext_w2,
+          "mean_w2_relative_gap_to_cpu_record": w2_gaps,
+          "one_step_card_vs_cpu_relative": step_gaps, "final_ie_read_back": ie_back,
+          "full_covariance": {"seconds": full_s, "gselect": 20,
+                              "avg_loglike_by_iter": [h["avg_loglike"] for h in full_hist],
+                              "mean_w2_by_iter": [h["mean_w2"] for h in full_w2],
+                              "kind_read_back": full_kind, "held_out_utterances": len(hkeys),
+                              "online_ivectors_card_vs_cpu_absolute": online_gap},
+          "mfcc_launches": tiv_launches["mfcc"], "gather_launches": tiv_launches["gather"]})
+    if max(ubm_gaps) > IVEC_UBM_TOL or max(w2_gaps) > IVEC_W2_REL:
+        tool_faults.append(f"train_ivector: UBM {ubm_gaps} nats or |w|² {w2_gaps} from the "
+                           "CPU record")
+    if max(step_gaps.values()) > STEP_TOL:
+        tool_faults.append(f"train_ivector: one EM step card vs CPU {step_gaps}")
+    if not (ie_back["T_equal"] and ie_back["ubm_relative_to_float32"] <= 1e-7):
+        tool_faults.append(f"train_ivector: final.ie read back {ie_back}")
+    if full_kind != 1 or not online_gap <= IVEC_ONLINE_TOL:
+        tool_faults.append(f"train_ivector: kind-1 extractor read back as kind {full_kind}, "
+                           f"online iVectors card vs CPU {online_gap}")
+    if tiv_launches["mfcc"] == 0:
+        tool_faults.append(f"train_ivector did not go through K2: {tiv_launches}")
+    del pooled, ubm_step, back, fubm, fext, fback, hfeats
+
+    zero_counts()
+    t0 = time.perf_counter()
+    ci_hist, ci_tim = [], {}
+    am_iv = minilib.train_am_ivec_system(None, tfeats, ext, topts, device=dev,
+                                         history=ci_hist, timings=ci_tim)
+    torch.cuda.synchronize()
+    ci_wall = time.perf_counter() - t0
+    ci_launches = {"train": read_counts("train_ce_ivec")}
+    zero_counts()
+    ci_stages = {}
+    ci_wer, _ = minilib.decode_and_score(
+        dataclasses.replace(system, ivector_models=(am_iv, ext)), beam=BEAM,
+        max_active=IVEC_MAX_ACTIVE, acoustic_scale=1.0, batch=IVEC_BATCH, timings=ci_stages,
+        use_ivectors=True)
+    ci_launches["decode"] = read_counts("train_ce_ivec_decode")
+    ci_stats = minilib.decode_and_score.last_stats
+    ci_loss = [h["loss"] for h in ci_hist]
+    emit({"phase": "train_ce_ivec", "card": card,
+          "model": f"TDNN-F 39 + {ext.ivector_dim} -> 512 (bottleneck 64) x "
+                   f"{topts.num_layers} -> {am_iv.config.num_outputs} pdfs of tri.mdl",
+          "epochs": len(ci_hist), "steps": ci_tim["steps"], "ce_by_epoch": ci_loss,
+          "accuracy_by_epoch": [h["acc"] for h in ci_hist], "wall_seconds": ci_wall,
+          "train_seconds": ci_tim["train_seconds"],
+          "step_ms": 1e3 * ci_tim["train_seconds"] / ci_tim["steps"],
+          "decode": {"graph": "exp/minilib/hclg.npz", "ivectors": "the card's final.ie",
+                     "max_active": IVEC_MAX_ACTIVE, "batch": IVEC_BATCH,
+                     "wer_percent": ci_wer, "errors": ci_stats["errors"],
+                     "ref_words": ci_stats["ref_words"],
+                     "utterances_with_errors": ci_stats["utterances_with_errors"],
+                     **ci_stages, "gather_launches": ci_launches["decode"]["gather"],
+                     "mfcc_launches": ci_launches["decode"]["mfcc"]}})
+    if not (len(ci_hist) == CE_EPOCHS and all(np.isfinite(ci_loss))
+            and all(b < a for a, b in zip(ci_loss, ci_loss[1:]))):
+        tool_faults.append(f"train_ce_ivec: CE by epoch {ci_loss}, not {CE_EPOCHS} finite "
+                           "and falling")
+    if ci_wer > MAX_WER_PERCENT:
+        tool_faults.append(f"train_ce_ivec: WER {ci_wer} % above {MAX_WER_PERCENT} %")
+    if not (ci_launches["decode"]["gather"] > 0 and ci_launches["decode"]["mfcc"] > 0):
+        tool_faults.append(f"train_ce_ivec did not go through its kernels: {ci_launches}")
+    del am_iv
+
+    zero_counts()
+    t0 = time.perf_counter()
+    cv_hist, cv_rep = [], {}
+    cv_model = minilib.train_chain_ivec_system(tfeats, lang, ext, topts, device=dev,
+                                               history=cv_hist, report=cv_rep)
+    torch.cuda.synchronize()
+    cv_wall = time.perf_counter() - t0
+    cv_launches = {"train": read_counts("train_chain_ivec")}
+    same_tree = tree_key(cv_model.ctx_dep) == tree_key(ch_system.model.ctx_dep)
+    cv_wer, cv_stats, cv_stages = None, {}, {}
+    if same_tree:
+        zero_counts()
+        cv_wer, _ = minilib.decode_and_score_chain(
+            minilib.on_graph_of(ch_system, cv_model, ext), beam=BEAM,
+            max_active=IVEC_MAX_ACTIVE, batch=IVEC_BATCH, timings=cv_stages)
+        cv_launches["decode"] = read_counts("train_chain_ivec_decode")
+        cv_stats = minilib.decode_and_score_chain.last_stats
+    cv_objf = [h["objf"] for h in cv_hist]
+    emit({"phase": "train_chain_ivec", "card": card, "tree_pdfs": cv_rep["tree_pdfs"],
+          "tree_equals_train_chain": same_tree,
+          "train_chain_tree_pdfs": ch_system.model.ctx_dep.num_pdfs,
+          "epochs": len(cv_hist), "steps": cv_rep["steps"], "objf_by_epoch": cv_objf,
+          "xent_by_epoch": [h["xent"] for h in cv_hist], "wall_seconds": cv_wall,
+          "objects_seconds": cv_rep["objects_seconds"],
+          "supervision_seconds": cv_rep["supervision_seconds"],
+          "train_seconds": cv_rep["train_seconds"],
+          "step_ms": 1e3 * cv_rep["train_seconds"] / cv_rep["steps"],
+          "decode": {"graph": "train_chain's split-eps HCLG", "ivectors": "the card's final.ie",
+                     "max_active": IVEC_MAX_ACTIVE, "batch": IVEC_BATCH, "wer_percent": cv_wer,
+                     **{k: v for k, v in cv_stats.items() if k != "wer"}, **cv_stages,
+                     **({"gather_launches": cv_launches["decode"]["gather"],
+                         "mfcc_launches": cv_launches["decode"]["mfcc"]}
+                        if "decode" in cv_launches else {})}})
+    if not same_tree:
+        tool_faults.append(f"train_chain_ivec: its tree ({cv_rep['tree_pdfs']} pdfs) is not "
+                           f"train_chain's ({ch_system.model.ctx_dep.num_pdfs})")
+    elif cv_wer > MAX_WER_PERCENT:
+        tool_faults.append(f"train_chain_ivec: WER {cv_wer} % above {MAX_WER_PERCENT} %")
+    elif not (cv_launches["decode"]["gather"] > 0 and cv_launches["decode"]["mfcc"] > 0):
+        tool_faults.append(f"train_chain_ivec did not go through its kernels: {cv_launches}")
+    if not (len(cv_hist) == CHAIN_EPOCHS and all(np.isfinite(cv_objf))):
+        tool_faults.append(f"train_chain_ivec: objf by epoch {cv_objf}, not {CHAIN_EPOCHS} "
+                           "finite")
+    del cv_model
+    torch.cuda.empty_cache()
+
+    # ---- phase 32, train_ng: one ng-sgd and one ng-sgd-act CE step from
+    # final.am and one ng-sgd-act chain step from chain.mdl, each device's
+    # loss, gradients (and activation statistics) and update, and the card's
+    # optimizer on the CPU's gradients and statistics; then one epoch of
+    # ng-sgd CE and one of ng-sgd-act chain on the training set
+    def ng_probe(model, loss_of, optimizer):
+        model = copy.deepcopy(model)
+        opt = nnet_train.make_optimizer(nnet_train.NnetTrainOptions(optimizer=optimizer), 204)
+        collector = NgCollector(model) if optimizer == "ng-sgd-act" else None
+        params = dict(model.named_parameters())
+        if collector is not None:
+            collector.active = True
+        loss, metrics = loss_of(model)
+        loss.backward()
+        stats = None
+        if collector is not None:
+            collector.active = False
+            stats = collector.stats()
+        grads = {k: p.grad.detach() for k, p in params.items()}
+        with torch.no_grad():
+            upd, _ = opt.update(grads, opt.init(params), params, stats)
+        return {"loss": loss.item(), "metrics": {k: v.item() for k, v in metrics.items()},
+                "grads": grads, "stats": stats, "upd": upd, "opt": opt, "params": params}
+
+    def ng_gaps(cpu, cuda):
+        on = lambda t: t.to("cuda")  # noqa: E731
+        with torch.no_grad():
+            stats = None if cpu["stats"] is None else {
+                n: {k: on(v) for k, v in d.items()} for n, d in cpu["stats"].items()}
+            upd, _ = cuda["opt"].update({k: on(g) for k, g in cpu["grads"].items()},
+                                        cuda["opt"].init(cuda["params"]), cuda["params"], stats)
+        big = max(float(v.abs().max()) for v in cpu["upd"].values())
+        return {"loss_relative": abs(cuda["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                "update_from_cpu_gradients_relative_to_largest": max(
+                    float((upd[k].cpu() - v).abs().max()) for k, v in cpu["upd"].items()) / big,
+                "card_update_relative_to_largest": max(
+                    float((cuda["upd"][k].cpu() - v).abs().max())
+                    for k, v in cpu["upd"].items()) / big}
+
+    ng_steps = {}
+    for name, model_of, loss_of, opt_name in (
+            ("ce_ng_sgd", ce_model, ce_loss_of, "ng-sgd"),
+            ("ce_ng_sgd_act", ce_model, ce_loss_of, "ng-sgd-act"),
+            ("chain_ng_sgd_act", chain_model, chain_loss_of, "ng-sgd-act")):
+        runs = {w: ng_probe(model_of(w), loss_of(w), opt_name) for w in ("cpu", "cuda")}
+        gaps = ng_gaps(runs["cpu"], runs["cuda"])
+        if name.startswith("chain"):
+            m = runs["cpu"]["metrics"]
+            frames = int(csup[2].sum())
+            gaps["loss_relative_to_term_per_frame"] = abs(
+                runs["cuda"]["loss"] - runs["cpu"]["loss"]) / (
+                max(abs(m["num"]), abs(m["den"])) * len(ckeys) / frames)
+        ng_steps[name] = {"loss": runs["cpu"]["loss"], **gaps}
+        held_loss = gaps.get("loss_relative_to_term_per_frame", gaps["loss_relative"])
+        if not (held_loss <= NNET_STEP_TOL and gaps[
+                "update_from_cpu_gradients_relative_to_largest"] <= NNET_STEP_TOL):
+            tool_faults.append(f"train_ng: {name} card vs CPU {gaps}")
+        del runs
+    zero_counts()
+    t0 = time.perf_counter()
+    ng_ce_hist, ng_ce_tim = [], {}
+    ng_am = train_tdnn(tri, tfeats, tri_ali, opts=nnet_train.NnetTrainOptions(
+        num_epochs=1, optimizer="ng-sgd"), config=make_tdnnf(
+        39, tri.am.num_pdfs, topts.hidden_dim, topts.bottleneck_dim, topts.num_layers),
+        device=dev, history=ng_ce_hist, timings=ng_ce_tim)
+    torch.cuda.synchronize()
+    ng_ce_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ng_ch_hist, ng_ch_rep = [], {}
+    ng_cm = train_chain(tri, tfeats, tri_ali, lang, dataclasses.replace(
+        minilib.chain_train_options(topts), num_epochs=1, optimizer="ng-sgd-act"),
+        device=dev, history=ng_ch_hist, report=ng_ch_rep)
+    torch.cuda.synchronize()
+    ng_ch_s = time.perf_counter() - t0
+    ng_launches = read_counts("train_ng")
+    ce_steps = ng_ce_hist[0]["step_losses"] if ng_ce_hist else []
+    ch_steps = ng_ch_hist[0]["step_objf"] if ng_ch_hist else []
+    ce_falls = bool(ce_steps) and np.mean(ce_steps[-10:]) < np.mean(ce_steps[:10])
+    ch_rises = (bool(ch_steps) and bool(np.all(np.isfinite(ch_steps)))
+                and np.mean(ch_steps[-10:]) > np.mean(ch_steps[:10]))
+    emit({"phase": "train_ng", "card": card, "one_step_card_vs_cpu": ng_steps,
+          "ce_ng_sgd_epoch": {"steps": len(ce_steps), "seconds": ng_ce_s,
+                              "step_ms": 1e3 * ng_ce_tim["train_seconds"] / max(len(ce_steps), 1),
+                              "ce_first_10_steps": float(np.mean(ce_steps[:10])),
+                              "ce_last_10_steps": float(np.mean(ce_steps[-10:])),
+                              "ce_mean": ng_ce_hist[0]["loss"] if ng_ce_hist else None},
+          "chain_ng_sgd_act_epoch": {
+              "steps": len(ch_steps), "seconds": ng_ch_s,
+              "step_ms": 1e3 * ng_ch_rep["train_seconds"] / max(len(ch_steps), 1),
+              "tree_pdfs": ng_ch_rep["tree_pdfs"],
+              "objf_first_10_steps": float(np.mean(ch_steps[:10])),
+              "objf_last_10_steps": float(np.mean(ch_steps[-10:])),
+              "objf_mean": ng_ch_hist[0]["objf"] if ng_ch_hist else None},
+          "mfcc_launches": ng_launches["mfcc"], "gather_launches": ng_launches["gather"]})
+    if not ce_falls:
+        tool_faults.append("train_ng: the ng-sgd CE epoch's CE did not fall")
+    if not ch_rises:
+        tool_faults.append("train_ng: the ng-sgd-act chain epoch's objf did not rise finite")
+    del ng_am
+
+    # ---- phase 33, combine: combine_models([train_ce's model, final.am]) on
+    # 64 training utterances labelled from tri_ali.pkl, combine_chain_models(
+    # [train_chain's model, the ng-sgd-act chain model]) on the 32 shortest
+    # utterances' chain egs (one tree), and compute_prob / compute_chain_prob
+    # of the card-trained models, each card vs CPU
+    zero_counts()
+    t0 = time.perf_counter()
+    ckeys64 = sorted(tfeats)[:64]
+    cb_feats = {k: tfeats[k] for k in ckeys64}
+    cb_labels = {k: np.asarray(alignment_to_pdfs(tri.tm, tri_ali[k]), np.int32)
+                 for k in ckeys64}
+    final_am = AmNnet.load("exp/minilib/final.am", device=dev)
+    ce_rep = {}
+    nnet_train.combine_models([ce_am, final_am], cb_feats, cb_labels, report=ce_rep)
+    torch.cuda.synchronize()
+    ce_comb_s = time.perf_counter() - t0
+
+    def on_cpu(am):
+        priors = None if am.log_priors is None else am.log_priors.cpu().numpy()
+        return AmNnet(am.config, copy.deepcopy(am.model), priors, device="cpu",
+                      ivector_dim=am.ivector_dim)
+
+    ce_short = {}
+    for w, ams in (("cuda", [ce_am, final_am]), ("cpu", [on_cpu(ce_am), on_cpu(final_am)])):
+        ce_short[w] = {}
+        nnet_train.combine_models(ams, cb_feats, cb_labels, num_steps=COMBINE_CPU_STEPS,
+                                  report=ce_short[w])
+    prob = {w: diagnostics.compute_prob(am, cb_feats, cb_labels)
+            for w, am in (("cuda", ce_am), ("cpu", on_cpu(ce_am)))}
+    t0 = time.perf_counter()
+    eg_keys = sorted(tfeats, key=lambda k: (len(tfeats[k]), k))[:32]
+    base = ch_system.model
+    same_chain_tree = tree_key(ng_cm.ctx_dep) == tree_key(base.ctx_dep)
+    egs = [e for k in eg_keys for e in get_chain_egs(tfeats[k], tri_ali[k], tri.tm,
+                                                      base.ctx_dep, base.den)]
+    ch_rep_c = {}
+    combine_chain_models([base, ng_cm], egs, report=ch_rep_c)
+    torch.cuda.synchronize()
+    ch_comb_s = time.perf_counter() - t0
+
+    def chain_on_cpu(cm):
+        return ChainModel.from_parts(on_cpu(cm.am), cm.ctx_dep, cm.tm, cm.den,
+                                     cm.frame_subsampling_factor)
+
+    ch_short = {}
+    for w, cms_ in (("cuda", [base, ng_cm]), ("cpu", [chain_on_cpu(base),
+                                                      chain_on_cpu(ng_cm)])):
+        ch_short[w] = {}
+        combine_chain_models(cms_, egs, num_steps=COMBINE_CPU_STEPS, report=ch_short[w])
+    eg_feats = {k: tfeats[k] for k in eg_keys}
+    cprob = {w: diagnostics.compute_chain_prob(cm, eg_feats, tri_ali, tri)
+             for w, cm in (("cuda", base), ("cpu", chain_on_cpu(base)))}
+    cb_launches = read_counts("combine")
+    wgap = {n: float(np.abs(np.asarray(r["cuda"]["weights"])
+                            - np.asarray(r["cpu"]["weights"])).max())
+            for n, r in (("ce", ce_short), ("chain", ch_short))}
+    prob_gap = {"compute_prob_ce": abs(prob["cuda"][0] - prob["cpu"][0]) / abs(prob["cpu"][0]),
+                "compute_chain_prob": abs(cprob["cuda"] - cprob["cpu"]) / abs(cprob["cpu"])}
+    emit({"phase": "combine", "card": card,
+          "ce": {"models": ["train_ce", "exp/minilib/final.am"], "utterances": len(ckeys64),
+                 "steps": len(ce_rep["objf_by_step"]), "weights": ce_rep["weights"],
+                 "objf_uniform": ce_rep["objf_uniform"], "objf_final": ce_rep["objf_final"],
+                 "seconds": ce_comb_s},
+          "chain": {"models": ["train_chain", "train_ng's ng-sgd-act chain model"],
+                    "egs": len(egs), "same_tree": same_chain_tree,
+                    "steps": len(ch_rep_c["objf_by_step"]), "weights": ch_rep_c["weights"],
+                    "objf_uniform": ch_rep_c["objf_uniform"],
+                    "objf_final": ch_rep_c["objf_final"], "seconds": ch_comb_s},
+          "card_vs_cpu": {"steps": COMBINE_CPU_STEPS, "weights_absolute": wgap,
+                          "weights": {"ce": ce_short, "chain": ch_short}},
+          "compute_prob": {"card": prob["cuda"], "cpu": prob["cpu"]},
+          "compute_chain_prob": {"card": cprob["cuda"], "cpu": cprob["cpu"]},
+          "diagnostics_card_vs_cpu_relative": prob_gap,
+          "mfcc_launches": cb_launches["mfcc"], "gather_launches": cb_launches["gather"]})
+    if not (ce_rep["objf_final"] <= ce_rep["objf_uniform"]
+            and ch_rep_c["objf_final"] <= ch_rep_c["objf_uniform"]):
+        tool_faults.append(f"combine: worse than uniform weights: CE {ce_rep['objf_uniform']} "
+                           f"-> {ce_rep['objf_final']}, chain {ch_rep_c['objf_uniform']} -> "
+                           f"{ch_rep_c['objf_final']}")
+    if not same_chain_tree:
+        tool_faults.append("combine: the two chain models' trees differ")
+    if max(wgap.values()) > COMBINE_WEIGHT_TOL:
+        tool_faults.append(f"combine: weights card vs CPU {wgap}")
+    if max(prob_gap.values()) > NNET_STEP_TOL:
+        tool_faults.append(f"combine: diagnostics card vs CPU {prob_gap}")
+    del tfeats, ext, ng_cm, final_am, egs, ce_am, ch_system
+    torch.cuda.empty_cache()
     del ch_runs, again, ch_ref, cc, cg, cms, sfeats
     torch.cuda.empty_cache()
     if nnet_faults:
         raise RuntimeError("neural training: " + "; ".join(nnet_faults))
+    if tool_faults:
+        raise RuntimeError("iVector training and training tools: " + "; ".join(tool_faults))
 
     # ---- phases 25-27: the fused toy pipeline (bench.py's run_toy), its
     # lattice mode and the dense StreamingDecoder on the toy graph
@@ -2684,8 +3089,9 @@ def main() -> int:
                       + sum(t["gather"] for t in tr_launches.values())
                       + y_launches["gather"] + tl_launches["gather"]
                       + sd_launches["gather"]
-                      + sum(n["gather"] for p in (ce_launches, ch_launches)
-                            for n in p.values())),
+                      + sum(n["gather"] for p in (ce_launches, ch_launches, ci_launches,
+                                                  cv_launches) for n in p.values())
+                      + sum(p["gather"] for p in (tiv_launches, ng_launches, cb_launches))),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -2702,8 +3108,13 @@ def main() -> int:
                               "toy_lattice": tl_launches["gather"],
                               "stream_dense": sd_launches["gather"],
                               **{f"{name}_{n}": c["gather"] for name, p in (
-                                  ("train_ce", ce_launches), ("train_chain", ch_launches))
-                                 for n, c in p.items()}},
+                                  ("train_ce", ce_launches), ("train_chain", ch_launches),
+                                  ("train_ce_ivec", ci_launches),
+                                  ("train_chain_ivec", cv_launches))
+                                 for n, c in p.items()},
+                              "train_ivector": tiv_launches["gather"],
+                              "train_ng": ng_launches["gather"],
+                              "combine": cb_launches["gather"]},
          "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err), "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
@@ -2723,8 +3134,9 @@ def main() -> int:
                       + o_launches["mfcc"] + sum(a["mfcc"] for a in a_launches.values())
                       + ty_launches["mfcc"] + sum(t["mfcc"] for t in tr_launches.values())
                       + y_launches["mfcc"] + tl_launches["mfcc"] + sd_launches["mfcc"]
-                      + sum(n["mfcc"] for p in (ce_launches, ch_launches)
-                            for n in p.values())),
+                      + sum(n["mfcc"] for p in (ce_launches, ch_launches, ci_launches,
+                                                cv_launches) for n in p.values())
+                      + sum(p["mfcc"] for p in (tiv_launches, ng_launches, cb_launches))),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -2740,14 +3152,21 @@ def main() -> int:
                               "toy_lattice": tl_launches["mfcc"],
                               "stream_dense": sd_launches["mfcc"],
                               **{f"{name}_{n}": c["mfcc"] for name, p in (
-                                  ("train_ce", ce_launches), ("train_chain", ch_launches))
-                                 for n, c in p.items()}},
+                                  ("train_ce", ce_launches), ("train_chain", ch_launches),
+                                  ("train_ce_ivec", ci_launches),
+                                  ("train_chain_ivec", cv_launches))
+                                 for n, c in p.items()},
+                              "train_ivector": tiv_launches["mfcc"],
+                              "train_ng": ng_launches["mfcc"],
+                              "combine": cb_launches["mfcc"]},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
                  s_launches["stream"], s_launches["stream_chain"], o_launches,
                  *a_launches.values(), ty_launches, *tr_launches.values(), y_launches,
-                 tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values()))
+                 tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values(),
+                 *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
+                 cb_launches))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,

@@ -55,10 +55,12 @@ class _Stub:
 
 
 class StubUnpickler(pickle.Unpickler):
-    """Unpickler that never imports the JAX package.  Only numpy, builtins
-    and the standard library resolve normally; anything else is refused."""
+    """Unpickler that never imports the JAX package.  Only numpy, builtins,
+    the standard library and the port's own classes (a `tree.pkl` the port's
+    system build wrote) resolve normally; anything else is refused."""
 
-    _ALLOWED_ROOTS = ("numpy", "builtins", "collections", "copyreg")
+    _ALLOWED_ROOTS = ("numpy", "builtins", "collections", "copyreg",
+                      "old_kaldi_git_tpu_torch")
 
     def __init__(self, file):
         super().__init__(file)
@@ -217,7 +219,9 @@ def _event_map_from_stub(node: Any) -> EventMap:
 
 def context_dependency_from_pickle(stub: Any) -> ContextDependency:
     """The stub of a pickled ContextDependency (`tree.pkl`'s first item) →
-    the port's ContextDependency."""
+    the port's ContextDependency (one the port pickled passes through)."""
+    if isinstance(stub, ContextDependency):
+        return stub
     return ContextDependency(int(stub.N), int(stub.P), _event_map_from_stub(stub.root))
 
 
@@ -266,7 +270,10 @@ def _flatten_states(state: Any) -> list:
 
 def transition_model_from_pickle(stub: Any) -> TransitionModel:
     """A pickled TransitionModel stub (its topology, tuples and
-    log-probs) → the port's TransitionModel."""
+    log-probs) → the port's TransitionModel (one the port pickled passes
+    through)."""
+    if isinstance(stub, TransitionModel):
+        return stub
     entries = {int(p): [HmmState(int(st.pdf_class), [(int(n), float(q))
                                                      for n, q in st.transitions])
                         for st in states]

@@ -1,9 +1,11 @@
 """Word n-gram LM estimation with count cutoffs.
 
-Own copy of `count_ngrams` and `estimate_ngram_lm` of
-old_kaldi_git_tpu/lm/ngram.py (the in-tree role of the reference's external
-kaldi_lm / SRILM estimation): interpolated absolute discounting producing
-an `ArpaLm` directly.  Rescoring estimates its full higher-order LM with it.
+Own copy of old_kaldi_git_tpu/lm/ngram.py (the in-tree role of the
+reference's external kaldi_lm / SRILM estimation): `count_ngrams` and
+`estimate_ngram_lm` (interpolated absolute discounting producing an `ArpaLm`
+directly; rescoring estimates its full higher-order LM with it), and what
+the system build's LM stage needs besides: relative-entropy pruning
+(`prune_ngram_lm`), an ARPA writer (`write_arpa`) and `perplexity`.
 """
 
 from __future__ import annotations
@@ -151,3 +153,113 @@ def estimate_ngram_lm(
         ),
     )
     return lm
+
+
+def prune_ngram_lm(lm: ArpaLm, threshold: float = 1e-7) -> ArpaLm:
+    """SRILM `ngram -prune`-style relative-entropy pruning (Stolcke 1998).
+
+    Drops an explicit n-gram (order ≥ 2, and never one that is the history
+    of a surviving higher-order entry) when the weighted log-prob change of
+    re-deriving it through the backoff path is below `threshold`; then
+    renormalizes the affected histories' backoff weights numerically."""
+    if lm.order == 1:
+        return lm
+    ngrams = dict(lm.ngrams)
+
+    # unigram marginals for weighting p(h, w) ≈ p_uni(h0)·…  (SRILM uses
+    # the LM's own marginals; the unigram product is the standard cheap
+    # surrogate)
+    def weight(g: NgramKey) -> float:
+        p = 1.0
+        for w in g:
+            e = lm.ngrams.get((w,))
+            p *= math.exp(e[0]) if e else 1e-6
+        return p
+
+    is_history = set()
+    for g in ngrams:
+        if len(g) > 1:
+            is_history.add(g[:-1])
+
+    def backoff_prob(g: NgramKey) -> float:
+        hist = ngrams.get(g[:-1])
+        bo = math.exp(hist[1]) if hist else 1.0
+        sub = g[1:]
+        while True:
+            e = ngrams.get(sub)
+            if e is not None:
+                return bo * math.exp(e[0])
+            if len(sub) == 1:
+                return bo * 1e-12
+            h = ngrams.get(sub[:-1])
+            bo *= math.exp(h[1]) if h else 1.0
+            sub = sub[1:]
+
+    dropped = 0
+    for g in sorted(ngrams, key=len, reverse=True):
+        if len(g) < 2 or g in is_history or g[-1] in (BOS,):
+            continue
+        e = ngrams[g]
+        d = weight(g) * abs(e[0] - math.log(max(backoff_prob(g), 1e-12)))
+        if d < threshold:
+            del ngrams[g]
+            dropped += 1
+
+    # renormalize backoffs of histories that still exist
+    by_hist: Dict[NgramKey, List[NgramKey]] = defaultdict(list)
+    for g in ngrams:
+        if len(g) > 1:
+            by_hist[g[:-1]].append(g)
+    for hist, gs in by_hist.items():
+        he = ngrams.get(hist)
+        if he is None:
+            continue
+        kept = sum(math.exp(ngrams[g][0]) for g in gs if g[-1] != BOS)
+        lower = 0.0
+        for g in gs:
+            if g[-1] == BOS:
+                continue
+            sub = g[1:]
+            bo = 1.0
+            while sub not in ngrams and len(sub) > 1:
+                h = ngrams.get(sub[:-1])
+                bo *= math.exp(h[1]) if h else 1.0
+                sub = sub[1:]
+            se = ngrams.get(sub)
+            lower += bo * (math.exp(se[0]) if se else 1e-12)
+        bo = (1.0 - kept) / max(1.0 - lower, 1e-10)
+        ngrams[hist] = (he[0], math.log(min(max(bo, 1e-10), 10.0)))
+    log.info("prune_ngram_lm: dropped %d of %d ngrams (threshold %g)",
+             dropped, len(lm.ngrams), threshold)
+    return ArpaLm(order=lm.order, ngrams=ngrams)
+
+
+def write_arpa(lm: ArpaLm, path: str) -> None:
+    """Standard ARPA text (log10), readable by lm.arpa.parse_arpa and the
+    reference's arpa2fst."""
+    by_order: Dict[int, List[NgramKey]] = defaultdict(list)
+    for g in lm.ngrams:
+        by_order[len(g)].append(g)
+    with open(path, "w") as f:
+        f.write("\\data\\\n")
+        for k in range(1, lm.order + 1):
+            f.write(f"ngram {k}={len(by_order.get(k, []))}\n")
+        for k in range(1, lm.order + 1):
+            f.write(f"\n\\{k}-grams:\n")
+            for g in sorted(by_order.get(k, [])):
+                logp, bo = lm.ngrams[g]
+                line = f"{logp / LOG10:.6f}\t{' '.join(g)}"
+                if bo != 0.0:
+                    line += f"\t{bo / LOG10:.6f}"
+                f.write(line + "\n")
+        f.write("\n\\end\\\n")
+
+
+def perplexity(lm: ArpaLm, sentences: Iterable[Sequence[str]]) -> float:
+    """Corpus perplexity (scoring events = words + </s>, SRILM convention)."""
+    total_lp = 0.0
+    n = 0
+    for sent in sentences:
+        total_lp += lm.score_sequence(sent)
+        n += len(sent) + 1
+    return math.exp(-total_lp / max(n, 1))

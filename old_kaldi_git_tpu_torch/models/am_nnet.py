@@ -80,17 +80,21 @@ class AmNnet:
         p = np.maximum(p / p.sum(), 1e-8)
         self.log_priors = torch.from_numpy(np.log(p).astype(np.float32)).to(self.device)
 
-    def save(self, path: str) -> None:
-        """The port's own format (torch.save of plain types and tensors):
-        the config's fields, the weights and batch-norm statistics by name,
-        the priors and the iVector dims."""
-        torch.save({
+    def saved(self) -> dict:
+        """What `save` writes: plain types and CPU tensors."""
+        return {
             "format": SAVE_FORMAT,
             "config": dataclasses.asdict(self.config),
             "state_dict": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
             "log_priors": None if self.log_priors is None else self.log_priors.cpu(),
             "ivector_dim": self.ivector_dim,
-        }, path)
+        }
+
+    def save(self, path: str) -> None:
+        """The port's own format (torch.save of plain types and tensors):
+        the config's fields, the weights and batch-norm statistics by name,
+        the priors and the iVector dims."""
+        torch.save(self.saved(), path)
 
     @staticmethod
     def init(config: TdnnConfig, seed: int = 0, device: DeviceLike = None,
@@ -123,7 +127,12 @@ class AmNnet:
             from old_kaldi_git_tpu_torch import convert
 
             return convert.load_am_nnet(path, device=device)
-        d = torch.load(path, map_location="cpu", weights_only=True)
+        return AmNnet.from_saved(torch.load(path, map_location="cpu", weights_only=True),
+                                 device, path)
+
+    @staticmethod
+    def from_saved(d: dict, device: DeviceLike = None, path: str = "") -> "AmNnet":
+        """The model of a `saved()` dict."""
         if d.get("format") != SAVE_FORMAT:
             raise ValueError(f"{path}: not a {SAVE_FORMAT} file")
         fields = dict(d["config"])

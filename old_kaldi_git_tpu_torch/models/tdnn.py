@@ -13,7 +13,10 @@ train mode (`model.train()`) with the batch's, over every (B, T) position,
 padding frames included, the biased variance E[x²] − E[x]², and update the
 running statistics as flax's BatchNorm(momentum=0.99) does.  The TDNN-F
 bottleneck factors are kept semi-orthogonal by `apply_orthonormal_constraints`
-(reference nnet-utils.cc ConstrainOrthonormal).
+(reference nnet-utils.cc ConstrainOrthonormal).  The natural-gradient
+instrumentation of the JAX package's `ng_dense` (every affine's input rows
+and output derivatives) is `models/natural_gradient.NgCollector`: hooks on
+these nn.Linear layers, set only while a step collects.
 
 Layer kinds other than `tdnn` and `tdnnf` (recurrent, attention, conv) and
 Descriptor inputs are not ported yet and raise NotImplementedError.

@@ -19,8 +19,12 @@ rate inside its step and cannot clip after it):
 "Top-level module" is the first component of a parameter's name (`tdnn0`,
 `tdnnf1`, …, `prefinal`, `output`), flax's top-level keys.  The batch-norm
 statistics are buffers, not parameters: the optimizer never sees them.
-The natural-gradient optimizers (`ng-sgd`, `ng-sgd-act`) and
-`combine_models` are not ported yet; an optimizer the port lacks raises.
+The natural-gradient optimizers take Adam's place in the chain
+(`ng-sgd`: decayed weights → the NG transform → momentum → × −lr → …;
+`ng-sgd-act` the same with the activation estimator, whose step runs the
+model instrumented: models/natural_gradient.py).  `combine_models` finds
+one softmax weight per model by Adam on the CE objective of held-out data
+(reference nnet3-combine).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import numpy as np
 import torch
 
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+from old_kaldi_git_tpu_torch.models.natural_gradient import (
+    NaturalGradient, NaturalGradientActivations, NgCollector)
 from old_kaldi_git_tpu_torch.models.tdnn import apply_orthonormal_constraints
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
@@ -56,7 +62,7 @@ class NnetTrainOptions:
     max_change_per_component: float = 0.75
     momentum: float = 0.0
     l2_regularize: float = 0.0
-    optimizer: str = "adam"  # adam | sgd
+    optimizer: str = "adam"  # adam | sgd | ng-sgd | ng-sgd-act
     orthonormal_interval: int = 4  # steps between tdnnf re-constraints
     # backstitch (nnet-training.cc): every `interval` steps, first step
     # AGAINST the update scaled by -alpha, recompute the gradient there,
@@ -94,19 +100,21 @@ def top_level(name: str) -> str:
 
 class NnetOptimizer:
     """The update rule of `make_optimizer`; its state is a plain dict
-    (`count`: updates made; `mu`, `nu`: Adam's moments; `trace`: SGD's
-    momentum), which `update` returns anew, so a caller can keep or drop
-    it (backstitch's two updates, a rewound epoch)."""
+    (`count`: updates made; `mu`, `nu`: Adam's moments; `trace`: momentum;
+    `ng`: the natural-gradient transform's), which `update` returns anew, so
+    a caller can keep or drop it (backstitch's two updates, a rewound
+    epoch)."""
 
     def __init__(self, opts: NnetTrainOptions, num_steps: int,
                  lr_factors: Optional[Dict[str, float]] = None):
-        if opts.optimizer not in ("adam", "sgd"):
-            raise ValueError(
-                f"optimizer {opts.optimizer!r} is not ported (adam, sgd); the "
-                "natural-gradient optimizers come with models/natural_gradient.py")
+        if opts.optimizer not in ("adam", "sgd", "ng-sgd", "ng-sgd-act"):
+            raise ValueError(f"unknown optimizer {opts.optimizer}")
         self.opts = opts
         self.lr = linear_schedule(opts.initial_lr, opts.final_lr, max(num_steps, 1))
         self.lr_factors = dict(lr_factors or {})
+        self.ng = (NaturalGradient() if opts.optimizer == "ng-sgd"
+                   else NaturalGradientActivations() if opts.optimizer == "ng-sgd-act"
+                   else None)
 
     def init(self, params: Params) -> dict:
         zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}  # noqa: E731
@@ -115,6 +123,8 @@ class NnetOptimizer:
             state.update(mu=zeros(), nu=zeros())
         elif self.opts.momentum > 0:
             state["trace"] = zeros()
+        if self.ng is not None:
+            state["ng"] = self.ng.init(params)
         return state
 
     def _factor(self, name: str) -> float:
@@ -124,12 +134,18 @@ class NnetOptimizer:
                 f = float(v)
         return f
 
-    def update(self, grads: Params, state: dict, params: Params) -> Tuple[Params, dict]:
-        """(updates to add to the params, the new state)."""
+    def update(self, grads: Params, state: dict, params: Params,
+               ng_stats: Optional[dict] = None) -> Tuple[Params, dict]:
+        """(updates to add to the params, the new state).  ng_stats: the
+        activation Fisher statistics of this step, for "ng-sgd-act"."""
         o = self.opts
         count = state["count"]
         u = {k: g + o.l2_regularize * params[k] for k, g in grads.items()}
         new = {"count": count + 1}
+        if o.optimizer == "ng-sgd":
+            u, new["ng"] = self.ng.update(u, state["ng"])
+        elif o.optimizer == "ng-sgd-act":
+            u, new["ng"] = self.ng.update(u, state["ng"], ng_stats)
         if o.optimizer == "adam":
             mu = {k: (1 - ADAM_B1) * g + ADAM_B1 * state["mu"][k] for k, g in u.items()}
             nu = {k: (1 - ADAM_B2) * (g * g) + ADAM_B2 * state["nu"][k] for k, g in u.items()}
@@ -195,17 +211,27 @@ def restore(model: torch.nn.Module, snap: tuple) -> TrainState:
 
 
 def apply_update(model: torch.nn.Module, loss_fn: Callable, optimizer: NnetOptimizer,
-                 opt_state: dict, scale: float) -> Tuple[dict, torch.Tensor, dict]:
+                 opt_state: dict, scale: float, collector: Optional[NgCollector] = None
+                 ) -> Tuple[dict, torch.Tensor, dict]:
     """One gradient of `loss_fn()` → (loss, metrics) at the model's
     parameters, one optimizer update, params += scale · update.  Returns
-    (new optimizer state, loss, metrics)."""
+    (new optimizer state, loss, metrics).  With a `collector`, the forward
+    and backward run instrumented and the update takes their activation
+    Fisher statistics ("ng-sgd-act")."""
     params = dict(model.named_parameters())
     model.zero_grad(set_to_none=True)
-    loss, metrics = loss_fn()
-    loss.backward()
+    if collector is not None:
+        collector.active = True
+    try:
+        loss, metrics = loss_fn()
+        loss.backward()
+    finally:
+        if collector is not None:
+            collector.active = False
     grads = {k: p.grad for k, p in params.items()}
+    ng_stats = None if collector is None else collector.stats()
     with torch.no_grad():
-        updates, new_state = optimizer.update(grads, opt_state, params)
+        updates, new_state = optimizer.update(grads, opt_state, params, ng_stats)
         for k, p in params.items():
             p.add_(updates[k] * scale)
     model.zero_grad(set_to_none=True)
@@ -248,25 +274,44 @@ def ce_loss(model: torch.nn.Module, feats: torch.Tensor, labels: torch.Tensor,
     return loss, {"acc": acc}
 
 
+def ng_step(model: torch.nn.Module, loss_fn: Callable, optimizer: NnetOptimizer,
+            state: TrainState, lr_scale: float, collector: NgCollector
+            ) -> Tuple[TrainState, torch.Tensor, dict]:
+    """The "ng-sgd-act" step: one instrumented update (no backstitch, as in
+    the JAX package's NG step)."""
+    opt, loss, metrics = apply_update(model, loss_fn, optimizer, state.opt_state,
+                                      lr_scale, collector)
+    return TrainState(opt, state.step + 1), loss, metrics
+
+
 def make_ce_train_step(model: torch.nn.Module, optimizer: NnetOptimizer,
-                       backstitch_scale: float = 0.0, backstitch_interval: int = 1
-                       ) -> Callable:
+                       backstitch_scale: float = 0.0, backstitch_interval: int = 1,
+                       ng_activation: bool = False) -> Callable:
     """CE step: (state, feats [B, T, D], labels [B, T], mask [B, T]
     [, lr_scale]) → (state, {"loss", "acc"}), the model's parameters and
     batch-norm statistics updated in place.  lr_scale multiplies the final
-    update (the halved-LR retry)."""
+    update (the halved-LR retry).  ng_activation: the model runs
+    instrumented and the update takes the activation Fisher statistics
+    ("ng-sgd-act")."""
     dev = next(model.parameters()).device
+    collector = NgCollector(model) if ng_activation else None
 
     def step(state: TrainState, feats, labels, mask, lr_scale: float = 1.0):
         x = torch.as_tensor(feats, device=dev)
         y = torch.as_tensor(labels, device=dev).long()
         m = torch.as_tensor(mask, device=dev)
         gen = torch.Generator(device=dev).manual_seed(state.step)
-        state, loss, metrics = backstitch_step(
-            model, lambda: ce_loss(model, x, y, m, gen), optimizer, state, lr_scale,
-            backstitch_scale, backstitch_interval)
+        loss_fn = lambda: ce_loss(model, x, y, m, gen)  # noqa: E731
+        if collector is not None:
+            state, loss, metrics = ng_step(model, loss_fn, optimizer, state, lr_scale,
+                                           collector)
+        else:
+            state, loss, metrics = backstitch_step(model, loss_fn, optimizer, state,
+                                                   lr_scale, backstitch_scale,
+                                                   backstitch_interval)
         return state, {"loss": loss, **metrics}
 
+    step.collector = collector  # its hooks stay on the model until removed
     return step
 
 
@@ -335,7 +380,7 @@ def train_ce(am: AmNnet, feats: Dict[str, np.ndarray], pdf_labels: Dict[str, np.
     """Train a copy of `am` with CE on aligned pdf labels, on am's device;
     then priors from its average posteriors over the first 64 utterances
     (sorted), as the JAX package does.  history: receives one dict an
-    accepted epoch (`epoch`, `loss`, `acc`, `steps`); timings: the
+    accepted epoch (`epoch`, `loss`, `acc`, `steps`, `step_losses`); timings: the
     host-clock `train_seconds` and `priors_seconds`, each ended by a device
     synchronise, and `steps`."""
     opts = opts or NnetTrainOptions()
@@ -347,7 +392,8 @@ def train_ce(am: AmNnet, feats: Dict[str, np.ndarray], pdf_labels: Dict[str, np.
     optimizer = make_optimizer(opts, steps_per_epoch * opts.num_epochs)
     state = TrainState(optimizer.init(dict(model.named_parameters())), 0)
     step_fn = make_ce_train_step(model, optimizer, opts.backstitch_scale,
-                                 opts.backstitch_interval)
+                                 opts.backstitch_interval,
+                                 ng_activation=opts.optimizer == "ng-sgd-act")
     epoch, retries, lr_scale, prev_loss = 0, 0, 1.0, None
     while epoch < opts.num_epochs:
         snap = snapshot(model, state)
@@ -369,11 +415,14 @@ def train_ce(am: AmNnet, feats: Dict[str, np.ndarray], pdf_labels: Dict[str, np.
                      float(np.mean(acc_v)), len(loss_v))
             if history is not None:
                 history.append({"epoch": e, "loss": mean_loss,
-                                "acc": float(np.mean(acc_v)), "steps": len(loss_v)})
+                                "acc": float(np.mean(acc_v)), "steps": len(loss_v),
+                                "step_losses": loss_v.tolist()})
 
         state, prev_loss, epoch, retries, lr_scale = check_divergence(
             model, state, snap, mean_loss, prev_loss, epoch, retries, lr_scale,
             opts.max_lr_retries, accept)
+    if step_fn.collector is not None:
+        step_fn.collector.remove()
     clock.lap("train_seconds")
     clock.add("steps", state.step)
     out = AmNnet(am.config, model.eval(), device=am.device, ivector_dim=am.ivector_dim)
@@ -410,3 +459,115 @@ def average_models(ams: Sequence[AmNnet], weights: Optional[Sequence[float]] = N
         log_priors = np.log(prior).astype(np.float32)
     return AmNnet(ams[0].config, model, log_priors, device=ams[0].device,
                   ivector_dim=ams[0].ivector_dim)
+
+
+# ---------------------------------------------------------------------------
+# model combination (reference nnet3-combine)
+# ---------------------------------------------------------------------------
+
+def adam_minimise(objf: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
+                  num_steps: int, lr: float) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """`num_steps` steps of plain Adam (optax.adam(lr): b1 0.9, b2 0.999,
+    eps 1e-8 outside the square root, bias-corrected) on objf from x0.
+    Returns the final point and the objective before each step (0-d
+    tensors, no synchronise)."""
+    x = x0.detach().clone()
+    mu, nu = torch.zeros_like(x), torch.zeros_like(x)
+    losses = []
+    for i in range(num_steps):
+        xg = x.detach().requires_grad_()
+        loss = objf(xg)
+        (g,) = torch.autograd.grad(loss, xg)
+        losses.append(loss.detach())
+        with torch.no_grad():
+            mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
+            nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
+            c1 = float(np.float32(1 - np.float32(ADAM_B1) ** np.float32(i + 1)))
+            c2 = float(np.float32(1 - np.float32(ADAM_B2) ** np.float32(i + 1)))
+            x = x - lr * ((mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS))
+    return x, losses
+
+
+def stacked_state(models: Sequence[torch.nn.Module]) -> Dict[str, torch.Tensor]:
+    """Every parameter and batch-norm statistic of models with one config,
+    stacked on a new first axis [M, ...]."""
+    states = [m.state_dict() for m in models]
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def combined_state(w: torch.Tensor, stacked: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """Σ_m w_m · tensor_m for every stacked tensor."""
+    return {k: torch.tensordot(w, s, dims=1) for k, s in stacked.items()}
+
+
+def combine_weights(model: torch.nn.Module, stacked: Dict[str, torch.Tensor],
+                    objective: Callable[[torch.nn.Module, Dict[str, torch.Tensor]],
+                                        torch.Tensor],
+                    num_steps: int, lr: float, report: Optional[dict] = None
+                    ) -> torch.Tensor:
+    """The combination search shared by combine_models and
+    combine_chain_models: one weight per model, softmax of log-weights
+    from 0, minimised by `num_steps` of Adam on `objective(model, tensors)`
+    evaluated with the combined tensors through torch.func.functional_call
+    (eval mode: batch-norm from the combined running statistics).  report:
+    receives `weights`, `objf_by_step` (before each step), `objf_uniform`
+    and `objf_final` (at the final weights)."""
+    n = next(iter(stacked.values())).shape[0]
+
+    def objf(logw):
+        return objective(model, combined_state(torch.softmax(logw, 0), stacked))
+
+    logw0 = torch.zeros(n, dtype=torch.float32, device=next(iter(stacked.values())).device)
+    logw, losses = adam_minimise(objf, logw0, num_steps, lr)
+    w = torch.softmax(logw, 0)
+    if report is not None:
+        with torch.no_grad():
+            final = objf(logw)
+        report.update(weights=w.cpu().numpy().tolist(),
+                      objf_by_step=torch.stack(losses).cpu().numpy().tolist(),
+                      objf_uniform=float(losses[0]) if losses else float(final),
+                      objf_final=float(final))
+    return w.detach()
+
+
+def combine_models(ams: Sequence[AmNnet], feats: Dict[str, np.ndarray],
+                   pdf_labels: Dict[str, np.ndarray], num_steps: int = 60, lr: float = 0.3,
+                   max_utts: int = 64, report: Optional[dict] = None) -> AmNnet:
+    """Optimised model combination (reference nnet3-combine; the JAX
+    package's one weight per model): the softmax weights that minimise the
+    masked CE of the first `max_utts` utterances (sorted) that have labels,
+    found by 60 steps of plain Adam, then the weighted sum of the models'
+    parameters and batch-norm statistics; the priors are the first model's.
+    On the first model's device.  report: combine_weights'."""
+    if len(ams) == 1:
+        return ams[0]
+    dev = ams[0].device
+    keys = [k for k in sorted(feats) if k in pdf_labels][:max_utts]
+    keys, x, nf = pad_feature_batch(feats, keys=keys)
+    T = x.shape[1]
+    y = np.zeros((len(keys), T), np.int64)
+    m = np.zeros((len(keys), T), np.float32)
+    for i, k in enumerate(keys):
+        t = min(int(nf[i]), len(pdf_labels[k]))
+        y[i, :t] = pdf_labels[k][:t]
+        m[i, :t] = 1.0
+    xt, yt, mt = (torch.from_numpy(a).to(dev) for a in (x, y, m))
+    model = copy.deepcopy(ams[0].model).eval()
+    stacked = stacked_state([am.model for am in ams])
+
+    def objective(mdl, tensors):
+        logits = torch.func.functional_call(mdl, tensors, (xt,))
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, yt[..., None])[..., 0]
+        return -(ll * mt).sum() / torch.clamp(mt.sum(), min=1.0)
+
+    rep = {} if report is None else report
+    w = combine_weights(model, stacked, objective, num_steps, lr, rep)
+    log.info("combine_models: %d models, CE %.4f → %.4f, weights %s", len(ams),
+             rep["objf_uniform"], rep["objf_final"], np.round(rep["weights"], 3))
+    with torch.no_grad():
+        model.load_state_dict(combined_state(w, stacked))
+    priors = ams[0].log_priors
+    return AmNnet(ams[0].config, model, None if priors is None else priors.cpu().numpy(),
+                  device=dev, ivector_dim=ams[0].ivector_dim)

@@ -11,15 +11,19 @@ A `chain.mdl` pickle of the JAX package holds the network (`am`: config,
 flax variables, priors, iVector dim), the tree and transition model, the
 denominator graph, the frame-subsampling factor and per-layer learning-rate
 factors; `ChainModel.load` converts all of it but the factors, which no
-ported path reads.  A model the port trains carries its own tree, transition
-model and den graph, so its decode graph is built from them
+ported path reads, and reads the port's own format (`ChainModel.save`:
+torch.save of the network's saved dict and the port's tree, transition
+model and den graph).  A model the port trains carries its own tree,
+transition model and den graph, so its decode graph is built from them
 (`make_chain_decode_graph`), not read from the committed `chain_hclg.npz`.
-The flat-start variant (`train_chain_e2e`), `combine_chain_models` and the
-natural-gradient optimizers are not ported yet.
+`combine_chain_models` weighs several models on held-out chain egs (reference
+nnet3-chain-combine).  The flat-start variant (`train_chain_e2e`) is not
+ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
@@ -43,11 +47,12 @@ from old_kaldi_git_tpu_torch.fst.vector_fst import VectorFst
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
 from old_kaldi_git_tpu_torch.hmm.hmm_utils import alignment_to_phones
 from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
-from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+from old_kaldi_git_tpu_torch.models.am_nnet import _ZIP_MAGIC, AmNnet
+from old_kaldi_git_tpu_torch.models.natural_gradient import NgCollector
 from old_kaldi_git_tpu_torch.models.tdnn import apply_orthonormal_constraints, make_tdnnf
 from old_kaldi_git_tpu_torch.models.train import (
     NnetOptimizer, NnetTrainOptions, TrainState, backstitch_step, check_divergence,
-    make_optimizer, snapshot)
+    combine_weights, combined_state, make_optimizer, ng_step, snapshot, stacked_state)
 from old_kaldi_git_tpu_torch.recipes.nnet3 import append_ivector_feats
 from old_kaldi_git_tpu_torch.tree.build_tree import accumulate_tree_stats, build_tree
 from old_kaldi_git_tpu_torch.tree.context_dep import (
@@ -74,7 +79,7 @@ class ChainTrainOptions:
     num_layers: int = 5
     initial_lr: float = 1e-3
     final_lr: float = 1e-4
-    optimizer: str = "adam"  # adam | sgd
+    optimizer: str = "adam"  # adam | sgd | ng-sgd | ng-sgd-act
     leaky_hmm_coefficient: float = 0.1
     l2_regularize: float = 5e-5
     xent_regularize: float = 0.1
@@ -108,9 +113,26 @@ class ChainModel:
         return ChainModel(am, tm.tid_to_pdf_array(), fsf, tm.tid_to_phone_array(),
                           ctx_dep, tm, den)
 
+    def save(self, path: str) -> None:
+        """The port's format: torch.save of the network's `AmNnet.saved()`
+        dict, the port's tree, transition model and den graph, and the
+        frame-subsampling factor."""
+        torch.save({"format": CHAIN_SAVE_FORMAT, "am": self.am.saved(),
+                    "ctx_dep": self.ctx_dep, "tm": self.tm, "den": self.den,
+                    "fsf": self.frame_subsampling_factor}, path)
+
     @staticmethod
     def load(path: str, device: DeviceLike = None) -> "ChainModel":
-        """A `ChainModel.save` pickle of the JAX package, read without it."""
+        """A model the port saved, or a `ChainModel.save` pickle of the JAX
+        package, read without it."""
+        with open(path, "rb") as f:
+            magic = f.read(len(_ZIP_MAGIC))
+        if magic == _ZIP_MAGIC:
+            d = torch.load(path, map_location="cpu", weights_only=False)
+            if d.get("format") != CHAIN_SAVE_FORMAT:
+                raise ValueError(f"{path}: not a {CHAIN_SAVE_FORMAT} file")
+            return ChainModel.from_parts(AmNnet.from_saved(d["am"], device, path),
+                                         d["ctx_dep"], d["tm"], d["den"], int(d["fsf"]))
         d = convert.load_pickle(path)
         am = d["am"]
         return ChainModel.from_parts(
@@ -122,6 +144,7 @@ class ChainModel:
             convert.den_graph_from_pickle(d["den"]), int(d["fsf"]))
 
 
+CHAIN_SAVE_FORMAT = "old_kaldi_git_tpu_torch.ChainModel/1"
 METRICS = ("objf", "num", "den", "l2", "xent")
 
 
@@ -146,7 +169,8 @@ def chain_objective(logits: torch.Tensor, den: DenominatorGraph,
 
 def make_chain_step(model: torch.nn.Module, den: DenominatorGraph,
                     optimizer: NnetOptimizer, loss_opts: ChainLossOptions, fsf: int,
-                    backstitch_scale: float = 0.0, backstitch_interval: int = 1):
+                    backstitch_scale: float = 0.0, backstitch_interval: int = 1,
+                    ng_activation: bool = False):
     """LF-MMI (+ xent) step: (state, feats [B, T, D], pdf_seq, allowed,
     num_frames, seq_len, advance_lp, xent labels[, lr_scale]) → (state, loss,
     metrics), tensors on the model's device, the model updated in place.
@@ -156,9 +180,12 @@ def make_chain_step(model: torch.nn.Module, den: DenominatorGraph,
     backward, one pair for each input shape, captured at first use
     (torch.cuda.make_graphed_callables); the network and the update run as
     they are.  The graphs replay the same kernels on the same inputs, so the
-    numbers are the eager ones."""
+    numbers are the eager ones.  ng_activation: the network runs
+    instrumented (NgCollector's hooks, outside the captured graphs) and the
+    update takes the activation Fisher statistics ("ng-sgd-act")."""
     dev = next(model.parameters()).device
     graphed: Dict[tuple, object] = {}
+    collector = NgCollector(model) if ng_activation else None
 
     def objective(logits, *sup):
         fn = lambda x, *a: chain_objective(x, den, loss_opts, *a)  # noqa: E731
@@ -182,9 +209,13 @@ def make_chain_step(model: torch.nn.Module, den: DenominatorGraph,
         bf, *sup = [torch.as_tensor(a, device=dev)
                     for a in (bf, b_pdf, b_allowed, b_nf, b_sl, b_adv, b_xent)]
         gen = torch.Generator(device=dev).manual_seed(state.step)
+        if collector is not None:
+            return ng_step(model, lambda: loss_fn(bf, sup, gen), optimizer, state,
+                           lr_scale, collector)
         return backstitch_step(model, lambda: loss_fn(bf, sup, gen), optimizer, state,
                                lr_scale, backstitch_scale, backstitch_interval)
 
+    step.collector = collector  # its hooks stay on the model until removed
     return step
 
 
@@ -235,7 +266,7 @@ def train_chain(gmm_model: AmGmmModel, feats: Dict[str, np.ndarray],
     torch.Generator seeded with opts.seed) on `device` (None: the GPU).
 
     history: receives one dict an accepted epoch (`epoch`, `objf`, `xent`,
-    `steps`).  report: receives `tree_pdfs`, `den_states`, `den_arcs`,
+    `steps`, `step_objf`).  report: receives `tree_pdfs`, `den_states`, `den_arcs`,
     `supervision_failures` (the utterances skipped, with a warning, as the
     JAX package skips them), `steps`, and the host-clock seconds of
     `objects_seconds` (tree, LM, den graph), `supervision_seconds` and
@@ -298,7 +329,8 @@ def train_chain(gmm_model: AmGmmModel, feats: Dict[str, np.ndarray],
                                                 optimizer=opts.optimizer), num_steps)
     state = TrainState(optimizer.init(dict(model.named_parameters())), 0)
     step_fn = make_chain_step(model, den, optimizer, loss_opts, fsf,
-                              opts.backstitch_scale, opts.backstitch_interval)
+                              opts.backstitch_scale, opts.backstitch_interval,
+                              ng_activation=opts.optimizer == "ng-sgd-act")
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(opts.seed)
@@ -328,11 +360,14 @@ def train_chain(gmm_model: AmGmmModel, feats: Dict[str, np.ndarray],
                      float(np.mean(xent_v)), len(obj_v))
             if history is not None:
                 history.append({"epoch": e, "objf": -mean_loss,
-                                "xent": float(np.mean(xent_v)), "steps": len(obj_v)})
+                                "xent": float(np.mean(xent_v)), "steps": len(obj_v),
+                                "step_objf": obj_v.tolist()})
 
         state, prev_loss, epoch, retries, lr_scale = check_divergence(
             model, state, snap, mean_loss, prev_loss, epoch, retries, lr_scale,
             opts.max_lr_retries, accept)
+    if step_fn.collector is not None:
+        step_fn.collector.remove()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     report.update(steps=state.step, train_seconds=time.perf_counter() - t0)
@@ -375,3 +410,46 @@ def decode_chain(chain: ChainModel, graph: CsrGraph, lang: Lang,
         device=chain.am.device)
     return {k: ([lang.words[w] for w in res.words] if res else [])
             for k, res in zip(keys, results)}
+
+
+def combine_chain_models(cms: List[ChainModel], egs: List, num_steps: int = 40,
+                         lr: float = 0.3, max_egs: int = 32,
+                         loss_opts: Optional[ChainLossOptions] = None,
+                         report: Optional[dict] = None) -> ChainModel:
+    """Optimised chain-model combination (reference nnet3-chain-combine; the
+    JAX package's one weight per model): the softmax weights that minimise
+    the LF-MMI loss (no xent term by default) of the `max_egs` shortest
+    chain egs, by `num_steps` of plain Adam, then the weighted sum of the
+    models' parameters and batch-norm statistics; the first model's tree,
+    transition model, den graph and priors.  On the first model's device.
+    report: models.train.combine_weights'."""
+    from old_kaldi_git_tpu_torch.models.egs import batch_chain_egs
+
+    if len(cms) == 1:
+        return cms[0]
+    base = cms[0]
+    dev = base.am.device
+    opts = loss_opts or ChainLossOptions(xent_regularize=0.0)
+    fsf = base.frame_subsampling_factor
+    bf, pdf_seq, allowed, nf, sl, adv, _x = (
+        torch.from_numpy(a).to(dev) for a in batch_chain_egs(
+            sorted(egs, key=lambda e: e.feats.shape[0])[:max_egs]))
+    model = copy.deepcopy(base.am.model).eval()
+    stacked = stacked_state([cm.am.model for cm in cms])
+
+    def objective(mdl, tensors):
+        logits = torch.func.functional_call(mdl, tensors, (bf,), {"output_stride": fsf})
+        loss, _ = chain_loss(logits[:, : allowed.shape[1]], base.den, pdf_seq, allowed,
+                             nf, sl, adv, opts)
+        return loss
+
+    rep = {} if report is None else report
+    w = combine_weights(model, stacked, objective, num_steps, lr, rep)
+    log.info("combine_chain_models: %d models, loss %.4f → %.4f, weights %s", len(cms),
+             rep["objf_uniform"], rep["objf_final"], np.round(rep["weights"], 3))
+    with torch.no_grad():
+        model.load_state_dict(combined_state(w, stacked))
+    priors = base.am.log_priors
+    am = AmNnet(base.am.config, model, None if priors is None else priors.cpu().numpy(),
+                device=dev, ivector_dim=base.am.ivector_dim)
+    return ChainModel.from_parts(am, base.ctx_dep, base.tm, base.den, fsf)

@@ -1,11 +1,11 @@
 """Mini-librispeech-class synthetic system at realistic decode-graph scale:
 the serving path of the port.
 
-Counterpart of old_kaldi_git_tpu/recipes/minilib.py, the part that decodes:
-it LOADS a system that the JAX package built (20k-word lexicon, pruned
-trigram, triphone tree, a 1M-state HCLG as CSR arrays, a TDNN-F CE model) and
-decodes the held-out set with measured WER.  Building the lexicon's LM and
-the flagship HCLG stays with the JAX package for now.
+Counterpart of old_kaldi_git_tpu/recipes/minilib.py: it loads a built
+system (20k-word lexicon, pruned trigram, triphone tree, a 1M-state HCLG as
+CSR arrays, a TDNN-F CE model; the committed one the JAX package built) and
+decodes the held-out set with measured WER, and it builds the system,
+stage by stage (`build_system`, below).
 
   waveform → compute_feats (13 MFCC through the fused kernel, per-utterance
   CMN, deltas → 39) → AmNnet.loglikes_batch → decode_batch_tokens → words
@@ -36,6 +36,22 @@ And neural training from the committed `tri.mdl` and `tri_ali.pkl`: stage 5,
 of the chain TDNN-F, then that model's own split-eps chain HCLG from the
 pruned trigram), which returns a ChainSystem for `decode_and_score_chain`.
 
+And iVector training, stages 9-11: `train_ivector_system` (a diagonal UBM on
+every fourth pooled training frame, then the extractor: `final.ie`),
+`train_am_ivec_system` (the CE TDNN-F on features with online iVectors from
+it: `final_ivec.am`) and `train_chain_ivec_system` (`chain_ivec.mdl`, whose
+tree is built from the features without iVectors, so it is stage 7's tree
+and decodes on stage 8's graph; `load_chain_system` and `on_graph_of`
+compare the two trees and refuse a graph of another tree).
+
+`build_system` runs the JAX package's 11 stages through these functions,
+gated by `utils/pipeline.py` (a stage is skipped below `--stage` and when
+its artifacts exist): `python -m old_kaldi_git_tpu_torch.recipes.minilib
+--workdir D [--stage N]`.  The port writes its own formats where the JAX
+package pickles its classes (`lang.pkl`, `tree.pkl`, `final.am`,
+`chain.mdl`, `final_ivec.am`, `chain_ivec.mdl`); the other artifacts are
+the JAX package's formats.
+
 The evaluation and training audio is synthesised from the option seeds with numpy, by an
 own copy of the JAX package's synthesis (bit-equal waves and text), so
 nothing is downloaded.
@@ -43,10 +59,12 @@ nothing is downloaded.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gzip
 import math
 import os
+import pickle
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -55,7 +73,7 @@ import torch
 
 from old_kaldi_git_tpu_torch import convert
 from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph, FlatOlabels
-from old_kaldi_git_tpu_torch.decoder.graph import GraphCompiler
+from old_kaldi_git_tpu_torch.decoder.graph import GraphCompiler, mkgraph_csr
 from old_kaldi_git_tpu_torch.decoder.viterbi import (
     ViterbiOptions, align_batch, decode_batch_tokens)
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
@@ -63,13 +81,14 @@ from old_kaldi_git_tpu_torch.feat.compute import FEAT_CHUNK, compute_utterance_f
 from old_kaldi_git_tpu_torch.fst.lang import Lang, Lexicon
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
 from old_kaldi_git_tpu_torch.ivector.extractor import (
-    IvectorExtractor, extract_online_ivectors)
+    IvectorExtractor, extract_online_ivectors, train_ivector_extractor, train_ubm)
 from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
 from old_kaldi_git_tpu_torch.lat.lattice import (
     lattice_best_path, lattice_from_token_records, lattice_oracle)
 from old_kaldi_git_tpu_torch.lat.rescore import lmrescore_compact_lattice
 from old_kaldi_git_tpu_torch.lm.arpa import arpa_to_fst, parse_arpa
-from old_kaldi_git_tpu_torch.lm.ngram import estimate_ngram_lm
+from old_kaldi_git_tpu_torch.lm.ngram import (
+    estimate_ngram_lm, perplexity, prune_ngram_lm, write_arpa)
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
 from old_kaldi_git_tpu_torch.models.tdnn import make_tdnnf
 from old_kaldi_git_tpu_torch.models.train import NnetTrainOptions
@@ -80,11 +99,12 @@ from old_kaldi_git_tpu_torch.recipes.mono import MonoTrainOptions, train_mono
 from old_kaldi_git_tpu_torch.recipes.triphone import train_deltas
 from old_kaldi_git_tpu_torch.recipes.nnet3 import append_ivector_feats, train_tdnn
 from old_kaldi_git_tpu_torch.tree.context_dep import (
-    ContextDependency, monophone_context_dependency)
+    ContextDependency, monophone_context_dependency, tree_key)
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
 from old_kaldi_git_tpu_torch.utils.parse_options import options_dataclass
+from old_kaldi_git_tpu_torch.utils.pipeline import Pipeline
 from old_kaldi_git_tpu_torch.utils.timing import StageClock
 
 log = get_logger("minilib")
@@ -95,9 +115,8 @@ SAMP_FREQ = 8000.0
 @options_dataclass
 class MinilibOptions:
     """The fields that shape the lexicon, the text, the held-out and training
-    sets, the LM text that rescoring estimates its full LM from, the GMM
-    stages and the neural ones (the JAX package's options also hold its LM
-    pruning and its iVector extractor's settings)."""
+    sets, the LM (its text, order and pruning), the GMM stages, the neural
+    ones and the iVector extractor (the JAX package's options)."""
 
     num_phones: int = 40
     num_words: int = 20_000
@@ -106,6 +125,7 @@ class MinilibOptions:
     num_test: int = 256
     seed: int = 42
     lm_order: int = 3
+    prune_threshold: float = 4e-8
     tree_leaves: int = 2000
     tri_iters: int = 8
     mono_iters: int = 25
@@ -116,6 +136,11 @@ class MinilibOptions:
     bottleneck_dim: int = 64
     num_layers: int = 6
     num_epochs: int = 4
+    # online iVectors: a 64-Gaussian diagonal UBM, 32-dim iVectors every 10
+    # frames
+    ivector_ubm_gauss: int = 64
+    ivector_dim: int = 32
+    ivector_period: int = 10
     chain_epochs: int = 20
 
 
@@ -396,8 +421,7 @@ def load_system(workdir: str, opts: Optional[MinilibOptions] = None,
     for name in ("tree.pkl", "hclg.npz", "final.am"):
         if not os.path.exists(os.path.join(workdir, name)):
             raise KaldiError(
-                f"{workdir}: {name} is missing; the port loads a system the "
-                "JAX package built and does not build one")
+                f"{workdir}: {name} is missing; build_system makes it")
     _ctx_dep, tm = convert.load_pickle(os.path.join(workdir, "tree.pkl"))
     tid_to_pdf = convert.tid_to_pdf_from_transition_model(tm)
     csr = load_csr(os.path.join(workdir, "hclg.npz"), tid_to_pdf)
@@ -533,6 +557,11 @@ def load_chain_system(workdir: str, model_name: Optional[str] = None,
         if not os.path.exists(os.path.join(workdir, name)):
             raise KaldiError(f"{workdir}: {name} is missing")
     model = ChainModel.load(os.path.join(workdir, model_name), device=device)
+    if model_name != "chain.mdl" and os.path.exists(os.path.join(workdir, "chain.mdl")):
+        # chain_hclg.npz is stage 8's graph of chain.mdl's tree
+        check_same_tree(model.ctx_dep, ChainModel.load(
+            os.path.join(workdir, "chain.mdl"), device="cpu").ctx_dep,
+            f"{workdir}/{model_name}", f"{workdir}/chain_hclg.npz (chain.mdl's)")
     csr = load_csr(os.path.join(workdir, "chain_hclg.npz"), model.tid_to_pdf)
     ext = (load_ivector_extractor(workdir, model.am) if model.am.ivector_dim
            else None)
@@ -939,3 +968,271 @@ def train_chain_system(feats: Dict[str, np.ndarray], lang: Lang,
                   hclg_backoff_arcs=int((csr.eps_ns >= 0).sum()) if csr.eps_ns is not None
                   else 0)
     return ChainSystem(word_table(make_lexicon(opts)), csr, model)
+
+
+def check_same_tree(model_tree: ContextDependency, graph_tree: ContextDependency,
+                    model_name: str, graph_name: str) -> None:
+    """Raise unless a model's tree is the tree its decoding graph was built
+    from: a graph of another tree reads other pdfs under the same tids."""
+    if tree_key(model_tree) != tree_key(graph_tree):
+        raise KaldiError(
+            f"{model_name} has a tree of {model_tree.num_pdfs} pdfs that differs from the "
+            f"tree of {graph_name} ({graph_tree.num_pdfs} pdfs): it cannot decode on that "
+            "graph")
+
+
+def on_graph_of(system: ChainSystem, model: ChainModel,
+                ext: Optional[IvectorExtractor] = None) -> ChainSystem:
+    """`model` decoding on `system`'s graph (stage 11's chain+iVec model on
+    stage 8's): raises unless their trees are equal."""
+    check_same_tree(model.ctx_dep, system.model.ctx_dep, "the chain model",
+                    "the chain system's graph")
+    return ChainSystem(system.words, system.csr, model, ext)
+
+
+# ---------------------------------------------------------------------------
+# iVector training: the JAX package's build_system stages 9, 10 and 11
+# ---------------------------------------------------------------------------
+
+def train_ivector_system(workdir_out: Optional[str], feats: Dict[str, np.ndarray],
+                         opts: Optional[MinilibOptions] = None, device: DeviceLike = None,
+                         history: Optional[Dict[str, List[dict]]] = None
+                         ) -> IvectorExtractor:
+    """Stage 9 of the JAX package's build_system: a diagonal UBM of
+    opts.ivector_ubm_gauss Gaussians (6 iterations) on every fourth frame of
+    the training features pooled in key order, then the extractor of
+    opts.ivector_dim-dim iVectors (4 iterations) over every utterance, on
+    `device`.  With `workdir_out`, writes `final.ie` there.  history:
+    receives `ubm` and `extractor`, train_ubm's and
+    train_ivector_extractor's per-iteration dicts."""
+    opts = opts or MinilibOptions()
+    utts = [feats[k] for k in sorted(feats)]
+    hist = {"ubm": [], "extractor": []} if history is None else history
+    hist.setdefault("ubm", [])
+    hist.setdefault("extractor", [])
+    ubm = train_ubm(np.concatenate(utts)[::4], num_gauss=opts.ivector_ubm_gauss,
+                    num_iters=6, device=device, history=hist["ubm"])
+    ext = train_ivector_extractor(ubm, utts, ivector_dim=opts.ivector_dim, num_iters=4,
+                                  device=device, history=hist["extractor"])
+    if workdir_out:
+        os.makedirs(workdir_out, exist_ok=True)
+        ext.save(os.path.join(workdir_out, "final.ie"))
+    return ext
+
+
+def train_am_ivec_system(workdir_out: Optional[str], feats: Dict[str, np.ndarray],
+                         ext: IvectorExtractor, opts: Optional[MinilibOptions] = None,
+                         device: DeviceLike = None, gmm_workdir: str = "exp/minilib",
+                         history: Optional[List[dict]] = None,
+                         timings: Optional[Dict[str, float]] = None) -> AmNnet:
+    """Stage 10: online iVectors every opts.ivector_period frames from `ext`,
+    then stage 5's CE training of make_tdnnf(39 + opts.ivector_dim, ...) on
+    the features with them appended.  With `workdir_out`, writes
+    `final_ivec.am` there."""
+    opts = opts or MinilibOptions()
+    tri, ali = _tri_system(gmm_workdir)
+    ivecs = compute_ivectors(ext, feats, opts.ivector_period)
+    config = make_tdnnf(39 + ext.ivector_dim, tri.am.num_pdfs, opts.hidden_dim,
+                        opts.bottleneck_dim, opts.num_layers)
+    am = train_tdnn(tri, feats, ali, opts=NnetTrainOptions(num_epochs=opts.num_epochs),
+                    config=config, ivectors=ivecs, device=device, history=history,
+                    timings=timings)
+    if workdir_out:
+        os.makedirs(workdir_out, exist_ok=True)
+        am.save(os.path.join(workdir_out, "final_ivec.am"))
+    return am
+
+
+def train_chain_ivec_system(feats: Dict[str, np.ndarray], lang: Lang, ext: IvectorExtractor,
+                            opts: Optional[MinilibOptions] = None, device: DeviceLike = None,
+                            gmm_workdir: str = "exp/minilib",
+                            history: Optional[List[dict]] = None,
+                            report: Optional[dict] = None) -> ChainModel:
+    """Stage 11: train_chain at stage 7's options on the features with online
+    iVectors from `ext` appended; its tree comes from the features without
+    them, so it is stage 7's tree on the same features."""
+    opts = opts or MinilibOptions()
+    tri, ali = _tri_system(gmm_workdir)
+    return train_chain(tri, feats, ali, lang, chain_train_options(opts),
+                       ivectors=compute_ivectors(ext, feats, opts.ivector_period),
+                       device=device, history=history, report=report)
+
+
+# ---------------------------------------------------------------------------
+# the stage-gated system build
+# ---------------------------------------------------------------------------
+
+def save_csr(path: str, csr: CsrGraph, omit_pdf: bool = False) -> None:
+    """A graph as the JAX package's save_csr writes it (np.savez_compressed);
+    omit_pdf drops the per-arc pdf array, which load_csr rebuilds from the
+    model's tid → pdf map."""
+    def flat(ol) -> FlatOlabels:
+        if isinstance(ol, FlatOlabels):
+            return ol
+        off = np.zeros(len(ol) + 1, np.int32)
+        vals: List[int] = []
+        for i, t in enumerate(ol):
+            vals.extend(t)
+            off[i + 1] = len(vals)
+        return FlatOlabels(off, np.asarray(vals, np.int32))
+
+    ol, fol = flat(csr.arc_olabels), flat(csr.final_olabels)
+    extra = {}
+    if csr.eps_ns is not None:
+        extra = dict(eps_ns=csr.eps_ns, eps_w=csr.eps_w, eps_olab=csr.eps_olab,
+                     eps_depth=np.int32(csr.eps_depth))
+    if not omit_pdf:
+        extra["pdf"] = csr.pdf
+    np.savez_compressed(path, start=np.int32(csr.start), row_ptr=csr.row_ptr, tid=csr.tid,
+                        weight=csr.weight, nextstate=csr.nextstate,
+                        final_weight=csr.final_weight, olab_off=ol.offsets,
+                        olab_val=ol.values, folab_off=fol.offsets, folab_val=fol.values,
+                        **extra)
+
+
+def _dump_pkl_gz(path: str, obj) -> None:
+    with gzip.open(path, "wb", compresslevel=6) as f:
+        pickle.dump(obj, f, protocol=4)
+
+
+def _load_lang(workdir: str, opts: MinilibOptions) -> Lang:
+    """Stage 1's `lang.pkl` when the port wrote it; else the lang bundle
+    rebuilt from the lexicon (the committed system does not keep it)."""
+    path = os.path.join(workdir, "lang.pkl")
+    if os.path.exists(path):
+        lang = convert.load_pickle(path)
+        if isinstance(lang, Lang):
+            return lang
+    return make_lang(opts)
+
+
+def _load_tree(workdir: str) -> Tuple[ContextDependency, "object"]:
+    """`tree.pkl`: (tree, transition model), pickled by the JAX package or
+    by the port's stage 4."""
+    ctx_dep, tm = convert.load_pickle(os.path.join(workdir, "tree.pkl"))
+    return (convert.context_dependency_from_pickle(ctx_dep),
+            convert.transition_model_from_pickle(tm))
+
+
+def _grammar(workdir: str, lang: Lang):
+    with gzip.open(os.path.join(workdir, "arpa.txt.gz"), "rt") as f:
+        g = arpa_to_fst(parse_arpa(f.read()), lang.words)
+    g.arcsort("ilabel")
+    return g
+
+
+def _build_hclg(workdir: str, opts: MinilibOptions) -> CsrGraph:
+    """Stage 6's folded HCLG from the pruned trigram and tree.pkl's tree.
+    (The JAX package also writes the upstream-format HCLG.fst here; the
+    port does not: no stage and no ported path reads it.)"""
+    lang = _load_lang(workdir, opts)
+    ctx_dep, tm = _load_tree(workdir)
+    return mkgraph_csr(lang, _grammar(workdir, lang), ctx_dep, tm)
+
+
+def build_system(workdir: str, opts: Optional[MinilibOptions] = None, stage: int = 0,
+                 device: DeviceLike = None) -> None:
+    """Build every artifact of the system under `workdir`, on `device`
+    (None: the GPU), stage by stage as the JAX package's build_system:
+    1 lang, 2 LM, 3 mono, 4 tri, 5 CE am, 6 HCLG, 7 chain, 8 chain HCLG,
+    9 final.ie, 10 final_ivec.am, 11 chain_ivec.mdl.  Stages below `stage`,
+    and stages whose artifacts exist, are skipped.  The stages read the
+    earlier stages' artifacts from `workdir` (stage 4 reads stage 3's),
+    and the training set's features are computed once a run."""
+    opts = opts or MinilibOptions()
+    dev = resolve_device(device)
+    pipe = Pipeline(workdir, stage=stage, log_to_files=False)
+    cache: dict = {}
+
+    def train_data():
+        if "feats" not in cache:
+            waves, text = training_set(opts)
+            cache["feats"], cache["text"] = compute_feats(waves, device=dev), text
+        return cache["feats"], cache["text"]
+
+    @pipe.stage(1, "lang", produces="lang.pkl")
+    def _lang(ctx):
+        with open(ctx.path("lang.pkl"), "wb") as f:
+            pickle.dump(make_lang(opts), f, protocol=4)
+
+    @pipe.stage(2, "lm", produces="arpa.txt.gz")
+    def _lm(ctx):
+        sents = [_to_words(s) for s in make_text(opts, opts.lm_sentences, opts.seed + 2)]
+        lm = estimate_ngram_lm(sents, order=opts.lm_order, cutoffs=(0, 0, 1))
+        lm = prune_ngram_lm(lm, threshold=opts.prune_threshold)
+        heldout = [_to_words(s) for s in make_text(opts, 200, opts.seed + 3)]
+        log.info("lm: held-out perplexity %.1f", perplexity(lm, heldout))
+        tmp = ctx.path("arpa.txt")
+        write_arpa(lm, tmp)
+        with open(tmp, "rb") as f, gzip.open(ctx.path("arpa.txt.gz"), "wb") as g:
+            g.write(f.read())
+        os.remove(tmp)
+
+    @pipe.stage(3, "mono", produces=("mono.mdl", "mono_ali.pkl"))
+    def _mono(ctx):
+        feats, text = train_data()
+        res = train_mono_system(workdir, feats, text, _load_lang(workdir, opts), opts, dev)
+        _dump_pkl_gz(ctx.path("mono_ali.pkl"), res.alignments)
+
+    @pipe.stage(4, "tri", produces=("tri.mdl", "tri_ali.pkl", "tree.pkl"))
+    def _tri(ctx):
+        feats, text = train_data()
+        res = train_tri_system(workdir, feats, text, _load_lang(workdir, opts), opts, dev,
+                               mono_workdir=workdir)
+        _dump_pkl_gz(ctx.path("tri_ali.pkl"), res.alignments)
+        with open(ctx.path("tree.pkl"), "wb") as f:
+            pickle.dump((res.tree, res.model.tm), f, protocol=4)
+
+    @pipe.stage(5, "am", produces="final.am")
+    def _am(ctx):
+        train_am_system(workdir, train_data()[0], opts, dev, gmm_workdir=workdir)
+
+    @pipe.stage(6, "hclg", produces="hclg.npz")
+    def _hclg(ctx):
+        save_csr(ctx.path("hclg.npz"), _build_hclg(workdir, opts), omit_pdf=True)
+
+    @pipe.stage(7, "chain", produces="chain.mdl")
+    def _chain(ctx):
+        tri, ali = _tri_system(workdir)
+        train_chain(tri, train_data()[0], ali, _load_lang(workdir, opts),
+                    chain_train_options(opts), device=dev).save(ctx.path("chain.mdl"))
+
+    @pipe.stage(8, "chain_hclg", produces="chain_hclg.npz")
+    def _chain_hclg(ctx):
+        lang = _load_lang(workdir, opts)
+        cm = ChainModel.load(ctx.path("chain.mdl"), device="cpu")
+        save_csr(ctx.path("chain_hclg.npz"),
+                 make_chain_decode_graph(cm, lang, _grammar(workdir, lang), split_eps=True),
+                 omit_pdf=True)
+
+    @pipe.stage(9, "ivector", produces="final.ie")
+    def _ivector(ctx):
+        train_ivector_system(workdir, train_data()[0], opts, dev)
+
+    @pipe.stage(10, "am_ivec", produces="final_ivec.am")
+    def _am_ivec(ctx):
+        ext = IvectorExtractor.load(ctx.path("final.ie"), device=dev)
+        train_am_ivec_system(workdir, train_data()[0], ext, opts, dev, gmm_workdir=workdir)
+
+    @pipe.stage(11, "chain_ivec", produces="chain_ivec.mdl")
+    def _chain_ivec(ctx):
+        ext = IvectorExtractor.load(ctx.path("final.ie"), device=dev)
+        train_chain_ivec_system(train_data()[0], _load_lang(workdir, opts), ext, opts, dev,
+                                gmm_workdir=workdir).save(ctx.path("chain_ivec.mdl"))
+
+    pipe.run()
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser(
+        description="Build the minilib system stage by stage on the GPU (stages 1-11; "
+                    "a stage whose artifacts exist is skipped)")
+    ap.add_argument("--workdir", required=True)
+    ap.add_argument("--stage", type=int, default=0, help="skip the stages below this one")
+    ap.add_argument("--device", default=None, help="default: the GPU")
+    args = ap.parse_args(argv)
+    build_system(args.workdir, MinilibOptions(), stage=args.stage, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -17,6 +17,7 @@ from old_kaldi_git_tpu_torch.tree.event_map import (
     KEY_PDF_CLASS,
     ConstantEventMap,
     EventMap,
+    SplitEventMap,
     TableEventMap,
     make_event,
 )
@@ -82,3 +83,20 @@ def monophone_context_dependency(
         table[phone] = TableEventMap(KEY_PDF_CLASS, sub)
     return ContextDependency(1, 0, TableEventMap(0, table))
 
+
+
+def _map_key(node: EventMap) -> tuple:
+    if isinstance(node, ConstantEventMap):
+        return ("C", node.answer)
+    if isinstance(node, TableEventMap):
+        return ("T", node.key, tuple((v, _map_key(c)) for v, c in sorted(node.table.items())))
+    if isinstance(node, SplitEventMap):
+        return ("S", node.key, tuple(sorted(node.yes_set)), _map_key(node.yes),
+                _map_key(node.no))
+    raise TypeError(f"unknown event map {node!r}")
+
+
+def tree_key(ctx_dep: ContextDependency) -> tuple:
+    """A hashable form of a tree (its width, central position and every
+    node): two trees map every event alike when their keys are equal."""
+    return (ctx_dep.N, ctx_dep.P, _map_key(ctx_dep.root))

@@ -40,7 +40,8 @@ def test_port_has_the_slice_modules():
                  "tree.build_tree", "recipes.mono", "recipes.triphone",
                  "recipes.yesno", "models.train", "chain", "chain.topology",
                  "chain.phone_lm", "chain.den_graph", "chain.supervision",
-                 "chain.loss"):
+                 "chain.loss", "gmm.full_gmm", "utils.pipeline",
+                 "models.natural_gradient", "models.egs", "models.diagnostics"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 

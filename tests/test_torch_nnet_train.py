@@ -169,8 +169,12 @@ def test_one_optimizer_update_against_optax():
 
 
 def test_unported_optimizer_raises():
-    with pytest.raises(ValueError, match="not ported"):
-        ttrain.make_optimizer(ttrain.NnetTrainOptions(optimizer="ng-sgd"), 10)
+    """An optimizer neither package has raises as the JAX package's does
+    (the natural-gradient ones are ported: tests/test_torch_natural_gradient.py)."""
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        ttrain.make_optimizer(ttrain.NnetTrainOptions(optimizer="rmsprop"), 10)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        jtrain.make_optimizer(jtrain.NnetTrainOptions(optimizer="rmsprop"), 10)
 
 
 @pytest.mark.parametrize("backstitch", [0.0, 0.3])

@@ -5,19 +5,14 @@ OnlineFeaturePipeline: chunked output equals whole-stream output within
 pipeline within 1e-3 + 1e-5·max|feature| (the front-end rule of the port);
 with an online iVector extractor, the appended iVectors equal
 extract_online_ivectors over the pipeline's own base frames exactly.
-StreamingAmNnet equals loglikes_batch within 1e-5.  StreamingTokenDecoder:
-words and alignment exactly equal to the port's batch decode and to the JAX
-StreamingTokenDecoder for every chunking, on a folded graph, a split-eps
-graph and a split-eps graph at frame-subsampling 3; endpointing; the
-max_frames refusal.  The new entry points default to the GPU and raise
-without one.  Slow: the online2 path (pipeline with online iVectors
+StreamingAmNnet: tests/test_torch_online_am.py; StreamingTokenDecoder:
+tests/test_torch_online_decoder.py (both use the helpers here).  The new
+entry points default to the GPU and raise without one.  Slow: the online2 path (pipeline with online iVectors
 into the CE+iVec model on hclg.npz) on 16 held-out utterances, words equal
 to the JAX package's."""
 
-import dataclasses
 import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,18 +21,14 @@ import old_kaldi_git_tpu.decoder.viterbi as jvit
 import old_kaldi_git_tpu.feat.compute as jcompute
 import old_kaldi_git_tpu.ivector.extractor as jiv
 import old_kaldi_git_tpu.models.am_nnet as jam
-import old_kaldi_git_tpu.models.tdnn as jtdnn
 import old_kaldi_git_tpu.online.streaming as jstream
-from old_kaldi_git_tpu.models.streaming_am import StreamingAmNnet as JaxStreamingAmNnet
 import old_kaldi_git_tpu_torch.decoder.viterbi as tvit
 import old_kaldi_git_tpu_torch.ivector.extractor as tiv
 import old_kaldi_git_tpu_torch.online.streaming as tstream
-from old_kaldi_git_tpu_torch import convert
 from old_kaldi_git_tpu_torch.feat import MfccOptions
 from old_kaldi_git_tpu_torch.models.streaming_am import StreamingAmNnet
 from tests.test_online import _backoff_split_system, _loglikes_for, _toy_decode_system
 from tests.test_torch_chain import port_graph
-from tests.test_torch_tdnn import _random_jax_am
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKDIR = os.path.join(REPO, "exp", "minilib")
@@ -122,45 +113,6 @@ def test_pipeline_appends_online_ivectors(extractors):
 # StreamingAmNnet
 # ---------------------------------------------------------------------------
 
-def _toy_am(config, seed=0):
-    jax_am = _random_jax_am(config, seed)
-    return jax_am, convert.am_nnet_from_jax(
-        dataclasses.asdict(jax_am.config), jax_am.variables, jax_am.log_priors,
-        device="cpu")
-
-
-TOY_CONFIG = jtdnn.TdnnConfig(8, 12, (
-    jtdnn.TdnnLayerSpec("tdnn", 16, offsets=(-2, -1, 0, 1, 2)),
-    jtdnn.TdnnLayerSpec("tdnnf", 16, bottleneck_dim=8, time_stride=3),
-    jtdnn.TdnnLayerSpec("tdnnf", 16, bottleneck_dim=8, time_stride=1),
-), final_hidden_dim=16)
-
-
-@pytest.mark.parametrize("chunks", [[57], [10, 20, 27], [1] * 57, [5, 52]])
-def test_streaming_am_equals_loglikes_batch(chunks):
-    jax_am, am = _toy_am(TOY_CONFIG)
-    feats = np.random.default_rng(0).standard_normal((57, 8)).astype(np.float32)
-    ref = am.loglikes_batch(feats[None])[0].numpy()
-    sam = StreamingAmNnet(am)
-    assert sam.total_right_context == 2 + 3 + 1
-    outs, pos = [], 0
-    for i, c in enumerate(chunks):
-        outs.append(sam.accept(feats[pos: pos + c], final=i == len(chunks) - 1))
-        pos += c
-    got = np.concatenate([o for o in outs if o.size])
-    assert got.shape == ref.shape
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
-    # and the JAX package's streaming model, fed the same way, within 1e-4
-    # (the port's TDNN tolerance against flax)
-    jsam = JaxStreamingAmNnet(jax_am)
-    jouts, pos = [], 0
-    for i, c in enumerate(chunks):
-        jouts.append(jsam.accept(feats[pos: pos + c], final=i == len(chunks) - 1))
-        pos += c
-    np.testing.assert_allclose(got, np.concatenate([o for o in jouts if o.size]),
-                               rtol=0, atol=1e-4)
-
-
 # ---------------------------------------------------------------------------
 # StreamingTokenDecoder
 # ---------------------------------------------------------------------------
@@ -199,87 +151,6 @@ def _feed(dec, ll, chunks):
         if lo >= T:
             break
     return dec._backtrace()
-
-
-@pytest.mark.parametrize("kind", ["folded", "split", "split_fsf3"])
-@pytest.mark.parametrize("chunking", range(4))
-def test_streaming_token_decoder_equals_batch_and_jax(kind, chunking):
-    graph, ll, o, fsf, quantum, sil, t2p = _toy_graphs()[kind]
-    pg = port_graph(graph)
-    ll_sub = ll[::fsf]
-    batch = tvit.decode_batch_tokens(pg, ll_sub[None], [len(ll_sub)],
-                                     tvit.ViterbiOptions(**o), device="cpu")[0]
-    assert batch is not None
-    chunks = _chunkings(len(ll), fsf)[chunking]
-    dec = tstream.StreamingTokenDecoder(
-        pg, lambda x: x[:, ::fsf], sil, t2p, tvit.ViterbiOptions(**o),
-        frame_subsampling_factor=fsf, chunk_quantum=quantum, device="cpu")
-    words, tids = _feed(dec, ll, chunks)
-    assert words == batch.words and tids == list(batch.alignment)
-    jdec = jstream.StreamingTokenDecoder(
-        graph, lambda x: jnp.asarray(x)[:, ::fsf], sil, t2p, jvit.ViterbiOptions(**o),
-        frame_subsampling_factor=fsf, chunk_quantum=quantum)
-    assert (words, tids) == _feed(jdec, ll, chunks)
-
-
-def test_streaming_token_decoder_endpoints_on_trailing_silence():
-    lang, _topo, cd, tm, csr = _toy_decode_system()
-    speech = _loglikes_for(tm, cd, lang, ["N", "OW"])
-    silence = _loglikes_for(tm, cd, lang, ["SIL"], frames_per_phone=120)
-    dec = tstream.StreamingTokenDecoder(
-        port_graph(csr), lambda x: x, [lang.silence_id], tm.tid_to_phone_array(),
-        tvit.ViterbiOptions(beam=30.0, max_active=64, acoustic_scale=1.0),
-        endpoint_rules=[tstream.EndpointRule(True, 0.5, 0.0)], device="cpu")
-    dec.advance(speech)
-    assert not dec.endpoint_detected()
-    dec.advance(silence)
-    assert dec.trailing_silence_frames() * 0.01 >= 0.5
-    assert dec.endpoint_detected()
-    assert [lang.words[w] for w in dec.best_words()] == ["no"]
-    rules = tstream.default_endpoint_rules()
-    assert [(r.must_contain_nonsilence, r.min_trailing_silence, r.min_utterance_length)
-            for r in rules] == [(False, 5.0, 0.0), (True, 1.0, 0.0), (True, 0.0, 20.0)]
-
-
-def test_streaming_token_decoder_refuses_past_max_frames():
-    graph, ll, o, *_ = _toy_graphs()["split"]
-    dec = tstream.StreamingTokenDecoder(
-        port_graph(graph), lambda x: x, [], np.zeros(99, np.int32),
-        tvit.ViterbiOptions(**o), max_frames=40, device="cpu")
-    dec.advance(ll[:8])
-    with pytest.raises(ValueError, match="max_frames"):
-        dec.advance(ll[8:])
-    with pytest.raises(Exception, match="multiple of"):
-        tstream.StreamingTokenDecoder(port_graph(graph), lambda x: x, [], None,
-                                      frame_subsampling_factor=3, chunk_quantum=32,
-                                      device="cpu")
-
-
-@pytest.mark.parametrize("fsf", [1, 3])
-def test_streaming_with_a_tdnn_window_equals_batch(fsf):
-    """A toy TDNN-F (left/right context 6, a stride-3 tdnnf) as the acoustic
-    model over the decoder's fixed window: loglikes at the kept frames and
-    the decode equal the whole-utterance batch path (at fsf 3 the window
-    starts on the subsample grid)."""
-    _, am = _toy_am(TOY_CONFIG, seed=1)
-    _folded, split, _ = _backoff_split_system()
-    pg = port_graph(split)
-    feats = np.random.default_rng(5).standard_normal((90, 8)).astype(np.float32)
-    if fsf == 1:
-        ll = am.loglikes_batch(feats[None])
-        am_fn = am.loglikes_batch
-    else:
-        ll = am.logits(feats[None], output_stride=3)
-        am_fn = lambda x: am.logits(x, output_stride=3)  # noqa: E731
-    o = tvit.ViterbiOptions(beam=1e9, max_active=64, acoustic_scale=0.7)
-    batch = tvit.decode_batch_tokens(pg, ll, [ll.shape[1]], o, device="cpu")[0]
-    for chunks in ([30, 30, 30], [9] * 10, [90]):
-        dec = tstream.StreamingTokenDecoder(
-            pg, am_fn, [], np.zeros(99, np.int32), o,
-            am_left_context=am.config.left_context,
-            am_right_context=am.config.right_context,
-            frame_subsampling_factor=fsf, chunk_quantum=30, device="cpu")
-        assert _feed(dec, feats, chunks) == (batch.words, list(batch.alignment))
 
 
 # ---------------------------------------------------------------------------
