@@ -58,7 +58,17 @@ utterances of 10 s of noise at 16 kHz through the MFCC kernel, a TDNN-F
 and the dense search at K = S; its lattice mode on loglikes synthesised
 from known sentences, whose lattices' best paths must be the decoder's
 words and whose words the CPU's; and the dense StreamingDecoder, whose
-words must be the batch decode's.  --noisy also decodes the set re-synthesised at noise amplitude 400
+words must be the batch decode's.  Then BASELINE config 2 and the five
+configs as one pipeline: recipes/run_all.py on yesno (stages 0-80 in a
+fresh workdir, every WER line inside tests/test_run_all.py's gates, a
+resumed run that skips every stage), train_sat at yesno scale (fMLLR
+solved for its speakers at once), LDA+MLLT at minilib scale
+(recipes/triphone.train_lda_mllt on the 600 training utterances' statics
+from tri.mdl, 2,000 leaves, 40 dimensions, held to the port's CPU run;
+then the first 64 held-out utterances decoded before and after
+per-utterance fMLLR on an HCLG of the new tree), and the GMM kernel at its
+two new depths (K = 48 and 88) on those models' features.
+--noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
 chunk's search under torch.profiler and reports the device-busy share (summed
@@ -74,13 +84,16 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import base64
 import concurrent.futures
 import copy
 import ctypes
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
+import shutil
 import sys
 import tempfile
 import time
@@ -657,6 +670,469 @@ TRI_CPU_RECORD = {
         "fe7582a4fea6cf3ffec1aca2fed38de7fedb2e2bfef3b118ff32162fff61685effaba693ffe7e90c"),
 }
 # bench.py's run_toy: 1,024 utterances of 10 s of noise at 16 kHz
+# BASELINE config 2 and run_all.  run_all's WER lines gated as
+# tests/test_run_all.py gates them: <= 5.0 for nnet3-tdnn*, <= 2.0 for the rest
+RUN_ALL_GATED = ("tri2b", "tri2b+fmllr", "nnet3-tdnn", "nnet3-tdnn-ivector", "chain",
+                 "tri2b-lattice-1best", "tri2b+bigram-rescore")
+# LDA+MLLT at minilib scale (recipes/triphone.train_lda_mllt from tri.mdl and
+# tri_ali.pkl on the 600 training utterances' statics), held to the port's
+# CPU run: the tree leaf for leaf, the Gaussian counts at every iteration,
+# like/frame within LDA_MLLT_LIKE_TOL nats, the final transform within
+# LDA_MLLT_TRANSFORM_REL of its largest element, rows up to sign; then the
+# first LDA_MLLT_DECODE_UTTS clean held-out utterances decode at WER <=
+# LDA_MLLT_MAX_WER before and after per-utterance fMLLR (tri.mdl makes 0
+# errors on the 256)
+LDA_MLLT_OPTS = dict(num_leaves=2000, target_dim=40, mllt_iters=(2, 4, 6))
+LDA_MLLT_LIKE_TOL, LDA_MLLT_TRANSFORM_REL = 0.01, 1e-3
+LDA_MLLT_DECODE_UTTS, LDA_MLLT_MAX_WER = 64, 1.0
+# tests/test_torch_lda_mllt.py::test_minilib_lda_mllt_on_the_cpu (-m slow)
+LDA_MLLT_CPU_RECORD = {
+    "gaussians": [2000, 2100, 2200, 2290, 2380, 2461, 2542, 2614],
+    "gaussians_final": 2686,
+    "like_per_frame": [
+        -50.59263164596295,
+        -50.102617419502344,
+        -49.78268777861886,
+        -48.36469349121821,
+        -47.951663396307964,
+        -47.05139299232871,
+        -46.809048614983084,
+        -46.1242323296103,
+    ],
+    "leaf_digests": (
+        "0003d8fb00198421001a52f100abf3ca00fe6666011eb61201413c33014488a0017f6c470183711e"
+        "01d0099501db6a920205b3e20210a355021f8c6402456c660261adeb0274490a027a9b3902921f12"
+        "02c7d94f02f50da8030a79e9032cf5c5033d92430357133c038a76f503b58d9503eaa3d80413252d"
+        "043a8f0e043df9e50449272e045457e704676b69047bacc804b35c8b04d712ad04d8486704f1c08b"
+        "0503d82b05334b390552f815055f7f10058c5df005c7392305e6a1720601dc5a062402f406b3fe6f"
+        "06c67441071059bd0746523f075e1b280773789d077381a80783a68807afc90a07b60a2107bb79e8"
+        "07c0b86a07dfd38c07fe52a808000d2d082e8537085d907808e1b3f908e99daf095b57da09761442"
+        "099ce9e609bb718109d0df9709e0609309e41b870a130f130a1dabac0a3c30920a4b3ff80a68b61a"
+        "0a6cffe30a7617a30a8402530aa5cbd80ab241550afb03220b04941f0b2ac7560b3b78f90b549d0b"
+        "0b88f3fc0b927d820b9f07fa0baa378b0bb2d3360bbac7940bdbe9900beaae7c0c1620530c19619d"
+        "0c2bb75c0c38b3f40c474fae0c566b420c7159940cdc4b100ceebbfd0d56e91b0d7778220d83d652"
+        "0daf89680dd0fecf0ddb2b930e2e480d0e3c595d0e46b24b0e6eab6d0e6ee18d0e75a2230e862b0f"
+        "0ea162c30eb4042e0ed001840f3e70900f4954d80f60cdd60f7074620f9727530fb244820fee1a50"
+        "10043f4d1041c4f01046b23e105c039f10935fc510b0aa0e10b2658010e79c5e10f5f1b3110176ba"
+        "110633571115af191121499e112ad7a9112f6f611139abae115c979c115d9b9911679b8911c381c0"
+        "11e6947211f73afa123d574812537dca126c93e612ae232a12b0b4bd12f1350f13031c99130cffdb"
+        "1329b93a1346e451135e599413620f50136a96371374f501138cd1a31391cd781398dbe11409c6ec"
+        "140f58311476fd9314df9c1914e31cab14e5f70314eafcf214f6963815365cd9158237af1593de82"
+        "15eaf4351612f5e0161f89ad16393627163ab3761645327d16504e1516616463168055c616a8da92"
+        "16ab514c16af5d8716b6af0016bbb10b16c7379f16cf19c2170b42eb17322d8017fb920f1836b46a"
+        "1863d6fa187ba1251884c59a18d4086e18d72e5018de0d5d18e1357618ecaaaf18f7ef54193867d8"
+        "193f9f551944c52c198332c81a54da951a8b2cfb1ac560b61acf831d1acfde081af6bb401afb4a6c"
+        "1b064e801b2752161b99893f1bd2c7fe1c03d6011c1d70941c1e327d1c734ed41c8791851c8a8d94"
+        "1cdcbc361ced0fec1cf30a961d111e041d2f45471d7a8b001dc71af51dcbc4b11de057c31e313a35"
+        "1e4f43cd1e6cb6cd1e724c1d1e7880441eb4da151f3399f51f57dc281f717cb41fb20ee7203e852b"
+        "204eade7205edcfc20c39d3320cb528120df929d210378e8210ea5fd212a9324212cb68921409f8b"
+        "2173f28c219dc75121a610d821a7454821b6a1fb220299962240be3a224209392270267522c08915"
+        "22cf80fb22d5fe5922fa753e2383d81e23de8dba23e9240d243ecf45248dcdb6249fa48024cabded"
+        "24e9d9e624f7dc01250d70f5257243622594d094259d946325b65ee525d95a6c25de952125f049ba"
+        "25f5a0f62626c191264633822699caac26c2022e26da182826db4fae26e63634272f93cc273eb8ba"
+        "27e14020281becb1284422f628445c8828661dbf289b888b29397b5f293ef672298f80e02998d371"
+        "29a8748329cbed0029e46bf029f977de2a18a87a2a2325972a36993c2a5601042a5c5f0b2a789af7"
+        "2a92b3a92aa8b75b2ab285932ac3097b2ac7ae3a2ad0d92d2b4661cc2b4998372b9166ef2bb87191"
+        "2bd6154b2be63d322c0d17cb2c4b34aa2c674b802cdb06c02ce2ae702d2f766d2d3922982d3c3dff"
+        "2d565eb52d7fa0a92da7e2962db0804f2dbbd5cb2dcc2f4e2dee64ea2e0168882e0e12712e0ee81c"
+        "2e1c36b72e48fcc62e5a8f7e2e62cf8b2e6519ae2e8aeeaf2eba991a2ec8e9152ecdbad82ed33edd"
+        "2ee372572f4a09592fa410062fc8123f300b1eac301c845d303ab73a306aa7f13083dd8e3096862f"
+        "30980c503111c62931175aeb312a06a23137c117314e581a3155a0d9319e62cb31ab81e031afbbba"
+        "31c09dc9322a1e77323941e3323a653132522600326e753a3279aa1f3279c021329b369b32abd0fc"
+        "32cff4aa32f1d3a833097a83331e6a5a336a713c3373315d3392439033c71a6133ead30f33f3519d"
+        "3415352234453733344775753454252e345f28ef34d2503f34f7171f3538ae5c35765087357cfd1b"
+        "358ec5b735c76b4c35d85e1d35d95d1e3626879c362c92a33632db0b366fa03f367757e4369cd55c"
+        "36b6c39536c2a0e437312afc3741d0113774fa4e3781b55837959921379a7fd837a60a7f37accb7a"
+        "37c20f2137c6f948383c1d763845798138cb174838d01f7e38f5e882390bf84839278a1c39313341"
+        "39319dad395ca57039632713399c314139e3be2a39e6f13f39f63dd83a139e873a22f23e3a7c0496"
+        "3acf39933ad755763ae8b26a3aef8b973b20c5fc3b236a193b2b05523b3d8fcb3b51c3a13b6ec318"
+        "3b7d4c003bb1fd1c3bd6c8103bdc768e3bfc7a7e3c57cc0c3c6ccf873c7dfd473c7e0f863c880ded"
+        "3c9cf8833ca9f6e63cc017f93cd546653cdad4d43d12d5c03d2774d13d3708283d3e67283d69ef63"
+        "3d6b9c6c3d8795053d92ae0b3d96f3823d9a60fe3dac4d063db751dd3e19d0713e2c375d3e3afa1c"
+        "3e8b3b3d3ea07c4d3ebd8da93edc2dcc3f09520e3f0b1b833f0e66403f3ab47d3f4a34423f6155fb"
+        "3f6903d93f81f4c63fa384a83fb0e0033fcf6dcf40186fb140194b31402779114032bc2540394b00"
+        "403b5cfe40678afe406a958c40bde13540e3655640ff3d8e40ff8e2e410a58f3410bf0c24122a3ff"
+        "413340244156a4634163347e416a2e5f418ae5a4419c3eb141a2817041f8880341fadb6d4271d812"
+        "4292f31042f4a204435c71904363db2c437dd75d438f3c9343ec90a643f3f8be4406232e4432830a"
+        "445d6bfe446e27c744cc04d84506ac004508bf6c451aabcb454124f14543a2ac4547a29045eb74a3"
+        "45f4d6fe461c98b94628b6464675f52d46b6803046de84c746e43f2846f772de4703261b47093608"
+        "471a796a474f4d2e479dba2447b6030447e864f6481c731648317f054834e16e48c7354f48cba74c"
+        "48dcb9fc48f32506490bc07b498e4ab2499ce33a49b4b08b49d5749749d702dd49e47ab24a2c6d3a"
+        "4a3066ed4a67a2eb4a7439114aa3fdf74adc45734af345254b05b9b94b26ec1c4b27254f4b539566"
+        "4b7c3abf4b7d0cfc4b9490394c20dfeb4c2e356e4c4f3c694c6974944c7be5e74ca785054cca5013"
+        "4cd00d954d1d0b8e4d33ec524d405d294d6060644d6310d74d7a03ac4d7acc224d8a09424d8ae425"
+        "4dc1471c4dd123074dde38a54defe4cf4dfb07494e32b3724e3a38134e5485e34e8ee5a54e9897cb"
+        "4eb5b1b64efae67b4f4408a64f541a484f74f8444f8ce54b4fbd49f84fbf651d4fd6cd094fee1c14"
+        "50057bcb5009e1be500ab29950203a99502f1496503056ee5043f2be5046cf51504fc572509855f8"
+        "5099bc3e50a90add50b04f8050b3af6e50fbf713511cd3c75144ddcf51559dd45199bfd1519a241b"
+        "51c81e1c52464240527072eb52ded7a3532733a4534f0ed953d6ea5f53da01a053e7cc6253f20bc5"
+        "5411c12954284ccf54383e9554a17ea854a19b0f54a4a4a454b9d03e5502eafe550c1062550c1413"
+        "552ed37a553d779f554510e455481166558d2e6155a314c155c1d26455ef92be5600002456125d40"
+        "56150d36565352b15658b484565f559256c15e0056ddd7a556e9e687571c85f95723834057393e52"
+        "579217b057c760e1584871cb584aca1a58c56cf958cdd1c6590c95c8591ea4135969a1cd59940979"
+        "59a3477f59d5a33159d9a0da59eb8da859fa3eb15a15333d5a6b406b5a995cde5ab8caee5adef279"
+        "5ae8d8155af7441e5b0317d85b108a575b2480dc5b2cd4625b5f390b5b61a46e5ba4e7795bcfd46f"
+        "5bd6a2545bf111845bf36c6b5bfd61f95c1276c55c4ec8775c53f55f5c69a4f95c81f6cd5c9c7f50"
+        "5cc0bedb5cdf7df25cf319765d0d301d5d12318f5d15e6115d2139085d8352b65d9456285da50f55"
+        "5da52f495dae35125e07a36d5e49f2d75e8ec4e25ebb48fe5f1cc0cb5f288ed45f38dee25f45b98d"
+        "5f46864d5f4bc4b55f5127d55f90971b5f9a16835faa30dd5fb1d4d45fc432895fd03a3c5ff04128"
+        "5ffb39da5fffd4a1600f6a2f606ca81e610746fe61085130611cedbd612f8c1f61721a0561796247"
+        "61df65d061f3f09f622045206230060f6261bee66266c3a262a12eef62dd86d462e5844e62f90323"
+        "6325eec8635f70e16366e56263b5f1f563c1cb89640e9a886418e83f6463e05064a7a64864ba1c69"
+        "64c35ec964e1d30c64e303c36502a4e265c240cc65c5c54865c5e4e765c5eebe65dd52836605f3ee"
+        "6626971f66278a276683847666b67f8666ce48e066d3b72f66fc8ab0671e86fe6729f7696742d774"
+        "674357fb674e6ecb675916cd678de93a67bb57f267ccddd367e0efb967f919bc680355ce68478a56"
+        "6869d6c768c6582c68c65b7268ece03668f7ca2469072873690c13576953ec3b695fd82169888e6c"
+        "69c02f4c69e9c88469f20c6e6a405e176a4b26086a8b3eb26ac2908c6ad530986affeaef6b173d65"
+        "6b29c1236b644a126b817e0f6b84847d6bcb907e6bd7063e6c094af06c446c6f6c4a74f46c9d4a6d"
+        "6cabc2596cbdee036cc70e7c6cd603696d1142916d1fb9896d23977b6d3799fa6d4b2ef96d59c364"
+        "6d80fc856db839ca6dcf81746e0c8cab6e1085d66e1973a66e2eddd86e7862a76ed0abf36ede8ce0"
+        "6f5484fd6f86829f6fc3b5646ff1084b6ffa6a58700169897014e7d970208f2f705466a670546cfa"
+        "7062307070678f747078e304708073ea708a98887095ea93709740db70a0a59370bba8bf70d00fc3"
+        "70d1e4f570fdc459710564757105aa63710bf2077135c44c71650b3a7179ea6b71911aff71d8bf76"
+        "71d9bee1720b6114721b84b772211f89724416fe7244de56725588207268db73727dc49d7289494d"
+        "728eaf2d7296a00072a963a772b4550072dda85372e98f2e72f8bbd3737e811f73ac6a6873b65711"
+        "73e345ca7404b2517456e05f7471b77d7492f7a57495425774ae109e74b6709374b82aae74e6ed11"
+        "7506edbc75082ff1750b2f6a7561a3ab7562c3bb75667c1d756c3d26757456c47579690975a18f9f"
+        "75a8b8d275b2ecf275c5a6a975e679807639647a764b340c764fd0a276626cab76648b19766fb03b"
+        "7683446076ade3e576e8cc0e76fc517876fd12c477178c56771ddd3977563dfe7787ab07778b3f9c"
+        "778e4fb677c492c977d2f71d780976537820a9f3784a62e5787a5d84787b8f1a78901e1a78a4e65f"
+        "78d84a1278f7432c78fab88878fcdff47914f21d79844b677985aaa279aff50179ceeaf779e09dbb"
+        "79fa253e7a6549207a83089b7aac276e7abf9b2b7acfc10b7adc9ad27b3629477b3cd7927b53f025"
+        "7b922fed7ba18c377ba9d0017bbeb9207c33b75b7c5ede727c6009127c6080447c9e62f47ce97331"
+        "7cedd7b37cf99b2d7cfeff097d89020e7db90b807dc0ec937de0cb7a7dec074b7e0f54507e32f1a6"
+        "7e55e7227e5754157eb3ec217ed54d867ee128517ee4d4ea7ef435077f292d9d7f53fe197f5b0e59"
+        "7fba13da800d089880166fc38032327680610c838083473380e49ca780e6ef5c80f62d9c813d33fa"
+        "8143e07f814a804981a043cf81c5e06681c6178781de62bf81fa37ca823f6dbc825098b882743d74"
+        "8288198a829136058299fcb282a54ff082a5c60582c5377482f1ba888315bee88352307c836dae61"
+        "8372db7d83845804839b91d383dfe44e8404b1ab844d64d784618f46848308dd849467e284b01007"
+        "84cee8c384d6363e84d879e88528b0cb8568714b85a2b71385e9c88f8630063a8667889a86798e2e"
+        "86be719486cbd69f86d014e686d30bac86ed889087001c0b8710bb0987571029875a252d875ec3d1"
+        "8791f1b087929c2f87c019da87db35488822fe598834de9988435e0d88497d6188930fcf890124b7"
+        "8906e6ad8937147189389661896c7a8e8993cc1d89a2085b89ac653589c39cb18a158ae38a3de08f"
+        "8a567d168a60f4f88a63d3dd8a6dc47d8acd0a2f8ad6d4fa8af2cbde8af656348b179e1e8b235086"
+        "8b2dda868b310f438b392c8e8b5e4e918b70b4ec8b7372d18bf3bd158c108fe48c1b1fab8c2d030e"
+        "8c5789388c5b6eb28c6212078cae393b8caf49188cd25c458ce2c23c8d074e518d0767328d61d08c"
+        "8d6a13558d6d9c578d79cdae8db762328deec6e88df392d68e159e4c8e2af4ea8e56dd698e7b8c78"
+        "8e86b3db8efc08748efef29f8f1364f38f20bbd98f47b7678f5f183b8fd2d4b58fd9101d8ff40398"
+        "8ffab07b9013482b901b74219030a06d9030c684906bf1e190cbb68290f88883910fee329160c81c"
+        "91707dd6919c239791ac1e3191da4935923c092f923dcd65927e975d92d951da92fd8d229303f816"
+        "933a870393610d959380aac893a6968193c2ca4993c4f96e93d92a7d93da5cd593eef57b93fdb06d"
+        "940918c7940e5aed941b974d942255fc946e959b9488ec4c949192ad94b44fe194f25302951a8fa6"
+        "9532ab8195531f8d9553f8e3956964fb95b13ece95b791db95ceb10795dc1feb95dca689960c6d41"
+        "960f78c896174ddd961975f09650bc2c9651c15c9652138b965317fb96ebb7fb96f211a997342145"
+        "9777670e97b273f797bac45f97cd3bca97ddb71097e51c8e9830c3589839530298407fc598900cf1"
+        "98b2344298bf48f598f4ab3999184536995d3b16995fad809977c34199838b8399a343eb99ae21b9"
+        "99edf42c9a19b25a9a8cb6b19a9861499afb40ab9afe5d0a9b5af6489b7db4259b8d0a6c9b9c20c1"
+        "9ba3ce119ba755399bc751349be4e2de9c4754619c5279819c5e2c549d3b81789d5e800e9d7e0327"
+        "9d95f6959da0102b9dcd4e019ddc84ce9dea9e649e0067269ef2bdfb9f133fda9f28c9599f42c4d1"
+        "9f49e2319f6e91759f86ac2f9f9a21b69f9c50db9fc8b79ea0110af3a01fd6f2a092b814a0addcb8"
+        "a0b20677a0d19ac7a0dc7e23a0ea53f3a102070ca1075b6ca11893dca123a0c6a1270ddca175867e"
+        "a179b677a1834525a19cd18ea1a8113ca1c3d308a1d6a73fa2065e19a26bcca8a27e429ca35210c1"
+        "a36d7a9ca3a47646a3f35e15a401865ea453a34aa4c2ced5a4ce0c62a547c74ba5722b0da57a6a40"
+        "a597805fa59a006ea5c6b198a5ebd3c4a5fc792fa642152aa676d4f0a68ba40ca69981b0a6dc63cf"
+        "a6f7d9e9a6ff0a0da70b1ebba7214347a73c62dfa77444c6a79a10f8a79addf2a79b08f7a7a4c9c4"
+        "a7bc9bc1a7c90ef1a7ea962aa7eadfb0a80806c6a808aee5a826a81ca8398b00a8568935a87b472a"
+        "a8d8387ea8fd8f2aa93d3de2a93dec71a946bd5ea964b36ca96a22fba9a5e499a9b987d0a9cbf648"
+        "a9dd2fe5aa27b34daa4414e2aa4ebe9aaa8e5030aabe19ecaabe8ebfaac34055aac478a9aac64984"
+        "aac809e7aae292d5aaf90707ab3b0333ab46a9a7ab617808ab903be1aba4938eabdb93c8abddfb1f"
+        "abfd27acac0c3fdcac4ef1a1ac62d4c6ac6c73d7ac9f6cd6aca47c40acccc26facea2864ad027e93"
+        "ad083ac9ad324ac2ad5e0f3fad75712ead815b91ad91937bada50200adbb1697adc7f333ae22edf6"
+        "ae38dc8eae6b77edaea296f4aedd6142aeee3915af1276a9af24ca50af897441af9d6364afaf18ee"
+        "b04a08b2b0511d6cb080e39ab0b5eceeb0df9caab0fca459b10768a8b10d46d4b11f481eb195016e"
+        "b1b55ccbb1d38b3eb1e70805b201dd65b217934bb22a8053b248a333b279382db290095eb2a1cff4"
+        "b2b077d0b2bd984bb2d2254db2f22258b30370a3b30de278b35b2d90b374fc2db377a3d6b3a1c79c"
+        "b3a22efcb3ab9facb41ea08cb4a66e4eb4c8a092b50981e5b50e8accb5553885b5671780b567330c"
+        "b5680fdab576844bb5904d99b5ba4735b5c44985b5d47667b5d9b1a9b5ed5fecb5ee8507b5f3cea6"
+        "b60821d0b610dd2db61b8280b637ec44b654fb6ab6a04d9cb6a06eedb6d51833b6faa38cb7208d86"
+        "b72c73e8b76856d6b77fc2cfb7b74a19b7b7c0d5b7d2b922b80492f8b82997e2b8719aaeb93cc533"
+        "b961fc44b968d7eeb99b1bdab9a72073b9a9a225b9e436f3b9ead430b9ef84c1b9f5922ab9f88c3a"
+        "ba076622ba14c77dba44cf0cba72e96fba8ade1bba9348c3baa842babac161dfbad98bedbaffcb83"
+        "bb081db4bb322ae8bb3cb3c0bb3ee21ebb81a1d2bba02509bbee487fbbeefb89bc09a7d0bc36e358"
+        "bc4d4adebc6b5abebc827374bc9063dcbc9bb441bcc7f9bdbcd5d3d3bd08dd8dbd502963bd6e5267"
+        "bd85b567bd8ec143bdbd8f4cbdc53016be3edbb1be4887fcbe4adbefbe62ab22be797f18be8ede65"
+        "be9149e4bec00c5cbec2b7e6befc647fbf0a525cbf2bb9b3bf4dbec1bf694cb2bf8372c7bfc7ef0a"
+        "bfd274d5bfee51cec008f0d8c00c8d1bc04d55b4c075b16fc09637e0c0998243c0c3680cc0cf4ac4"
+        "c0d113a0c104f944c1103ce9c11b9d3ac1530056c17b80f1c1830f82c186a66ec21f7c41c2ab0e8d"
+        "c2bcd319c2e69ee6c2fc608dc319e37dc323b5f3c35eeb31c373db11c398f2d1c3a3c6cbc3a6ef0b"
+        "c3c997a1c3e443d4c3e53e6dc47d2bd1c4ab961ec4b36cbec4f2ce21c565793ac56f3b4ec57ad182"
+        "c57dfb42c590d9eac5aa670bc5ac6011c5ba7545c5cd7fc1c5dea0fbc5f15621c6130fdcc627936d"
+        "c63bd041c63ee9aec67f25cbc68dfe02c6bbaffac6c92596c6d72a00c73cef3dc74072e2c75c7248"
+        "c7a6a62bc7b78f78c7bca71ac7ce7855c7ec778cc80913e6c80e4ec3c8740ff8c89623bac8a97c20"
+        "c9475557c95714c5c95ccf5dc974e00bc977c741c991af15c9b2a3e1c9e0e2f0ca27ed8bca85b470"
+        "cab6579fcb1ec9e8cb20536fcb40fac9cb8f42aacbad4444cbde0556cbeee3f2cc0c23e9cc3182c5"
+        "cca3175accaba5d0ccdbc385ccea3a5bcd02e30bcd241712cd55a65fcd6b0d71cd71d4fccda6caf7"
+        "cdce75aacdd2b2c3cde7a28acdff6a01ce4c7307ce50557cce5205cdced31f69ceeddc50cf154dad"
+        "cf27d7c7cf5e0175cf735b03cf81d525cfb16ecdcfb47d84cfccdd24cff961b1d01f424dd046ffa1"
+        "d062057fd082955cd0a4d875d0e0912fd12819efd15fe9ccd1a6d391d1ec3a7dd1f9ffd4d1ff6135"
+        "d20d5ca5d2119288d2201f71d29a4816d2add333d2c606dad2e02e8fd2e4858ad314c40bd31bec4c"
+        "d346b849d355abd6d36bee12d3a48008d3ae14fcd3d5d0f8d45779a5d46d08e8d494e2dad4dd5490"
+        "d4e96406d5094ef9d53018bbd5379ad3d5f0a763d5f6aa76d626aeccd65919ead65bd592d65cf334"
+        "d666be7cd67fc244d6a259d0d6a2acddd6afdaaad6c05a00d705809ed79d1d5dd7aa0611d7ab26bb"
+        "d7bc1ca3d822ac6cd82aeab3d842b045d855580cd8f14e25d90d30b2d93e042ed949346dd9509ca3"
+        "d98342b3d9863397d9bbbe15d9bf1497d9c529c3d9fcaf7bda194eecda3576f6da9758ebda97c6c1"
+        "daa8e4d6dab78bcedb325d37db3dadfadb61a8e8db68c686db6be662db709dfcdc0a36f0dc30cb5f"
+        "dc7bbd31dc9a8cb9dce08caddd4a1ffbdd5b4520dd99f6c8dda27664ddbf5dabdde168c5de06e549"
+        "de334b82de4f5c28de60f96dde72730fdeba2cbadebf2ea6df318d97df4cc72fdf70569bdf7480dd"
+        "df8a9f54df8db690df967410dfacd39edfe39503dff34b06dffc31d6e002b7dde00ef5d5e0174b02"
+        "e024563fe0711672e09ab586e0aae5c3e0b06a2ee0bbb522e0cb14c1e0f1b8e7e0ff44bee10a308c"
+        "e128044fe133a974e14bb928e16f7153e1b5107fe1d207c1e1dfbd58e219836ee21b1854e23a4172"
+        "e24d3061e253b393e29b4699e29b7b81e2bd2a97e2ef0a94e326833ae342daf1e3792062e38567aa"
+        "e38e6e24e3d4329ae3e2db8ee414b41fe47a7d78e492a109e495b11be4a9cde6e4c22e54e58ac1a2"
+        "e5afb601e5cb733be5d9f080e5e54a2be65edd3fe6978ec4e6f732ede71e376ce7209a77e7665f8d"
+        "e7745c46e7897f17e7e24cb0e7e86a07e84a5091e8527a3de855522fe8a15fe3e8a95cb3e8ac58e4"
+        "e8d7cccde8eb2350e904e3dde90c7040e9112b1ee929a41ae948b56ce94d7385e950ccbde95d1648"
+        "e98798fee98ff65fe9b705c9e9c522a8e9d63748e9d96a8de9e15b5ce9fbd01fea14b55dea2529e4"
+        "ea7fcbedea89cc9bead7be91eada55b5eaf5a77beb02ed92eb05123feb161b16ebc19ca7ebc965a6"
+        "ebd04359ec139764ec23c07cecd87f03ed038c65ed1a3bf9ed1a489eed69fe00ed6e92d5edad1841"
+        "ee004f3fee1c3bb2ee59a3edee65625dee6b34e0ee7218aaee7e208eee8053d4ee93a3c7eeb2b208"
+        "eeeec7d6eefc282cef0250cdef089a9cef28c92aef2e921aef394b94ef482f07ef68d6eeef8d867d"
+        "efec0551eff0d1baf00666d1f05ae9a6f06b51b0f072676af0a0ababf10e2cc4f122c17ff1776948"
+        "f177e59ef18a0452f1973edef19f5cbdf1ab53b7f1bb7532f232fe7cf243d260f24662bbf261263f"
+        "f26452ecf26f82aff2a85c36f2e7bcadf3097408f30c3793f319179bf31d3c60f335c9f5f3528eba"
+        "f3547b41f3848c92f38eb035f396e400f3a270d6f444fabcf472f36af4a8bf01f4b56fbbf4bf3744"
+        "f4c5fd25f4d340e9f54941edf562d47cf5785830f58e08c6f5adccf9f5b6a255f5d5b048f5fbdc73"
+        "f6381f72f65dcd47f66224bbf6742c42f696ea7ff6a5f9ccf6b4efa2f6ca0b17f6eea67bf6f48859"
+        "f7003a43f70c60b6f7243614f74cf8b3f7c17cbaf8407841f846552af84de740f8564b32f873fb64"
+        "f89a8709f8b192b9f8da24e4f8dd8c6ff913624ef92fc3f5f9396dfcf93efbe3f943c168f954e6bb"
+        "f97343ecf97a5724f98b8543f98e050bf9afaf86f9d7ec7ff9ef0480fa457158fa4a92f6fa8f52a9"
+        "fab4b2f9fab7fc18fac66bc6fb08cb78fb4100c2fb633b15fb750899fb7942f4fb8aedb4fb915557"
+        "fbe9a4a8fbf999d2fc0c295efc603e1cfcd6d443fd16d5a9fd171574fd28246efd5099a0fd54283e"
+        "fde89eeffdef1a9dfdf8baebfe08e17bfe0d80d1fe2ac87bfe454612fe647fd9fe6f56cffe84d1ce"
+        "fe93bfcdfea043bdfea6cf3ffeaeee25ff423f8cff61685eff6dca1fffbc6a70ffe632c3fff05c9b"
+    ),
+    "transform": (
+        "eNoNl4dXDl4YgFPSpKUhikRWGrS++96vgQai7GySRIXsrampQUuoqKSIUqrvvvdrKisiGYmQVaRIyYh+"
+        "vz/gPeee877nPs9jMdLM2iB5Lp+yKQjGuv0m/UmjYGSfC36fNyDa9ngz8xSeEziNWS2IZ9/J4MI9ltZR"
+        "L0l4loP17S+GtLhlFJ+nk4/Ws5LQzPgwDHwpIXfuPidbWy+zekdtUrlyFPYfOkVsP2eU2sM0m5g3kvxD"
+        "+w7aWK1Idyufg2e2+7Ck641l1QeCwefc4KvBJpZ7eAyMqQGWf1WTdKcY29yuW0LvqN/goz+3ovtiNX7w"
+        "dznUhCjiKEEiJG24ik2GI6Bh1ER0FxsQvbN5bM/eTGthQQRf7Tqefrj7Cep078DWVH88OM+EXRysg8l2"
+        "Aphk7IK7bhqDVVA9S5VpJ6oj1ax7639BEzdkoxclMYl51WzC/HBBnM4vEvboFxEtCSNPQ08Qs/bLbP3a"
+        "KhKotZJcje+j379N4sGVc+DZfG+RqgWBUIvNzNlvM4kwtGa3AyeQFlVvgal/G2m6caL0OPlDKkW64s3P"
+        "jChTK2TNF8+A26TnrEnmCGvsHI4eF4daxQVHMPtzd0hj6VxiMWETmVS3stR7lprYhpnS2WOj8ONufZzs"
+        "eZoNNHSQD+e+kRqLFOJ91kJUhIxdkBcwo46TpGewJ/Z9XiV2NFEWj1XU5H9WWfMP+cao/n0P/JQVAjl6"
+        "F9Ssc8mkHTkw334jadmkglKxUayqV9I6w6FLvLj/Ip+W78JLbQZRhbAg2jDzLX32VJ/a2CjTUbfsYJtf"
+        "LKtWM+S/r+eyhwEHxY/9KSuLf8AXF1ihoeJG3NMnZGtnJoICrSVpH7cJ7u4+BKOUIkRyaUdYu9F4LLp1"
+        "VGx8Mh6OHRvG0l+eRT3tQdicq4VR9zZhkTySTSqyrPTvZ1YS9oK9nDwc2zxScf9kCXT316Lr7zuiY1Ii"
+        "Weq7HltnlpHpTbrMasEZVjE2Ag+uWypQTo8SjUhfwnqcjHDGUGm0XP4L1sv5o9wjIww5p0Kcag8JnCNG"
+        "wkM1bbZiyERslNHE1RdM8aS2qSjHRZH1zv5Buz3y0W/HGvjzxQFc/VLYPNNZDGxdUOfiMFx987Zo+0kq"
+        "8GnyI4IUzpx3D0LHb17si9pY3j5vKA/XuC2wW5NPejQMRPrFU9Fs/BRc4KKM2raabPKadNEorTg2Yku3"
+        "oCJVu6xj5DLhON80eOd5j/s7G4j9c1tx98xq1hf+m270y4IAtg3PuNnxQa5L4Ju+MS7SqxeXe49A3ZFh"
+        "dKZ2NY7eH8/JvR3ot34MdZgQTk8NnCY3Kgw4r5zOH/oqwYypeuBt+VBoXpvGr2bkCc6t2kYO7xTDMGdZ"
+        "prlfh5XxC1a/aBnpmSnEwm+rWcEQZ+S9ruSkUqDwR50UpzlaOMIrE34U5MCVF1KCkKnDcE+vNJ4I3UAe"
+        "Zl8TrNLvZXuGpYsOCjiZIpgiLPGtF3Trnwbn6S/Q9Mxakn/7OFGq9iKqJ3+JTq8JE2R7tAqKxbJkXc9U"
+        "2HO2STTXW8Qmb7Qi51QDyPy790q+qZwXLTt7mRmvW0vevuhl94fdLzFQbxD87kwiXdONyAUTKzLGOI6X"
+        "3vhD3M+cA1+VNbhYfhIsn74U9/wby+IVFjAFpSBB34zDzO7FMVipG4LTXXeCkeRQ4eXBn6il3lax5toZ"
+        "wrm5hvxx2Ebe9a6Uag6350Y2h+m4ocf5k7xZ9NOzSj56cSZ1q7IQrpPYS08Zr+Mfb+uC9sI0kNG25TUG"
+        "e2jC0gl85Uh5+v7ZFD7xjhJtmNSFLGA2jRkrFDpWW0LFTDVa5tkiiu7YB/aLszDPVh5IUqvlNUtFuN2z"
+        "kSWeJLA9MYhpjpSCryl/uXGNFN95SIb29ZXiVpstZNPyKGhKDRGdH2dPjhUeYPs/LYHgvYaizbMnwLC0"
+        "K2yErAEfMqSPLdYOJwNPZpCrD6ZioFANov4+Ftgp3mc+9mJ2q/eb6L7tX6byKgwnOSSJ8k/n8dT0ZhA9"
+        "u8s2pgwh7e9LmefKOIHHke1s0AZTMsvTBFf1tpf8KznI1o/ax9Z1jMeJ8sriq+7dsHN5LYZEd5ZW//3I"
+        "xhufYnlfT6DKsUC4domVOFQswoWznYjkwywYrNaDWS7SwvNDb1DbIEPxUKtoSI2vontXdvKy5clQeFGB"
+        "xq4fydYGHIU/s37gzco7dHZ1Nq/UjRF/jlSiBJ7wpQt6iOtmGyqVu5KPLrkOO/PXw/t1IvLTbx8c+KbP"
+        "S3VNKT0/ladfLEWpB29F1wK3omPPRTA7cZmB0zIyquAahh2zgrjhziLwPseenVAkPblaZO28VexGzgT6"
+        "zGCx1cXrs0hjeDHBLYdxM7eBCsXV7L7XfIGdgQXOeR9NGst6mc3kStZq2yEqKFQRjls9k//bvhEyb3ux"
+        "yjtqEPezhc11fskkJk4mewftAu/C81YWDzwEEhPtUan+MxnULsfqvmzie48o4y81Ebh3XiZDigpEh6Qv"
+        "EVX5i6RTTQu2h+WQuU8dMfGZH6vNv0JGnNQT3q0/yzuOTsSHJiFUXaofBl/cCx1dh1mo7HT4sa4Rccsf"
+        "fF86HAWdccCOjiMViaOsHd6kiIfUz6Cn5TSF87Ovw5aBd6B41J4+vJMPHhINXPmWmP8YKUKXyf704Tt9"
+        "ern/tjBh9h/eulmaOr2Np17vldivtcMFXfkOMG+PLn02zZDvs3bgfc+uYl3WJygZLAUi9XvUyugS/yjh"
+        "C0kV5+DjtuFQe3I1WdHPyfnjKrBaX8bqks8optZ9Dk1TXARd5Tug79RM4dKDenx2ZARTCr1C3lvEgqpu"
+        "GfO3/iqy1/nG7H8dg6S2FoGuxEYS8PUZOwrjIOe6kXjCGGU6Ib3q/71JkWvpjdjSUiNo85sGL5yHslFm"
+        "EWi95Qu5di6D4LDRbOlOe7z0T4qvLjKgfGkGOuVVskc6Y9nP7GSiriCHp1G5tKqbi0of25LzU28yn7Hh"
+        "zNipTZRwSgLHp+VQUdVk3H44FqXO6dLTPxxAy+sxLrIIZ1c0auCJTjKGDP+JFufrLMVFF6A07QEPWBMg"
+        "zN08n/t6veNz97VQn0dO9HtQIod9C9mYafl05+xyXmCxnD9T9QJzvwC6yleTi9/9/7lur0UPzcW8R2hA"
+        "PZ3Koby9Cg/9HI+2Aa/BSWoCf8JvoeMhgWCDhTb9ZKop/vKznDZrj8eqF1Pxw5kE9ixsBWyNDhBVCeeS"
+        "fq10ViExVXSv+D17v0BSZH5mKKvXOy6u+GNIdX9Px6VN+WTtWI5/yxJJ+AgPgfxQFTZQtAEfHPGA3bMP"
+        "k2yNMJHPwuMY+/UDf+B9mlQoh5JDX2vY6B/RZLffMqbMlMnuytEwqHpAoJhoUnKu1AXOO59m0qLLgo2f"
+        "h0OL+0hBuJc2OTxcCKHDLUl62FES5h8gkP8Zzk4Xp4jk56eRy6VUFB0XRp7pV5H7Uqe4bXICtB+Pg5dO"
+        "VqUdphqoM/YUBGY9YmnLDuOgg/+I1iV/aBxcghu8PhCBZBBkzX3G96wYTQ3CfxO9IzrUbFwEb9jpRs1m"
+        "rKTeAyX8eFk83IgOpzsCP/Dz6sforOdz6EBQkXhPoC+tcxDj+l35kDdsJ3ZbKYHOgmjoUxpARcEOePlU"
+        "ieqYHOTyU17BcO0g+P19EYx8MQr3uEyD1SdTiNllwsobrxDZB/OY6ux/AuObXRb9OzYTM2EiWTnjgejA"
+        "KgKt+2fT2OMxkGqsil0XG8jrVaMFgq9GJGIFsLaTIjLCtYoJQnVJx5dugdTJAlGj6hPWYTS4PMx4EpUJ"
+        "T2Lduw6xISeyyZtv6WD3IgSeyj8krNOGWK0dC/htHaY3K8LFQHeoeK9Wjr/O8S29FXQOE9D255PoOvoE"
+        "nb4uIB8mHiCzrz2Ew4FTWVAnwp1kTbLn7ijBQcGM8uyeJZydcuWmjb/RXjuWGaqdhr8DT8mV0RdJ6Kcz"
+        "rPboiOv9Mj/J863+IlXHi4KHe0aUq28X8i3R+6kmWQyLtULg5t1baKLWSCZFTsfkdUvhxvoVqHX/t1XQ"
+        "r3/M+pw8BORK2zx/qYNWepdAye0lCT5SAQq/NGDzc0VQvq6Dc2mhaNIUDVb8qoF9jdJAt3l6JDL4lI1p"
+        "vIowdbeGOJ3o8Etaj3njnNHk+ik9rl3pBHsDx3GJqCtgUvkcY1pXQnCEMleonWNjv9uM27sAfr4Xijen"
+        "3i09nbAS18WeR8+xYjxx6RSzVsjCbRdk4S19wZ5tNIb9lpMEM+qarFJabzLTjHNkaKkl7L48tbTRrKl0"
+        "lU85MTjjIVq0ezLJOdQrcmyaxvbWSwq6BzvAvuY7bPcEc6ANVvBOWxt1p4+DTKV4iy1H3MnX6/KCy0VB"
+        "omdatmzdhVxRbU49i1wlL9TuM8AYjVT26dBlYA4quMNuKdR+y2AxsS0i/60mcEldHr9YnmZtu8PgUYAs"
+        "3/dvEY/8eZY7xzXDpgnr6VH7s/zurUT63Tkbb5hqcVnVCOqU6MgdVkyD312O1DO/hI9S384aZUzRQHkc"
+        "m0kl6Cm98bzmugp9NGcPUuMpeG3iJVBYFoyqTirQp1sOR9658SdrlLmRWStJaFLF73KmIF8YQ6a1e5KD"
+        "s9YzqaRo8vjdQEkmfSB4Fx3PypcdZB42qtiw2pDbrPOAxx55ghmLjhGv0FbBRbd1ZEK+2KosroVECocx"
+        "7ZXuguqARaxjbrrIsjeKdVmrlr3blMjduaJ4Yl80t5sdiKNP/IVYvocuXcxgfK+WqDA1Ew5S49Kq4QOo"
+        "l7kWcx4K8dfVfH6k+QZji5R4pu16/HLwEV5oUcOI9o8C6xOJpGjrFKJaFEpmT7xPpto/ZLZCNfH5+2nc"
+        "K3UWby5Q4yC7EAuxnagsjyJUOAia8gJgYuhpgUZfK5F53mT10kAD+ZAEvKxQw2QL69lCkZMgZHgyKVWy"
+        "INGK1eznRx3mahVdYjSvhCl13xQdf6WB0RXmzND6H/0ZcYaOqx9PNzpSWj/jOLnbHYVvDOLZ7Nr37E7L"
+        "BixM2EzSXd2xTTak9O8JNbgtM0e4/4wLnb93Lh3/eyStSagVmA9kg72PGjPc/YN9ed6HXRU1bFlgGtmz"
+        "wwGet78iWSH3hKPsX1Nm/JBuUhxK7965A5k332BtoAl3ya7G0LHZIMOysdm5RxTQkQg/P7mDau8jYeNd"
+        "aXFepw01c5RDswtmVNpuMf5N3QfnNh9hdYLdsGXBbfZs3CnmrBfAgiqngVuPhvWd1olix6FV9ECRLE+x"
+        "X0eDdYdy6QMj6G4rWZ55jUN68DOcVneFNEi+xr6wN7BVJLR+FbhVvC5prjC0/w/ncz5RFYsofpYm0XBB"
+        "GnfKl6bb7QJ5rBSHjogg/i7TFxx9V1trfokV+207I/Q23ySWRjXhuO19vHjBS+q+5zYfsmA7feqdxCMz"
+        "iiFnaBT/LPMa04tGW9c8sxV3+oJwaNsQcbtlIX2fc5/vj06lJzU28Arz9fSVqw+/FV4Ltqt2cK/ZtiTl"
+        "kLS161cpccWie1T5xRReKlpLi/fr8Jf1KnQTLcVtZS2wtK0Pq+7MgJQtr9F5QjBIfWwRpixREa8e2g7i"
+        "mNek4pcebZcYiWeOaMKX62msMPkAyJ2fyW6t/SkKrnMVrd5/CeKuKYovPqfC943RNKzmPF/74SuPPljI"
+        "r+4rhLp5W6ndvmXUZHUPpNAQyO1+AvsmJEGqeGbZkZBs2u2jwc3L7PnMYVn4a9twFrahgOxw+MDiD3tB"
+        "wp4X/7uOM0jf94HjDxZDfuIEoW++NxEkSeOls7/xnq0GGta74wrveququTPZjWn9goV64axT+X8neppK"
+        "FhxShIPKa4R/Jop5wEcHqK+yYdKrplPLkjRSnnlcZOj5GDe9iMG0Ohe81hZCarb4C2z+6eKQnhrh1iUn"
+        "eL5WL0RNuwquTTch0tkI/G3G4IfLUuzAyU6Rxcca5uFxA0P7O7HAJA+9ck/QbyUr+Pi+m2hyYysNLiRQ"
+        "9WMEdHmthYPGCujml0Z2utQyRRMxYuc59Ld7wiaOlhS+H7aKb3wSB/GbdFiFuReNLzoBaqv0sPlEEIs6"
+        "jSxCvh5ltDnuatiCBR0hsM7CS3zGtYUGyj+Dl2cTkA/cQc95S8B9ThM0P74Al0/a85iYBu69btT/Pm1M"
+        "E53c6BzPFPGcx5kwSfgFCm0nAjxtxrdeYpHemAp4kifL1PufYYf+U5TXiGMhGpFwf+I3qLpxQrg+YKRA"
+        "Z38xRHxyJTet00VxzZdEa5blwkqf+TDGwxQz3J7gx9E5GDrcFCr+781NcpG0Km8u3laQBrnbm5n/p2io"
+        "9utikVvaWYKMutXDMYtAvvMsrFkmhKiQBNwUnYWlM4aJTQ3t6ZSRsvzfu/FkqcsLcmJTDjxwPo5/z1Xi"
+        "zwVjQM5Lle42CIPPs/vZ5ovaaNrmhPqrJNiJCX34K65a4Db0I/FTMRKFSm5kbzyVme8sdZj7eDN8qM2F"
+        "3Pad2GooiXOaBwmDx0jw8bJnwSg8EssTrUvP7gWsP3qX7TbSIoUuG+BvXRK8vjJVMKz5haD55zkWNc9X"
+        "+PbxVb5o+Ug4Bpfh20MnkLjaLSgR1rJ+Vx0YONBIbK2VBS4X09iPsbGi94McSfLgBOHEn9d4/5nx2Je3"
+        "i1r1Tgf7DYPBa708GV/xhwhNgllG/3wc7/cRD/2WEATb6ELja5HQY8QUsU/FMv7DsZ0G/y4BlXpF+upM"
+        "OWokNsOJZQux0SoAlc8v5/O6M7H9VjKbhzrWAV/DxNv1D/GCdfbCGauayU3Dr2CqcpG/W7KTflfoI3+/"
+        "KtCDyTlc9CuAD9qizq30RltrLQgVl1g8YT7b1IQK53vhy/BTbNZPAU8+bUaJizcsAAk6bXYWj3KZza/7"
+        "S/JxRyStX0+RFp/9n7eqB3PpKeXNcObJSvh5ORTfp52BZbHf/3eGODw5aTLffbURP7+VxrA6H+HKLUri"
+        "gEdJUJcxnBp/Hky3vB8ioBMSBNnJ08jITZZshMYRjFC9hbMOXMFz9X2i39NOi6X7tvNzjWdpeVY5hjvc"
+        "wQvRE+k5h7VcfMyT3g8+wRcum0bTg334pm/lUJvegTpl/kLpqBl80/RsDB+0CAIth2Huhd3wvfUZfost"
+        "ATehLS6YeRYqwtOw+ttB6KTfUeJrEZX6eJi41lTC1O5kHLUlh7FHZXA39R7TzbcCg/avovgt62DOnEY2"
+        "XaUDGvflIaf6/OmLcpKlIUFnPL0lipE/C78W5aNGLsAwrQmoIlFH9l/PZ4rTc8lun4tkl7YbhMvJiNE5"
+        "kFZK/8F3axbDmoTn7MNnSRL72hAKL+ihkZExRDQNxUH5/pD/pACfFNnB1HhNvsfkFUlWO8jjhMNpnu1K"
+        "+F3cy3xGNkPm10WYHPkaXAdV4HbPSwDeI3js6SWwod+Tbt5UDTNvDeM/r2yEo3aBgk5zKe6YmADOKt8x"
+        "akcZWC3Lx5VT7sJqYSi74SJHSyJXC5vmfqFzv5+kU2adp7rGDaWzDKz4iseJPLJzFPc/OxLFdq1Wvr3G"
+        "GL6yEHwbzoJ/3AbxmbMHaIbmQqL/dAR+6dpHlmUVwKBF/eR6RiebfWgRztuiim3L/cm4wSrE9m0gcbog"
+        "4j+7nsDtVWOJxVtNlnJjETM6lGsVnCgBc+VdYObiYDI5bCzs2OzBXuqtwGVx39ifrGH0YtZdXu25nj8d"
+        "tplXhv+EkHcn6OwlxVSxWkBVBq7Cie1lLPzCFkEpvEdpt3d4evMR8UTfemrpewn7nS6QrfqOeM85gNSx"
+        "PWA5dS5c/9whMvCNAwmbzWzoCsXSWSd242pzR6546gqtxjFwae4L5rzaleS27IU+vevYfLNeVNHF2PHm"
+        "MajcT4iFmxG2FMugfMJ5GjTqLsWI29ToZS6dZZTHEmfqcymSwLud53Dh5AB0OPCNWe7vZJXL+mDREUka"
+        "suaAsNhNUXy1qgLuGf3vq+430CfYD7O/iGFtz1lwy7mL7/MPwR7DWJj3JR7reh7il0pD4SqRmTh9NKEP"
+        "lkXS7wePYcfvr2zsXm2aIdgEfxq0ea1iCZMJi4T2IQo4S3IYrzdXE05XiecqquFw/H4MbZJ34DZ1Cdgf"
+        "1AYXc+NhiYs1384CYULfCSBON1jLkpd44MUI+OW+CMf1rGS5r4sEks9XgoHyd1ZqsZfdv6CA4oHP5Ofn"
+        "5JJDV8QkqMeEtWQMh/iuULFl4G86us2JT7JL5H8enYaipCxIjmrCaf5quNm/H+YcXIRrztRg210NkFVp"
+        "gOMOtdx0+AnqbahP+qcKuFL9WXj3WAuWK0vz7/Nz2PbO1/B85kumuH86thVHgHxFGOSpE565c4gwX+Ej"
+        "3g3ey9XPjKE26alwYPc97CTX0KtyJJ2m+I6NcH6Du/+/xaZJfyDZ+YZ4dZkkfTX9DKidHY5Pmwy5tpk0"
+        "VSmqg8ALvbgrlYnG2K2imduqUIJEoeXx7eCSrsf1Dy+iQ+9Xg4btCIiq6sAh53NJ85fj4Nf1Cd8pL2Ar"
+        "Xh6FO3W52Kx3jrXd0KEKF89Dg8NFfNkwAzKfPyNyzglI9M6RW9M/wM+H8tz78xF8sFeRulnocp/AKURr"
+        "3V+4NGQB+F1ZwE9nO1GTW/uw8eYeMkN/GdvD4skEx35WseIOeZyzmOw6XgIuayzRMWwq6ONurgeWlNvt"
+        "45PpHbIdppNzviHkme09dNo6mEplKMPMA+8wyn0+FCmkgsG6bJwtrSWUH70QtVzW8tJ6NTjSqkuzTVyw"
+        "P8eQv3ojTz/7JrG0W52ofTsXlg92g6tuOhzqNYR7TdfwtynALxSEwQeN+yAfNYb7amRjSOBoWvl+n8ht"
+        "liH/LrAEidTlELNJhgfJq4pjzp+gHwc6+LiY57DoeArVVk/lo4vTIHyoAzw+K40vP4+gar9CeeK//917"
+        "njz/lfpE3DbyAmW6WbxOajx1e3QBl3WmwMECGfx+l4LXihJUv74YmG8Qtg65AzprktmhOcnUf+1OGDXz"
+        "K549Fw5Nkdsg+18rHjLyIXUGVqSnNRRdfg2He/fWoY7EDFjbMQgXPTqPodvT8cxoSerzeR6Wz/6Jo1Ib"
+        "ICHhMKYIhkDSE1u4ZliCC7yy4fCOIRjjtaB02AMJDimf0GkQxRw7c/S6b4fRWXfBI6yStacZYMuJO4Ka"
+        "s5/Z7wdv4WFoFfu30wGufxoqtoqX4wURl2mPbhHmXHom0pgkREfjsezV4DFYqV0BZhmvBcfr+0nvoGxc"
+        "qD8DnqapWl83CuMXFrrRgbjNmJ6dxA7vKQKW4w9Dny/HAxPaRK9TItnYPmA9t0PR8LYlPL+YQD+9eAK+"
+        "O34Qbd+jKNNWAkIPX0yfcYdpu2QT/6MtsO92OJm2oYT9u3XSSja6FpYefM23bvomMF6TCty9FX0+iUnO"
+        "dgPi1R0DjV99SM7RP2Rg5FuSI2EPOG0W0RomhxfwqHi0CaGmPXW4oPsteHir8QUeCtDhoF4yc+sVciBW"
+        "hqmLJsNOu0Aobx0F9+6sRvtbTcL3y3TEG8+qYX6NIjVen0lP/p1Ady02IMWDHLhEFeW+AeX4JmcZ6Mwo"
+        "IimthqCTqmLtffgw619VC39f3ITB87ToI61o/De8Hf8WLyb8jDm6SFzHq25fsSTiOZtzM4BZZmmKn7Uk"
+        "0879scxTwZFftGjB3jNXocE8nmwflgYJ5W+J6T1rlratGfdNuISBN3sY/7evbP9aM+H+m25gd3ULX/70"
+        "J1/lkM5vzN0IQ37MprN3p1ClVUBF/+rIu4qXuPqgHzqCpdgx/xHtuuCP7upL0KQknh1SWAWaMcGiR2/c"
+        "0Cb3PZO99ZicGlIkMjU/hV43mlCgNUE8L8iWZF0ehgOtgfjwQB4m2iNLuWeJVaqbLW93K4JE1gYIMvpH"
+        "pG8r4oTWoai3rQo+DVnAe1yMMJT/Zce+pcEJo53419AWR8U74qQWLDW9oUSs1x0nyhs6ierL8+RoOvI4"
+        "3xBYNUaZBuVfwdjJC3nyxnpMSZahNvQhvPPpxPaXe/nCERxzT02m8p0rKa1YxXtmn4BfcVXQlxFJDP4d"
+        "waBz6nDD3BJqNwnILsdgzJ0xjJtfdcEg5ytwCbNBrfMfDcrO5Oc8otE81AWiO19BUI4t6Bz4y45Ovki6"
+        "0vfBzmn34WCxPHS0DeFP7pzBmc63hA3Rg8V5LqF8luIwKo1H6MmH3lZHV23nEcZ6vEk1kC7+KyX8+H4y"
+        "XSDtxpeU5/GCuqXlB1LjUT9jNti+CRRozlwDN0x14Xb0GVgTOggGxk4my0ZMgJSR761enc0S5AW7kH/o"
+        "Wj4r5QlbNraI3h4xhAZYOFHPBzks110MbvrToEMoRfPS5LDmlSSMXJpj5XFfC2Qlg6z/LatD3TBDOsSx"
+        "GRIGumDv/13WXvGeHF6xFf0zZYnU7ErRG78siP9/5k97quBLRqbNCykiFFsoiOujt/Aju0q56FAQjB7W"
+        "gqKV2WAyToK3pacDXCzCVXuN4cCtS3hWfq+1j8ZXVBLchKf9+rQuPxNe9+SxG6tVUPbje/bUVhXMbn1g"
+        "B+1DiebbK6yiWBqKdlzj9vNaIG76CjK2/prl2E9SEHGmVLCoTwhhq1pJcWwcMda0JEYNoQJq/5vUvDpl"
+        "+TfUrqwwR5+vaNoMTt8GY4FwDXFaEsiW250UXKooZaoXvC3KOseyJz8iSIZvOHv83Ye8eKpm7fX7BZeK"
+        "iKBzJ4fi89h42q2qzy3lrWDJ4SMwLToebmVcxjuRunxadTKPsNMiw1dLWJcmELGCyzRaGeBAhweZ0ST5"
+        "D+zFtg2ou/4pvGstJpLYgqrBlF/aGs5TZMzA1UTSWmGGuTjpQgps8PwCd70H0emPZvHtJiWC+8cGUzn3"
+        "2fCrMx4T0/ZzzaY4LhgWCTlZ9dxx6iEwf5PFbTQb4eE/P75o1GGwHdlF2svN0XdcHft7PJNNlZyNw7ak"
+        "wbLg87itUCSWWNVIg01M+Z5Hgdjm8xXXPFGmMd9PoklaGU6crsor5d+SOIEhrcg/SnWdbmD6vktiP3sj"
+        "qlxeDJZdpuiEzazd3ZiktEVYVRitxSyTg1brF+WB/IcBGNjVBAsu1DDJNeo09c8FalbtDWycLveS8kO1"
+        "X/OYlDAEGj7XkU+CRFhdvhCKRh+DpwPD4PP8VHC3jxH/VKmgNtc24kqvWF7YNI1++WzHQ3Z0wLmPm2Ct"
+        "ljS/fKgcNNrcaOolHf53RAbt3XBBsMHwHrWNm08uPIrgWTqLaMOkL/hIRQqyrquRpdIFGGrib7m13Ya+"
+        "j0zCQBdCJ3QniZvLRLSl7hFbJBrBUyvlaGz0J5w4dTubuOslmdRrxaOvAVz2ew2ZVXlY2TmI1p4/yXuT"
+        "o/F37Gi238iYlmjm8ld/ttKb26xQz+opmo1UplN+6rLDEUexx3UKfXBdi3ffMhR2HWT82vghpCanDWrn"
+        "3mVzpGtYXnSE4P4/H7LJQJ5mvQjGMe0+mDcVYfcjHX7taLDw5VtfbNCNZzHXAgQL1LvYuLy/xH+2BR4+"
+        "oMXKOmvgRY8Ufhv/GsdXqYBZWQwqt0fSookVvPicFVW7GgNpvXpwXbeb+NcnkoEFJ9lm5w9sZGcZO3/P"
+        "DGVjjHD8ZH/ms7xOOMnqAl/5ypnqx3aDbkUEDC70w3bT66xpQ5zozbx9kHj2KJFTMgQj7SCYp9ANGxYc"
+        "5w7D+nDvw4VwxecYbvt4iqBqmCA4/zSct5sKTRmpoKxj8//7bGDMyyiYUxEEkb3eQnLpOyf6SqUXmgaD"
+        "qtoEqjhvDgSk/t+by7LBZfIo2jI9BjRkBtFqDSWas2goXRtnbv0mvUL8+KkHXZacCFPcsuiTv62oeziS"
+        "lKo0wvvYAtoVZw02PnNp0bhj9KvyKZo43NO62LtM7OSXREPyxLClagOlSju5yiIdMBhYBa1BGZSOV6e3"
+        "RoXT5WtP0VTSTIvzxllXxYeJ82x208fT6kT5y42p0rBWxAlHwa/NCGoyd9Mpv79CtvYsWnP7LLVOK6Yy"
+        "G2YJx38wFS+7akZzPu8jlsoKdIXHEmxuz2Fnnk6G3qlbqbdJHBzJsqSySpl0SXQa9SuM43Gts3i/TS1N"
+        "/J8zus+uCU6rqdApVfp8JhPQhTpT+c850nTmPz3+8KsHPfjvKPf0/4Hu1XNBf5Er++K2gt3xmIuSymEk"
+        "5eiVEr/ymwTXzmbk/l5y/n4VG35gI9lo0s68nq+GBz9PsoaP0fBCZgEuUBkGo83V0eeNJJtt4IGNsntA"
+        "dGQpaxVMhm8bnVBZ5iRc/Xoch92sp12SamK9hrfUNtIKB6+5jGlbVen3x2b8nIwCnRI4kp+/pUPXTl/L"
+        "EzpN6dwGcxp6bjFu8uwhBno/2NQPVYK4MJEgyl8SHD4PJdJTjrNZVyRQpCeJ7wva2Yk7hqD+Kh0i3xqg"
+        "t/1eUlEkQLsHozFr6xBYffkbDgpSpAv4eux2iYWXUyowb28ShHNpjoWV4s9NnNt/+0bVeiz5qgY5jNVc"
+        "Sls6lvC0uw70bv46fiiB0ClW2/hwhXAa35/Kq7U/weejO4RPVztBwORgsjWF8vhdnwXlS5NI8vInWCnO"
+        "4OKIWNw5dycvmxDNI9Ki+FvHwrLJXY+F2p1R3LjDiz8dkcWHr/4LfeNTMWiFBVotPcqDzAW4wUqbmx1M"
+        "5XYDX/ioSbll0i03hZ2h6mL15dpc7XU01zqQRE9fukuOyZzGFUb+vH5LEq7dtgRjLKO5r5eIY6QK//oj"
+        "GRRn/GaPworR/0YEzq85CQb9l/FhQRNuu6CHUlMtkG6NRt+il7g+ZQMq6+20nn7fXXx+8kOquvYjHFwh"
+        "oOl+obxi9BdBbuwLQe6OVvB13IFpz+JwH5kEK8YaUGmvIdazT6uLXY216Sm9hv8zZQDGb44nvS2z2J61"
+        "g4nt7XHQ3nYYVG4+IlKbrGhCui79CzJll7tV6J5HobxbbRLRL/RE91IP2G79WbCo8jLU7CyCqI9LwHld"
+        "NQzqfwa3S6/C6kXyZTWuP6isty8xlj6L00PS8exMN7LvgwrfkzUIlnzzFhll9JHZY1eCu0YbO+JkjFkZ"
+        "nWKl877Co3V3uNfDUDy1p415zKuEMZMPQez3PWz3y8+C7FW6AquPV/CkQqJggYFv6WWvJ8IRb1XEa8Lk"
+        "cFDOLmz+lkN/TfwC1UVKNCVjDVqpxuO/oONs8O+/zHBKOtE07RfcKuTW2ruUy6au3yqcvfQBbayToo9S"
+        "o3hUehDoeJbB1Ak29I18E0o5quCCiln4aWcl5N0ZWeY/KleoKfcbe/76w0HZOj7h1mg+zMGDh8qEksuX"
+        "MkiSXCRs8P0NmXVLwdVsN/6q/7+c67iwyPo0780K4bM8Zbnmpy9Mdnge7izJxKNSA+g3fSlU2C/Avfpj"
+        "QEHFHsf8nVtWOHun8M1ExmVpCl/ursqfO6fTkMgpzE4/EF22GPGPhjEkw1MTZ0qbYP+w57itO1mcZlPA"
+        "he/P0PUFJ6A7qIDv3PECpPca0TFphKdNk+Te32OoQakT2iZt5mWWZXBm4QX60CKRhCfuhACtCaL0ZF8c"
+        "enwM01HPg98ttqh0Qg3Pm+cy4jTTany3Mqw9Pw2uei8TXv2fXeTVG0j8fYyEN5+EstHvRBNyCwSHAkzJ"
+        "gMNL0quljO8DRonM5E7Cwg4lqwj/NmqlO5r6bYzmWbZBeO1DA90rV4pnVy3ndR1L6DFZezpm7g5+d1Au"
+        "xGMgpD59gKlFAL+v3ITFbSfQfVMwW3dsNQmVGwIlEvZY3qYDS/sDSdjBp8yreD+4FsvBwY+n2b8CSXHy"
+        "3ghSNKANV2UM4bGlPH81ZzpRFwuAzV6EzlfjcUYXAYlxrrjNVQp+270gIT1G4mt3q3llaAg9l6NAr/2o"
+        "5X/O9YPnWiM6qmsUJ7o2/EVbIF0wsxRVNrhwV9F7cqD0hfDI8MFiVakpwnmp48S7nIvphqOlfBrZSYcr"
+        "rOMroh5Ctv54zhaFws0/Wjzr5B/WHpkp/JgZxpNXNdHx2Q3cxiGIeisP5nuTFtC+Vk/eMyodBvp+4UeV"
+        "fpiSWY1ac+Lx21wZa7FGCM/YYiN8tbmfb9jiTQvsd/It/7xpzQ0FPnNZFexWmYHLNHJgyndzXH1PgNcL"
+        "9cURr8bQhTeH0wXHn2O9ZCFRfF/Neua9hrfjekWy21ayyJCVaDRPCNlzAolZdTrstbsn9hbE0rHutuL8"
+        "8EHCXRnHuF7qDrpx+Rle6G5KH7J43NKnTqWO2qBFzHUou5ZJHuv0iwtrZ1HVN9ZiWfkJQlWbCL6lOYSq"
+        "60byxA43SqIicd6Rn6DQps752Fh4HX4N1rNSzhoDaUH0SPHCybpCp1t5/O/hELru5SF+flIQfX1DmkfJ"
+        "vIAHPRqcHf0Grw5MZmWXHIXdXTf5ku9C/lmila4PteDrj/ry5g9qtO6LD81PCOYbPpqDl3kAjVg8mgY0"
+        "xfAhY6XEIfar8Y/NSP7MJAXcb6ih6y9Jku2rh9dfx0DfzAhUtO9l+9/fILYaLmihH4R76V1qqJLK0505"
+        "axFmi9YoRUDFlVRUS0hmqloyGHVtAgTELEH7wHRcuaYAT61PAXWfIOGyX4PEY0X3aGlKLT9yw4pWPFOl"
+        "e4SvcILyEr7DKIwWvInGns8B3G+8Lm7U2kiPlKylfbmqdPOdGBAdlMBBXtthxouPTN0rVFSm7IXHU0Rk"
+        "kfMp9uF+MV6cfxQfzj0KQzt+c7v3lVRtkwkvuhQNg1bFY92bs4SsdyB/jJQprOF4dI0b2VwwGiz8LEmZ"
+        "pjJninbic9/G8jOKW3l7Xxf1swvjqk8rcfvnMpihZ0tflfnzjPIHMBB5mm6fqULXLfHj3cyfh00Lpiq3"
+        "tXn08a7SvpgsmHg8Br9u0wYyVYpFERTNL/sE5oVd6LJGhsqekIWOq8uFsfEf+T3xB/i0XA6uKuiwNHNr"
+        "Mr01gZHbdmTKwQ3kmbQpq4rdBlfmm7PtSeGwcE8EPVV4At4EKGCuUQRsWvePZc4UQMCrZHL8pbTA5G6m"
+        "aPD0YWzjGxtmnXWTHdy1kGWfHCEOAIY35kTQ374j+Mxh0/jWMD/qekyS11flELOXN6H4hTW/cMWD3ipb"
+        "xJufuOGQrDTaYxEBjq6KNO9Oh5VrgReetjyKZ9om4Tjli2TUtuulnvc0MHcOglXNXCIVqc7+Ge+mM2+e"
+        "wrCBU3xN6S1YntBFCs/lQkqJJmR01bP4FAnesjUf+qzL8ZSUHFXZ84x4hw8pe6KnIny7RFW8I6gX3m0J"
+        "pFKBd7nq1T9wYMRp8u6vKya/C6aLLxTyikNO9ABTw7IigfXekBs8Lu44XflpFL1XKcvVL27HqVGSfPqc"
+        "72A8ZBy9/ucZ9Heoocc7BzC4fRJ/vpe21nhjLvbWUadpe6fQ3v2KtHb4fHY7NQEai7xYQuwGcB6iLsro"
+        "LSVdvwLRJqFKJPAkZaEzbPjz9XLimEM1pQ1OhfTqXGc6WOxHo/W3YMN0d77UI5YvcB2BK3e8YdeaXGmp"
+        "7pWy3hd3hPaBmuIq40HivOlJXPZkABX+rkXNv5aYHbuR56Y+hauHQ8Gxj9LcS1k4+aW6+HBvF3WMuEA/"
+        "N52CostX+dzvRXzBald+NbFAUHZzAhX8HENLriM5EdVnWft+MT63+CcM+DKPXww8ii+vS1BNh0/g9HQf"
+        "ZoR8tjq/qhOXXE6F80pIJlpJ0FCJJJzKiVUGbRJSg7Hi1pdD6c8v3UxlVxQ88ikhvSYJUJj8ABLtlmHx"
+        "/Wwcsvs2/pmyhtWPfS8KsY2BMTYyvEVyGm1vOcTTlv8D/6qfmKBbBwrrDzG+LxElQhVAFqzg45UJPOXA"
+        "bFoz/SW17pvP0y9bgtrBPaTZ+wOL9FyLt9ONMehlITOszyH3ZeSw6bom+KS9JGn+T9iPHalUNE0Vb67p"
+        "QF9BPZm5dBTq6RvBVqUAXJiQwOwntpPR1+TRp0Edr4e+hjpFGX688C4G75fghtduYaN5IG36l8c1e5ZQ"
+        "xydvSM3ecbz9iQNVHnsVFbw4tpGV9GCtOa96sJ6O1T5DfsJ4ePrKHQK5EosZbM+Y6U8i38UEjzXMIG9z"
+        "PdleaYQpqlnExK2cFcBa4ZgrZiheY07XDfPiNhtOUm3/IfzljnDmG/MZ2n5k48YTT8nDbhk6xl2Dj70p"
+        "QSVVXMXfZhyjHn3ZomLzU/zsxxi69tAiHuHbR07LydL9tQu427rTsE/OlD4PO8Gnzi2i55e1iPdmCnja"
+        "ChGfaJLHvyZd4i7bH7DgnLHs9pu7UFr9ElwahLTif9YGTTdHD7MOVO1xFytPCEGZgsl8vqc8uT0xknlb"
+        "h+Dz8xNxhUkvvjPuQ7dVkfhm1llcXJcK5vcl6NTF1tYFxR/ovO5L9FbYSqo3L4h6bdfFMzfMuHjcLl49"
+        "1p7v8YrmgSrbuGDTaLxt0c5KPCqpfZqW0NpOmuopJtO3Gn9gY5MOtWqLEEiPa4IRBnO4/eIp/N0NAZd8"
+        "78Vfjz/Cb+1ZWhYwOpN1P7rEheG38IBqHA/2U6B/Q5bSUWe8qYrlaFqzL50q6RtCUo4HN3QP5Jegma86"
+        "UcFro2fx2KXW3Gf5U1w3bqFoxlw/iP0yBPYv/QCha9/DmVVGdMQDffoo8Tr0B/zg66cNFrbdl6WRHVU4"
+        "TW01PJy6HG+VaPJEz2I0/F+I7LoSISN4Fm38VE0vXC2llee9hN/vCPmd5iTev6AT5k5ZQ5/aB+ODjGMg"
+        "8S8Nvavk6asDlhR3duGn15r87tONfLU0E2saFNMsraXUXe8s6bm/EH2PtZITx0NB31Nk1fU7F/cZ3sUc"
+        "WznU8rAUqJYsQclJb6liOaWVrhOE3aZu/ASTFg/srKbKzmX8TdAWGt8zh+93zuSig6Y0ad4gumnBSars"
+        "myaUn6gnHlq9lz64kYVbUmJx+tThENpfRiYGHSZBZ7pJacgnNqNtN8huzgXLfgda6XdbLO44jUquy8T/"
+        "YjZDz54LNEktmc9/bE6n2xvzv4nSdPP8UBqmPIy37akRZXw7jo7h38SPXWbSkuUX6J3Ns+DzOzeYUavN"
+        "fTwnctlPKpD4xBMOdSmA9dSLkPBqIq4+2oZ+7UutDab2Q8QWf4iZW4bm35KJ0aQiEKVr0P7u60zu600U"
+        "WqnwQ9YE97+9g1vnzcGChXXCbQuT6YGyVDh1ewl/7i0H9z4HcfXvmXR+xmbQXOojco3P46ZD13OrLYeB"
+        "3IyGT9ugrPVKI5rnmNLxDx+TbTJ+eOiiA7y8NQw3J9pxdc+l4GFYBD/mDwbWq8Dr+xVxbv11oVAuRrxp"
+        "41SqEBMPWdUD5NnWEDoxVVr8uUGNRz3px3tdF+jAvY20LXY8N7ggzYPavgvnyg0V76vK4/kmZlTQ2ASn"
+        "SBVUv3DhSnsL4KzaIlR/4g/WCmI817wdfp7qZw4y+8skZl4SVtaKuVJcEu4am86rEuqQW56nP+92wPa6"
+        "CGaxS4NnVD5DvUZTejvCBc4dlyt7qBKNm80y6YP1KkyTCui/PMQQg2xYKh/Ivr6JgC/5MfjIW4u6+07D"
+        "a4lXIbr6mjWoneR55XWw8Oo10mF3HhY6+kPE21dsXViv4EChFVSzJzB+IIO8WaoOjbUPBGsOa9q09fhz"
+        "BfQG+1kLeUPwdDBXu4cbpnTBauvB/KLnRhq50J7/OLuSdjwxYwU7hPDWcEuZ3w0Qz9izjXaMeQxfXL9a"
+        "5i5X5A6SB3Df2lZUKDiN3sEVZIN0s9XhcdfJZttIMt7Lovxv4zEufH4I96q/4pITM7FqoTysGRfGi72j"
+        "qHr7Z17YLKKfDyuIi5tXUsXnQ/n2Q/lCVhsEin928uORbrBy7yZerPgL7FqG44OyQVDvfhp+bkpAQ3N7"
+        "9mR6Kr4fHYiSE8fa2K4oJSWSHrRGGEc15dKpit8tnO00hZZfdebto/xoxtEIXniO0fT5w/iBISYQItxq"
+        "Xeo5TThfdjwdveUYhNieEdQcnw3qYT1wcekrWHT5Ljty/zUEeqzHeZ0KUKjtKZDx0iuPdZYUNv66g1Fb"
+        "IkBJaqvohsI8OvF6HBvwuQyelWPI9KEPYLzIk90KGg9vpr0VFTV3lwm+jhMy7Wi89Gka3dBQzew988DR"
+        "u4/USF/Ga69MqNEyWwpD9lOtoStpW242XZxFrWe8OE5X9VXT7IoNfPwRFdryolY0KdiXJktUg9vOdnJ7"
+        "SgO5GuNCR0wYQR8OdsX3uqXWy8xO0qeeesKi2gN8zUonmhavQh/U74fi3ONUen20wEzSARpO23DFpEZs"
+        "WdbMbaP+isM0xlBx+WOeo9BFW+/IcelzM2hEuwr3fPIcxppM5P8ehmGJay33DijgzjYB/7dSUZluLoG+"
+        "9ZpizcJnML1+F3+heRPZE33e0RLHs2YKuGOLNndJqcANtSuZkslEGnBrtbhoykzxlV97qXAm5btXVZPr"
+        "l8J51wx9vniWPf/dnsdOerRjo9FtqEl5DVVrPWiA5Ftrg8KF4vbR1TDnSjvP2BYBjFjwcY8n00vuDpDw"
+        "TJtO3DAEEjPVqKR9P8ksecD+A+ZpmLo="
+    ),
+}
 TOY_BATCH, TOY_SECONDS = 1024, 10.0
 TOY_LATTICE_UTTS, TOY_LATTICE_MAX_ACTIVE = 16, 256
 GMM_MAX_ERRORS = 2  # 0.07 % of 2,868 words; the JAX package makes 0 with tri.mdl
@@ -923,6 +1399,22 @@ def ptxas_by_depth(log: str) -> dict:
         elif key and ("registers" in line or "spill" in line):
             out[key] = " ".join(filter(None, [out.get(key), line.split(":")[-1].strip()]))
     return out
+
+
+def decode_graph_of(tree, tm):
+    """The minilib decoding graph of a tree (mkgraph_csr on the pruned
+    trigram and the 20k-word lang bundle), host work only, in a process of
+    its own: (the CsrGraph, the seconds of its stages)."""
+    from old_kaldi_git_tpu_torch.decoder.graph import mkgraph_csr
+    from old_kaldi_git_tpu_torch.recipes import minilib
+
+    t0 = time.perf_counter()
+    lang = minilib.make_lang(minilib.MinilibOptions())
+    g = minilib._grammar("exp/minilib", lang)
+    tim = {"graph_lang_and_g_seconds": time.perf_counter() - t0}
+    csr = mkgraph_csr(lang, g, tree, tm, timings=tim)
+    tim["graph_seconds"] = time.perf_counter() - t0
+    return csr, tim
 
 
 def random_gmm(np, convert, dev, num_pdfs: int, dim: int, seed: int):
@@ -2229,6 +2721,90 @@ def main() -> int:
     if train_faults:
         raise RuntimeError("GMM training: " + "; ".join(train_faults))
 
+    # ---- LDA+MLLT at minilib scale (the lda_mllt_minilib line is
+    # emitted with its decode, after run_all).  Its decoding graph (an HCLG of
+    # the new tree and the pruned trigram, minutes of host work in the native
+    # library) builds in a process of its own while the neural phases run
+    from old_kaldi_git_tpu_torch.feat.compute import FEAT_CHUNK, compute_utterance_feats
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+    from old_kaldi_git_tpu_torch.recipes import triphone
+
+    cfg2_faults = []  # every config 2 phase runs; a fault ends the run after them
+    # lda_mllt_minilib: train_lda_mllt at minilib scale: the 600 training
+    # utterances' statics (K2), spliced to 91 dimensions, from tri.mdl and
+    # tri_ali.pkl, 2,000 leaves, 40 dimensions, the tri stage's options
+    # (8 iterations towards 4,000 Gaussians) with mllt_iters (2, 4, 6): 8
+    # iterations in segments of 2 and 3 MLLT updates (the default (2, 4, 6,
+    # 12) would run 12 iterations and 4 updates).  Held to the port's CPU
+    # run (LDA_MLLT_CPU_RECORD); where it parts, the training runs once
+    # more from statics computed on the CPU, to tell the front end's float
+    # order from the training's.  Then the first 64 clean held-out
+    # utterances decode on an HCLG of the new tree and the pruned trigram,
+    # before and after per-utterance fMLLR
+    lm_tri = AmGmmModel.load("exp/minilib/tri.mdl", device=dev)
+    lm_tri_ali = convert.load_pickle("exp/minilib/tri_ali.pkl")
+    lm_opts = GmmTrainOptions(num_iters=8, totgauss=4000)
+    lm_lang = lang
+
+    def lda_mllt_run(statics, device):
+        hist, tim = [], {}
+        t0 = time.perf_counter()
+        res = triphone.train_lda_mllt(statics, ttext, lm_lang, lm_tri, lm_tri_ali,
+                                      opts=lm_opts, device=device, history=hist,
+                                      timings=tim, **LDA_MLLT_OPTS)
+        torch.cuda.synchronize()
+        tim["wall_seconds"] = time.perf_counter() - t0
+        stats = {}
+        for k, a in lm_tri_ali.items():
+            accumulate_tree_stats(a, np.zeros((len(a), 1)), lm_tri.tm, stats=stats)
+        digests = "".join(leaf_digests(res.ctx_dep, stats))
+        rec = LDA_MLLT_CPU_RECORD
+        want_t = np.frombuffer(zlib.decompress(base64.b64decode(rec["transform"])),
+                               "<f4").reshape(res.transform.shape)
+        sign = np.where((res.transform * want_t).sum(1, keepdims=True) < 0, -1.0, 1.0)
+        gaps = [abs(h["like_per_frame"] - w) for h, w in zip(hist, rec["like_per_frame"])]
+        verdict = {
+            "same_leaves": digests == rec["leaf_digests"],
+            "same_gaussians": ([h["gaussians"] for h in hist] == rec["gaussians"]
+                               and res.model.am.num_gauss == rec["gaussians_final"]),
+            "max_like_gap_to_cpu": max(gaps) if len(gaps) == len(rec["like_per_frame"])
+            else None,
+            "transform_gap_relative": float(np.abs(sign * res.transform - want_t).max()
+                                            / np.abs(want_t).max())}
+        verdict["equal_to_record"] = (
+            verdict["same_leaves"] and verdict["same_gaussians"]
+            and verdict["max_like_gap_to_cpu"] is not None
+            and verdict["max_like_gap_to_cpu"] <= LDA_MLLT_LIKE_TOL
+            and verdict["transform_gap_relative"] <= LDA_MLLT_TRANSFORM_REL)
+        return res, hist, tim, verdict
+
+    zero_counts()
+    gmm_loglikes.launches = 0
+    t0 = time.perf_counter()
+    lm_statics = compute_utterance_feats(twaves, minilib.SAMP_FREQ, dev, deltas=False,
+                                         chunk=FEAT_CHUNK)
+    torch.cuda.synchronize()
+    lm_stages = {"statics_seconds": time.perf_counter() - t0}
+    lm_res, lm_hist, lm_tim, lm_verdict = lda_mllt_run(lm_statics, dev)
+    lm_launches = read_counts("lda_mllt_minilib")
+    lm_launches["gmm"] = gmm_loglikes.launches
+    lm_rerun = lm_statics_cpu = None
+    if not lm_verdict["equal_to_record"]:
+        lm_statics_cpu = compute_utterance_feats(twaves, minilib.SAMP_FREQ,
+                                                 torch.device("cpu"), deltas=False,
+                                                 chunk=FEAT_CHUNK)
+        _, rhist, rtim, rverdict = lda_mllt_run(lm_statics_cpu, dev)
+        lm_rerun = {"statics": "CPU", **rverdict, "wall_seconds": rtim["wall_seconds"],
+                    "like_per_frame": [h["like_per_frame"] for h in rhist],
+                    "gaussians": [h["gaussians"] for h in rhist]}
+        if not rverdict["equal_to_record"]:
+            cfg2_faults.append(f"lda_mllt_minilib: parts from the CPU record on the "
+                               f"card's statics {lm_verdict} and on the CPU's {rverdict}")
+    graph_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    lm_graph = graph_pool.submit(decode_graph_of, lm_res.ctx_dep, lm_res.model.tm)
+    del lm_statics_cpu
+
     # ---- phases 25-28: neural training, minilib stages 5, 7 and 8, each
     # path's launch counts set to 0 just before it and read just after.
     # train_ce: the training set's features through K2, CE training of the
@@ -3076,6 +3652,208 @@ def main() -> int:
     del sdense, toy_system
     torch.cuda.empty_cache()
 
+    # ---- phases 28-31: BASELINE config 2 and run_all -------------------------
+    # run_all: the port's recipes/run_all.py (the five configs on yesno, 24
+    # training and 8 test utterances) in a fresh workdir, stages 0-80, the
+    # WER lines gated as tests/test_run_all.py gates them; a second run must
+    # skip every stage and leave RESULTS as it was
+    from old_kaldi_git_tpu_torch.recipes import run_all
+    from old_kaldi_git_tpu_torch.recipes.gmm_common import align_all
+    from old_kaldi_git_tpu_torch.transform.fmllr import apply_affine_transform
+    from old_kaldi_git_tpu_torch.utils.table import read_table
+
+    ra_dir = tempfile.mkdtemp(prefix="run_all_")
+    zero_counts()
+    gmm_loglikes.launches = 0
+    t0 = time.perf_counter()
+    ra_ctx = run_all.run_all(ra_dir, device=dev)
+    torch.cuda.synchronize()
+    ra_wall = time.perf_counter() - t0
+    ra_launches = read_counts("run_all")
+    ra_launches["gmm"] = gmm_loglikes.launches
+    with open(os.path.join(ra_dir, "RESULTS")) as f:
+        ra_results = f.read()
+    ra_wers, ra_rtf = {}, None
+    for ln in ra_results.splitlines():
+        if ln.startswith("%WER"):
+            ra_wers[ln.split("[")[1].rstrip("]")] = float(ln.split()[1])
+        elif ln.startswith("RTF"):
+            ra_rtf = float(ln.split()[1])
+    t0 = time.perf_counter()
+    again = run_all.run_all(ra_dir, device=dev)
+    ra_resume_s = time.perf_counter() - t0
+    with open(os.path.join(ra_dir, "RESULTS")) as f:
+        ra_same = f.read() == ra_results
+    emit({"phase": "run_all", "card": card, "workdir": "a fresh temporary directory",
+          "wall_seconds": ra_wall,
+          "stage_seconds": {str(k): v for k, v in sorted(ra_ctx.stage_seconds.items())},
+          "wer_percent": ra_wers, "rtf_streaming": ra_rtf,
+          "resume_seconds": ra_resume_s, "resume_stages_run": sorted(again.stage_seconds),
+          "resume_results_unchanged": ra_same,
+          "gather_launches": ra_launches["gather"], "mfcc_launches": ra_launches["mfcc"],
+          "gmm_launches": ra_launches["gmm"]})
+    for name in RUN_ALL_GATED:
+        gate = 5.0 if name.startswith("nnet3-tdnn") else 2.0
+        if not ra_wers.get(name, 1e9) <= gate:
+            cfg2_faults.append(f"run_all: {name} WER {ra_wers.get(name)} above {gate}")
+    if ra_rtf is None or not ra_rtf > 0:
+        cfg2_faults.append("run_all: no RTF line")
+    if again.stage_seconds or not ra_same:
+        cfg2_faults.append(f"run_all: the resumed run ran {sorted(again.stage_seconds)} "
+                           f"(RESULTS unchanged: {ra_same})")
+    if min(ra_launches["gather"], ra_launches["mfcc"], ra_launches["gmm"]) == 0:
+        cfg2_faults.append(f"run_all did not go through its kernels: {ra_launches}")
+
+    # train_sat: the SAT recipe at yesno scale from run_all's tri2b (its
+    # features, model and alignments), three speakers, so that the batched
+    # per-speaker fMLLR solve runs on the card
+    _, ra_text, _, _ = yesno.make_corpus(run_all.NUM_TRAIN, run_all.NUM_TEST)
+    ra_transform = np.load(os.path.join(ra_dir, "tri2b/transform.npy"))
+    ra_static = read_table(f"ark:{os.path.join(ra_dir, 'data/static_train.ark')}", "mat")
+    sat_feats = {k: (triphone.splice_numpy(v) @ ra_transform.T).astype(np.float32)
+                 for k, v in ra_static.items()}
+    sat_spk = {k: f"spk{int(k.split('_')[1]) % 3}" for k in sat_feats}
+    tri2b = AmGmmModel.load(os.path.join(ra_dir, "tri2b/final.mdl"), device=dev)
+    tri2b_ali = read_table(f"ark:{os.path.join(ra_dir, 'tri2b/ali.ark')}", "ivec")
+    zero_counts()
+    gmm_loglikes.launches = 0
+    sat_tim = {}
+    t0 = time.perf_counter()
+    sat_model, _, sat_w, sat_ali = triphone.train_sat(
+        sat_feats, ra_text, yesno.make_lang(), tri2b, tri2b_ali, sat_spk, num_leaves=60,
+        fmllr_iters=(2, 4), opts=GmmTrainOptions(num_iters=8, totgauss=60,
+                                                  realign_iters=(1, 2, 3, 4, 6)),
+        device=dev, timings=sat_tim)
+    torch.cuda.synchronize()
+    sat_wall = time.perf_counter() - t0
+    sat_launches = read_counts("train_sat")
+    sat_launches["gmm"] = gmm_loglikes.launches
+    emit({"phase": "train_sat", "card": card, "utterances": len(sat_feats),
+          "speakers": sorted(sat_w), "wall_seconds": sat_wall,
+          "fmllr_seconds": sat_tim.get("fmllr_seconds"),
+          "gaussians_final": sat_model.am.num_gauss, "aligned": len(sat_ali),
+          "transform_max_abs": {s: float(np.abs(w).max()) for s, w in sat_w.items()},
+          "gather_launches": sat_launches["gather"], "gmm_launches": sat_launches["gmm"]})
+    if (sorted(sat_w) != ["spk0", "spk1", "spk2"] or len(sat_ali) != len(sat_feats)
+            or not all(np.isfinite(w).all() for w in sat_w.values())):
+        cfg2_faults.append(f"train_sat: transforms for {sorted(sat_w)}, "
+                           f"{len(sat_ali)} alignments")
+
+    # the decode: the first 64 clean held-out utterances through K2, spliced
+    # and projected, an HCLG of the new tree and the pruned trigram
+    t0 = time.perf_counter()
+    lm_csr, lm_graph_tim = lm_graph.result()
+    graph_pool.shutdown()
+    lm_stages["graph_wait_seconds"] = time.perf_counter() - t0
+    lm_stages.update(lm_graph_tim)
+    dkeys = sorted(system.test_waves)[:LDA_MLLT_DECODE_UTTS]
+    dtext = {k: system.test_text[k] for k in dkeys}
+    zero_counts()
+    gmm_loglikes.launches = 0
+    t0 = time.perf_counter()
+    dstatics = compute_utterance_feats({k: system.test_waves[k] for k in dkeys},
+                                       minilib.SAMP_FREQ, dev, deltas=False, chunk=FEAT_CHUNK)
+    dfeats = {k: (triphone.splice_numpy(v) @ lm_res.transform.T).astype(np.float32)
+              for k, v in dstatics.items()}
+    torch.cuda.synchronize()
+    lm_stages["decode_features_seconds"] = time.perf_counter() - t0
+    lm_passes = {}
+    t0 = time.perf_counter()
+    hyps1 = decode.decode_dataset(lm_res.model, lm_csr, system.words, dfeats,
+                                  decode.DecodeOptions())
+    torch.cuda.synchronize()
+    lm_stages["decode_seconds"] = time.perf_counter() - t0
+    lm_passes["lda_mllt"] = decode.score_hyps(dtext, hyps1)
+    t0 = time.perf_counter()
+    hyp_keys = sorted(k for k, v in hyps1.items() if v)
+    _, fp, fnf = pad_feature_batch({k: dfeats[k] for k in hyp_keys})
+    fgraphs = GraphCompiler(lm_lang, lm_res.ctx_dep, lm_res.model.tm).compile_csr_graphs(
+        [hyps1[k] for k in hyp_keys])
+    falis, _ = align_all(lm_res.model.am, fgraphs, torch.from_numpy(fp).to(dev), fnf,
+                         ViterbiOptions(beam=32.0))
+    fw = triphone.estimate_fmllr_per_speaker(
+        lm_res.model, dfeats, {k: a for k, a in zip(hyp_keys, falis) if a is not None},
+        {k: k for k in dfeats}, min_count=50.0)
+    adapted = {k: apply_affine_transform(v, fw[k]) if k in fw else v
+               for k, v in dfeats.items()}
+    torch.cuda.synchronize()
+    lm_stages["fmllr_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hyps2 = decode.decode_dataset(lm_res.model, lm_csr, system.words, adapted,
+                                  decode.DecodeOptions())
+    torch.cuda.synchronize()
+    lm_stages["decode_fmllr_seconds"] = time.perf_counter() - t0
+    lm_passes["lda_mllt+fmllr"] = decode.score_hyps(dtext, hyps2)
+    lm_dec_launches = read_counts("lda_mllt_minilib_decode")
+    lm_dec_launches["gmm"] = gmm_loglikes.launches
+    emit({"phase": "lda_mllt_minilib", "card": card, "utterances": len(lm_statics),
+          "frames": lm_hist[0]["frames"], "leaves": lm_res.ctx_dep.num_pdfs,
+          "dim": int(lm_res.transform.shape[0]), **LDA_MLLT_OPTS,
+          "num_iters": lm_opts.num_iters, "totgauss": lm_opts.totgauss,
+          "gaussians": [h["gaussians"] for h in lm_hist],
+          "gaussians_final": lm_res.model.am.num_gauss,
+          "like_per_frame": [h["like_per_frame"] for h in lm_hist],
+          "against_cpu_record": lm_verdict, "rerun_from_cpu_statics": lm_rerun,
+          "like_tolerance": LDA_MLLT_LIKE_TOL, "transform_tolerance": LDA_MLLT_TRANSFORM_REL,
+          "stage_seconds": {**lm_stages, **{k: v for k, v in lm_tim.items()
+                                            if k.endswith("seconds")}},
+          "align_passes": lm_tim.get("align_passes"),
+          "decode_utterances": len(dkeys), "fmllr_utterances": len(fw),
+          "hclg_states": lm_csr.num_states, "hclg_arcs": lm_csr.num_arcs,
+          "wer_percent": {n: s.wer for n, s in lm_passes.items()},
+          "errors": {n: s.errors for n, s in lm_passes.items()},
+          "ref_words": lm_passes["lda_mllt"].ref_len,
+          "train_launches": {k: lm_launches[k] for k in ("gather", "mfcc", "gmm")},
+          "decode_launches": {k: lm_dec_launches[k] for k in ("gather", "mfcc", "gmm")}})
+    for n, s in lm_passes.items():
+        if not (s.ref_len > 0 and s.wer <= LDA_MLLT_MAX_WER):
+            cfg2_faults.append(f"lda_mllt_minilib: {n} {s.report()}")
+    if min(lm_launches["gmm"], lm_launches["gather"], lm_launches["mfcc"],
+           lm_dec_launches["gmm"], lm_dec_launches["gather"]) == 0:
+        cfg2_faults.append(f"lda_mllt_minilib did not go through its kernels: "
+                           f"{lm_launches}, {lm_dec_launches}")
+
+    # gmm_kernel_depths: K3 at its two new depths, against its plain version
+    # on the models and features these recipes produce: run_all's tri2b on
+    # the yesno test set's LDA+MLLT features (D = 20, K = 48) and the minilib
+    # tri2b on the 600 training utterances' (D = 40, K = 88), each whole and
+    # at 1, 45 and 129 rows; timed with its bound and the product alone
+    ra_test = read_table(f"ark:{os.path.join(ra_dir, 'data/static_test.ark')}", "mat")
+    y20 = torch.from_numpy(np.concatenate(
+        [(triphone.splice_numpy(ra_test[k]) @ ra_transform.T).astype(np.float32)
+         for k in sorted(ra_test)])).to(dev)
+    m40 = torch.from_numpy(np.concatenate(
+        [(triphone.splice_numpy(lm_statics[k]) @ lm_res.transform.T).astype(np.float32)
+         for k in sorted(lm_statics)])).to(dev)
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    depth_ptxas = ptxas_by_depth(_build.build_logs().get("gmm", ""))
+    k3_depths = {}
+    for name, gmodel, x in (("yesno_tri2b_D20", tri2b, y20), ("minilib_tri2b_D40",
+                                                            lm_res.model, m40)):
+        gwd = gmodel.am.weights()
+        edge_err, edge_share = check_gmm(torch, gmm_loglikes, gmm_loglikes_plain,
+                                         [(x[:n].contiguous(), gwd) for n in (1, 45, 129)])
+        line = k3_at(torch, gmm_loglikes, gmm_loglikes_plain, gwd, x, plug)
+        line["depth"] = gwd.depth
+        line["max_abs_err"] = max(line["max_abs_err"], edge_err)
+        line["worst_share_of_tolerance"] = max(line["worst_share_of_tolerance"], edge_share)
+        line["ptxas"] = depth_ptxas.get(f"K={gwd.depth}")
+        k3_depths[name] = line
+    emit({"phase": "gmm_kernel_depths", "card": card,
+          "tolerance": f"{GMM_TOL[0]} + {GMM_TOL[1]}*|plain|",
+          "bound_basis": "3xTF32 products at 495 TFLOP/s, or bytes at 3.35 TB/s",
+          **k3_depths})
+    if sorted(v["depth"] for v in k3_depths.values()) != [48, 88]:
+        cfg2_faults.append(f"gmm_kernel_depths: depths {[v['depth'] for v in k3_depths.values()]}")
+    del plug, y20, m40, lm_res, lm_csr, lm_statics, lm_tri, tri2b, sat_model
+    torch.cuda.empty_cache()
+    shutil.rmtree(ra_dir, ignore_errors=True)
+    cfg2_launches = {"run_all": ra_launches, "train_sat": sat_launches,
+                     "lda_mllt_minilib": lm_launches,
+                     "lda_mllt_minilib_decode": lm_dec_launches}
+    if cfg2_faults:
+        raise RuntimeError("BASELINE config 2 and run_all: " + "; ".join(cfg2_faults))
+
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
@@ -3091,7 +3869,8 @@ def main() -> int:
                       + sd_launches["gather"]
                       + sum(n["gather"] for p in (ce_launches, ch_launches, ci_launches,
                                                   cv_launches) for n in p.values())
-                      + sum(p["gather"] for p in (tiv_launches, ng_launches, cb_launches))),
+                      + sum(p["gather"] for p in (tiv_launches, ng_launches, cb_launches))
+                      + sum(p["gather"] for p in cfg2_launches.values())),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -3114,7 +3893,8 @@ def main() -> int:
                                  for n, c in p.items()},
                               "train_ivector": tiv_launches["gather"],
                               "train_ng": ng_launches["gather"],
-                              "combine": cb_launches["gather"]},
+                              "combine": cb_launches["gather"],
+                              **{n: p["gather"] for n, p in cfg2_launches.items()}},
          "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err), "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
@@ -3136,7 +3916,8 @@ def main() -> int:
                       + y_launches["mfcc"] + tl_launches["mfcc"] + sd_launches["mfcc"]
                       + sum(n["mfcc"] for p in (ce_launches, ch_launches, ci_launches,
                                                 cv_launches) for n in p.values())
-                      + sum(p["mfcc"] for p in (tiv_launches, ng_launches, cb_launches))),
+                      + sum(p["mfcc"] for p in (tiv_launches, ng_launches, cb_launches))
+                      + sum(p["mfcc"] for p in cfg2_launches.values())),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -3158,7 +3939,8 @@ def main() -> int:
                                  for n, c in p.items()},
                               "train_ivector": tiv_launches["mfcc"],
                               "train_ng": ng_launches["mfcc"],
-                              "combine": cb_launches["mfcc"]},
+                              "combine": cb_launches["mfcc"],
+                              **{n: p["mfcc"] for n, p in cfg2_launches.items()}},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -3166,7 +3948,7 @@ def main() -> int:
                  *a_launches.values(), ty_launches, *tr_launches.values(), y_launches,
                  tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values(),
                  *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
-                 cb_launches))
+                 cb_launches, *cfg2_launches.values()))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
@@ -3178,19 +3960,23 @@ def main() -> int:
          "replaces": "old_kaldi_git_tpu/ops/gmm_kernel.py:125",
          "launches": (k3_tdnn_launches + g_launches["gmm"]
                       + sum(a["gmm"] for a in a_launches.values())
-                      + ty_launches["gmm"] + sum(t["gmm"] for t in tr_launches.values())),
+                      + ty_launches["gmm"] + sum(t["gmm"] for t in tr_launches.values())
+                      + sum(p["gmm"] for p in cfg2_launches.values())),
          "launches_by_path": {"decode": k3_tdnn_launches,
                               "decode_gmm": g_launches["gmm"],
                               **{n: a["gmm"] for n, a in a_launches.items()},
                               "train_yesno": ty_launches["gmm"],
-                              **{n: t["gmm"] for n, t in tr_launches.items()}},
+                              **{n: t["gmm"] for n, t in tr_launches.items()},
+                              **{n: p["gmm"] for n, p in cfg2_launches.items()}},
          "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]
-                            + [v["max_abs_err"] for v in k3_train.values()]),
+                            + [v["max_abs_err"] for v in k3_train.values()]
+                            + [v["max_abs_err"] for v in k3_depths.values()]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": max(k3_ops_ms, k3_bytes_ms),
          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
          "library_ms": None,
-         "at_other_shapes": {**k3_align, **{f"train_{k}": v for k, v in k3_train.items()}}},
+         "at_other_shapes": {**k3_align, **{f"train_{k}": v for k, v in k3_train.items()},
+                             **{f"depth_{k}": v for k, v in k3_depths.items()}}},
     ]})
     if args.noisy:
         waves, text = minilib.make_test_set(minilib.MinilibOptions(),

@@ -12,6 +12,12 @@ class SymbolTable:
     def __init__(self):
         self._sym2id: Dict[str, int] = {}
         self._id2sym: Dict[int, str] = {}
+        self._next = 0  # one past the largest id bound
+
+    def __setstate__(self, state) -> None:
+        # a table pickled without its counter
+        self.__dict__.update(state)
+        self._next = max(self._id2sym, default=-1) + 1
 
     @staticmethod
     def with_eps(eps: str = "<eps>") -> "SymbolTable":
@@ -23,11 +29,12 @@ class SymbolTable:
         if sym in self._sym2id:
             return self._sym2id[sym]
         if idx is None:
-            idx = max(self._id2sym, default=-1) + 1
+            idx = self._next
         if idx in self._id2sym:
             raise ValueError(f"id {idx} already bound to {self._id2sym[idx]!r}")
         self._sym2id[sym] = idx
         self._id2sym[idx] = sym
+        self._next = max(self._next, idx + 1)
         return idx
 
     def __getitem__(self, key):

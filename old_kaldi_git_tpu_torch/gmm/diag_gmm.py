@@ -13,7 +13,9 @@ device: the iVector extractor's UBM needs its per-component posteriors at
 that precision.  Training (gmm/mle.py) makes a new AmDiagGmm on the same
 device after every update, whose rows are packed anew on first use; the
 flat start is `AmDiagGmm.init_mono`, and the writers emit the JAX package's
-bytes (float32 gconsts, weights, means·inv_vars, inv_vars).
+bytes (float32 gconsts, weights, means·inv_vars, inv_vars).  Whoever changes
+a pdf's parameters in place calls `AmDiagGmm.invalidate()`, which drops the
+packed rows and the device tensors.
 """
 
 from __future__ import annotations
@@ -156,6 +158,14 @@ class AmDiagGmm:
     @property
     def num_gauss(self) -> int:
         return sum(p.num_mix for p in self.pdfs)
+
+    def invalidate(self) -> None:
+        """Forget what derives from the pdfs' parameters, after they were
+        changed in place (transform/mllt.py `transform_gmm_means`): the
+        packed kernel rows and every DiagGmm's device tensors."""
+        self._weights = None
+        for pdf in self.pdfs:
+            pdf.__dict__.pop("_dev", None)
 
     @staticmethod
     def init_mono(num_pdfs: int, glob_mean: np.ndarray, glob_var: np.ndarray,

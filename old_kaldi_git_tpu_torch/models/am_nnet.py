@@ -7,24 +7,31 @@ log p(x|pdf) ∝ log softmax(logits) − log prior for the decoder, batched
 [B, T, num_pdfs]; float32.  Training (models/train.py) runs the same
 modules in train mode; `set_priors_from_posteriors` sets the priors after
 it, and `save` writes the port's own format, which `load` reads beside the
-JAX package's pickles.
+JAX package's pickles.  `AmNnetModel` is the nnet3 `final.mdl` bundle: the
+transition model beside the network (reference am-nnet-simple.h models are
+written behind a TransitionModel), in the port's format or the JAX
+package's pickle.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 from typing import Optional
 
 import numpy as np
 import torch
 
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
+from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
 from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnLayerSpec, TdnnModel
+from old_kaldi_git_tpu_torch.utils import io_funcs as iof
 
 # first bytes of a file `torch.save` writes (a zip archive); the JAX
 # package's models are plain pickles
 _ZIP_MAGIC = b"PK"
 SAVE_FORMAT = "old_kaldi_git_tpu_torch.AmNnet/1"
+BUNDLE_FORMAT = "old_kaldi_git_tpu_torch.AmNnetModel/1"
 
 # flax's lecun_normal: a normal truncated at ±2σ, σ chosen so that the
 # truncated draw has variance 1/fan_in
@@ -145,3 +152,44 @@ class AmNnet:
         priors = d["log_priors"]
         return AmNnet(config, model, None if priors is None else priors.numpy(),
                       device=device, ivector_dim=int(d["ivector_dim"]))
+
+
+@dataclasses.dataclass
+class AmNnetModel:
+    """The nnet3 `final.mdl` bundle: the network with its priors and the
+    transition model whose tid → pdf map the decoders need."""
+
+    am: AmNnet
+    tm: TransitionModel
+
+    def save(self, path: str) -> None:
+        """The port's format: torch.save of AmNnet.saved() and the
+        transition model's Kaldi binary bytes."""
+        buf = io.BytesIO()
+        iof.init_kaldi_output_stream(buf, True)
+        self.tm.write(buf)
+        torch.save({"format": BUNDLE_FORMAT, "am": self.am.saved(),
+                    "tm": buf.getvalue()}, path)
+
+    @staticmethod
+    def load(path: str, device: DeviceLike = None) -> "AmNnetModel":
+        """A bundle written by `save`, or the JAX package's pickled
+        AmNnetModel (read without importing that package, convert.py)."""
+        with open(path, "rb") as f:
+            magic = f.read(len(_ZIP_MAGIC))
+        if magic != _ZIP_MAGIC:
+            from old_kaldi_git_tpu_torch import convert
+
+            d = convert.load_pickle(path)
+            if not isinstance(d, dict) or d.get("kind") != "am-nnet-model":
+                raise ValueError(f"{path}: not an AmNnetModel bundle")
+            am = convert.am_nnet_from_jax(convert._fields_of(d["config"]), d["variables"],
+                                          d.get("log_priors"), device=device,
+                                          ivector_dim=int(d.get("ivector_dim", 0)))
+            return AmNnetModel(am, convert.transition_model_from_pickle(d["tm"]))
+        d = torch.load(path, map_location="cpu", weights_only=True)
+        if d.get("format") != BUNDLE_FORMAT:
+            raise ValueError(f"{path}: not a {BUNDLE_FORMAT} file")
+        buf = io.BufferedReader(io.BytesIO(d["tm"]))
+        iof.init_kaldi_input_stream(buf)
+        return AmNnetModel(AmNnet.from_saved(d["am"], device, path), TransitionModel.read(buf))

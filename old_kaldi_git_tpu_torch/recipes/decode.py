@@ -5,7 +5,9 @@ gmm-decode-faster + steps/decode.sh + local/score.sh): the GMM evaluates
 every pdf for the whole padded batch on the device (the GMM kernel,
 ops/gmm_kernel.py), the batched beam decoder searches the shared graph, word
 ids map back to words, and the hypotheses are scored against the reference
-text.
+text.  `decode_dataset_with_lattices` keeps lattices (reference
+gmm-latgen-faster): the token-sparse search emits its lattice records on the
+device and the host builds each utterance's raw lattice from them.
 """
 
 from __future__ import annotations
@@ -16,8 +18,14 @@ import numpy as np
 import torch
 
 from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph
-from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch
+from old_kaldi_git_tpu_torch.decoder.viterbi import (
+    ViterbiOptions,
+    decode_batch,
+    decode_batch_tokens,
+)
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
+from old_kaldi_git_tpu_torch.lat.lattice import lattice_from_token_records
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.edit_distance import EditStats, compute_wer
 from old_kaldi_git_tpu_torch.utils.log import get_logger
@@ -85,3 +93,47 @@ def score_hyps(ref_text: Dict[str, Sequence[str]],
                         {k: list(v) for k, v in hyps.items()})
     log.info("scoring: %s", stats.report())
     return stats
+
+
+def decode_dataset_with_lattices(
+    model: AmGmmModel,
+    graph: CsrGraph,
+    lang: Union[Sequence[str], object],
+    feats: Dict[str, np.ndarray],
+    opts: Optional[DecodeOptions] = None,
+    lattice_beam: float = 10.0,
+    determinize: bool = False,
+    timings: Optional[Dict[str, float]] = None,
+) -> Dict[str, object]:
+    """{utt: [T, D] features} → {utt: Lattice}, or {utt: CompactLattice}
+    with determinize=True (the reference's --determinize-lattice), on the
+    model's device: the GMM over the padded batch, `decode_batch_tokens`
+    with lattice records within `lattice_beam`, then
+    `lattice_from_token_records` on the host.  An utterance whose search
+    failed has no lattice, with a warning.  `lang` is unused (the JAX
+    package's signature).  timings: `loglikes_seconds`, decode_batch_tokens'
+    and `lattice_seconds`."""
+    opts = opts or DecodeOptions()
+    dev = model.am.device
+    keys, padded, nf = pad_feature_batch(feats)
+    clock = StageClock(dev, timings)
+    loglikes = model.am.loglikes_batch(torch.from_numpy(padded).to(dev))
+    clock.lap("loglikes_seconds")
+    results = decode_batch_tokens(
+        graph, loglikes, nf, ViterbiOptions(beam=opts.beam, max_active=opts.max_active,
+                                            acoustic_scale=opts.acoustic_scale),
+        want_lattice=True, lattice_beam=lattice_beam, device=dev, timings=timings)
+    del loglikes
+    clock.lap(None)
+    lats: Dict[str, object] = {}
+    for k, res in zip(keys, results):
+        if res is None or res.token_lattice is None:
+            log.warning("no lattice for %s", k)
+            continue
+        lat = lattice_from_token_records(graph, res.token_lattice)
+        if lat is not None:
+            lats[k] = (determinize_lattice_pruned(lat, lattice_beam,
+                                                  acoustic_scale=opts.acoustic_scale)
+                       if determinize else lat)
+    clock.lap("lattice_seconds")
+    return lats

@@ -7,8 +7,8 @@ egs/yesno/s5): two words with distinct formant structure plus silence,
 package's synthesis (bit-equal waves and text), then MFCC through the MFCC
 kernel → flat-start monophone GMM training (recipes/mono.py: K3 and the
 alignment scan with K1) → unigram G → mkgraph → batched decode → WER.
-Writing the waves to `workdir` needs a wav writer, which the port lacks;
-`run_yesno` writes the trained `final.mdl` there.
+`run_yesno` writes the trained `final.mdl` to `workdir`; BASELINE config 2
+on this corpus is recipes/run_all.py.
 """
 
 from __future__ import annotations
@@ -111,8 +111,8 @@ def compute_feats(waves: Dict[str, np.ndarray],
 
 def compute_static_feats(waves: Dict[str, np.ndarray],
                          device: DeviceLike = None) -> Dict[str, np.ndarray]:
-    """Static 13-dim MFCC + per-utterance CMN, no deltas (the input of the
-    LDA+MLLT pipeline, which is not ported)."""
+    """Static 13-dim MFCC + per-utterance CMN, no deltas: the input of the
+    LDA+MLLT pipeline (recipes/triphone.train_lda_mllt)."""
     return compute_utterance_feats(waves, SAMP_FREQ, resolve_device(device),
                                    deltas=False, chunk=max(1, len(waves)))
 

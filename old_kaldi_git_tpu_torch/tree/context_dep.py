@@ -1,8 +1,9 @@
 """ContextDependency: the phone-context → pdf-id mapping.
 
-Own copy of old_kaldi_git_tpu/tree/context_dep.py without its
-serialisation: the committed tree comes from `tree.pkl` through
-convert.context_dependency_from_pickle.
+Own copy of old_kaldi_git_tpu/tree/context_dep.py.  `write` / `read` use
+the JAX package's token format (CE / TE / SE event maps), so that a tree
+written by either package reads in the other; the committed `tree.pkl`
+reads through convert.context_dependency_from_pickle.
 
 Parity with reference src/tree/context-dep.h: wraps (N, P, EventMap root).
 compute(phone_window, pdf_class) → pdf-id; get_pdf_info enumerates which
@@ -11,7 +12,7 @@ compute(phone_window, pdf_class) → pdf-id; get_pdf_info enumerates which
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import BinaryIO, Dict, List, Optional, Sequence, Set, Tuple
 
 from old_kaldi_git_tpu_torch.tree.event_map import (
     KEY_PDF_CLASS,
@@ -21,6 +22,7 @@ from old_kaldi_git_tpu_torch.tree.event_map import (
     TableEventMap,
     make_event,
 )
+from old_kaldi_git_tpu_torch.utils import io_funcs as iof
 from old_kaldi_git_tpu_torch.utils.log import KaldiError
 
 
@@ -66,6 +68,65 @@ class ContextDependency:
                 for pdf in self.root.multi_map(event_sets):
                     info[pdf].add((phone, pdf_class))
         return info
+
+    def write(self, f: BinaryIO) -> None:
+        """<ContextDependency> N P, the event map, </ContextDependency>."""
+        iof.write_token(f, "<ContextDependency>")
+        iof.write_int32(f, self.N)
+        iof.write_int32(f, self.P)
+        _write_event_map(f, self.root)
+        iof.write_token(f, "</ContextDependency>")
+
+    @staticmethod
+    def read(f: BinaryIO) -> "ContextDependency":
+        iof.expect_token(f, "<ContextDependency>")
+        N = iof.read_int32(f)
+        P = iof.read_int32(f)
+        root = _read_event_map(f)
+        iof.expect_token(f, "</ContextDependency>")
+        return ContextDependency(N, P, root)
+
+
+def _write_event_map(f: BinaryIO, em: EventMap) -> None:
+    """CE answer | TE key n (value, map)*n in value order | SE key
+    yes-set yes no."""
+    if isinstance(em, ConstantEventMap):
+        iof.write_token(f, "CE")
+        iof.write_int32(f, em.answer)
+    elif isinstance(em, TableEventMap):
+        iof.write_token(f, "TE")
+        iof.write_int32(f, em.key)
+        iof.write_int32(f, len(em.table))
+        for v in sorted(em.table):
+            iof.write_int32(f, v)
+            _write_event_map(f, em.table[v])
+    elif isinstance(em, SplitEventMap):
+        iof.write_token(f, "SE")
+        iof.write_int32(f, em.key)
+        iof.write_int_vector(f, sorted(em.yes_set))
+        _write_event_map(f, em.yes)
+        _write_event_map(f, em.no)
+    else:
+        raise KaldiError(f"unknown EventMap type {type(em)}")
+
+
+def _read_event_map(f: BinaryIO) -> EventMap:
+    tok = iof.read_token(f)
+    if tok == "CE":
+        return ConstantEventMap(iof.read_int32(f))
+    if tok == "TE":
+        key = iof.read_int32(f)
+        table = {}
+        for _ in range(iof.read_int32(f)):
+            v = iof.read_int32(f)
+            table[v] = _read_event_map(f)
+        return TableEventMap(key, table)
+    if tok == "SE":
+        key = iof.read_int32(f)
+        yes_set = [int(x) for x in iof.read_int_vector(f)]
+        yes = _read_event_map(f)
+        return SplitEventMap(key, yes_set, yes, _read_event_map(f))
+    raise KaldiError(f"unknown EventMap token {tok!r}")
 
 
 def monophone_context_dependency(

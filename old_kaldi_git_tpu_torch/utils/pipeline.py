@@ -15,7 +15,8 @@ artifact):
 * stages run in ascending number order; stages below `stage` are skipped;
 * a stage whose `produces` artifacts all exist is skipped;
 * with `log_to_files`, each stage logs to <dir>/log/<number>.<slug>.log;
-* stages share state through the `ctx` object (attribute bag + path helper).
+* stages share state through the `ctx` object (attribute bag + path helper);
+  `ctx.stage_seconds` holds the host-clock seconds of each stage that ran.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import contextlib
 import logging
 import os
 import time
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 from old_kaldi_git_tpu_torch.utils.log import _ROOT, get_logger
 
@@ -36,6 +37,7 @@ class PipelineContext:
 
     def __init__(self, workdir: str):
         self.workdir = workdir
+        self.stage_seconds: Dict[int, float] = {}
 
     def path(self, *parts: str) -> str:
         p = os.path.join(self.workdir, *parts)
@@ -100,5 +102,6 @@ class Pipeline:
                     lf.write(f"# done in {time.time() - t0:.1f}s\n")
             else:
                 fn(self.ctx)
+            self.ctx.stage_seconds[number] = time.time() - t0
             log.info("stage %d (%s): done in %.1fs", number, name, time.time() - t0)
         return self.ctx

@@ -6,9 +6,10 @@ always runs, per-stage logs.  `lm/ngram.py`'s pruning, ARPA writer and
 perplexity against the JAX package's: the same ARPA text, the same
 perplexity.  `save_csr` / `load_csr` round trips, folded and split-eps.
 `build_system --stage 9` on a workdir holding the committed stage 1-8
-artifacts, at options small enough for the CPU (an 8-Gaussian UBM,
-4-dim iVectors, 2-layer 32-wide models, one epoch, a chain tree of about
-40 leaves on a first-order phone LM):
+artifacts, at options small enough for the CPU (the first 100 training
+utterances and their alignments, an 8-Gaussian UBM, 4-dim iVectors,
+2-layer 32-wide models, one epoch, a chain tree of about 40 leaves on a
+first-order phone LM):
 it writes final.ie, final_ivec.am and chain_ivec.mdl, skips them on a
 second run, they load through load_system / load_chain_system, and the
 chain+iVec model, whose tree is not chain.mdl's, is refused on
@@ -102,14 +103,27 @@ def test_save_csr_round_trip(name, tmp_path):
 SMALL = minilib.MinilibOptions(ivector_ubm_gauss=8, ivector_dim=4, hidden_dim=32,
                                bottleneck_dim=8, num_layers=2, num_epochs=1, chain_epochs=1,
                                tree_leaves=40)
+FIRST = 100  # training utterances of the stage 9 build
 
 
 def test_build_system_from_stage_9(tmp_path, monkeypatch):
     # a first-order phone LM and minibatches of 100 keep stage 11's den graph
-    # and its 600 utterances to seconds on the CPU
+    # to seconds on the CPU; so do the first 100 training utterances and
+    # their alignments in tri_ali.pkl for stages 9-11
     full = minilib.chain_train_options
     monkeypatch.setattr(minilib, "chain_train_options", lambda o: dataclasses.replace(
         full(o), phone_lm_order=1, minibatch_size=100))
+    waves, text = minilib.training_set(SMALL)
+    keys = sorted(waves)[:FIRST]
+    monkeypatch.setattr(minilib, "training_set", lambda o: (
+        {k: waves[k] for k in keys}, {k: text[k] for k in keys}))
+    tri_system = minilib._tri_system
+
+    def first_utterances(workdir):
+        tri, ali = tri_system(workdir)
+        return tri, {k: ali[k] for k in keys}
+
+    monkeypatch.setattr(minilib, "_tri_system", first_utterances)
     wd = str(tmp_path / "sys")
     os.makedirs(wd)
     for name in STAGES_1_TO_8:
