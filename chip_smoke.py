@@ -67,7 +67,18 @@ solved for its speakers at once), LDA+MLLT at minilib scale
 from tri.mdl, 2,000 leaves, 40 dimensions, held to the port's CPU run;
 then the first 64 held-out utterances decoded before and after
 per-utterance fMLLR on an HCLG of the new tree), and the GMM kernel at its
-two new depths (K = 48 and 88) on those models' features.
+two new depths (K = 48 and 88) on those models' features.  Then sequence
+training: flat-start LF-MMI (recipes/chain.train_chain_e2e) on yesno as the
+JAX package's tests run it and on the 600 training utterances at full width
+(one step's loss held to the CPU's); semi-supervised LF-MMI
+(recipes/semisup) on yesno from four initial draws and with 64 + 64
+training utterances on chain.mdl, its lattice numerators from the
+token-sparse lattice records on chain_hclg.npz, each held to num ≤ den;
+MMI by EBW (recipes/mmi.train_mmi) on yesno and with tri.mdl on 64
+training utterances, the first iteration's statistics and update held to
+the CPU's from the same lattices, and the GMM kernel on the updated
+models; nnet3 sMBR / MMI (models/discriminative) on the two-path toy and
+of final.am on 64 training utterances, its gradient held to the CPU's.
 --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
@@ -1534,6 +1545,544 @@ def stream_words(torch, dec, feats, chunk):
         wall += time.perf_counter() - t0
         frames += -(-len(f) // dec.fsf)
     return words, wall, frames
+
+
+# sequence training (phases train_e2e, train_semisup, train_mmi,
+# train_discriminative): the JAX package's tests' flows at yesno scale, and
+# minilib at full width, cut in utterances where the time asks
+SEQ_UTTS = 64  # minilib utterances of the semisup (each half), MMI and sMBR runs
+E2E_MINILIB_EPOCHS = 2
+# yesno semi-supervised training: the JAX slow test's flow from init 0 (the
+# gated run), and from inits 1-3 as a record.  A 30-step seed is as sensitive
+# to its initial draw in the JAX package (its inits 0-3 give seeds at 0, 68,
+# 53 and 5 % WER) as in the port, and 6 test utterances hold 19 words
+SEMISUP_YESNO_INITS = (0, 1, 2, 3)
+NUM_LE_DEN_TOL = 1e-3  # num ≤ den + this on random or trained logits (tests/test_semisup.py)
+EBW_MEAN_TOL = 1e-6  # EBW's means after one iteration, card vs CPU from the same lattices
+DISC_GRAD_TOL = 1e-5  # discriminative_grad from the card's vs the CPU's loglikes
+
+
+class SequenceToy:
+    """tests/test_discriminative.py's two-path toy: tid = phone, pdf = tid −
+    1; path A emits tid 1 every frame, path B tid 2."""
+
+    @staticmethod
+    def tid_to_phone(t):
+        return int(t)
+
+    @staticmethod
+    def tid_to_pdf(t):
+        return int(t) - 1
+
+    @staticmethod
+    def lattice(frames):
+        from old_kaldi_git_tpu_torch.lat.lattice import Lattice, LatticeArc
+
+        lat = Lattice()
+        states_a = [lat.add_state() for _ in range(frames)]
+        states_b = [lat.add_state() for _ in range(frames - 1)]
+        end = lat.add_state()
+        lat.start = states_a[0]
+        chain_a, chain_b = states_a + [end], [states_a[0]] + states_b + [end]
+        for i in range(frames):
+            lat.arcs[chain_a[i]].append(LatticeArc(1, 0, 0.0, 0.0, chain_a[i + 1]))
+            lat.arcs[chain_b[i]].append(LatticeArc(2, 0, 0.0, 0.0, chain_b[i + 1]))
+        lat.finals[end] = (0.0, 0.0)
+        return lat
+
+
+def sequence_training(torch, np, c) -> dict:
+    """The four sequence-training phases on the card; `c` holds main()'s
+    objects.  Each path's launch counts are set to 0 just before it and read
+    just after; a fault is collected and raised after the four phases.
+    Returns {"launches": {path: K1, K2 and K3 counts}, "k1": K1 timed at
+    the new paths' shapes, "k3": K3 likewise}."""
+    import statistics
+
+    from old_kaldi_git_tpu_torch.chain.e2e import (
+        NumeratorGraphBatch, generic_numerator_logprob)
+    from old_kaldi_git_tpu_torch.chain.loss import ChainLossOptions, denominator_logprob
+    from old_kaldi_git_tpu_torch.decoder.graph import mkgraph_csr
+    from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch_tokens
+    from old_kaldi_git_tpu_torch.fst.lang import make_unigram_grammar_fst
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm, AmGmmModel, DiagGmm
+    from old_kaldi_git_tpu_torch.gmm.ebw import EbwOptions, ebw_update
+    from old_kaldi_git_tpu_torch.lat.lattice import lattice_from_token_records
+    from old_kaldi_git_tpu_torch.models import discriminative as disc
+    from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+    from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnLayerSpec
+    from old_kaldi_git_tpu_torch.models.train import NnetTrainOptions, TrainState, make_optimizer
+    from old_kaldi_git_tpu_torch.recipes import chain as chain_recipe, mmi, semisup, yesno
+    from old_kaldi_git_tpu_torch.recipes.decode import (
+        DecodeOptions, decode_dataset, score_hyps)
+    from old_kaldi_git_tpu_torch.recipes.mono import MonoTrainOptions, train_mono
+    from old_kaldi_git_tpu_torch.tree.context_dep import monophone_context_dependency
+    from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
+
+    dev, card, emit = c.dev, c.card, c.emit
+    faults, launches = [], {}
+    k1_new, k3_new = {}, {}
+    ylang = yesno.make_lang()
+    fsf = c.chain.model.frame_subsampling_factor
+    minilib = c.minilib
+
+    def counted(name, fn):
+        """fn() with the counts set to 0 just before and read just after."""
+        c.zero_counts()
+        c.gmm_loglikes.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = c.read_counts(name)
+        got["gmm"] = c.gmm_loglikes.launches
+        launches[name] = got
+        return out, wall, got
+
+    def median_ms(rep):
+        return 1e3 * statistics.median(rep["step_seconds"]) if rep.get("step_seconds") else None
+
+    def rising(objs):
+        return len(objs) > 1 and objs[-1] > objs[0]
+
+    def num_le_den(model, graphs, feats, keys):
+        """[B] numerators and denominators (leaky 0) of `graphs` on the
+        model's logits of `keys`, on the card."""
+        padded, nf = chain_recipe.pad_subsampled(feats, keys, model.frame_subsampling_factor)
+        with torch.no_grad():
+            logits = model.am.logits(padded, output_stride=model.frame_subsampling_factor)
+            nft = torch.from_numpy(nf).to(dev)
+            num = generic_numerator_logprob(logits, NumeratorGraphBatch.from_csr_graphs(graphs),
+                                            nft)
+            den = denominator_logprob(logits, nft, model.den, 0.0)
+        return num.cpu().numpy(), den.cpu().numpy()
+
+    # ---- train_e2e: flat-start LF-MMI --------------------------------------
+    def e2e_yesno():
+        tw, tt, sw, st = yesno.make_corpus(24, 8)
+        hist, rep = [], {}
+        ch = chain_recipe.train_chain_e2e(
+            yesno.compute_feats(tw, dev), tt, ylang, chain_recipe.ChainTrainOptions(
+                num_epochs=50, minibatch_size=8, hidden_dim=128, bottleneck_dim=32,
+                num_layers=3, initial_lr=2e-3, final_lr=2e-4),
+            device=dev, history=hist, report=rep)
+        graph = chain_recipe.make_chain_decode_graph(
+            ch, ylang, make_unigram_grammar_fst(list(tt.values()), ylang.words))
+        hyps = chain_recipe.decode_chain(ch, graph, ylang, yesno.compute_feats(sw, dev),
+                                         beam=20.0)
+        bw, bt, _, _ = yesno.make_corpus(8, 2)
+        bhist = []
+        chain_recipe.train_chain_e2e(
+            yesno.compute_feats(bw, dev), bt, ylang, chain_recipe.ChainTrainOptions(
+                num_epochs=8, minibatch_size=8, hidden_dim=64, bottleneck_dim=16,
+                num_layers=2, initial_lr=2e-3, final_lr=2e-3, tree_context_width=2),
+            device=dev, history=bhist)
+        return score_hyps(st, hyps), hist, rep, bhist
+
+    (ystats, yhist, yrep, bhist), ywall, ylaunch = counted("train_e2e_yesno", e2e_yesno)
+    yobjs, bobjs = [h["objf"] for h in yhist], [h["objf"] for h in bhist]
+
+    mopts = dataclasses.replace(minilib.chain_train_options(c.topts),
+                                num_epochs=E2E_MINILIB_EPOCHS, tree_context_width=1)
+
+    def e2e_minilib():
+        feats = minilib.compute_feats(c.twaves, device=dev)
+        hist, rep = [], {}
+        ch = chain_recipe.train_chain_e2e(feats, c.ttext, c.lang, mopts, device=dev,
+                                          history=hist, report=rep)
+        return feats, ch, hist, rep
+
+    (mfeats, mch, mhist, mrep), mwall, mlaunch = counted("train_e2e_minilib", e2e_minilib)
+    mobjs = [h["objf"] for h in mhist]
+    # one step from the same initial network and batch (the 8 first
+    # utterances by name) on both devices: the losses
+    skeys = sorted(mfeats)[:8]
+    sgraphs = NumeratorGraphBatch.from_csr_graphs(chain_recipe.numerator_graphs(
+        c.lang, mch.ctx_dep, mch.tm, mch.den, [c.ttext[k] for k in skeys]))
+    sbf, snf = chain_recipe.pad_subsampled(mfeats, skeys, fsf)
+    step_loss = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        am0 = AmNnet.init(mch.am.config, seed=mopts.seed, device=where)
+        opt = make_optimizer(NnetTrainOptions(initial_lr=mopts.initial_lr,
+                                              final_lr=mopts.final_lr), 10)
+        step = chain_recipe.make_chain_e2e_step(
+            am0.model.train(), mch.den, opt, ChainLossOptions(
+                leaky_hmm_coefficient=mopts.leaky_hmm_coefficient,
+                l2_regularize=mopts.l2_regularize, xent_regularize=0.0), fsf)
+        _, loss, _ = step(TrainState(opt.init(dict(am0.model.named_parameters())), 0), sbf,
+                          snf, sgraphs)
+        step_loss[name] = float(loss)
+    step_rel = abs(step_loss["card"] - step_loss["cpu"]) / abs(step_loss["cpu"])
+    emit({"phase": "train_e2e", "card": card,
+          "yesno": {"utterances": [24, 8], "epochs": len(yhist), "objf_by_epoch": yobjs,
+                    "wer_percent": ystats.wer, "errors": ystats.errors,
+                    "ref_words": ystats.ref_len, "num_states": yrep["num_states"],
+                    "num_arcs": yrep["num_arcs"], "den_states": yrep["den_states"],
+                    "step_ms_median": median_ms(yrep), "steps": yrep["steps"],
+                    "biphone_objf_by_epoch": bobjs, "wall_seconds": ywall,
+                    "gather_launches": ylaunch["gather"], "mfcc_launches": ylaunch["mfcc"]},
+          "minilib": {"utterances": len(mfeats), "tree_pdfs": mrep["tree_pdfs"],
+                      "model": f"TDNN-F 39 -> {mopts.hidden_dim} (bottleneck "
+                               f"{mopts.bottleneck_dim}) x {mopts.num_layers}",
+                      "den_states": mrep["den_states"], "num_states": mrep["num_states"],
+                      "num_arcs": mrep["num_arcs"], "epochs": len(mhist),
+                      "objf_by_epoch": mobjs, "steps": mrep["steps"],
+                      "step_ms_median": median_ms(mrep),
+                      "objects_seconds": mrep["objects_seconds"],
+                      "numerator_seconds": mrep["numerator_seconds"],
+                      "train_seconds": mrep["train_seconds"], "wall_seconds": mwall,
+                      "one_step_loss": step_loss, "one_step_rel_diff": step_rel,
+                      "mfcc_launches": mlaunch["mfcc"]}})
+    if not (ystats.wer <= 2.0 and yobjs and all(o <= 1e-6 for o in yobjs)):
+        faults.append(f"train_e2e yesno: WER {ystats.wer}, objf {yobjs}")
+    if not (bobjs and all(o <= 1e-6 for o in bobjs) and rising(bobjs)):
+        faults.append(f"train_e2e yesno biphone: objf {bobjs}")
+    if not (mobjs and all(o <= 1e-6 for o in mobjs) and rising(mobjs)):
+        faults.append(f"train_e2e minilib: objf {mobjs}")
+    if not step_rel <= NNET_STEP_TOL:
+        faults.append(f"train_e2e minilib: one step's loss card vs CPU {step_loss}")
+    if min(ylaunch["mfcc"], mlaunch["mfcc"]) == 0:
+        faults.append(f"train_e2e did not go through K2: {ylaunch}, {mlaunch}")
+    del mch
+    torch.cuda.empty_cache()
+
+    # ---- train_semisup: lattice-supervised LF-MMI --------------------------
+    def semisup_yesno():
+        runs = []
+        for init in SEMISUP_YESNO_INITS:
+            tw, tt, sw, st = yesno.make_corpus(24, 6)
+            keys = sorted(tt)
+            sup, unsup = keys[:12], keys[12:]
+            feats = yesno.compute_feats(tw, dev)
+            test = yesno.compute_feats(sw, dev)
+            seed = chain_recipe.train_chain_e2e(
+                {k: feats[k] for k in sup}, {k: tt[k] for k in sup}, ylang,
+                chain_recipe.ChainTrainOptions(num_epochs=30, minibatch_size=8, hidden_dim=128,
+                                               bottleneck_dim=32, num_layers=3,
+                                               initial_lr=2e-3, final_lr=4e-4, seed=init),
+                device=dev)
+            graph = chain_recipe.make_chain_decode_graph(
+                seed, ylang, make_unigram_grammar_fst(list(tt.values()), ylang.words))
+            seed_wer = score_hyps(st, chain_recipe.decode_chain(seed, graph, ylang, test,
+                                                                beam=20.0)).wer
+            sopts = semisup.SemisupOptions(num_epochs=6, minibatch_size=8, initial_lr=3e-4,
+                                           final_lr=1e-4, lattice_lm_scale=0.5,
+                                           unsup_egs_weight=1.0)
+            ufeats = {k: feats[k] for k in unsup}
+            lats = semisup.decode_chain_lattices(seed, graph, ufeats, beam=sopts.beam,
+                                                 max_active=sopts.max_active,
+                                                 lattice_beam=sopts.lattice_beam)
+            ukeys, ugraphs = semisup.lattice_numerators(seed, lats, sopts)
+            num, den = num_le_den(seed, ugraphs, ufeats, ukeys)
+            hist = []
+            model = semisup.train_chain_semisup(
+                seed, ylang, {k: feats[k] for k in sup}, {k: tt[k] for k in sup}, ufeats,
+                graph, sopts, history=hist)
+            wer = score_hyps(st, chain_recipe.decode_chain(model, graph, ylang, test,
+                                                           beam=20.0)).wer
+            runs.append({"init": init, "seed_wer_percent": seed_wer, "wer_percent": wer,
+                         "lattice_numerators": len(ugraphs),
+                         "num_minus_den_max": float((num - den).max()),
+                         "objf_by_epoch": [h["objf"] for h in hist]})
+        return runs
+
+    yruns, yswall, yslaunch = counted("train_semisup_yesno", semisup_yesno)
+    gated = yruns[0]
+
+    cm = c.chain.model
+    ss_opts = semisup.SemisupOptions(num_epochs=1)
+    ss_keys = sorted(c.twaves)[: 2 * SEQ_UTTS]
+    ss_sup, ss_unsup = ss_keys[:SEQ_UTTS], ss_keys[SEQ_UTTS:]
+
+    def semisup_minilib():
+        feats = minilib.compute_feats({k: c.twaves[k] for k in ss_keys}, device=dev)
+        tim = {}
+        t0 = time.perf_counter()
+        padded, nf = chain_recipe.pad_subsampled(feats, ss_unsup, fsf)
+        res = decode_batch_tokens(
+            c.chain.csr, cm.am.logits(padded, output_stride=fsf), nf,
+            ViterbiOptions(beam=BEAM, max_active=CHAIN_MAX_ACTIVE, acoustic_scale=1.0),
+            want_lattice=True, lattice_beam=ss_opts.lattice_beam, device=dev)
+        torch.cuda.synchronize()
+        tim["decode_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lats = {k: lattice_from_token_records(c.chain.csr, r.token_lattice)
+                for k, r in zip(ss_unsup, res) if r is not None and r.token_lattice is not None}
+        lats = {k: v for k, v in lats.items() if v is not None}
+        tim["lattice_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ukeys, ugraphs = semisup.lattice_numerators(cm, lats, ss_opts)
+        sgraphs = chain_recipe.numerator_graphs(c.lang, cm.ctx_dep, cm.tm, cm.den,
+                                                [c.ttext[k] for k in ss_sup])
+        tim["numerator_seconds"] = time.perf_counter() - t0
+        num, den = num_le_den(cm, ugraphs, feats, ukeys)
+        hist, rep = [], {}
+        t0 = time.perf_counter()
+        weights = np.concatenate([np.ones(len(ss_sup), np.float32),
+                                  np.full(len(ukeys), ss_opts.unsup_egs_weight, np.float32)])
+        semisup.train_on_numerators(cm, feats, ss_sup + ukeys, sgraphs + ugraphs, weights,
+                                    ss_opts, history=hist, report=rep)
+        torch.cuda.synchronize()
+        tim["train_seconds"] = time.perf_counter() - t0
+        return lats, ugraphs, sgraphs, num, den, hist, rep, tim
+
+    (slats, ugr, sgr, snum, sden, shist, srep, stim), sswall, sslaunch = counted(
+        "train_semisup_minilib", semisup_minilib)
+    sobjs = [o for h in shist for o in h["step_objf"]]
+    emit({"phase": "train_semisup", "card": card,
+          "yesno": {"flow": "12 supervised + 12 unsupervised, 30-epoch e2e seed, "
+                            "6 semisup epochs, 6 test utterances",
+                    "gated_run": gated, "other_inits": yruns[1:],
+                    "seed_wer_mean": float(np.mean([r["seed_wer_percent"] for r in yruns])),
+                    "wer_mean": float(np.mean([r["wer_percent"] for r in yruns])),
+                    "wall_seconds": yswall, "gather_launches": yslaunch["gather"],
+                    "mfcc_launches": yslaunch["mfcc"]},
+          "minilib": {"model": "exp/minilib/chain.mdl", "pdfs": cm.am.config.num_outputs,
+                      "den_states": cm.den.num_states, "supervised": len(ss_sup),
+                      "lattices": len(slats), "lattice_supervised": len(ugr),
+                      "lattice_route": "decode_batch_tokens lattice records on "
+                                       "chain_hclg.npz, lattice_from_token_records",
+                      "lattice_arcs": sum(v.num_arcs for v in slats.values()),
+                      "num_states": max(g.num_states for g in ugr + sgr),
+                      "num_arcs": max(g.num_arcs for g in ugr + sgr),
+                      "lattice_num_states": max(g.num_states for g in ugr),
+                      "num_minus_den_max": float((snum - sden).max()),
+                      "objf_by_step": sobjs, "steps": srep.get("steps"),
+                      "step_ms_median": median_ms(srep), **stim, "wall_seconds": sswall,
+                      "gather_launches": sslaunch["gather"],
+                      "mfcc_launches": sslaunch["mfcc"]}})
+    if not gated["wer_percent"] <= max(gated["seed_wer_percent"], 15.0):
+        faults.append(f"train_semisup yesno: WER {gated['wer_percent']}, the seed's "
+                      f"{gated['seed_wer_percent']}")
+    for r in yruns:
+        if not (r["num_minus_den_max"] <= NUM_LE_DEN_TOL and r["objf_by_epoch"] and all(
+                np.isfinite(o) and o <= 1e-6 for o in r["objf_by_epoch"])):
+            faults.append(f"train_semisup yesno init {r['init']}: {r}")
+    if not (float((snum - sden).max()) <= NUM_LE_DEN_TOL and sobjs
+            and all(np.isfinite(o) and o <= 1e-6 for o in sobjs)):
+        faults.append(f"train_semisup minilib: num - den {float((snum - sden).max())}, "
+                      f"objf {sobjs}")
+    if min(yslaunch["mfcc"], sslaunch["mfcc"], sslaunch["gather"]) == 0:
+        faults.append(f"train_semisup did not go through K1/K2: {yslaunch}, {sslaunch}")
+    if len(ugr) < SEQ_UTTS // 2:
+        faults.append(f"train_semisup minilib: {len(ugr)} lattice numerators of {SEQ_UTTS}")
+
+    # ---- train_mmi: MMI of GMMs by EBW --------------------------------------
+    def on_cpu(model):
+        return AmGmmModel(model.tm, AmDiagGmm([DiagGmm(p.weights.copy(), p.means.copy(),
+                                                       p.vars.copy()) for p in model.am.pdfs],
+                                              device="cpu"))
+
+    def ebw_on_cpu(model0, feats, alignments, hist0, acoustic_scale, tau):
+        """Iteration 0's statistics and EBW update redone on the CPU from the
+        lattices the card decoded: (num frames, den frames, updated,
+        skipped, the CPU model)."""
+        cpu = on_cpu(model0)
+        keys = [k for k, a in alignments.items() if a is not None and k in feats]
+        num = mmi.accumulate_num_stats(cpu, feats, alignments, keys)
+        den = mmi.accumulate_den_stats_from_lattices(cpu, hist0["lattice_dict"], feats,
+                                                     acoustic_scale)
+        counts = ebw_update(cpu.am, num, den, EbwOptions(tau=tau))
+        return num.tot_frames, den.tot_frames, counts[0], counts[1], cpu
+
+    def mmi_check(name, means, cpu_out, hist0):
+        """Iteration 0 on the card (its history and the means after it)
+        against the CPU's redo."""
+        nf_c, df_c, up_c, sk_c, cpu = cpu_out
+        mean_diff = max(float(np.abs(m - q.means).max()) for m, q in zip(means, cpu.am.pdfs))
+        same = (hist0["num_frames"] == nf_c and abs(hist0["den_frames"] - df_c) <= 1e-6 * df_c
+                and (hist0["updated"], hist0["skipped"]) == (up_c, sk_c))
+        if not (same and mean_diff <= EBW_MEAN_TOL):
+            faults.append(f"{name}: card {hist0['num_frames']}, {hist0['den_frames']}, "
+                          f"{hist0['updated']}/{hist0['skipped']}; CPU {nf_c}, {df_c}, "
+                          f"{up_c}/{sk_c}; means apart by {mean_diff}")
+        return {"num_frames": hist0["num_frames"], "den_frames": hist0["den_frames"],
+                "updated": hist0["updated"], "skipped": hist0["skipped"],
+                "cpu": {"num_frames": nf_c, "den_frames": df_c, "updated": up_c,
+                        "skipped": sk_c}, "means_max_abs_diff": mean_diff}
+
+    def mmi_yesno():
+        tw, tt, sw, st = yesno.make_corpus(24, 8)
+        tf, sf = yesno.compute_feats(tw, dev), yesno.compute_feats(sw, dev)
+        model, ali = train_mono(tf, tt, ylang, MonoTrainOptions(num_iters=10, totgauss=80),
+                                device=dev)
+        phones = ylang.real_phone_ids
+        topo = model.tm.topo
+        cd = monophone_context_dependency(phones, {p: topo.num_pdf_classes(p)
+                                                   for p in phones})
+        csr = mkgraph_csr(ylang, make_unigram_grammar_fst(list(tt.values()), ylang.words), cd,
+                          model.tm)
+        opts = mmi.MmiTrainOptions(num_iters=1, acoustic_scale=0.2, beam=20.0, tau=20.0)
+        model0 = on_cpu(model)
+        hist = []
+        mmi.train_mmi(model, csr, ylang, tf, ali, opts, history=hist)  # iteration 0
+        means0 = [p.means.copy() for p in model.am.pdfs]
+        cpu_out = ebw_on_cpu(model0, tf, ali, hist[0], 0.2, 20.0)
+        mmi.train_mmi(model, csr, ylang, tf, ali, opts, history=hist)  # iteration 1
+        hist[1]["iter"] = 1
+        hyps = decode_dataset(model, csr, ylang, sf, DecodeOptions(beam=20.0,
+                                                                   acoustic_scale=0.2))
+        return model, hist, means0, cpu_out, score_hyps(st, hyps), tf
+
+    (ymodel, ymhist, ymeans0, ycpu, ymstats, ytf), ymwall, ymlaunch = counted(
+        "train_mmi_yesno", mmi_yesno)
+    y_check = mmi_check("train_mmi yesno", ymeans0, ycpu, ymhist[0])
+    tri_ali = c.convert.load_pickle("exp/minilib/tri_ali.pkl")
+    mkeys = [k for k in sorted(c.twaves) if tri_ali.get(k) is not None][:SEQ_UTTS]
+    mopts_mmi = mmi.MmiTrainOptions(num_iters=1)
+
+    def mmi_minilib():
+        feats = minilib.compute_feats({k: c.twaves[k] for k in mkeys}, device=dev)
+        tri = AmGmmModel.load("exp/minilib/tri.mdl", device=dev)
+        model0 = on_cpu(tri)
+        hist = []
+        mmi.train_mmi(tri, c.system.csr, c.system.words, feats,
+                      {k: tri_ali[k] for k in mkeys}, mopts_mmi, history=hist)
+        return tri, hist, model0, feats
+
+    (mtri, mmhist, mmodel0, mmfeats), mmwall, mmlaunch = counted("train_mmi_minilib",
+                                                                 mmi_minilib)
+    tri_pdfs = mtri.am.num_pdfs
+    m_check = mmi_check("train_mmi minilib", [p.means for p in mtri.am.pdfs], ebw_on_cpu(
+        mmodel0, mmfeats, {k: tri_ali[k] for k in mkeys}, mmhist[0],
+        mopts_mmi.acoustic_scale, mopts_mmi.tau), mmhist[0])
+    # K3 on the updated models (their rows packed anew after EBW) against its
+    # plain version, timed at the minilib shape
+    plug = c.plug
+    ybatch = torch.from_numpy(np.concatenate([ytf[k] for k in sorted(ytf)])).to(dev)
+    mbatch = torch.from_numpy(np.concatenate([mmfeats[k] for k in mkeys])).to(dev)
+    k3_new["train_mmi_yesno"] = k3_at(torch, c.gmm_loglikes, c.gmm_loglikes_plain,
+                                       ymodel.am.weights(), ybatch, plug)
+    k3_new["train_mmi_minilib"] = k3_at(torch, c.gmm_loglikes, c.gmm_loglikes_plain,
+                                         mtri.am.weights(), mbatch, plug)
+    emit({"phase": "train_mmi", "card": card,
+          "yesno": {"gaussians": ymodel.am.num_gauss, "iterations": len(ymhist),
+                    "acoustic_scale": 0.2, "tau": 20.0,
+                    "by_iteration": [{k: v for k, v in h.items() if k != "lattice_dict"}
+                                     for h in ymhist],
+                    "iteration_0_card_vs_cpu": y_check, "wer_percent": ymstats.wer,
+                    "errors": ymstats.errors, "wall_seconds": ymwall,
+                    "gather_launches": ymlaunch["gather"], "mfcc_launches": ymlaunch["mfcc"],
+                    "gmm_launches": ymlaunch["gmm"]},
+          "minilib": {"model": "exp/minilib/tri.mdl", "graph": "exp/minilib/hclg.npz",
+                      "utterances": len(mkeys), "gaussians": mtri.am.num_gauss,
+                      "options": dataclasses.asdict(mopts_mmi),
+                      "lattice_arcs": sum(v.num_arcs
+                                          for v in mmhist[0]["lattice_dict"].values()),
+                      "iteration_0_card_vs_cpu": m_check, "wall_seconds": mmwall,
+                      "gather_launches": mmlaunch["gather"], "mfcc_launches": mmlaunch["mfcc"],
+                      "gmm_launches": mmlaunch["gmm"]},
+          "gmm_kernel_after_ebw": {k: {"max_abs_err": v["max_abs_err"],
+                                       "worst_share_of_tolerance": v["worst_share_of_tolerance"],
+                                       "kernel_ms": v["kernel_ms"]} for k, v in k3_new.items()}})
+    if ymstats.wer != 0.0:
+        faults.append(f"train_mmi yesno: WER {ymstats.wer}")
+    if min(ymlaunch["gmm"], ymlaunch["gather"], ymlaunch["mfcc"], mmlaunch["gmm"],
+           mmlaunch["gather"], mmlaunch["mfcc"]) == 0:
+        faults.append(f"train_mmi did not go through K1/K2/K3: {ymlaunch}, {mmlaunch}")
+    del mtri, mmodel0, ymodel, ybatch, mbatch, ymhist, mmhist
+    torch.cuda.empty_cache()
+
+    # ---- train_discriminative: nnet3 MMI / sMBR ------------------------------
+    def disc_toy():
+        rng = np.random.default_rng(1)
+        T = 12
+        feats = {f"u{u}": rng.normal(size=(T, 6)).astype(np.float32) + 0.5 for u in range(8)}
+        alis = {k: np.full(T, 1, np.int32) for k in feats}
+        lats = {k: SequenceToy.lattice(T) for k in feats}
+        out = {}
+        for crit in ("smbr", "mmi"):
+            am = AmNnet.init(TdnnConfig(6, 2, (TdnnLayerSpec("tdnn", 16, (-1, 0, 1)),)),
+                             seed=0, device=dev, log_priors=np.log(np.full(2, 0.5)))
+            opts = disc.DiscriminativeOptions(criterion=crit, num_epochs=4, minibatch_size=4,
+                                              learning_rate=0.05, acoustic_scale=1.0)
+            before = disc.compute_discriminative_objf(am, feats, alis, lats, SequenceToy, opts)
+            am2 = disc.train_discriminative(am, feats, alis, lats, SequenceToy, opts)
+            out[crit] = {"before": before, "after": disc.compute_discriminative_objf(
+                am2, feats, alis, lats, SequenceToy, opts)}
+        return out
+
+    toy_objf, _, _ = counted("train_discriminative_toy", disc_toy)
+    dopts = disc.DiscriminativeOptions(num_epochs=1)
+    dkeys = mkeys
+    tri_tm = AmGmmModel.load("exp/minilib/tri.mdl", device="cpu").tm
+
+    def disc_minilib():
+        feats = minilib.compute_feats({k: c.twaves[k] for k in dkeys}, device=dev)
+        am = c.system.am
+        tim = {}
+        t0 = time.perf_counter()
+        lats = {}
+        by_dur = sorted(dkeys, key=lambda k: feats[k].shape[0])
+        vopts = ViterbiOptions(beam=BEAM, max_active=RESCORE_MAX_ACTIVE,
+                               acoustic_scale=1.0)
+        for lo in range(0, len(by_dur), RESCORE_BATCH):
+            keys, padded, nf = pad_feature_batch({k: feats[k] for k in
+                                                  by_dur[lo: lo + RESCORE_BATCH]})
+            res = decode_batch_tokens(c.system.csr, am.loglikes_batch(padded), nf, vopts,
+                                      want_lattice=True, lattice_beam=8.0, device=dev)
+            for k, r in zip(keys, res):
+                lat = (None if r is None or r.token_lattice is None
+                       else lattice_from_token_records(c.system.csr, r.token_lattice))
+                if lat is not None:
+                    lats[k] = lat
+        torch.cuda.synchronize()
+        tim["lattice_seconds"] = time.perf_counter() - t0
+        ali = {k: tri_ali[k] for k in lats}
+        t0 = time.perf_counter()
+        before = disc.compute_discriminative_objf(am, feats, ali, lats, tri_tm, dopts)
+        tim["objf_seconds"] = time.perf_counter() - t0
+        hist = []
+        t0 = time.perf_counter()
+        am2 = disc.train_discriminative(am, feats, ali, lats, tri_tm, dopts, history=hist)
+        torch.cuda.synchronize()
+        tim["train_seconds"] = time.perf_counter() - t0
+        after = disc.compute_discriminative_objf(am2, feats, ali, lats, tri_tm, dopts)
+        return feats, lats, before, after, hist, tim
+
+    (dfeats, dlats, dbefore, dafter, dhist, dtim), dwall, dlaunch = counted(
+        "train_discriminative_minilib", disc_minilib)
+    # discriminative_grad from the card's loglikes against the CPU's (final.am
+    # on the CPU, the same features and lattices), on 4 utterances
+    cpu_am = AmNnet.load(os.path.join(c.system.workdir, "final.am"), device="cpu")
+    grad_diff = 0.0
+    for k in sorted(dlats)[:4]:
+        x = np.asarray(dfeats[k], np.float32)[None]
+        gk, ok = disc.discriminative_grad(tri_tm, c.system.am.loglikes_batch(x)[0].cpu().numpy(),
+                                          tri_ali[k], copy.deepcopy(dlats[k]))
+        gc, oc = disc.discriminative_grad(tri_tm, cpu_am.loglikes_batch(x)[0].numpy(),
+                                          tri_ali[k], copy.deepcopy(dlats[k]))
+        grad_diff = max(grad_diff, float(np.abs(gk - gc).max()), abs(ok - oc))
+    emit({"phase": "train_discriminative", "card": card,
+          "toy": {"flow": "tests/test_discriminative.py two-path toy, 4 epochs",
+                  "objf": toy_objf},
+          "minilib": {"model": "exp/minilib/final.am", "criterion": dopts.criterion,
+                      "learning_rate": dopts.learning_rate, "acoustic_scale":
+                      dopts.acoustic_scale, "epochs": dopts.num_epochs,
+                      "utterances": len(dkeys), "lattices": len(dlats),
+                      "lattice_arcs": sum(v.num_arcs for v in dlats.values()),
+                      "objf_before": dbefore, "objf_after": dafter,
+                      "objf_by_epoch": [h["objf"] for h in dhist], **dtim,
+                      "wall_seconds": dwall, "grad_card_vs_cpu_max_abs": grad_diff,
+                      "gather_launches": dlaunch["gather"], "mfcc_launches": dlaunch["mfcc"]}})
+    for crit, v in toy_objf.items():
+        if not v["after"] > v["before"] + 1e-3:
+            faults.append(f"train_discriminative toy {crit}: {v}")
+    if not grad_diff <= DISC_GRAD_TOL:
+        faults.append(f"train_discriminative: grad card vs CPU {grad_diff}")
+    if not (np.isfinite(dbefore) and np.isfinite(dafter) and len(dlats) >= SEQ_UTTS // 2):
+        faults.append(f"train_discriminative minilib: objf {dbefore} -> {dafter}, "
+                      f"{len(dlats)} lattices")
+    if min(dlaunch["gather"], dlaunch["mfcc"]) == 0:
+        faults.append(f"train_discriminative did not go through K1/K2: {dlaunch}")
+    # K1 at the MMI lattice decode's shape: tri.mdl's pdfs, the 64
+    # utterances in one batch, K = DecodeOptions().max_active
+    k1_new["train_mmi_minilib"] = c.gather_at(SEQ_UTTS, tri_pdfs, c.token_budget(
+        DecodeOptions().max_active), 768)
+    torch.cuda.empty_cache()
+    if faults:
+        raise RuntimeError("sequence training: " + "; ".join(faults))
+    return {"launches": launches, "k1": k1_new, "k3": k3_new}
 
 
 def main() -> int:
@@ -3854,6 +4403,22 @@ def main() -> int:
     if cfg2_faults:
         raise RuntimeError("BASELINE config 2 and run_all: " + "; ".join(cfg2_faults))
 
+    # ---- phases 32-35: sequence training (flat-start and semi-supervised
+    # LF-MMI, MMI of GMMs by EBW, nnet3 MMI / sMBR), each path's counts set to
+    # 0 just before it and read just after
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    seq = sequence_training(torch, np, argparse.Namespace(
+        dev=dev, card=card, emit=emit, minilib=minilib, convert=convert, chain=chain,
+        system=system, twaves=twaves, ttext=ttext, lang=lang, topts=topts, gen=gen,
+        plug=plug, zero_counts=zero_counts, read_counts=read_counts,
+        gmm_loglikes=gmm_loglikes, gmm_loglikes_plain=gmm_loglikes_plain,
+        gather_at=gather_at,
+        token_budget=lambda k: _token_budget(system.csr, max(4, min(k, system.csr.num_states)),
+                                             tg.md) * tg.md))
+    del plug
+    torch.cuda.empty_cache()
+    seq_launches = seq["launches"]
+
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
@@ -3870,7 +4435,8 @@ def main() -> int:
                       + sum(n["gather"] for p in (ce_launches, ch_launches, ci_launches,
                                                   cv_launches) for n in p.values())
                       + sum(p["gather"] for p in (tiv_launches, ng_launches, cb_launches))
-                      + sum(p["gather"] for p in cfg2_launches.values())),
+                      + sum(p["gather"] for p in cfg2_launches.values())
+                      + sum(p["gather"] for p in seq_launches.values())),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -3894,7 +4460,8 @@ def main() -> int:
                               "train_ivector": tiv_launches["gather"],
                               "train_ng": ng_launches["gather"],
                               "combine": cb_launches["gather"],
-                              **{n: p["gather"] for n, p in cfg2_launches.items()}},
+                              **{n: p["gather"] for n, p in cfg2_launches.items()},
+                              **{n: p["gather"] for n, p in seq_launches.items()}},
          "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err), "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
@@ -3904,7 +4471,7 @@ def main() -> int:
                              **{f"{n}_{k}": v for n, g in k1_align.items()
                                 for k, v in g.items()},
                              **{f"train_yesno_{k}": v for k, v in k1_yesno.items()},
-                             "train_chain_decode": k1_trained_chain}},
+                             "train_chain_decode": k1_trained_chain, **seq["k1"]}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
@@ -3917,7 +4484,8 @@ def main() -> int:
                       + sum(n["mfcc"] for p in (ce_launches, ch_launches, ci_launches,
                                                 cv_launches) for n in p.values())
                       + sum(p["mfcc"] for p in (tiv_launches, ng_launches, cb_launches))
-                      + sum(p["mfcc"] for p in cfg2_launches.values())),
+                      + sum(p["mfcc"] for p in cfg2_launches.values())
+                      + sum(p["mfcc"] for p in seq_launches.values())),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -3940,7 +4508,8 @@ def main() -> int:
                               "train_ivector": tiv_launches["mfcc"],
                               "train_ng": ng_launches["mfcc"],
                               "combine": cb_launches["mfcc"],
-                              **{n: p["mfcc"] for n, p in cfg2_launches.items()}},
+                              **{n: p["mfcc"] for n, p in cfg2_launches.items()},
+                              **{n: p["mfcc"] for n, p in seq_launches.items()}},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -3948,7 +4517,7 @@ def main() -> int:
                  *a_launches.values(), ty_launches, *tr_launches.values(), y_launches,
                  tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values(),
                  *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
-                 cb_launches, *cfg2_launches.values()))
+                 cb_launches, *cfg2_launches.values(), *seq_launches.values()))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
@@ -3961,22 +4530,26 @@ def main() -> int:
          "launches": (k3_tdnn_launches + g_launches["gmm"]
                       + sum(a["gmm"] for a in a_launches.values())
                       + ty_launches["gmm"] + sum(t["gmm"] for t in tr_launches.values())
-                      + sum(p["gmm"] for p in cfg2_launches.values())),
+                      + sum(p["gmm"] for p in cfg2_launches.values())
+                      + sum(p["gmm"] for p in seq_launches.values())),
          "launches_by_path": {"decode": k3_tdnn_launches,
                               "decode_gmm": g_launches["gmm"],
                               **{n: a["gmm"] for n, a in a_launches.items()},
                               "train_yesno": ty_launches["gmm"],
                               **{n: t["gmm"] for n, t in tr_launches.items()},
-                              **{n: p["gmm"] for n, p in cfg2_launches.items()}},
+                              **{n: p["gmm"] for n, p in cfg2_launches.items()},
+                              **{n: p["gmm"] for n, p in seq_launches.items()}},
          "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]
                             + [v["max_abs_err"] for v in k3_train.values()]
-                            + [v["max_abs_err"] for v in k3_depths.values()]),
+                            + [v["max_abs_err"] for v in k3_depths.values()]
+                            + [v["max_abs_err"] for v in seq["k3"].values()]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": max(k3_ops_ms, k3_bytes_ms),
          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
          "library_ms": None,
          "at_other_shapes": {**k3_align, **{f"train_{k}": v for k, v in k3_train.items()},
-                             **{f"depth_{k}": v for k, v in k3_depths.items()}}},
+                             **{f"depth_{k}": v for k, v in k3_depths.items()},
+                             **seq["k3"]}},
     ]})
     if args.noisy:
         waves, text = minilib.make_test_set(minilib.MinilibOptions(),

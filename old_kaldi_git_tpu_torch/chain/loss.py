@@ -94,7 +94,7 @@ class _PaddedSum:
             self.buckets.append((torch.from_numpy(cols[at].reshape(-1)).to(device),
                                  torch.from_numpy(weights[at]).to(device), len(rs), width))
         self.row_map = None  # one bucket holds every row, in order
-        if len(groups) > 1:
+        if len(groups) > 1 or len(groups[0][0]) != num_out:
             grouped = np.concatenate([rs for rs, _ in groups])
             row_pos = np.full(num_out, len(grouped), np.int64)
             row_pos[grouped] = np.arange(len(grouped))

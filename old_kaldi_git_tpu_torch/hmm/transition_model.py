@@ -80,6 +80,19 @@ class TransitionModel:
     def pair_to_tid(self, tstate: int, tindex: int) -> int:
         return self.state2id[tstate] + tindex
 
+    def tid_to_pdf(self, tid: int) -> int:
+        return self.tuples[self.id2state[tid]][2]
+
+    def tid_to_phone(self, tid: int) -> int:
+        return self.tuples[self.id2state[tid]][0]
+
+    def is_self_loop(self, tid: int) -> bool:
+        """Whether the transition returns to its own HMM state."""
+        ts = int(self.id2state[tid])
+        phone, hmm_state, _ = self.tuples[ts]
+        trans = self.topo.topology_for_phone(phone)[hmm_state].transitions
+        return trans[tid - self.state2id[ts]][0] == hmm_state
+
     def self_loop_tid(self, tstate: int) -> int:
         """tid of the self-loop of this transition-state, or 0 if none."""
         phone, hmm_state, _ = self.tuples[tstate]

@@ -1,9 +1,10 @@
-"""Lattices rebuilt from a decoder's kept tokens or records, best path and
-oracle.
+"""Lattices rebuilt from a decoder's kept tokens or records, best path,
+oracle, pruning and posteriors.
 
-Own copy of the parts of old_kaldi_git_tpu/lat/lattice.py on the rescoring
-and dense-lattice paths (reference src/lat: kaldi Lattice, GetRawLattice, lattice-best-path,
-lattice-oracle): host code, plain Python and numpy.
+Own copy of the parts of old_kaldi_git_tpu/lat/lattice.py on the rescoring,
+dense-lattice and sequence-training paths (reference src/lat: kaldi Lattice,
+GetRawLattice, lattice-best-path, lattice-oracle, lattice-prune,
+LatticeForwardBackward): host code, plain Python and numpy.
 
   Lattice                     ~ kaldi Lattice (tids in, words out, (graph,
                                 acoustic) weight pair), stored topsorted by
@@ -12,9 +13,17 @@ lattice-oracle): host code, plain Python and numpy.
                                 tokens of decode_batch's lattice mode
   lattice_from_token_records  ~ GetRawLattice, from the records the decoder
                                 emitted on the device
+  lattice_state_times         ~ LatticeStateTimes (frames from emitting arcs)
+  lattice_prune               ~ lattice-prune (forward/backward cost pruning)
   lattice_best_path           ~ lattice-best-path (with lm/acoustic scales)
+  lattice_arc_posteriors      ~ LatticeForwardBackward (log-semiring
+                                posteriors)
+  lattice_total_logprob       ~ the total path mass (the MMI denominator)
   lattice_oracle              ~ lattice-oracle (least edit distance of any
                                 path against a reference)
+
+The forward-backward functions keep the JAX package's order of operations
+(`_topo_order`, the same loops in float64), so they give its numbers.
 """
 
 from __future__ import annotations
@@ -349,6 +358,26 @@ def _topo_order(lat: Lattice) -> List[int]:
     return order
 
 
+def lattice_state_times(lat: Lattice) -> List[int]:
+    """Frame index per state, recomputed from emitting (ilabel != 0) arcs
+    (reference lat/lattice-functions.cc LatticeStateTimes).  Fills and
+    returns lat.state_time; where two paths disagree the larger count is
+    kept."""
+    times = [-1] * lat.num_states
+    times[lat.start] = 0
+    for s in _topo_order(lat):
+        if times[s] < 0:
+            continue
+        for a in lat.arcs[s]:
+            t = times[s] + (1 if a.ilabel != 0 else 0)
+            if times[a.nextstate] < 0:
+                times[a.nextstate] = t
+            elif times[a.nextstate] != t:
+                times[a.nextstate] = max(times[a.nextstate], t)
+    lat.state_time = times
+    return times
+
+
 def lattice_best_path(
     lat: Lattice, lm_scale: float = 1.0, ac_scale: float = 0.1
 ) -> Tuple[List[int], List[int], float]:
@@ -385,6 +414,120 @@ def lattice_best_path(
             tids.append(a.ilabel)
         s = ps
     return words[::-1], tids[::-1], best_c
+
+
+def lattice_prune(
+    lat: Lattice, lattice_beam: float = 10.0,
+    lm_scale: float = 1.0, ac_scale: float = 0.1,
+) -> Lattice:
+    """A new lattice of the arcs and finals within lattice_beam of the best
+    path (reference lattice-prune); states renumbered in order of first
+    use, from the start."""
+    order = _topo_order(lat)
+    n = lat.num_states
+    fwd = np.full(n, INF)
+    fwd[lat.start] = 0.0
+    for s in order:
+        if fwd[s] == INF:
+            continue
+        for a in lat.arcs[s]:
+            c = fwd[s] + lat.combined(a, lm_scale, ac_scale)
+            if c < fwd[a.nextstate]:
+                fwd[a.nextstate] = c
+    bwd = np.full(n, INF)
+    for s in range(n):
+        if lat.is_final(s):
+            g, ac = lat.finals[s]
+            bwd[s] = lm_scale * g + ac_scale * ac
+    for s in reversed(order):
+        for a in lat.arcs[s]:
+            c = lat.combined(a, lm_scale, ac_scale) + bwd[a.nextstate]
+            if c < bwd[s]:
+                bwd[s] = c
+    best = min((fwd[s] + bwd[s] for s in range(n) if fwd[s] < INF and bwd[s] < INF),
+               default=INF)
+    out = Lattice()
+    remap: Dict[int, int] = {}
+
+    def get(s: int) -> int:
+        if s not in remap:
+            remap[s] = out.add_state(lat.state_time[s])
+        return remap[s]
+
+    out.start = get(lat.start)
+    for s in range(n):
+        if fwd[s] == INF or bwd[s] == INF:
+            continue
+        for a in lat.arcs[s]:
+            c = fwd[s] + lat.combined(a, lm_scale, ac_scale) + bwd[a.nextstate]
+            if c <= best + lattice_beam:
+                out.arcs[get(s)].append(LatticeArc(a.ilabel, a.olabel, a.graph_cost,
+                                                   a.acoustic_cost, get(a.nextstate)))
+        if lat.is_final(s) and fwd[s] + bwd[s] <= best + lattice_beam:
+            out.finals[get(s)] = lat.finals[s]
+    return out
+
+
+def _forward_backward(lat: Lattice, order: List[int], lm_scale: float, ac_scale: float
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Log-semiring forward and backward scores (negated costs) per state."""
+    n = lat.num_states
+    fwd = np.full(n, -INF)
+    fwd[lat.start] = 0.0
+    for s in order:
+        if fwd[s] == -INF:
+            continue
+        for a in lat.arcs[s]:
+            c = fwd[s] - lat.combined(a, lm_scale, ac_scale)
+            fwd[a.nextstate] = np.logaddexp(fwd[a.nextstate], c)
+    bwd = np.full(n, -INF)
+    for s in range(n):
+        if lat.is_final(s):
+            g, ac = lat.finals[s]
+            bwd[s] = -(lm_scale * g + ac_scale * ac)
+    for s in reversed(order):
+        for a in lat.arcs[s]:
+            c = -lat.combined(a, lm_scale, ac_scale) + bwd[a.nextstate]
+            bwd[s] = np.logaddexp(bwd[s], c)
+    return fwd, bwd
+
+
+def lattice_arc_posteriors(
+    lat: Lattice, lm_scale: float = 1.0, ac_scale: float = 0.1
+) -> List[List[float]]:
+    """Per-arc posterior probabilities, [state][arc], from a log-semiring
+    forward-backward (reference LatticeForwardBackward)."""
+    fwd, bwd = _forward_backward(lat, _topo_order(lat), lm_scale, ac_scale)
+    total = bwd[lat.start]  # log total path mass
+    post: List[List[float]] = []
+    for s in range(lat.num_states):
+        row = []
+        for a in lat.arcs[s]:
+            lp = fwd[s] - lat.combined(a, lm_scale, ac_scale) + bwd[a.nextstate] - total
+            row.append(float(np.exp(min(lp, 0.0))))
+        post.append(row)
+    return post
+
+
+def lattice_total_logprob(
+    lat: Lattice, lm_scale: float = 1.0, ac_scale: float = 0.1
+) -> float:
+    """log of the total path mass under the given scales (the normaliser of
+    lattice_arc_posteriors; the MMI denominator's log-likelihood)."""
+    n = lat.num_states
+    fwd = np.full(n, -INF)
+    fwd[lat.start] = 0.0
+    total = -INF
+    for s in _topo_order(lat):
+        if fwd[s] == -INF:
+            continue
+        if lat.is_final(s):
+            g, ac = lat.finals[s]
+            total = np.logaddexp(total, fwd[s] - (lm_scale * g + ac_scale * ac))
+        for a in lat.arcs[s]:
+            c = fwd[s] - lat.combined(a, lm_scale, ac_scale)
+            fwd[a.nextstate] = np.logaddexp(fwd[a.nextstate], c)
+    return float(total)
 
 
 def lattice_oracle(

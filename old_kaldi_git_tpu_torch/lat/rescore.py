@@ -12,14 +12,20 @@ tuples that adjusts each arc's graph cost by
 with old_scale = −1 (remove the LM baked into HCLG) and new_scale = +1 (add
 the big LM); finals get the same treatment with </s>.  Every path's total
 cost changes by exactly its LM-score delta, so no path is lost.
+
+`rescore_lattice_acoustics` (the JAX package's copy in the same file:
+reference lattice-rescore-mapped / gmm-rescore-lattice) replaces a raw
+lattice's acoustic costs by a model's current loglikes, in place.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 from old_kaldi_git_tpu_torch.lat.determinize import CompactLattice, CompactLatticeArc
-from old_kaldi_git_tpu_torch.lat.lattice import INF
+from old_kaldi_git_tpu_torch.lat.lattice import INF, Lattice, LatticeArc
 from old_kaldi_git_tpu_torch.lm.arpa import BOS, EOS, ArpaLm
 from old_kaldi_git_tpu_torch.utils.log import get_logger
 
@@ -95,3 +101,21 @@ def lmrescore_compact_lattice(
         clat.num_states, out.num_states, out.num_arcs,
     )
     return out
+
+
+def rescore_lattice_acoustics(lat: Lattice, loglikes: np.ndarray,
+                              tid_to_pdf: Callable[[int], int]) -> None:
+    """Replace each emitting arc's acoustic cost with −loglikes[t, pdf] in
+    place, t the frame of the arc's source state (lat.state_time); the
+    per-minibatch step of nnet3 discriminative training."""
+    loglikes = np.asarray(loglikes)
+    T = loglikes.shape[0]
+    for s in range(lat.num_states):
+        t = lat.state_time[s]
+        new = []
+        for a in lat.arcs[s]:
+            ac = a.acoustic_cost
+            if a.ilabel and 0 <= t < T:
+                ac = float(-loglikes[t, tid_to_pdf(a.ilabel)])
+            new.append(LatticeArc(a.ilabel, a.olabel, a.graph_cost, ac, a.nextstate))
+        lat.arcs[s] = new

@@ -17,8 +17,9 @@ model and den graph).  A model the port trains carries its own tree,
 transition model and den graph, so its decode graph is built from them
 (`make_chain_decode_graph`), not read from the committed `chain_hclg.npz`.
 `combine_chain_models` weighs several models on held-out chain egs (reference
-nnet3-chain-combine).  The flat-start variant (`train_chain_e2e`) is not
-ported yet.
+nnet3-chain-combine).  `train_chain_e2e` is the flat-start variant
+(reference steps/nnet3/chain/e2e/): no GMM system and no alignments, each
+utterance's numerator its whole training graph (chain/e2e.py).
 """
 
 from __future__ import annotations
@@ -26,20 +27,22 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from old_kaldi_git_tpu_torch import convert
 from old_kaldi_git_tpu_torch.chain.den_graph import DenominatorGraph, make_denominator_graph
+from old_kaldi_git_tpu_torch.chain.e2e import (
+    NumeratorGraphBatch, chain_e2e_loss, normalize_numerator_csr)
 from old_kaldi_git_tpu_torch.chain.loss import ChainLossOptions, chain_loss
 from old_kaldi_git_tpu_torch.chain.phone_lm import estimate_phone_lm
 from old_kaldi_git_tpu_torch.chain.supervision import (
     alignment_to_supervision, chain_xent_labels, pad_supervisions)
 from old_kaldi_git_tpu_torch.chain.topology import chain_topology
 from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph
-from old_kaldi_git_tpu_torch.decoder.graph import mkgraph_csr
+from old_kaldi_git_tpu_torch.decoder.graph import GraphCompiler, mkgraph_csr
 from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch
 from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.fst.lang import Lang
@@ -51,12 +54,13 @@ from old_kaldi_git_tpu_torch.models.am_nnet import _ZIP_MAGIC, AmNnet
 from old_kaldi_git_tpu_torch.models.natural_gradient import NgCollector
 from old_kaldi_git_tpu_torch.models.tdnn import apply_orthonormal_constraints, make_tdnnf
 from old_kaldi_git_tpu_torch.models.train import (
-    NnetOptimizer, NnetTrainOptions, TrainState, backstitch_step, check_divergence,
-    combine_weights, combined_state, make_optimizer, ng_step, snapshot, stacked_state)
+    NnetOptimizer, NnetTrainOptions, TrainState, apply_update, backstitch_step,
+    check_divergence, combine_weights, combined_state, make_optimizer, ng_step, snapshot,
+    stacked_state)
 from old_kaldi_git_tpu_torch.recipes.nnet3 import append_ivector_feats
 from old_kaldi_git_tpu_torch.tree.build_tree import accumulate_tree_stats, build_tree
 from old_kaldi_git_tpu_torch.tree.context_dep import (
-    ContextDependency, monophone_context_dependency)
+    ContextDependency, biphone_context_dependency, monophone_context_dependency)
 from old_kaldi_git_tpu_torch.tree.event_map import KEY_PDF_CLASS, make_event
 from old_kaldi_git_tpu_torch.utils.log import get_logger
 from old_kaldi_git_tpu_torch.utils.parse_options import options_dataclass
@@ -300,13 +304,9 @@ def train_chain(gmm_model: AmGmmModel, feats: Dict[str, np.ndarray],
     fsf = opts.frame_subsampling_factor
     D = next(iter(feats.values())).shape[1]
     # features padded at the full rate; logits subsampled inside the step
-    Tfull = -(-max(feats[k].shape[0] for k in sup_keys) // fsf) * fsf
-    feats_padded = np.zeros((len(sup_keys), Tfull, D), np.float32)
-    xent_labels = np.zeros((len(sup_keys), allowed.shape[1]), np.int32)
-    for i, k in enumerate(sup_keys):
-        feats_padded[i, : feats[k].shape[0]] = feats[k]
-        xent_labels[i] = chain_xent_labels(alignments[k], gmm_model.tm, ctx_dep, fsf,
-                                           allowed.shape[1])
+    feats_padded, _ = pad_subsampled(feats, sup_keys, fsf)
+    xent_labels = np.stack([chain_xent_labels(alignments[k], gmm_model.tm, ctx_dep, fsf,
+                                              allowed.shape[1]) for k in sup_keys])
     data = [torch.from_numpy(a).to(dev) for a in (
         feats_padded, pdf_seq, allowed, sup_frames, seq_len, advance_lp, xent_labels)]
     report["supervision_seconds"] = time.perf_counter() - t0
@@ -375,6 +375,175 @@ def train_chain(gmm_model: AmGmmModel, feats: Dict[str, np.ndarray],
     return ChainModel.from_parts(out, ctx_dep, tm, den, fsf)
 
 
+def make_chain_e2e_step(model: torch.nn.Module, den: DenominatorGraph,
+                        optimizer: NnetOptimizer, loss_opts: ChainLossOptions, fsf: int):
+    """Flat-start (generic numerator) LF-MMI step: (state, feats [B, T, D],
+    num_frames [B], NumeratorGraphBatch of the B utterances[, seq_weights
+    [B], lr_scale]) → (state, loss, metrics); the model is updated in place
+    on its device, the final update scaled by lr_scale."""
+    dev = next(model.parameters()).device
+
+    def step(state: TrainState, bf, b_nf, graphs: NumeratorGraphBatch,
+             seq_weights=None, lr_scale: float = 1.0):
+        bf, b_nf = (torch.as_tensor(a, device=dev) for a in (bf, b_nf))
+        wts = None if seq_weights is None else torch.as_tensor(seq_weights, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(state.step)
+
+        def loss_fn():
+            logits = model(bf, output_stride=fsf, dropout_gen=gen)
+            return chain_e2e_loss(logits, den, graphs, b_nf, loss_opts, seq_weights=wts)
+
+        opt, loss, metrics = apply_update(model, loss_fn, optimizer, state.opt_state, lr_scale)
+        return TrainState(opt, state.step + 1), loss, metrics
+
+    return step
+
+
+def pad_subsampled(feats: Dict[str, np.ndarray], keys: List[str], fsf: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """[N, T, D] features padded to a multiple of `fsf` frames, and each
+    utterance's frame count at the subsampled rate [N]."""
+    T = -(-max(feats[k].shape[0] for k in keys) // fsf) * fsf
+    padded = np.zeros((len(keys), T, feats[keys[0]].shape[1]), np.float32)
+    nf = np.zeros(len(keys), np.int32)
+    for i, k in enumerate(keys):
+        padded[i, : feats[k].shape[0]] = feats[k]
+        nf[i] = -(-feats[k].shape[0] // fsf)
+    return padded, nf
+
+
+def e2e_chain_objects(transcripts: Dict[str, List[str]], keys: List[str], lang: Lang,
+                      opts: ChainTrainOptions
+                      ) -> Tuple[ContextDependency, TransitionModel, DenominatorGraph]:
+    """Flat-start tree (monophone, or with tree_context_width=2 the full
+    left-biphone, reference gmm-init-biphone), transition model, and den
+    graph from a phone LM of the transcripts' first pronunciations, each
+    once as it is and once with silence before, between and after the
+    words: the training graphs allow optional silence, and a den graph
+    without a silence state lets long-silence numerator paths outweigh the
+    denominator (the objective then diverges to +55 a frame)."""
+    phones = lang.real_phone_ids
+    topo = chain_topology(phones)
+    make_tree = (biphone_context_dependency if opts.tree_context_width == 2
+                 else monophone_context_dependency)
+    ctx_dep = make_tree(phones, {p: 1 for p in phones})
+    tm = TransitionModel.from_context_dependency(ctx_dep, topo)
+    first_pron: dict = {}
+    for word, _prob, pron in lang.lexicon.entries:
+        first_pron.setdefault(word, [lang.phones[p] for p in pron])
+    sil = lang.silence_id
+    phone_seqs = []
+    for k in keys:
+        seq, seq_sil = [], [sil]
+        for w in transcripts[k]:
+            seq.extend(first_pron[w])
+            seq_sil.extend(first_pron[w])
+            seq_sil.append(sil)
+        phone_seqs.append(seq)
+        phone_seqs.append(seq_sil)
+    den = make_denominator_graph(estimate_phone_lm(phone_seqs, opts.phone_lm_order), ctx_dep)
+    return ctx_dep, tm, den
+
+
+def numerator_graphs(lang: Lang, ctx_dep: ContextDependency, tm: TransitionModel,
+                     den: DenominatorGraph, transcripts: Sequence[Sequence[str]]
+                     ) -> List:
+    """Each transcript's training graph, normalised by the den graph."""
+    compiler = GraphCompiler(lang, ctx_dep, tm)
+    return [normalize_numerator_csr(compiler.compile_csr_from_text(t), tm, den)
+            for t in transcripts]
+
+
+def train_chain_e2e(feats: Dict[str, np.ndarray], transcripts: Dict[str, List[str]],
+                    lang: Lang, opts: Optional[ChainTrainOptions] = None,
+                    device: DeviceLike = None, history: Optional[List[dict]] = None,
+                    report: Optional[dict] = None) -> ChainModel:
+    """Flat-start LF-MMI of a fresh TDNN-F (reference steps/nnet3/chain/e2e/
+    and chain-generic-numerator) on `device` (None: the GPU): the tree, den
+    graph and numerator graphs of e2e_chain_objects and numerator_graphs,
+    then Adam over shuffled full minibatches with the orthonormal
+    constraint every 4 steps and train_chain's halved-LR retry.  No xent
+    term: there are no alignment targets.
+
+    history: one dict an accepted epoch (`epoch`, `objf`, `steps`,
+    `step_objf`).  report: `tree_pdfs`, `den_states`, `num_states` and
+    `num_arcs` (the padded numerator batch's S and A), `steps`, and the
+    host-clock `objects_seconds`, `numerator_seconds`, `train_seconds` and
+    `step_seconds` (each step's, as the host issues it)."""
+    opts = opts or ChainTrainOptions()
+    dev = resolve_device(device)
+    report = {} if report is None else report
+    t0 = time.perf_counter()
+    keys = sorted(k for k in transcripts if k in feats)
+    ctx_dep, tm, den = e2e_chain_objects(transcripts, keys, lang, opts)
+    report.update(tree_pdfs=ctx_dep.num_pdfs, den_states=den.num_states,
+                  objects_seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    gbatch = NumeratorGraphBatch.from_csr_graphs(
+        numerator_graphs(lang, ctx_dep, tm, den, [transcripts[k] for k in keys]))
+    report.update(num_states=gbatch.num_states, num_arcs=int(gbatch.src.shape[1]),
+                  numerator_seconds=time.perf_counter() - t0)
+    log.info("train_chain_e2e: %d utts, %d pdfs, num graphs ≤%d states/%d arcs, "
+             "den %d states", len(keys), ctx_dep.num_pdfs, gbatch.num_states,
+             gbatch.src.shape[1], den.num_states)
+    fsf = opts.frame_subsampling_factor
+    feats_padded, nf_sub = pad_subsampled(feats, keys, fsf)
+    D = feats_padded.shape[2]
+    config = make_tdnnf(D, ctx_dep.num_pdfs, opts.hidden_dim, opts.bottleneck_dim,
+                        opts.num_layers,
+                        subsampled_stride=fsf if opts.num_full_rate_layers else 0,
+                        num_full_rate_layers=opts.num_full_rate_layers)
+    am = AmNnet.init(config, seed=opts.seed, device=dev)
+    model = am.model.train()
+    loss_opts = ChainLossOptions(leaky_hmm_coefficient=opts.leaky_hmm_coefficient,
+                                 l2_regularize=opts.l2_regularize, xent_regularize=0.0)
+    B = opts.minibatch_size
+    num_steps = opts.num_epochs * max(1, len(keys) // B)
+    optimizer = make_optimizer(NnetTrainOptions(initial_lr=opts.initial_lr,
+                                                final_lr=opts.final_lr), num_steps)
+    state = TrainState(optimizer.init(dict(model.named_parameters())), 0)
+    step_fn = make_chain_e2e_step(model, den, optimizer, loss_opts, fsf)
+    x_all = torch.from_numpy(feats_padded).to(dev)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(opts.seed)
+    order = np.arange(len(keys))
+    step_s = report.setdefault("step_seconds", [])
+    epoch, retries, lr_scale, prev_loss = 0, 0, 1.0, None
+    while epoch < opts.num_epochs:
+        snap = snapshot(model, state)
+        rng.shuffle(order)
+        batches = [order[i: i + B] for i in range(0, len(order) - B + 1, B)] or [order]
+        objs = []
+        for idx in batches:
+            ts = time.perf_counter()
+            state, _loss, metrics = step_fn(
+                state, x_all.index_select(0, torch.from_numpy(idx).to(dev)), nf_sub[idx],
+                gbatch.take(idx), lr_scale=lr_scale)
+            step_s.append(time.perf_counter() - ts)
+            objs.append(metrics["objf"])
+            if state.step % ORTHONORMAL_INTERVAL == 0:
+                apply_orthonormal_constraints(model)
+        obj_v = torch.stack(objs).double().cpu().numpy()  # one copy an epoch
+        mean_loss = -float(np.mean(obj_v))
+        e = epoch
+
+        def accept():
+            log.info("chain-e2e epoch %d: objf %.4f (%d steps)", e, -mean_loss, len(obj_v))
+            if history is not None:
+                history.append({"epoch": e, "objf": -mean_loss, "steps": len(obj_v),
+                                "step_objf": obj_v.tolist()})
+
+        state, prev_loss, epoch, retries, lr_scale = check_divergence(
+            model, state, snap, mean_loss, prev_loss, epoch, retries, lr_scale,
+            opts.max_lr_retries, accept)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    report.update(steps=state.step, train_seconds=time.perf_counter() - t0)
+    out = AmNnet(config, model.eval(), None, device=dev)
+    return ChainModel.from_parts(out, ctx_dep, tm, den, fsf)
+
+
 def make_chain_decode_graph(chain: ChainModel, lang: Lang, g: VectorFst,
                             split_eps: bool = False,
                             timings: Optional[Dict[str, float]] = None) -> CsrGraph:
@@ -398,12 +567,7 @@ def decode_chain(chain: ChainModel, graph: CsrGraph, lang: Lang,
         feats = append_ivector_feats(feats, ivectors)
     keys = sorted(feats)
     fsf = chain.frame_subsampling_factor
-    T = -(-max(feats[k].shape[0] for k in keys) // fsf) * fsf
-    padded = np.zeros((len(keys), T, feats[keys[0]].shape[1]), np.float32)
-    nf = np.zeros(len(keys), np.int32)
-    for i, k in enumerate(keys):
-        padded[i, : feats[k].shape[0]] = feats[k]
-        nf[i] = -(-feats[k].shape[0] // fsf)
+    padded, nf = pad_subsampled(feats, keys, fsf)
     logits = chain.am.logits(padded, output_stride=fsf)
     results = decode_batch(graph, logits, nf, ViterbiOptions(
         beam=beam, max_active=max_active, acoustic_scale=acoustic_scale),

@@ -145,6 +145,26 @@ def monophone_context_dependency(
     return ContextDependency(1, 0, TableEventMap(0, table))
 
 
+def biphone_context_dependency(
+    phones: Sequence[int], num_pdf_classes: Dict[int, int]
+) -> ContextDependency:
+    """Full (unclustered) left-biphone tree: every (left phone or eps,
+    centre phone, pdf-class) gets its own pdf (reference gmm-init-biphone,
+    the flat-start chain tree, built without alignment statistics)."""
+    lefts = [0] + sorted(phones)  # 0 = utterance-initial (eps) context
+    table: Dict[int, EventMap] = {}
+    pdf = 0
+    for phone in sorted(phones):
+        by_left: Dict[int, EventMap] = {}
+        for left in lefts:
+            sub: Dict[int, EventMap] = {}
+            for pc in range(num_pdf_classes[phone]):
+                sub[pc] = ConstantEventMap(pdf)
+                pdf += 1
+            by_left[left] = TableEventMap(KEY_PDF_CLASS, sub)
+        table[phone] = TableEventMap(0, by_left)  # key 0 = left position
+    return ContextDependency(2, 1, TableEventMap(1, table))
+
 
 def _map_key(node: EventMap) -> tuple:
     if isinstance(node, ConstantEventMap):

@@ -15,6 +15,7 @@ alignment, through the port's entry point on the CPU, held frame for frame
 to the JAX package on the same (pre-scaled) loglikes; it prints the
 per-utterance digests that chip_smoke.py commits."""
 
+import tests.torch_threads  # noqa: F401
 import os
 import zlib
 

@@ -2,6 +2,7 @@
 source, the headers under csrc/ and the flags, so that an edited header
 never meets a library built before the edit.  Nothing is compiled here."""
 
+import tests.torch_threads  # noqa: F401
 import os
 
 import pytest

@@ -10,6 +10,7 @@ folded decode of the same graph.  The committed chain system:
 tests/test_torch_chain_models.py, which uses these helpers, as
 tests/test_torch_lattice*.py and tests/test_torch_online*.py do."""
 
+import tests.torch_threads  # noqa: F401
 import os
 
 import numpy as np

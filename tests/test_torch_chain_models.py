@@ -4,6 +4,7 @@ logits at frame-subsampling 3 within 1e-4 of the JAX package on held-out
 utterances, chain_hclg.npz, and the chain recipe's words on the 4 shortest
 held-out utterances (all 256, clean and noisy: slow)."""
 
+import tests.torch_threads  # noqa: F401
 import os
 
 import numpy as np

@@ -26,6 +26,7 @@ The same numpy inputs through both packages:
 features; stage 8 (G, mkgraph, split-eps export) on the committed
 chain.mdl against chain_hclg.npz, array for array; the yesno chain e2e."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 import gzip
 import os

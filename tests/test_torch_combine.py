@@ -11,6 +11,7 @@ they are solved from its combined parameters, which are the weights' sum of
 the models'), and the combined objective no worse than at uniform weights.
 `compute_prob` and `compute_chain_prob`: within 1e-5 relative."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 
 import numpy as np

@@ -8,6 +8,7 @@ is computed in two places with different rounding (XLA fusions), and its
 winner test `cand <= new_alpha[ns] + 1e-6` then misses winners.  The port
 computes the product once, so the pre-scaled reference is the steady one."""
 
+import tests.torch_threads  # noqa: F401
 import inspect
 
 import numpy as np

@@ -4,6 +4,7 @@ the two backends may contract multiply-adds differently) on toy and random
 graphs, including zero-frame rows, a beam that dies, a truncating budget,
 and the two hazards of the packed layout: int32-bitcast tiles and sort ties."""
 
+import tests.torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

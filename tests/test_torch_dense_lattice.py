@@ -14,6 +14,7 @@ loglikes.  Loglikes are synthesised from known phone sequences, as
 tests/test_online.py's _loglikes_for does, at acoustic scale 1.0 (the
 winner test's parity rule, ROADMAP queue 3)."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 
 import jax.numpy as jnp

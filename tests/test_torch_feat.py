@@ -10,6 +10,7 @@ largest feature of 114; the JAX package's own kernel test allows 1e-3
 relative on top of 1e-3 absolute).  The synthesis itself is a numpy copy and
 must be bit-equal."""
 
+import tests.torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ per-utterance CMN + deltas) on ragged utterances within 1e-3 + 1e-5 of the
 largest feature, independent of the batch an utterance rides in, closer to
 a float64 oracle than 1e-3, and the word table of the lang bundle."""
 
+import tests.torch_threads  # noqa: F401
 import math
 
 import numpy as np

@@ -2,6 +2,7 @@
 kernel in interpret mode and vs numpy: exact equality, since values are only
 copied."""
 
+import tests.torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ within atol 2e-3 + rtol 2e-3 of the JAX Pallas kernel (interpret mode) and of
 its jnp path: the TPU kernel's own test tolerance (tests/test_ops.py), fp32
 sums taken in another order over terms up to ~1e4."""
 
+import tests.torch_threads  # noqa: F401
 import io
 import os
 

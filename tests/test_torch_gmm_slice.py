@@ -9,6 +9,7 @@ cases for why the JAX package is not held to the port at 0.1 on its own.
 Slow: the committed tri.mdl on the committed HCLG (1,058,721 states) with the
 8 shortest held-out utterances, the top-K regime (K = 7000)."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 import os
 import types

@@ -13,6 +13,7 @@ csrc/gmm.cu runs only on the card; what surrounds it is held here:
   2e-3 + 2e-3·|plain| (tests/test_ops.py), while one TF32 product must not:
   that is why the split exists."""
 
+import tests.torch_threads  # noqa: F401
 import os
 
 import numpy as np

@@ -15,6 +15,7 @@ Same numpy inputs, made from a seed, through both packages:
 - The writers: a `.mdl` the port writes is byte for byte the JAX package's
   for the same parameters, and loads in the JAX package's reader."""
 
+import tests.torch_threads  # noqa: F401
 import io
 import os
 

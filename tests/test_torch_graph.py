@@ -9,6 +9,7 @@ utterances for `tri.mdl` and `mono.mdl`, and `mkgraph_csr` on the yes/no
 toy, as CSR arrays, exactly; the native library's build (from the
 checkout's source into build/, never the committed cpp/libokt_wfst.so)."""
 
+import tests.torch_threads  # noqa: F401
 import os
 import pickle
 

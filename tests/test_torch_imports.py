@@ -1,6 +1,7 @@
 """The port stands alone: importing it and every sub-module pulls in neither
 jax, flax nor the JAX package, and chip_smoke.py names none of them."""
 
+import tests.torch_threads  # noqa: F401
 import ast
 import os
 import pkgutil
@@ -43,7 +44,9 @@ def test_port_has_the_slice_modules():
                  "chain.loss", "gmm.full_gmm", "utils.pipeline",
                  "models.natural_gradient", "models.egs", "models.diagnostics",
                  "transform", "transform.lda", "transform.mllt", "transform.fmllr",
-                 "utils.kio", "utils.wav", "utils.table", "recipes.run_all"):
+                 "utils.kio", "utils.wav", "utils.table", "recipes.run_all",
+                 "chain.e2e", "chain.semisup", "recipes.semisup", "gmm.ebw",
+                 "recipes.mmi", "lat.discriminative", "models.discriminative"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 

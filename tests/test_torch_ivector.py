@@ -10,6 +10,7 @@ tests/test_torch_ivector_stream.py; the feature wiring and the iVector
 recipes: tests/test_torch_ivector_recipes.py; both use the fixtures here.
 Training: tests/test_torch_ivector_train.py."""
 
+import tests.torch_threads  # noqa: F401
 import os
 
 import numpy as np

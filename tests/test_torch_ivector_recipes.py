@@ -6,6 +6,7 @@ CE+iVec and chain+iVec recipes' words on the 2 shortest held-out
 utterances.  Slow: all 256 held-out utterances, clean and noisy, for both
 iVector systems, word for word."""
 
+import tests.torch_threads  # noqa: F401
 import os
 import pickle
 

@@ -4,6 +4,7 @@ use): for any chunking of the input and any stats scale and count cap, the
 concatenated outputs equal extract_online_ivectors over the whole stream,
 exactly, also for float64 input."""
 
+import tests.torch_threads  # noqa: F401
 import numpy as np
 import pytest
 

@@ -21,6 +21,7 @@ average loglikes and the kind-1 extractors' iVectors end up; tier 1 holds
 it at a small size within the limits the 600-utterance measurement (`-m
 slow`, which prints it) supports."""
 
+import tests.torch_threads  # noqa: F401
 import io
 import os
 

@@ -10,6 +10,7 @@ n-gram estimation): tests/test_torch_lattice_rebuild.py; LM rescoring and
 the rescoring recipe: tests/test_torch_lattice_rescore.py; both use the
 helpers here."""
 
+import tests.torch_threads  # noqa: F401
 import os
 
 import numpy as np

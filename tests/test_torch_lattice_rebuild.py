@@ -6,6 +6,7 @@ pruned determinization (held against the JAX package's Python algorithm:
 states, arcs and weights within 1e-5), ARPA parsing and n-gram
 estimation."""
 
+import tests.torch_threads  # noqa: F401
 import gzip
 import os
 

@@ -5,6 +5,7 @@ recipe on the committed system, 2 utterances with a small LM text in
 tier 1, the benchmark's 64 noisy utterances with the full 4-gram (and the
 live records on the same loglikes) marked slow."""
 
+import tests.torch_threads  # noqa: F401
 import numpy as np
 import pytest
 

@@ -22,6 +22,7 @@ the 60-leaf trees (3 counts or fewer, which take the global statistics
 that count the first leaf twice) and the words on the yesno HCLG's final
 states (the lattices drop them)."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 import io
 

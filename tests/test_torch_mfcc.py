@@ -2,6 +2,7 @@
 Pallas kernel in interpret mode and vs its jnp reference.  Tolerance 1e-3
 absolute: float32 sums taken in another order at log-mel magnitudes ~20."""
 
+import tests.torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ csrc/mfcc.cu runs only on the card; what surrounds it is held here:
 - that the same frames make a 3×TF32 DFT and a float32 FFT miss the 1e-3
   check that the float64 design meets: that is why the route is float64."""
 
+import tests.torch_threads  # noqa: F401
 import math
 
 import numpy as np

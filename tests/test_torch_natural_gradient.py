@@ -14,6 +14,7 @@ lockstep within 1e-5 (loss relative, parameters absolute), one
 `ng-sgd-act` CE step and one `ng-sgd-act` chain step (yesno's biphone chain
 objects) within 1e-4."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 
 import numpy as np

@@ -22,6 +22,7 @@ orders:
 - save/load: exact.
 `-m slow`: train_tdnn on yesno to WER 0, as tests/test_models.py's e2e."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 import logging
 

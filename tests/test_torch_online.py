@@ -11,6 +11,7 @@ entry points default to the GPU and raise without one.  Slow: the online2 path (
 into the CE+iVec model on hclg.npz) on 16 held-out utterances, words equal
 to the JAX package's."""
 
+import tests.torch_threads  # noqa: F401
 import os
 
 import numpy as np

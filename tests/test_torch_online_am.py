@@ -4,6 +4,7 @@ loglikes_batch within 1e-5 for every chunking, and the streaming decoder
 fed by a TDNN window (frame-subsampling 1 and 3) gives the batch decode's
 words and alignment."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 
 import numpy as np

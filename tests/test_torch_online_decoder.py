@@ -5,6 +5,7 @@ and to the JAX StreamingTokenDecoder for every chunking, on a folded graph,
 a split-eps graph and a split-eps graph at frame-subsampling 3;
 endpointing on trailing silence; the max_frames refusal."""
 
+import tests.torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

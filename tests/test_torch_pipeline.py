@@ -16,6 +16,7 @@ chain+iVec model, whose tree is not chain.mdl's, is refused on
 chain_hclg.npz.  The entry point parses --workdir, --stage and
 --device."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 import os
 

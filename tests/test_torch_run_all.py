@@ -8,6 +8,7 @@ archive, the feature archive), and a second run that skips every stage and
 leaves RESULTS as it was.  `-m slow` runs every stage, with
 tests/test_run_all.py's gates (about 30 s)."""
 
+import tests.torch_threads  # noqa: F401
 import os
 import time
 

@@ -5,6 +5,7 @@ committed exp/minilib system at max_active=256 marked slow.  Words must be
 equal; path costs within 1e-2 (sums over hundreds of frames of loglikes that
 agree to ~1e-4)."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 import functools
 import os

@@ -5,6 +5,7 @@ by the other, and the nnet3 `final.mdl` bundle (AmNnetModel) in the port's
 format and from the JAX package's pickle.  The values are made from a seed
 with numpy."""
 
+import tests.torch_threads  # noqa: F401
 import io
 import os
 

@@ -5,6 +5,7 @@ unpickler.  Tolerances: 1e-4 on the narrow model's outputs (float32 products
 of <= 100 terms in another order), 1e-3 on final.am's loglikes (seven layers
 of 512-1024-term sums)."""
 
+import tests.torch_threads  # noqa: F401
 import dataclasses
 import io
 import os

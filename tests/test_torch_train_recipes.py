@@ -18,6 +18,7 @@ utterances; the tree of 2,000 leaves), through the port on the CPU; each
 prints the per-iteration like/frame and Gaussian counts (and the tree's
 leaf digests) that chip_smoke.py commits as the CPU's record."""
 
+import tests.torch_threads  # noqa: F401
 import importlib
 import json
 import os

@@ -14,6 +14,7 @@ posteriors, which must equal a model rebuilt from the new means (they
 would score the old means without `AmDiagGmm.invalidate`); the affine
 transform and the splice."""
 
+import tests.torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

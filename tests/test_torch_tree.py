@@ -15,6 +15,7 @@ Slow: the full 600-utterance statistics (34,485 events) and the 2,000-leaf
 tree, tree for tree; and the port's tree on the JAX package's features of
 the same waves, against the tree on its own."""
 
+import tests.torch_threads  # noqa: F401
 import gzip
 import importlib
 import os
