@@ -79,6 +79,15 @@ training utterances, the first iteration's statistics and update held to
 the CPU's from the same lattices, and the GMM kernel on the updated
 models; nnet3 sMBR / MMI (models/discriminative) on the two-path toy and
 of final.am on 64 training utterances, its gradient held to the CPU's.
+Then what users read from a decode (lattice_outputs): tri.mdl decodes 64
+held-out utterances at noise 400 with lattices (DecodeOptions(), K1, K2,
+K3), once determinized by the native library of cpp/lattice.cc, which the
+Python determinization must equal on every lattice, each lattice's best
+path the decoder's words; the LM-weight sweep, MBR, CTM with confidences,
+frame posteriors, a compact-lattice archive read back, decode_biglm with
+the identity and from the pruned trigram to the rescore phase's 4-gram,
+and an LSTMP RNNLM over the 20k words trained one epoch on the card (held
+to the CPU) rescoring 10-best lists.
 --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
@@ -2085,6 +2094,271 @@ def sequence_training(torch, np, c) -> dict:
     return {"launches": launches, "k1": k1_new, "k3": k3_new}
 
 
+LATTICE_UTTS = 64  # held-out utterances at NOISE_EVAL of the lattice_outputs phase
+LATTICE_BEAM = 10.0  # decode_dataset_with_lattices' default
+RNNLM_SENTENCES = 20_000  # the first of the 4-gram's own LM text
+RNNLM_HELD_OUT = 256  # sentences scored on the card and on the CPU
+RNNLM_SCORE_TOL = 1e-3  # nats a sentence, card vs CPU
+RNNLM_STEP_TOL = 1e-5  # one step's loss, card vs CPU, relative
+NBEST = 10
+POST_SUM_TOL = 1e-4
+
+
+def lattice_outputs(torch, np, c) -> dict:
+    """The lattice_outputs phase: what users read from a decode, on the card.
+    64 held-out utterances at noise 400, features through K2, tri.mdl's
+    loglikes through K3, recipes/decode.decode_dataset_with_lattices at
+    DecodeOptions() on hclg.npz with lattice records through K1, once
+    without determinization and once with it (the native library of
+    cpp/lattice.cc); the Python determinization of the first decode's
+    lattices held to the native one, each lattice's best path to the
+    decoder's words; the LM-weight sweep, MBR, CTM with confidences, frame
+    posteriors, a compact-lattice archive written ark,scp: and read back;
+    decode_biglm with the identity and from the pruned trigram to the
+    rescore phase's 4-gram; the RNNLM at RnnLmOptions() over the 20k-word
+    vocabulary trained one epoch on the card, held to the CPU, and its
+    n-best rescoring.  K1, K2 and K3 are counted over the whole phase.
+    Returns {"launches", "k1", "k3", "faults"}."""
+    import statistics
+
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+    from old_kaldi_git_tpu_torch.hmm.hmm_utils import alignment_to_phones
+    from old_kaldi_git_tpu_torch.lat import ctm as lat_ctm, mbr as lat_mbr
+    from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
+    from old_kaldi_git_tpu_torch.lat.lattice import (
+        lattice_best_path, lattice_nbest_paths, lattice_to_post)
+    from old_kaldi_git_tpu_torch.lm import rnnlm as lm_rnn
+    from old_kaldi_git_tpu_torch.recipes import decode
+    from old_kaldi_git_tpu_torch.utils.log import KaldiError
+    from old_kaldi_git_tpu_torch.utils.table import TableWriter, read_table
+
+    dev, card, emit, minilib = c.dev, c.card, c.emit, c.minilib
+    faults, stages = [], {}
+    words = c.system.words
+    opts = minilib.MinilibOptions()
+    dopts = decode.DecodeOptions()
+    acs = dopts.acoustic_scale
+
+    def clat_tuple(clat):
+        return (clat.num_states, clat.start, list(clat.finals),
+                [[(a.word, tuple(a.tids), a.graph_cost, a.acoustic_cost, a.nextstate)
+                  for a in lst] for lst in clat.arcs])
+
+    def wer_of(hyps):
+        return c.compute_wer(ref, {k: list(hyps.get(k, [])) for k in ref}).wer
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    c.zero_counts()
+    c.gmm_loglikes.launches = 0
+    t_phase = t0 = time.perf_counter()
+    waves, text = minilib.make_test_set(opts, noise=minilib.NOISE_EVAL)
+    keys = sorted(waves)[:LATTICE_UTTS]
+    ref = {k: list(text[k]) for k in keys}
+    gmm = AmGmmModel.load("exp/minilib/tri.mdl", device=dev)
+    t0 = lap("setup_seconds", t0)
+    feats = minilib.compute_feats({k: waves[k] for k in keys}, device=dev)
+    t0 = lap("features_seconds", t0)
+    decoded, d1 = {}, {}
+    raw = decode.decode_dataset_with_lattices(gmm, c.system.csr, words, feats, dopts,
+                                              LATTICE_BEAM, timings=d1, decoder_words=decoded)
+    t0 = lap("decode_seconds", t0)
+    d2 = {}
+    clats = decode.decode_dataset_with_lattices(gmm, c.system.csr, words, feats, dopts,
+                                                LATTICE_BEAM, determinize=True, timings=d2)
+    t0 = lap("decode_determinized_seconds", t0)
+    py_clats = {k: determinize_lattice_pruned(lat, LATTICE_BEAM, acoustic_scale=acs,
+                                              algorithm="python") for k, lat in raw.items()}
+    t0 = lap("determinize_python_seconds", t0)
+    det_differ = [k for k in keys if k not in clats or k not in py_clats
+                  or clat_tuple(clats[k]) != clat_tuple(py_clats[k])]
+    best_differ = [k for k in keys if k not in raw
+                   or lattice_best_path(raw[k], 1.0, acs)[0] != decoded.get(k)]
+    map_hyps = {k: [words[w] for w in decoded.get(k, [])] for k in keys}
+    map_wer = wer_of(map_hyps)
+    del py_clats
+    # the LM-weight sweep over the raw lattices (score.sh's LMWT loop)
+    sweep = {}
+    best_scale, best_stats = decode.score_lattices_sweep(raw, words, ref, acs, report=sweep)
+    t0 = lap("sweep_seconds", t0)
+    # MBR on the determinized lattices
+    mbr_hyps, exp_wer, mbr_bad = {}, [], []
+    for k in keys:
+        res = lat_mbr.minimum_bayes_risk(clats[k], 1.0, acs) if k in clats else None
+        if res is None:
+            mbr_bad.append(k)
+            continue
+        mbr_hyps[k] = [words[w] for w in res.words]
+        exp_wer.append(res.expected_wer)
+        if not (all(0.0 <= x <= 1.0 for x in res.confidences)
+                and all(abs(sum(p for _, p in b) - 1.0) <= POST_SUM_TOL for b in res.sausage)):
+            mbr_bad.append(k)
+    t0 = lap("mbr_seconds", t0)
+    # CTM with confidences from the raw lattices.  A search that ends off
+    # the graph's final states (the noisy set, DecodeOptions()) leaves its
+    # last word's phones unfinished, and the lexicon walk of
+    # align_words_lexicon refuses it (KaldiError, as the JAX package's
+    # does): such an utterance is counted, after checking that its phones
+    # are a strict prefix of its words' pronunciations
+    prons = {w: [c.lang.phones[p] for p in pron] for w, _, pron in c.lang.lexicon.entries}
+    sil = c.lang.silence_id
+    ctm_lines, ctm_bad, ctm_ends_inside_a_word = 0, [], []
+    for k in keys:
+        best, tids, _ = lattice_best_path(raw[k], 1.0, acs)
+        try:
+            entries = lat_ctm.lattice_to_ctm_conf(raw[k], gmm.tm, c.lang, k, 1.0, acs)
+        except KaldiError:
+            phones = [p for p in alignment_to_phones(gmm.tm, tids) if p != sil]
+            want = [p for w in best for p in prons[words[w]]]
+            if len(phones) < len(want) and want[: len(phones)] == phones:
+                ctm_ends_inside_a_word.append(k)
+            else:
+                ctm_bad.append(k)
+            continue
+        ctm_lines += len(entries)
+        starts = [e.start for e in entries]
+        if (len(entries) != len(best) or not all(0.0 <= e.confidence <= 1.0 for e in entries)
+                or starts != sorted(starts)):
+            ctm_bad.append(k)
+    t0 = lap("ctm_seconds", t0)
+    post_err = 0.0
+    for k in keys:
+        post = lattice_to_post(raw[k], gmm.tm, 1.0, acs, min_post=0.0)
+        post_err = max([post_err] + [abs(sum(w for _, w in f) - 1.0) for f in post])
+    t0 = lap("post_seconds", t0)
+    # a compact-lattice archive and its script, read back: the holder keeps
+    # each weight's %.6g text, so the read lattices equal the written ones
+    # to those digits and exactly in everything else
+    tmp = tempfile.mkdtemp(dir=os.getcwd())
+    try:
+        with TableWriter(f"ark,scp:{tmp}/lat.ark,{tmp}/lat.scp", "clat") as w:
+            for k in keys:
+                w[k] = clats[k]
+        back = read_table(f"scp:{tmp}/lat.scp", "clat")
+        ark_bytes = os.path.getsize(f"{tmp}/lat.ark")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r6 = lambda x: float(f"{x:.6g}") if x != np.inf else x  # noqa: E731
+
+    def rounded(clat):
+        n, s, fin, arcs = clat_tuple(clat)
+        return (n, s, [(r6(g), r6(a), t) for g, a, t in fin],
+                [[(wd, t, r6(g), r6(a), ns) for wd, t, g, a, ns in lst] for lst in arcs])
+    archive_differ = [k for k in keys if k not in back or rounded(back[k]) != rounded(clats[k])]
+    t0 = lap("archive_seconds", t0)
+    # decode_biglm on the determinized lattices: the identity, then the 4-gram
+    pruned, full = c.rescore_lms["pruned"], c.rescore_lms["full"]
+    same = decode.decode_biglm(gmm, c.system.csr, words, feats, pruned, pruned, dopts,
+                               lattices=clats)
+    identity_differ = [k for k in keys if same.get(k) != [
+        words[w] for w in clats[k].best_path(1.0, acs)[0]]]
+    t0 = lap("biglm_identity_seconds", t0)
+    big = decode.decode_biglm(gmm, c.system.csr, words, feats, pruned, full, dopts,
+                              lattices=clats)
+    big_wer = wer_of(big)
+    t0 = lap("biglm_4gram_seconds", t0)
+    counts = c.read_counts("lattice_outputs")
+    counts["gmm"] = c.gmm_loglikes.launches
+    # the RNNLM: trained on the card at its own full width, held to the CPU
+    sents = minilib.make_text(opts, opts.lm_sentences, opts.seed + 2)
+    train = [[int(w) + 1 for w in s] for s in sents[:RNNLM_SENTENCES]]  # word-table ids
+    held = [[int(w) + 1 for w in s] for s in sents[-RNNLM_HELD_OUT:]]
+    del sents
+    t0 = lap("rnnlm_text_seconds", t0)
+    ropts = lm_rnn.RnnLmOptions(num_epochs=1)
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    rlm = lm_rnn.train_rnnlm(train, opts.num_words, ropts, device=dev, history=hist)
+    t0 = lap("rnnlm_train_seconds", t0)
+    rnn_peak = torch.cuda.max_memory_allocated()
+    losses = hist[0]["losses"]
+    cpu_lm = lm_rnn.RnnLm(copy.deepcopy(rlm.model).to("cpu"), rlm.opts, rlm.vocab)
+    score_diff = float(np.abs(rlm.logprobs_batch(held) - cpu_lm.logprobs_batch(held)).max())
+    step = {}
+    for where, lm in (("card", rlm), ("cpu", cpu_lm)):
+        h = []
+        lm_rnn.train_rnnlm(train[:ropts.batch_size], opts.num_words, ropts,
+                           device=lm.device, init=lm, history=h)
+        step[where] = h[0]["losses"][0]
+    step_rel = abs(step["card"] - step["cpu"]) / abs(step["cpu"])
+    del cpu_lm
+    t0 = lap("rnnlm_cpu_check_seconds", t0)
+    rnn_hyps = {}
+    for k in keys:
+        nb = [([a.olabel for a in arcs if a.olabel],
+               sum(a.graph_cost + acs * a.acoustic_cost for a in arcs) + fin[0] + acs * fin[1])
+              for arcs, fin in lattice_nbest_paths(raw[k], NBEST, 1.0, acs)]
+        resc = lm_rnn.rescore_nbest_rnnlm(
+            nb, rlm, lambda ws: -pruned.score_sequence([words[w] for w in ws]))
+        rnn_hyps[k] = [words[w] for w in resc[0][0]] if resc else []
+    rnn_wer = wer_of(rnn_hyps)
+    t0 = lap("rnnlm_rescore_seconds", t0)
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "lattice_outputs", "card": card, "model": "exp/minilib/tri.mdl",
+          "graph": "exp/minilib/hclg.npz", "utterances": len(keys),
+          "noise": minilib.NOISE_EVAL, "beam": dopts.beam, "max_active": dopts.max_active,
+          "acoustic_scale": acs, "lattice_beam": LATTICE_BEAM,
+          "lattices": len(raw), "lattice_arcs": sum(x.num_arcs for x in raw.values()),
+          "compact_lattice_arcs": sum(x.num_arcs for x in clats.values()),
+          "determinize_native_seconds": d2.get("determinize_seconds"),
+          "native_equals_python": len(keys) - len(det_differ),
+          "native_differs_from_python": det_differ,
+          "best_path_equals_decoder": len(keys) - len(best_differ),
+          "best_path_differs_from_decoder": best_differ,
+          "wer_map": map_wer, "sweep_wer_by_lm_scale": {str(s): w for s, w in sweep.items()},
+          "sweep_best_lm_scale": best_scale, "sweep_best_wer": best_stats.wer,
+          "wer_mbr": wer_of(mbr_hyps), "mbr_mean_expected_wer": float(np.mean(exp_wer))
+          if exp_wer else None, "mbr_malformed": mbr_bad,
+          "ctm_lines": ctm_lines, "ctm_malformed": ctm_bad,
+          "ctm_search_ended_inside_a_word": ctm_ends_inside_a_word,
+          "post_frame_sum_max_err": post_err,
+          "archive_bytes": ark_bytes, "archive_differs": archive_differ,
+          "biglm_identity_differs": identity_differ, "wer_biglm_4gram": big_wer,
+          "rnnlm": {"options": dataclasses.asdict(ropts), "vocab": rlm.vocab,
+                    "sentences": len(train), "steps": len(losses),
+                    "perplexity_by_epoch": [h["perplexity"] for h in hist],
+                    "loss_first_50": float(np.mean(losses[:50])),
+                    "loss_last_50": float(np.mean(losses[-50:])),
+                    "step_ms_median": 1e3 * statistics.median(hist[0]["step_seconds"]),
+                    "peak_device_memory_bytes": rnn_peak,
+                    "held_out_score_card_vs_cpu_max_abs": score_diff,
+                    "one_step_loss": step, "one_step_loss_rel_diff": step_rel,
+                    "nbest": NBEST, "wer_rescored": rnn_wer},
+          "decode_stages": d1, "decode_determinized_stages": d2, **stages,
+          "wall_seconds": wall,
+          "launches": counts})
+    if min(counts["gather"], counts["mfcc"], counts["gmm"]) == 0:
+        faults.append(f"lattice_outputs did not go through K1, K2 and K3: {counts}")
+    if len(raw) != len(keys) or det_differ:
+        faults.append(f"native vs Python determinization differ on {det_differ}")
+    if best_differ:
+        faults.append(f"lattice best paths differ from the decoder's on {best_differ}")
+    if mbr_bad or ctm_bad or post_err > POST_SUM_TOL:
+        faults.append(f"malformed outputs: MBR {mbr_bad}, CTM {ctm_bad}, posteriors {post_err}")
+    if archive_differ:
+        faults.append(f"the archive read back differs on {archive_differ}")
+    if identity_differ or not big_wer <= map_wer + 1.0:
+        faults.append(f"decode_biglm: identity differs on {identity_differ}, 4-gram WER "
+                      f"{big_wer} against {map_wer}")
+    if not (np.mean(losses[-50:]) < np.mean(losses[:50]) and score_diff <= RNNLM_SCORE_TOL
+            and step_rel <= RNNLM_STEP_TOL):
+        faults.append(f"rnnlm: loss {np.mean(losses[:50])} -> {np.mean(losses[-50:])}, "
+                      f"card vs CPU {score_diff} nats, one step {step}")
+    # K1 and K3 at this path's shapes
+    tg = c.token_budget(dopts.max_active)
+    k1 = {"lattice_outputs": c.gather_at(len(keys), gmm.am.num_pdfs, tg, 768)}
+    _, padded, _ = c.pad_feature_batch(feats)
+    x = torch.from_numpy(padded.reshape(-1, padded.shape[-1])).to(dev)
+    k3 = {"lattice_outputs": c.k3_at(torch, c.gmm_loglikes, c.gmm_loglikes_plain,
+                                     gmm.am.weights(), x, c.plug)}
+    del x, raw, clats, rlm
+    torch.cuda.empty_cache()
+    return {"launches": counts, "k1": k1, "k3": k3, "faults": faults}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--noisy", action="store_true",
@@ -2112,6 +2386,7 @@ def main() -> int:
     from old_kaldi_git_tpu_torch.feat import MfccOptions, extract_frames
     from old_kaldi_git_tpu_torch.feat.window import num_frames
     from old_kaldi_git_tpu_torch.fst import native
+    from old_kaldi_git_tpu_torch.lat import native as lat_native
     from old_kaldi_git_tpu_torch.ivector.extractor import OnlineIvectorExtractor
     from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
     from old_kaldi_git_tpu_torch.online.streaming import (
@@ -2142,17 +2417,21 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_name_and_power_limit()
 
-    # ---- phase 1: device, build: the CUDA kernels and, beside them in a
-    # thread, the native graph library the training graphs need
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    # ---- phase 1: device, build: the CUDA kernels and, beside them in
+    # threads, the native graph library the training graphs need and the
+    # native lattice determinization
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         graph_lib = pool.submit(native.build)
+        lattice_lib = pool.submit(lat_native.build)
         _build.build()
         graph_lib.result()
+        lattice_lib.result()
     logs = _build.build_logs()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "kernel_build_seconds": round(_build.build_seconds, 2),
           "graph_library_build_seconds": round(native.build_seconds, 2),
+          "lattice_library_build_seconds": round(lat_native.build_seconds, 2),
           "ptxas": {"gather": ptxas_by_entry(logs.get("gather", "")),
                     "mfcc": ptxas_by_entry(logs.get("mfcc", "")),
                     "gmm": ptxas_by_depth(logs.get("gmm", ""))}})
@@ -2680,9 +2959,10 @@ def main() -> int:
     zero_counts()
     t0 = time.perf_counter()
     rstages = {}
+    rescore_lms = {}  # the two LMs, kept for lattice_outputs' big-LM decode
     before, after = minilib.rescore_and_score(
         system, max_active=RESCORE_MAX_ACTIVE, batch=RESCORE_BATCH, timings=rstages,
-        **RESCORE)
+        lms=rescore_lms, **RESCORE)
     torch.cuda.synchronize()
     rwall_s = time.perf_counter() - t0
     rstats = dict(minilib.rescore_and_score.last_stats)
@@ -4419,6 +4699,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     seq_launches = seq["launches"]
 
+    # ---- phase 36: lattice outputs (n-best, MBR, CTM, posteriors, archives,
+    # native determinization, big-LM and LM-weight-sweep scoring, the RNNLM),
+    # the counts set to 0 just before it and read just after
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    lo = lattice_outputs(torch, np, argparse.Namespace(
+        dev=dev, card=card, emit=emit, minilib=minilib, system=system, lang=lang,
+        zero_counts=zero_counts, read_counts=read_counts, gmm_loglikes=gmm_loglikes,
+        gmm_loglikes_plain=gmm_loglikes_plain, gather_at=gather_at, k3_at=k3_at, plug=plug,
+        compute_wer=compute_wer, pad_feature_batch=pad_feature_batch,
+        rescore_lms=rescore_lms,
+        token_budget=lambda k: _token_budget(system.csr, max(4, min(k, system.csr.num_states)),
+                                             tg.md) * tg.md))
+    del plug, rescore_lms
+    torch.cuda.empty_cache()
+    if lo["faults"]:
+        raise RuntimeError("lattice_outputs: " + "; ".join(lo["faults"]))
+    lo_launches = lo["launches"]
+
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
@@ -4436,7 +4734,8 @@ def main() -> int:
                                                   cv_launches) for n in p.values())
                       + sum(p["gather"] for p in (tiv_launches, ng_launches, cb_launches))
                       + sum(p["gather"] for p in cfg2_launches.values())
-                      + sum(p["gather"] for p in seq_launches.values())),
+                      + sum(p["gather"] for p in seq_launches.values())
+                      + lo_launches["gather"]),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -4461,7 +4760,8 @@ def main() -> int:
                               "train_ng": ng_launches["gather"],
                               "combine": cb_launches["gather"],
                               **{n: p["gather"] for n, p in cfg2_launches.items()},
-                              **{n: p["gather"] for n, p in seq_launches.items()}},
+                              **{n: p["gather"] for n, p in seq_launches.items()},
+                              "lattice_outputs": lo_launches["gather"]},
          "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err), "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
@@ -4471,7 +4771,8 @@ def main() -> int:
                              **{f"{n}_{k}": v for n, g in k1_align.items()
                                 for k, v in g.items()},
                              **{f"train_yesno_{k}": v for k, v in k1_yesno.items()},
-                             "train_chain_decode": k1_trained_chain, **seq["k1"]}},
+                             "train_chain_decode": k1_trained_chain, **seq["k1"],
+                             **lo["k1"]}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
@@ -4485,7 +4786,8 @@ def main() -> int:
                                                 cv_launches) for n in p.values())
                       + sum(p["mfcc"] for p in (tiv_launches, ng_launches, cb_launches))
                       + sum(p["mfcc"] for p in cfg2_launches.values())
-                      + sum(p["mfcc"] for p in seq_launches.values())),
+                      + sum(p["mfcc"] for p in seq_launches.values())
+                      + lo_launches["mfcc"]),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -4509,7 +4811,8 @@ def main() -> int:
                               "train_ng": ng_launches["mfcc"],
                               "combine": cb_launches["mfcc"],
                               **{n: p["mfcc"] for n, p in cfg2_launches.items()},
-                              **{n: p["mfcc"] for n, p in seq_launches.items()}},
+                              **{n: p["mfcc"] for n, p in seq_launches.items()},
+                              "lattice_outputs": lo_launches["mfcc"]},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -4517,7 +4820,8 @@ def main() -> int:
                  *a_launches.values(), ty_launches, *tr_launches.values(), y_launches,
                  tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values(),
                  *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
-                 cb_launches, *cfg2_launches.values(), *seq_launches.values()))
+                 cb_launches, *cfg2_launches.values(), *seq_launches.values(),
+                 lo_launches))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
@@ -4531,25 +4835,28 @@ def main() -> int:
                       + sum(a["gmm"] for a in a_launches.values())
                       + ty_launches["gmm"] + sum(t["gmm"] for t in tr_launches.values())
                       + sum(p["gmm"] for p in cfg2_launches.values())
-                      + sum(p["gmm"] for p in seq_launches.values())),
+                      + sum(p["gmm"] for p in seq_launches.values())
+                      + lo_launches["gmm"]),
          "launches_by_path": {"decode": k3_tdnn_launches,
                               "decode_gmm": g_launches["gmm"],
                               **{n: a["gmm"] for n, a in a_launches.items()},
                               "train_yesno": ty_launches["gmm"],
                               **{n: t["gmm"] for n, t in tr_launches.items()},
                               **{n: p["gmm"] for n, p in cfg2_launches.items()},
-                              **{n: p["gmm"] for n, p in seq_launches.items()}},
+                              **{n: p["gmm"] for n, p in seq_launches.items()},
+                              "lattice_outputs": lo_launches["gmm"]},
          "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]
                             + [v["max_abs_err"] for v in k3_train.values()]
                             + [v["max_abs_err"] for v in k3_depths.values()]
-                            + [v["max_abs_err"] for v in seq["k3"].values()]),
+                            + [v["max_abs_err"] for v in seq["k3"].values()]
+                            + [v["max_abs_err"] for v in lo["k3"].values()]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": max(k3_ops_ms, k3_bytes_ms),
          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
          "library_ms": None,
          "at_other_shapes": {**k3_align, **{f"train_{k}": v for k, v in k3_train.items()},
                              **{f"depth_{k}": v for k, v in k3_depths.items()},
-                             **seq["k3"]}},
+                             **seq["k3"], **lo["k3"]}},
     ]})
     if args.noisy:
         waves, text = minilib.make_test_set(minilib.MinilibOptions(),

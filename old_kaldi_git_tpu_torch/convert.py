@@ -1,6 +1,6 @@
 """Weights and state carried across from the JAX package's artifacts.
 
-Four things:
+Five things:
 
 * `am_nnet_from_jax`: a flax variable tree (as numpy) → the port's AmNnet.
   flax `Dense.kernel` is [in, out], `nn.Linear.weight` is [out, in];
@@ -20,6 +20,7 @@ Four things:
   and denominator graph (`transition_model_from_pickle`,
   `den_graph_from_pickle`), so a test can start both packages from one
   point.
+* the RNNLM: `rnnlm_from_jax`, a flax RnnLmModule tree → the port's RnnLm.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from old_kaldi_git_tpu_torch.chain.den_graph import DenominatorGraph
-from old_kaldi_git_tpu_torch.device import DeviceLike
+from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm, AmGmmModel, DiagGmm
 from old_kaldi_git_tpu_torch.hmm.topology import HmmState, HmmTopology
 from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
@@ -288,3 +289,22 @@ def den_graph_from_pickle(stub: Any) -> DenominatorGraph:
     d = {k: v for k, v in vars(stub).items() if k in fields}
     d["arc_lookup"] = {(int(a), int(b)): int(s) for (a, b), s in stub.arc_lookup.items()}
     return DenominatorGraph(**d)
+
+
+# ---------------------------------------------------------------------------
+# the RNNLM
+# ---------------------------------------------------------------------------
+
+def rnnlm_from_jax(params: Mapping[str, Any], opts: Any, vocab: int,
+                   device: DeviceLike = None):
+    """A flax RnnLmModule parameter tree (numpy) → the port's RnnLm (with
+    `opts`, the port's RnnLmOptions, and the vocabulary size with BOS/EOS).
+    Names through `torch_params_from_flax`; flax's `embed/embedding` is
+    nn.Embedding's `embed.weight`."""
+    from old_kaldi_git_tpu_torch.lm.rnnlm import RnnLm, RnnLmModule
+
+    model = RnnLmModule(vocab, opts.embed_dim, opts.cell_dim, opts.recurrent_dim)
+    named = torch_params_from_flax(params)
+    named["embed.weight"] = named.pop("embed.embedding")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in named.items()})
+    return RnnLm(model.to(resolve_device(device)), opts, vocab)

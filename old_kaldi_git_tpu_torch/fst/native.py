@@ -45,31 +45,44 @@ _lib = None
 build_seconds = 0.0  # wall time this process spent in the compiler
 
 
-def library_path() -> str:
+def shared_library_path(source: str, stem: str, build_dir: str) -> str:
+    """`build_dir/<stem>-<hash>.so`, the hash of the source and the flags."""
     digest = hashlib.sha1(" ".join((CXX,) + CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libokt_wfst-{digest.hexdigest()[:12]}.so")
+    return os.path.join(build_dir, f"{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def build_shared_library(source: str, stem: str, build_dir: str) -> Tuple[str, float]:
+    """Compile `source` with g++ into its `shared_library_path` unless that
+    exists; (its path, the seconds spent in the compiler).  Raises
+    KaldiError when the compiler cannot run or fails."""
+    lib = shared_library_path(source, stem, build_dir)
+    if os.path.exists(lib):
+        return lib, 0.0
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [CXX, *CXX_FLAGS, "-o", tmp, source]
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    except OSError as e:
+        raise KaldiError(f"cannot run {CXX} to build {stem}: {e}") from e
+    if out.returncode != 0:
+        raise KaldiError(f"{' '.join(cmd)} failed:\n{out.stdout}{out.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    return lib, time.perf_counter() - t0
+
+
+def library_path() -> str:
+    return shared_library_path(SOURCE, "libokt_wfst", BUILD_DIR)
 
 
 def build() -> str:
     """Compile the library unless this source's build exists; its path."""
     global build_seconds
-    lib = library_path()
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [CXX, *CXX_FLAGS, "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    try:
-        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    except OSError as e:
-        raise KaldiError(f"cannot run {CXX} to build the graph library: {e}") from e
-    if out.returncode != 0:
-        raise KaldiError(f"{' '.join(cmd)} failed:\n{out.stdout}{out.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-    build_seconds += time.perf_counter() - t0
+    lib, seconds = build_shared_library(SOURCE, "libokt_wfst", BUILD_DIR)
+    build_seconds += seconds
     return lib
 
 

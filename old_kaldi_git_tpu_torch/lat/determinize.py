@@ -1,12 +1,16 @@
 """Exact pruned lattice determinization → CompactLattice.
 
-Own copy of the parts of old_kaldi_git_tpu/lat/determinize.py on the
-rescoring path (reference src/lat/determinize-lattice-pruned.{h,cc}
-DeterminizeLatticePruned, the CompactLattice types of src/lat/kaldi-lattice.h
-and the CompactLatticeWeightTpl semiring of src/fstext/lattice-weight.h).
-Host code, plain Python.  The JAX package runs a C++ mirror of the same
-algorithm (cpp/lattice.cc) when that library loads; the port runs this
-Python algorithm.
+Own copy of old_kaldi_git_tpu/lat/determinize.py (reference
+src/lat/determinize-lattice-pruned.{h,cc} DeterminizeLatticePruned, the
+CompactLattice types of src/lat/kaldi-lattice.h, the CompactLatticeWeightTpl
+semiring of src/fstext/lattice-weight.h, push-lattice.cc and
+minimize-lattice.cc).  Host code.  `determinize_lattice` is the algorithm in
+plain Python; `determinize_lattice_pruned` runs its C++ mirror,
+cpp/lattice.cc, through lat/native.py (built at first use; a build or load
+failure raises), and the Python algorithm only when asked
+(`algorithm="python"`).  The C++ takes and returns float32 weights, so the
+Python route rounds its input and output weights to float32 the same way:
+both routes see the same numbers.
 
 * A ``Lattice`` (transition-ids in, words out, (graph, acoustic) weight
   pairs) is viewed as an acceptor on word labels whose weights live in the
@@ -36,6 +40,8 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from old_kaldi_git_tpu_torch.lat.lattice import INF, Lattice, LatticeArc, _topo_order
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
 
@@ -52,6 +58,10 @@ def _w_times(a: Weight, b: Weight) -> Weight:
 def _w_key(w: Weight) -> Tuple[float, float]:
     """Natural-order sort key of LatticeWeight (total, then graph)."""
     return (w[0] + w[1], w[0])
+
+
+def _w_minus(a: Weight, b: Weight) -> Weight:
+    return (a[0] - b[0], a[1] - b[1])
 
 
 def _lcp(a: TidString, b: TidString) -> TidString:
@@ -165,19 +175,43 @@ class CompactLattice:
 _Element = Tuple[int, Weight, TidString]
 
 
-def _backward_costs(lat: Lattice, order: List[int]) -> List[float]:
+def _backward_costs(lat: Lattice, order: List[int], float32_sums: bool = False
+                    ) -> List[float]:
+    """Best cost from each state to a final.  float32_sums: each arc's and
+    final's (graph + acoustic) summed in float32, as cpp/lattice.cc sums its
+    float inputs, before the double accumulation."""
     n = lat.num_states
+    f32 = np.float32
     beta = [INF] * n
     for s in range(n):
         if lat.is_final(s):
             g, a = lat.finals[s]
-            beta[s] = g + a
+            beta[s] = float(f32(g) + f32(a)) if float32_sums else g + a
     for s in reversed(order):
         for arc in lat.arcs[s]:
-            c = arc.graph_cost + arc.acoustic_cost + beta[arc.nextstate]
+            ga = (float(f32(arc.graph_cost) + f32(arc.acoustic_cost)) if float32_sums
+                  else arc.graph_cost + arc.acoustic_cost)
+            c = ga + beta[arc.nextstate]
             if c < beta[s]:
                 beta[s] = c
     return beta
+
+
+def _round6_native(v: float) -> float:
+    """cpp/lattice.cc's Round6, std::round(v * 1e6) / 1e6: halves away from
+    zero, and a small negative value rounds to −0.0."""
+    r = v * 1e6
+    k = math.floor(abs(r))
+    if abs(r) - k >= 0.5:
+        k += 1
+    return math.copysign(float(k), r) / 1e6
+
+
+def _native_identity(key: Tuple[_Element, ...]) -> tuple:
+    """A subset key as cpp/lattice.cc compares keys (their bytes): −0.0 and
+    0.0 differ."""
+    return tuple((s, w, math.copysign(1.0, w[0]), math.copysign(1.0, w[1]), string)
+                 for s, w, string in key)
 
 
 def _epsilon_closure(
@@ -228,7 +262,7 @@ def _epsilon_closure(
 
 
 def _normalize(
-    elems: Dict[int, Tuple[Weight, TidString]]
+    elems: Dict[int, Tuple[Weight, TidString]], round6=lambda v: round(v, 6),
 ) -> Tuple[Weight, TidString, Tuple[_Element, ...]]:
     """Common divisor (min weight, LCP of strings) + canonical residual key."""
     items = sorted(elems.items())
@@ -238,8 +272,7 @@ def _normalize(
         div_s = string if div_s is None else _lcp(div_s, string)
     assert div_s is not None
     residual = tuple(
-        (s, (round(w[0] - div_w[0], 6), round(w[1] - div_w[1], 6)),
-         string[len(div_s):])
+        (s, (round6(w[0] - div_w[0]), round6(w[1] - div_w[1])), string[len(div_s):])
         for s, (w, string) in items
     )
     return div_w, div_s, residual
@@ -250,6 +283,7 @@ def determinize_lattice(
     lattice_beam: float = math.inf,
     max_states: int = 500000,
     max_arcs: int = 2000000,
+    native_arithmetic: bool = False,
 ) -> CompactLattice:
     """Exact (optionally pruned) determinization of an acyclic lattice.
 
@@ -258,14 +292,21 @@ def determinize_lattice(
     acoustic/LM scaling first (as the reference's decode wrapper does) if
     scaled pruning is wanted.  Raises KaldiError past max_states/max_arcs
     (the reference returns failure and the caller re-prunes; callers here
-    should catch and retry with a tighter beam)."""
+    should catch and retry with a tighter beam).
+
+    native_arithmetic: round and compare as cpp/lattice.cc does (the
+    backward costs' float32 sums, its Round6 and byte-wise subset keys, the
+    start subset's weights rounded as they are rather than as residuals),
+    so that on float32 weights the result is the native library's."""
     if lat.num_states == 0:
         return CompactLattice()
+    round6 = _round6_native if native_arithmetic else (lambda v: round(v, 6))
+    ident = _native_identity if native_arithmetic else (lambda k: k)
     order = _topo_order(lat)
     topo_index = [0] * lat.num_states
     for i, s in enumerate(order):
         topo_index[s] = i
-    beta = _backward_costs(lat, order)
+    beta = _backward_costs(lat, order, float32_sums=native_arithmetic)
     if beta[lat.start] == INF:
         return CompactLattice()  # no successful path
     best_cost = beta[lat.start]
@@ -273,7 +314,7 @@ def determinize_lattice(
 
     out = CompactLattice()
     # det-state table: residual-subset key -> (state id, forward cost)
-    subset_ids: Dict[Tuple[_Element, ...], int] = {}
+    subset_ids: Dict[tuple, int] = {}
     forward: List[float] = []
     total_arcs = 0  # running count: out.num_arcs is O(S) per call
 
@@ -290,18 +331,22 @@ def determinize_lattice(
 
     init = _epsilon_closure(lat, {lat.start: ((0.0, 0.0), ())}, topo_index)
     init = prune_subset(init, 0.0)
-    div_w, div_s, key = _normalize(init)
-    # The initial divisor must be One for a start state (Kaldi keeps any
-    # leading weight on the arcs out of the start state instead): fold it
-    # back into the residuals.
-    key = tuple(
-        (s, (round(w[0] + div_w[0], 6), round(w[1] + div_w[1], 6)),
-         div_s + string)
-        for s, w, string in key
-    )
+    if native_arithmetic:
+        key = tuple((s, (round6(w[0]), round6(w[1])), string)
+                    for s, (w, string) in sorted(init.items()))
+    else:
+        div_w, div_s, key = _normalize(init)
+        # The initial divisor must be One for a start state (Kaldi keeps any
+        # leading weight on the arcs out of the start state instead): fold it
+        # back into the residuals.
+        key = tuple(
+            (s, (round(w[0] + div_w[0], 6), round(w[1] + div_w[1], 6)),
+             div_s + string)
+            for s, w, string in key
+        )
     start = out.add_state()
     out.start = start
-    subset_ids[key] = start
+    subset_ids[ident(key)] = start
     forward.append(0.0)
     agenda: List[Tuple[int, Tuple[_Element, ...]]] = [(start, key)]
 
@@ -347,10 +392,11 @@ def determinize_lattice(
             nxt = prune_subset(nxt, fwd)
             if not nxt:
                 continue
-            div_w, div_s, nkey = _normalize(nxt)
+            div_w, div_s, nkey = _normalize(nxt, round6)
             nfwd = fwd + div_w[0] + div_w[1]
-            if nkey in subset_ids:
-                ns_id = subset_ids[nkey]
+            nid = ident(nkey)
+            if nid in subset_ids:
+                ns_id = subset_ids[nid]
                 if nfwd < forward[ns_id] - 1e-9:
                     # tighter path in: earlier pruning used a looser bound,
                     # so re-expand the subset with the improved forward cost
@@ -362,7 +408,7 @@ def determinize_lattice(
                     raise KaldiError(
                         f"determinize_lattice: exceeded max_states={max_states}"
                     )
-                subset_ids[nkey] = ns_id
+                subset_ids[nid] = ns_id
                 forward.append(nfwd)
                 agenda.append((ns_id, nkey))
             out.arcs[det_s].append(
@@ -376,6 +422,19 @@ def determinize_lattice(
     return out
 
 
+def _round_weights(clat: CompactLattice) -> CompactLattice:
+    """The weights rounded to float32 in place (what the native library's
+    export does); returns clat."""
+    for s in range(clat.num_states):
+        for a in clat.arcs[s]:
+            a.graph_cost = float(np.float32(a.graph_cost))
+            a.acoustic_cost = float(np.float32(a.acoustic_cost))
+        g, ac, string = clat.finals[s]
+        if g != INF:
+            clat.finals[s] = (float(np.float32(g)), float(np.float32(ac)), string)
+    return clat
+
+
 def determinize_lattice_pruned(
     lat: Lattice,
     lattice_beam: float = 10.0,
@@ -384,29 +443,42 @@ def determinize_lattice_pruned(
     max_states: int = 500000,
     beam_ratio: float = 0.75,
     retries: int = 4,
+    algorithm: str = "native",
 ) -> CompactLattice:
     """~ DeterminizeLatticePhonePrunedWrapper's outer loop: scale weights,
     determinize within the beam, and on state blow-up retry with the beam
     tightened by beam_ratio (reference opts.retry_cutoff behavior); weights
-    in the result are unscaled back."""
+    in the result are unscaled back.
+
+    algorithm: "native" (cpp/lattice.cc) or "python" (`determinize_lattice`
+    on the same float32 weights, its result rounded to float32 as the
+    native library returns it)."""
+    if algorithm not in ("native", "python"):
+        raise ValueError(f"unknown determinization algorithm {algorithm!r}")
+    from old_kaldi_git_tpu_torch.lat import native  # it imports this module
+    f32 = lambda x: float(np.float32(x))  # noqa: E731  the ctypes boundary's rounding
     scaled = Lattice()
     for s in range(lat.num_states):
         scaled.add_state(lat.state_time[s])
         g, a = lat.finals[s]
         if g != INF:
-            scaled.finals[s] = (lm_scale * g, acoustic_scale * a)
+            scaled.finals[s] = (f32(lm_scale * g), f32(acoustic_scale * a))
     scaled.start = lat.start
     for s in range(lat.num_states):
         for arc in lat.arcs[s]:
             scaled.arcs[s].append(
-                LatticeArc(arc.ilabel, arc.olabel, lm_scale * arc.graph_cost,
-                           acoustic_scale * arc.acoustic_cost, arc.nextstate)
+                LatticeArc(arc.ilabel, arc.olabel, f32(lm_scale * arc.graph_cost),
+                           f32(acoustic_scale * arc.acoustic_cost), arc.nextstate)
             )
     beam = lattice_beam
     last_err: Optional[KaldiError] = None
     for _ in range(retries):
         try:
-            clat = determinize_lattice(scaled, beam, max_states)
+            if algorithm == "native":
+                clat = native.determinize_lattice_native(scaled, beam, max_states)
+            else:
+                clat = _round_weights(determinize_lattice(
+                    scaled, float(np.float32(beam)), max_states, native_arithmetic=True))
             break
         except KaldiError as e:
             last_err = e
@@ -425,3 +497,127 @@ def determinize_lattice_pruned(
             if g != INF:
                 clat.finals[s] = (g * ig, ac * ia, string)
     return clat
+
+
+def compact_lattice_to_lattice(clat: CompactLattice) -> Lattice:
+    """~ ConvertLattice (CompactLattice → Lattice): each word arc's tid
+    string becomes a chain of one-tid arcs, the word and weight on the
+    first; a final tid string becomes a chain to a new final state."""
+    lat = Lattice()
+    for _ in range(clat.num_states):
+        lat.add_state()
+    lat.start = clat.start
+    for s in range(clat.num_states):
+        for a in clat.arcs[s]:
+            tids = a.tids if a.tids else (0,)
+            cur = s
+            for i, tid in enumerate(tids):
+                nxt = a.nextstate if i == len(tids) - 1 else lat.add_state()
+                lat.arcs[cur].append(LatticeArc(
+                    tid, a.word if i == 0 else 0, a.graph_cost if i == 0 else 0.0,
+                    a.acoustic_cost if i == 0 else 0.0, nxt))
+                cur = nxt
+        g, ac, string = clat.finals[s]
+        if g != INF:
+            if string:
+                cur = s
+                for i, tid in enumerate(string):
+                    nxt = lat.add_state()
+                    lat.arcs[cur].append(LatticeArc(tid, 0, g if i == 0 else 0.0,
+                                                    ac if i == 0 else 0.0, nxt))
+                    cur = nxt
+                lat.finals[cur] = (0.0, 0.0)
+            else:
+                lat.finals[s] = (g, ac)
+    return lat
+
+
+def push_compact_lattice(clat: CompactLattice) -> CompactLattice:
+    """~ PushCompactLatticeStrings/Weights (src/lat/push-lattice.cc): each
+    state's common (weight, tid-string) divisor of its outgoing arcs and
+    final moves onto its incoming arcs, in reverse topological order, so
+    weights and strings sit as early as they can (minimisation then merges
+    more).  Returns a new lattice."""
+    out = CompactLattice()
+    for _ in range(clat.num_states):
+        out.add_state()
+    out.start = clat.start
+    for s in range(clat.num_states):
+        out.arcs[s] = [CompactLatticeArc(a.word, a.graph_cost, a.acoustic_cost, a.tids,
+                                         a.nextstate) for a in clat.arcs[s]]
+        out.finals[s] = clat.finals[s]
+    order = _clat_topo_order(out)
+    in_arcs: Dict[int, list] = {s: [] for s in range(out.num_states)}
+    for s in range(out.num_states):
+        for a in out.arcs[s]:
+            in_arcs[a.nextstate].append(a)
+    for s in reversed(order):
+        if s == out.start or not in_arcs[s]:
+            continue
+        items = [((a.graph_cost, a.acoustic_cost), a.tids) for a in out.arcs[s]]
+        g, ac, string = out.finals[s]
+        if g != INF:
+            items.append(((g, ac), string))
+        if not items:
+            continue
+        div_w = min((w for w, _ in items), key=_w_key)
+        div_s: Optional[TidString] = None
+        for _, st in items:
+            div_s = st if div_s is None else _lcp(div_s, st)
+        if div_w == (0.0, 0.0) and not div_s:
+            continue
+        for a in out.arcs[s]:
+            a.graph_cost -= div_w[0]
+            a.acoustic_cost -= div_w[1]
+            a.tids = a.tids[len(div_s):]
+        if g != INF:
+            out.finals[s] = (*_w_minus((g, ac), div_w), string[len(div_s):])
+        for a in in_arcs[s]:
+            a.graph_cost += div_w[0]
+            a.acoustic_cost += div_w[1]
+            a.tids = a.tids + div_s
+    return out
+
+
+def minimize_compact_lattice(clat: CompactLattice) -> CompactLattice:
+    """~ MinimizeCompactLattice (src/lat/minimize-lattice.cc): after
+    pushing, states with the same final (weight, string) and the same arcs
+    into the same classes merge; one reverse topological pass assigns the
+    classes (the lattice is acyclic).  Weights compare to 6 decimals."""
+    pushed = push_compact_lattice(clat)
+    order = _clat_topo_order(pushed)
+    cls: Dict[int, int] = {}
+    sig_to_cls: Dict[tuple, int] = {}
+    for s in reversed(order):
+        arc_sig = tuple(sorted(
+            (a.word, round(a.graph_cost, 6), round(a.acoustic_cost, 6), a.tids,
+             cls[a.nextstate])
+            for a in pushed.arcs[s]))
+        g, ac, string = pushed.finals[s]
+        fin_sig = (round(g, 6) if g != INF else INF, round(ac, 6) if ac != INF else INF,
+                   string)
+        sig = (fin_sig, arc_sig)
+        if sig not in sig_to_cls:
+            sig_to_cls[sig] = len(sig_to_cls)
+        cls[s] = sig_to_cls[sig]
+    out = CompactLattice()
+    cls_state: Dict[int, int] = {}
+
+    def get(c: int) -> int:
+        if c not in cls_state:
+            cls_state[c] = out.add_state()
+        return cls_state[c]
+
+    out.start = get(cls[pushed.start])
+    done = set()
+    for s in order:
+        c = cls[s]
+        if c in done:
+            continue
+        done.add(c)
+        sc = get(c)
+        out.finals[sc] = pushed.finals[s]
+        for a in pushed.arcs[s]:
+            out.arcs[sc].append(CompactLatticeArc(a.word, a.graph_cost, a.acoustic_cost,
+                                                  a.tids, get(cls[a.nextstate])))
+    return out

@@ -1,10 +1,10 @@
-"""Lattices rebuilt from a decoder's kept tokens or records, best path,
-oracle, pruning and posteriors.
+"""Lattices rebuilt from a decoder's kept tokens or records, and what users
+read from them: best path, n-best, posteriors, confusion networks.
 
-Own copy of the parts of old_kaldi_git_tpu/lat/lattice.py on the rescoring,
-dense-lattice and sequence-training paths (reference src/lat: kaldi Lattice,
-GetRawLattice, lattice-best-path, lattice-oracle, lattice-prune,
-LatticeForwardBackward): host code, plain Python and numpy.
+Own copy of old_kaldi_git_tpu/lat/lattice.py (reference src/lat: kaldi
+Lattice, GetRawLattice, lattice-best-path, lattice-nbest, lattice-oracle,
+lattice-prune, LatticeForwardBackward, lattice-to-post, lattice-interp):
+host code, plain Python and numpy.
 
   Lattice                     ~ kaldi Lattice (tids in, words out, (graph,
                                 acoustic) weight pair), stored topsorted by
@@ -21,21 +21,37 @@ LatticeForwardBackward): host code, plain Python and numpy.
   lattice_total_logprob       ~ the total path mass (the MMI denominator)
   lattice_oracle              ~ lattice-oracle (least edit distance of any
                                 path against a reference)
+  lattice_nbest_paths         ~ lattice-to-nbest (n best full paths)
+  lattice_nbest               ~ lattice-nbest (n best distinct word
+                                sequences)
+  lattice_word_posteriors     ~ lattice-to-post projected on words
+  lattice_to_word_fst         ~ the word-level view, determinized by the
+                                native graph library's DeterminizeStar
+  confusion_network           ~ sausages by time clustering (the common
+                                approximation of MinimumBayesRisk's)
+  rescore_nbest               ~ lattice-lmrescore through n-best lists
+  lattice_depth, lattice_to_post, lattice_interp
+                              ~ lattice-depth, lattice-to-post +
+                                post-to-pdf-post, lattice-interp
 
 The forward-backward functions keep the JAX package's order of operations
 (`_topo_order`, the same loops in float64), so they give its numbers.
+`lattice_to_word_fst` runs in the native library, whose weights are
+float32: its weights, and those `lattice_interp` takes from it, are the JAX
+package's to float32's precision.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from old_kaldi_git_tpu_torch.decoder.csr import CsrGraph
 from old_kaldi_git_tpu_torch.decoder.viterbi import TokenLattice, eps_walk, start_closure
+from old_kaldi_git_tpu_torch.fst.vector_fst import Arc, VectorFst
 from old_kaldi_git_tpu_torch.utils.log import KaldiError
 
 INF = math.inf
@@ -587,3 +603,325 @@ def lattice_oracle(
             words.append(w)
         s, q = ps, pq
     return best, words[::-1]
+
+
+# ---------------------------------------------------------------------------
+# n-best lists
+# ---------------------------------------------------------------------------
+
+def lattice_nbest_paths(
+    lat: Lattice, n: int, lm_scale: float = 1.0, ac_scale: float = 0.1
+) -> List[Tuple[List[LatticeArc], Tuple[float, float]]]:
+    """The n best full paths as arc sequences (reference lattice-to-nbest:
+    paths, not distinct word sequences): [(arcs, (final graph, final
+    acoustic))], the best first."""
+    order = _topo_order(lat)
+    ns = lat.num_states
+    # per state: up to n partial paths (cost, prev state, prev rank, arc index)
+    entries: List[List[Tuple[float, int, int, int]]] = [[] for _ in range(ns)]
+    entries[lat.start] = [(0.0, -1, -1, -1)]
+    for s in order:
+        if not entries[s]:
+            continue
+        for ai, a in enumerate(lat.arcs[s]):
+            w = lat.combined(a, lm_scale, ac_scale)
+            dst = a.nextstate
+            add = [(c + w, s, r, ai) for r, (c, _, _, _) in enumerate(entries[s])]
+            entries[dst] = sorted(entries[dst] + add, key=lambda e: e[0])[:n]
+    cands: List[Tuple[float, int, int]] = []  # (total cost, state, rank)
+    for s in range(ns):
+        if lat.is_final(s):
+            g, ac = lat.finals[s]
+            fc = lm_scale * g + ac_scale * ac
+            for r, (c, _, _, _) in enumerate(entries[s]):
+                cands.append((c + fc, s, r))
+    cands.sort(key=lambda e: e[0])
+    out = []
+    for _, s, r in cands[:n]:
+        arcs: List[LatticeArc] = []
+        cur, rank = s, r
+        while True:
+            _, ps, pr, ai = entries[cur][rank]
+            if ps < 0:
+                break
+            arcs.append(lat.arcs[ps][ai])
+            cur, rank = ps, pr
+        out.append((arcs[::-1], lat.finals[s]))
+    return out
+
+
+def linear_lattice_from_path(arcs: Sequence[LatticeArc], final: Tuple[float, float]
+                             ) -> Lattice:
+    """A linear (single-path) lattice of an arc sequence."""
+    lat = Lattice()
+    t = 0
+    cur = lat.add_state(t)
+    lat.start = cur
+    for a in arcs:
+        if a.ilabel:
+            t += 1
+        nxt = lat.add_state(t)
+        lat.arcs[cur].append(LatticeArc(a.ilabel, a.olabel, a.graph_cost,
+                                        a.acoustic_cost, nxt))
+        cur = nxt
+    lat.finals[cur] = final
+    return lat
+
+
+def lattice_union(lats: Sequence[Lattice]) -> Lattice:
+    """The union of lattices through a shared start state with free epsilon
+    arcs (reference lattice-combine, fst::Union)."""
+    out = Lattice()
+    start = out.add_state(0)
+    out.start = start
+    for lat in lats:
+        off = out.num_states
+        for s in range(lat.num_states):
+            out.add_state(lat.state_time[s])
+        for s in range(lat.num_states):
+            for a in lat.arcs[s]:
+                out.arcs[off + s].append(LatticeArc(a.ilabel, a.olabel, a.graph_cost,
+                                                    a.acoustic_cost, off + a.nextstate))
+            out.finals[off + s] = lat.finals[s]
+        out.arcs[start].append(LatticeArc(0, 0, 0.0, 0.0, off + lat.start))
+    return out
+
+
+def lattice_nbest(
+    lat: Lattice, n: int, lm_scale: float = 1.0, ac_scale: float = 0.1
+) -> List[Tuple[List[int], float]]:
+    """The n best distinct word sequences with their costs: a k-best DP over
+    the DAG keeping the best cost of each word prefix (4n a state)."""
+    order = _topo_order(lat)
+    ns = lat.num_states
+    cap = 4 * n
+    best: List[List[Tuple[float, Tuple[int, ...]]]] = [[] for _ in range(ns)]
+    best[lat.start] = [(0.0, ())]
+    for s in order:
+        if not best[s]:
+            continue
+        for a in lat.arcs[s]:
+            w = lat.combined(a, lm_scale, ac_scale)
+            add = [(c + w, words + ((a.olabel,) if a.olabel else ()))
+                   for c, words in best[s]]
+            merged = best[a.nextstate] + add
+            merged.sort(key=lambda x: x[0])
+            seen = set()
+            kept = []
+            for c, words in merged:
+                if words in seen:
+                    continue
+                seen.add(words)
+                kept.append((c, words))
+                if len(kept) >= cap:
+                    break
+            best[a.nextstate] = kept
+    results: Dict[Tuple[int, ...], float] = {}
+    for s in range(ns):
+        if lat.is_final(s):
+            g, ac = lat.finals[s]
+            fc = lm_scale * g + ac_scale * ac
+            for c, words in best[s]:
+                tot = c + fc
+                if words not in results or tot < results[words]:
+                    results[words] = tot
+    out = sorted(results.items(), key=lambda x: x[1])[:n]
+    return [(list(words), cost) for words, cost in out]
+
+
+def rescore_nbest(
+    nbest: Sequence[Tuple[List[int], float]],
+    old_lm_score: Callable[[List[int]], float],
+    new_lm_score: Callable[[List[int]], float],
+    new_lm_scale: float = 1.0,
+) -> List[Tuple[List[int], float]]:
+    """n-best LM rescoring, cost' = cost − old_lm + new_lm_scale · new_lm,
+    re-sorted (reference lattice-lmrescore through n-best lists).  The
+    scorers map a word-id list to −log P (the graph-cost convention)."""
+    out = [(words, cost - old_lm_score(words) + new_lm_scale * new_lm_score(words))
+           for words, cost in nbest]
+    out.sort(key=lambda x: x[1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# posteriors, the word-level view, confusion networks
+# ---------------------------------------------------------------------------
+
+def lattice_word_posteriors(
+    lat: Lattice, lm_scale: float = 1.0, ac_scale: float = 0.1
+) -> Dict[int, float]:
+    """Expected count of each word id (lattice-to-post projected on words)."""
+    post = lattice_arc_posteriors(lat, lm_scale, ac_scale)
+    out: Dict[int, float] = {}
+    for s in range(lat.num_states):
+        for a, p in zip(lat.arcs[s], post[s]):
+            if a.olabel:
+                out[a.olabel] = out.get(a.olabel, 0.0) + p
+    return out
+
+
+def lattice_to_word_fst(lat: Lattice, lm_scale: float = 1.0, ac_scale: float = 0.1):
+    """The lattice projected on its words (combined weights) and
+    determinized in the tropical semiring: the best path of each word
+    sequence (the CompactLattice-determinization role).  The
+    determinization is the native graph library's DeterminizeStar (weights
+    in float32); returns a VectorFst."""
+    from old_kaldi_git_tpu_torch.fst.native import NativeFst
+
+    fst = VectorFst()
+    for _ in range(lat.num_states):
+        fst.add_state()
+    fst.set_start(lat.start)
+    for s in range(lat.num_states):
+        for a in lat.arcs[s]:
+            fst.add_arc(s, Arc(a.olabel, a.olabel, lat.combined(a, lm_scale, ac_scale),
+                               a.nextstate))
+        if lat.is_final(s):
+            g, ac = lat.finals[s]
+            fst.set_final(s, lm_scale * g + ac_scale * ac)
+    det = NativeFst.from_vector_fst(fst).determinize_star()
+    start, row_ptr, il, ol, w, nxt, finals = det.to_raw_arrays()
+    out = VectorFst()
+    for s in range(len(finals)):
+        out.add_state()
+        out.arcs[s] = [Arc(int(il[a]), int(ol[a]), float(w[a]), int(nxt[a]))
+                       for a in range(row_ptr[s], row_ptr[s + 1])]
+        if np.isfinite(finals[s]):
+            out.set_final(s, float(finals[s]))
+    out.set_start(int(start))
+    return out
+
+
+def confusion_network(
+    lat: Lattice, lm_scale: float = 1.0, ac_scale: float = 0.1
+) -> List[List[Tuple[int, float]]]:
+    """A sausage by clustering word arcs by time: arcs whose midpoints lie
+    within 3 frames share a bin while its mass allows, bins ordered by
+    time, each bin's (word, posterior) sorted by posterior (the common
+    approximation of MinimumBayesRisk's exact alignment, lat/mbr.py)."""
+    post = lattice_arc_posteriors(lat, lm_scale, ac_scale)
+    events = []  # (midpoint frame, word, posterior)
+    for s in range(lat.num_states):
+        t0 = lat.state_time[s]
+        for a, p in zip(lat.arcs[s], post[s]):
+            if a.olabel and p > 1e-4:
+                t1 = lat.state_time[a.nextstate]
+                events.append(((t0 + t1) / 2.0 if t0 >= 0 else t1, a.olabel, p))
+    if not events:
+        return []
+    events.sort()
+    bins: List[Dict[int, float]] = []
+    bin_times: List[float] = []
+    for t, w, p in events:
+        placed = False
+        for i, bt in enumerate(bin_times):
+            if abs(t - bt) <= 3.0:
+                if w in bins[i] or sum(bins[i].values()) < 1.0 - p + 1e-3:
+                    bins[i][w] = bins[i].get(w, 0.0) + p
+                    bin_times[i] = (bin_times[i] + t) / 2.0
+                    placed = True
+                    break
+        if not placed:
+            bins.append({w: p})
+            bin_times.append(t)
+    return [sorted(b.items(), key=lambda x: -x[1]) for b in bins]
+
+
+# ---------------------------------------------------------------------------
+# depth, frame posteriors, interpolation
+# ---------------------------------------------------------------------------
+
+def lattice_depth(lat: Lattice) -> float:
+    """Mean number of emitting arcs ending on each frame (lattice-depth)."""
+    counts: Dict[int, int] = {}
+    for s in range(lat.num_states):
+        for a in lat.arcs[s]:
+            if a.ilabel:
+                t = lat.state_time[a.nextstate]
+                if t >= 0:
+                    counts[t] = counts.get(t, 0) + 1
+    if not counts:
+        return 0.0
+    return sum(counts.values()) / (max(counts) + 1)
+
+
+def lattice_to_post(
+    lat: Lattice, tm, lm_scale: float = 1.0, ac_scale: float = 0.1,
+    min_post: float = 0.01,
+) -> List[List[Tuple[int, float]]]:
+    """Per-frame pdf posteriors [(pdf, weight)], sorted by pdf
+    (lattice-to-post + post-to-pdf-post): the arc posteriors of at least
+    `min_post` summed by (frame of the arc's end, pdf)."""
+    post = lattice_arc_posteriors(lat, lm_scale, ac_scale)
+    T = max((t for t in lat.state_time if t >= 0), default=-1) + 1
+    out: List[Dict[int, float]] = [dict() for _ in range(T)]
+    for s in range(lat.num_states):
+        for a, p in zip(lat.arcs[s], post[s]):
+            if not a.ilabel or p < min_post:
+                continue
+            t = lat.state_time[a.nextstate]
+            if 0 <= t < T:
+                pdf = tm.tid_to_pdf(a.ilabel)
+                out[t][pdf] = out[t].get(pdf, 0.0) + p
+    return [sorted(d.items()) for d in out]
+
+
+def lattice_interp(
+    lat1: Lattice,
+    lat2: Lattice,
+    alpha: float = 0.5,
+    lm_scale2: float = 1.0,
+    ac_scale2: float = 0.1,
+) -> Optional[Lattice]:
+    """Score interpolation of two lattices of one utterance (reference
+    latbin/lattice-interp.cc): lat1 scaled by alpha, composed with lat2's
+    determinized word acceptor scaled by 1 − alpha.  A product over (lat1
+    state, word-FST state): lat1's epsilon-word arcs move freely, its word
+    arcs must match the acceptor, whose cost joins the graph cost.  None
+    when the word sequences do not meet (the reference skips the
+    utterance)."""
+    wfst2 = lattice_to_word_fst(lat2, lm_scale2, ac_scale2)
+    trans: List[Dict[int, Tuple[float, int]]] = [{} for _ in range(wfst2.num_states)]
+    for s in wfst2.states():
+        for a in wfst2.arcs[s]:
+            trans[s][a.olabel] = (a.weight, a.nextstate)
+    out = Lattice()
+    smap: Dict[Tuple[int, int], int] = {}
+
+    def get(s1: int, s2: int) -> int:
+        key = (s1, s2)
+        if key not in smap:
+            smap[key] = out.add_state(lat1.state_time[s1])
+        return smap[key]
+
+    out.start = get(lat1.start, wfst2.start)
+    stack = [(lat1.start, wfst2.start)]
+    seen = {(lat1.start, wfst2.start)}
+    any_final = False
+    while stack:
+        s1, s2 = stack.pop()
+        src = get(s1, s2)
+        if lat1.is_final(s1) and wfst2.is_final(s2):
+            g, ac = lat1.finals[s1]
+            out.finals[src] = (alpha * g + (1.0 - alpha) * wfst2.finals[s2], alpha * ac)
+            any_final = True
+        for a in lat1.arcs[s1]:
+            if a.olabel == 0:
+                n2, extra = s2, 0.0
+            else:
+                hit = trans[s2].get(a.olabel)
+                if hit is None:
+                    continue
+                extra, n2 = hit
+            key = (a.nextstate, n2)
+            out.arcs[src].append(LatticeArc(
+                a.ilabel, a.olabel, alpha * a.graph_cost + (1.0 - alpha) * extra,
+                alpha * a.acoustic_cost, get(*key)))
+            if key not in seen:
+                seen.add(key)
+                stack.append(key)
+    if not any_final:
+        return None
+    _connect(out)
+    return out if out.num_states and out.arcs[out.start] else None

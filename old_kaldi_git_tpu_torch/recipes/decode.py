@@ -7,12 +7,15 @@ ops/gmm_kernel.py), the batched beam decoder searches the shared graph, word
 ids map back to words, and the hypotheses are scored against the reference
 text.  `decode_dataset_with_lattices` keeps lattices (reference
 gmm-latgen-faster): the token-sparse search emits its lattice records on the
-device and the host builds each utterance's raw lattice from them.
+device and the host builds each utterance's raw lattice from them;
+`decode_biglm` replaces the small LM on the determinized lattices by a big
+one, and `score_lattices_sweep` is score.sh's LM-weight sweep over lattice
+best paths.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,8 +27,11 @@ from old_kaldi_git_tpu_torch.decoder.viterbi import (
     decode_batch_tokens,
 )
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
-from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
-from old_kaldi_git_tpu_torch.lat.lattice import lattice_from_token_records
+from old_kaldi_git_tpu_torch.lat.determinize import CompactLattice, determinize_lattice_pruned
+from old_kaldi_git_tpu_torch.lat.lattice import (
+    Lattice, lattice_best_path, lattice_from_token_records)
+from old_kaldi_git_tpu_torch.lat.rescore import lmrescore_compact_lattice
+from old_kaldi_git_tpu_torch.lm.arpa import ArpaLm
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.edit_distance import EditStats, compute_wer
 from old_kaldi_git_tpu_torch.utils.log import get_logger
@@ -104,15 +110,18 @@ def decode_dataset_with_lattices(
     lattice_beam: float = 10.0,
     determinize: bool = False,
     timings: Optional[Dict[str, float]] = None,
+    decoder_words: Optional[Dict[str, List[int]]] = None,
 ) -> Dict[str, object]:
     """{utt: [T, D] features} → {utt: Lattice}, or {utt: CompactLattice}
-    with determinize=True (the reference's --determinize-lattice), on the
-    model's device: the GMM over the padded batch, `decode_batch_tokens`
-    with lattice records within `lattice_beam`, then
-    `lattice_from_token_records` on the host.  An utterance whose search
-    failed has no lattice, with a warning.  `lang` is unused (the JAX
-    package's signature).  timings: `loglikes_seconds`, decode_batch_tokens'
-    and `lattice_seconds`."""
+    with determinize=True (the reference's --determinize-lattice, through
+    the native library of cpp/lattice.cc), on the model's device: the GMM
+    over the padded batch, `decode_batch_tokens` with lattice records
+    within `lattice_beam`, then `lattice_from_token_records` on the host.
+    An utterance whose search failed has no lattice, with a warning.
+    `lang` is unused (the JAX package's signature).  timings:
+    `loglikes_seconds`, decode_batch_tokens', `lattice_seconds` and, with
+    determinize, `determinize_seconds`.  decoder_words: a dict that
+    receives each decoded utterance's 1-best word ids from the search."""
     opts = opts or DecodeOptions()
     dev = model.am.device
     keys, padded, nf = pad_feature_batch(feats)
@@ -130,10 +139,77 @@ def decode_dataset_with_lattices(
         if res is None or res.token_lattice is None:
             log.warning("no lattice for %s", k)
             continue
+        if decoder_words is not None:
+            decoder_words[k] = list(res.words)
         lat = lattice_from_token_records(graph, res.token_lattice)
         if lat is not None:
-            lats[k] = (determinize_lattice_pruned(lat, lattice_beam,
-                                                  acoustic_scale=opts.acoustic_scale)
-                       if determinize else lat)
+            lats[k] = lat
     clock.lap("lattice_seconds")
+    if determinize:
+        lats = {k: determinize_lattice_pruned(lat, lattice_beam,
+                                              acoustic_scale=opts.acoustic_scale)
+                for k, lat in lats.items()}
+        clock.lap("determinize_seconds")
     return lats
+
+
+def decode_biglm(
+    model: AmGmmModel,
+    graph: CsrGraph,
+    lang: Union[Sequence[str], object],
+    feats: Dict[str, np.ndarray],
+    old_lm: ArpaLm,
+    new_lm: ArpaLm,
+    opts: Optional[DecodeOptions] = None,
+    lattice_beam: float = 10.0,
+    lattices: Optional[Dict[str, CompactLattice]] = None,
+) -> Dict[str, List[str]]:
+    """Big-LM decoding (the reference's lattice-biglm-faster-decoder
+    capability): decode on the small-LM graph keeping determinized
+    lattices, then replace the LM on them exactly, old scores out and the
+    big LM in (`lmrescore_compact_lattice`); the best path at lm_scale 1
+    and the decode's acoustic scale.  No big HCLG is built.  old_lm /
+    new_lm: ArpaLms over the word table's words.
+
+    lattices: the determinized lattices of this decode (keyed like feats)
+    when the caller has them: the decode is then skipped."""
+    opts = opts or DecodeOptions()
+    words = getattr(lang, "words", lang)
+    if lattices is None:
+        lattices = decode_dataset_with_lattices(model, graph, lang, feats, opts, lattice_beam,
+                                                determinize=True)
+    hyps: Dict[str, List[str]] = {}
+    for k, clat in lattices.items():
+        resc = lmrescore_compact_lattice(clat, words, new_lm, old_lm)
+        best, _tids, _cost = resc.best_path(1.0, opts.acoustic_scale)
+        hyps[k] = [words[w] for w in best]
+    return hyps
+
+
+def score_lattices_sweep(
+    lattices: Dict[str, Lattice],
+    lang: Union[Sequence[str], object],
+    ref_text: Dict[str, Sequence[str]],
+    acoustic_scale: float = 0.1,
+    lm_scales: Sequence[float] = (0.5, 0.75, 1.0, 1.25, 1.5, 2.0),
+    report: Optional[Dict[float, float]] = None,
+) -> Tuple[float, EditStats]:
+    """LM-weight sweep over lattice best paths (reference local/score.sh's
+    LMWT loop, as lm_scale relative to the decode's scales): (the best
+    lm_scale, its scoring; the first of equal WERs).  report: a dict that
+    receives each scale's WER."""
+    best = None
+    words = getattr(lang, "words", lang)
+    for lms in lm_scales:
+        hyps = {}
+        for k, lat in lattices.items():
+            ids, _, _ = lattice_best_path(lat, lm_scale=lms, ac_scale=acoustic_scale)
+            hyps[k] = [words[w] for w in ids]
+        stats = compute_wer({k: list(v) for k, v in ref_text.items()},
+                            {k: list(v) for k, v in hyps.items()})
+        if report is not None:
+            report[lms] = stats.wer
+        if best is None or stats.wer < best[1].wer:
+            best = (lms, stats)
+    log.info("sweep best: lm_scale=%.2f %s", best[0], best[1].report())
+    return best

@@ -86,7 +86,7 @@ from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
 from old_kaldi_git_tpu_torch.lat.lattice import (
     lattice_best_path, lattice_from_token_records, lattice_oracle)
 from old_kaldi_git_tpu_torch.lat.rescore import lmrescore_compact_lattice
-from old_kaldi_git_tpu_torch.lm.arpa import arpa_to_fst, parse_arpa
+from old_kaldi_git_tpu_torch.lm.arpa import ArpaLm, arpa_to_fst, parse_arpa
 from old_kaldi_git_tpu_torch.lm.ngram import (
     estimate_ngram_lm, perplexity, prune_ngram_lm, write_arpa)
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
@@ -656,6 +656,7 @@ def rescore_and_score(
     full_lm_order: int = 0,
     compute_oracle: bool = False,
     timings: Optional[Dict[str, float]] = None,
+    lms: Optional[Dict[str, ArpaLm]] = None,
 ) -> Tuple[float, float]:
     """Decode with the pruned-trigram HCLG keeping lattices (bounded device
     records), determinize each lattice exactly within `lattice_beam`, then
@@ -673,7 +674,9 @@ def rescore_and_score(
     `lattice_build_seconds` (rebuild and best path), `oracle_seconds`,
     `determinize_seconds`, `rescore_seconds`) and the decoder's record
     counts (`lattice_records_live`, `lattice_record_slots`,
-    `lattice_overflow_fallbacks`)."""
+    `lattice_overflow_fallbacks`).
+    lms: a dict that receives the two LMs, "full" (the estimate) and
+    "pruned" (arpa.txt.gz's), for a caller that rescores with them again."""
     opts = opts or MinilibOptions()
     dev = system.am.device
     clock = StageClock(dev, timings)
@@ -686,6 +689,8 @@ def rescore_and_score(
     with gzip.open(os.path.join(system.workdir, "arpa.txt.gz"), "rt") as f:
         pruned_lm = parse_arpa(f.read())
     clock.lap("arpa_parse_seconds")
+    if lms is not None:
+        lms.update(full=full_lm, pruned=pruned_lm)
 
     test_waves, test_text = system.test_waves, system.test_text
     if noise is not None:

@@ -13,11 +13,14 @@ so that an archive written by either package reads in the other:
 
 Holders: "mat" (float matrix), "cmat" (written as a compressed matrix,
 read as any), "vec" (float vector), "ivec" (int32 vector: alignments),
-"text" (a line of tokens), "flt" (a scalar) and "wav" (a RIFF wave).
+"text" (a line of tokens), "flt" (a scalar) and "wav" (a RIFF wave);
+"lat" / "clat" (lat/holder.py) and "post" / "gpost" (hmm/posterior.py)
+register themselves (`register_holder`) and load on first request.
 """
 
 from __future__ import annotations
 
+import importlib
 import os
 from typing import BinaryIO, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -163,9 +166,25 @@ _HOLDERS: Dict[str, Callable[[], Holder]] = {
                         Int32VectorHolder, TextHolder, FloatHolder, WaveHolder)}
 
 
+def register_holder(name: str, factory: Callable[[], Holder]) -> None:
+    _HOLDERS[name] = factory
+
+
+# holders that other modules register when imported; get_holder imports the
+# module on the first request for one of them
+_LAZY_PROVIDERS = {
+    "lat": "old_kaldi_git_tpu_torch.lat.holder",
+    "clat": "old_kaldi_git_tpu_torch.lat.holder",
+    "post": "old_kaldi_git_tpu_torch.hmm.posterior",
+    "gpost": "old_kaldi_git_tpu_torch.hmm.posterior",
+}
+
+
 def get_holder(name) -> Holder:
     if isinstance(name, Holder):
         return name
+    if name not in _HOLDERS and name in _LAZY_PROVIDERS:
+        importlib.import_module(_LAZY_PROVIDERS[name])
     if name not in _HOLDERS:
         raise KaldiError(f"unknown holder {name!r}; have {sorted(_HOLDERS)}")
     return _HOLDERS[name]()

@@ -46,7 +46,9 @@ def test_port_has_the_slice_modules():
                  "transform", "transform.lda", "transform.mllt", "transform.fmllr",
                  "utils.kio", "utils.wav", "utils.table", "recipes.run_all",
                  "chain.e2e", "chain.semisup", "recipes.semisup", "gmm.ebw",
-                 "recipes.mmi", "lat.discriminative", "models.discriminative"):
+                 "recipes.mmi", "lat.discriminative", "models.discriminative",
+                 "lat.mbr", "lat.ctm", "lat.holder", "lat.native", "hmm.posterior",
+                 "models.recurrent", "lm.rnnlm"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 

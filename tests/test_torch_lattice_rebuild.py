@@ -121,6 +121,13 @@ def compact_lattices_equal(a, b, atol=1e-5):
             assert x.acoustic_cost == pytest.approx(y.acoustic_cost, abs=atol)
 
 
+def compact_lattice_tuple(clat):
+    """Everything a CompactLattice holds, for an exact comparison."""
+    return (clat.num_states, clat.start, list(clat.finals),
+            [[(a.word, tuple(a.tids), a.graph_cost, a.acoustic_cost, a.nextstate)
+              for a in lst] for lst in clat.arcs])
+
+
 def hand_lattice(mod):
     """Two paths for word 5 (different costs and tid strings), an
     eps-word detour, a tie on the total cost broken by the graph cost, and
@@ -141,20 +148,27 @@ def hand_lattice(mod):
 
 @pytest.mark.parametrize("beam", [0.5, 3.0, 8.0])
 def test_determinize_equals_the_python_algorithm(beam, monkeypatch):
-    monkeypatch.setattr(jnative, "available", lambda: False)
-    for b in (beam, np.inf):  # the unpruned subset construction, on the hand lattice
-        got = tdet.determinize_lattice_pruned(hand_lattice(tlat), b)
-        want = jdet.determinize_lattice_pruned(hand_lattice(jlat), b)
-        compact_lattices_equal(want, got)
+    """The port's Python algorithm (determinize_lattice, float64) against
+    the JAX package's within 1e-5; determinize_lattice_pruned, which runs
+    cpp/lattice.cc in both packages by default (float32 weights at its
+    boundary), and the port's Python route of it, equal to the JAX
+    package's default exactly."""
+    cases = [(hand_lattice(jlat), hand_lattice(tlat), b, {})
+             for b in (beam, np.inf)]  # np.inf: the unpruned subset construction
     for graph in ("folded", "split"):
-        for _jr, _tr, jl, tl in _lattices(graph, max_active=16):
-            compact_lattices_equal(jdet.determinize_lattice_pruned(jl, beam),
-                                   tdet.determinize_lattice_pruned(tl, beam))
-    scaled = tdet.determinize_lattice_pruned(hand_lattice(tlat), beam,
-                                             acoustic_scale=0.5, lm_scale=2.0)
-    compact_lattices_equal(
-        jdet.determinize_lattice_pruned(hand_lattice(jlat), beam, acoustic_scale=0.5,
-                                        lm_scale=2.0), scaled)
+        cases += [(jl, tl, beam, {}) for _jr, _tr, jl, tl in _lattices(graph, max_active=16)]
+    cases.append((hand_lattice(jlat), hand_lattice(tlat), beam,
+                  dict(acoustic_scale=0.5, lm_scale=2.0)))
+    for jl, tl, b, kw in cases:
+        want = jdet.determinize_lattice_pruned(jl, b, **kw)
+        for algorithm in ("native", "python"):
+            assert compact_lattice_tuple(tdet.determinize_lattice_pruned(
+                tl, b, algorithm=algorithm, **kw)) == compact_lattice_tuple(want)
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    for jl, tl, b, kw in cases:
+        if not kw:
+            compact_lattices_equal(jdet.determinize_lattice_pruned(jl, b),
+                                   tdet.determinize_lattice(tl, b))
 
 
 def test_parse_arpa_equals():

@@ -32,7 +32,8 @@ def test_lmrescore_best_path_equal(graph):
     new = (jngram.estimate_ngram_lm(sents, order=4, cutoffs=(0, 0, 1, 1)),
            tngram.estimate_ngram_lm(sents, order=4, cutoffs=(0, 0, 1, 1)))
     for _jr, _tr, jl, tl in _lattices(graph, max_active=16):
-        jc = jdet.determinize_lattice(jl, 8.0)
+        # both packages' default route: the native library of cpp/lattice.cc
+        jc = jdet.determinize_lattice_pruned(jl, 8.0)
         tc = tdet.determinize_lattice_pruned(tl, 8.0)
         for use_old in (True, False):
             want = jresc.lmrescore_compact_lattice(jc, words, new[0],
