@@ -87,7 +87,17 @@ path the decoder's words; the LM-weight sweep, MBR, CTM with confidences,
 frame posteriors, a compact-lattice archive read back, decode_biglm with
 the identity and from the pruned trigram to the rescore phase's 4-gram,
 and an LSTMP RNNLM over the 20k words trained one epoch on the card (held
-to the CPU) rescoring 10-best lists.
+to the CPU) rescoring 10-best lists.  Then the remaining nnet3
+architectures (architectures, architectures_parity, stream_lstm): the JAX
+package's TDNN-LSTM, TDNN-attention (features through K2) and CNN-TDNN-F
+(40-bin filterbank) at its factories' widths, trained 2 epochs on the 600
+training utterances from tri_ali.pkl's labels and decoded on the clean set
+through K1 (WER at most 5 %), each with one step and 8 utterances'
+loglikes held to the CPU; a BLSTMP, a projected-GRU and a Descriptor-DAG
+xconfig model at width 512 and the filterbank and PLP front ends held to
+the CPU; and the TDNN-LSTM and CNN-TDNN-F streamed through StreamingAmNnet
+into StreamingTokenDecoder on 16 utterances in 0.5 s chunks, whose words
+must be the batch decode's.
 --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
@@ -410,10 +420,11 @@ TRI_GAUSS_REL = 0.01
 # up to two digits: the statistics, the like and the new parameters within
 # 1e-9 of the largest of each
 STEP_TOL = 1e-9
-# neural training (minilib stages 5, 7, 8): 4 CE epochs and 20 chain epochs,
-# each with a finite objective (CE falling); both trained models decode the
-# clean held-out set at WER <= MAX_WER_PERCENT
-CE_EPOCHS, CHAIN_EPOCHS = 4, 20
+# neural training (minilib stages 5, 7, 8 and 11): 4 CE epochs and 10 chain
+# epochs (MinilibOptions' 20, cut for time: the objective is flat from
+# epoch 10, PERF.md §4), each with a finite objective (CE falling); the
+# trained models decode the clean held-out set at WER <= MAX_WER_PERCENT
+CE_EPOCHS, CHAIN_EPOCHS = 4, 10
 # one neural train step from the same inputs on the card and the CPU (fp32
 # in both, products without TF32): losses within NNET_STEP_TOL relative (a
 # chain loss or objective, num − den over the frames, within it of the
@@ -2096,6 +2107,7 @@ def sequence_training(torch, np, c) -> dict:
 
 LATTICE_UTTS = 64  # held-out utterances at NOISE_EVAL of the lattice_outputs phase
 LATTICE_BEAM = 10.0  # decode_dataset_with_lattices' default
+LATTICE_DET_UTTS = 8  # of the 64: decoded once more with determinize=True
 RNNLM_SENTENCES = 20_000  # the first of the 4-gram's own LM text
 RNNLM_HELD_OUT = 256  # sentences scored on the card and on the CPU
 RNNLM_SCORE_TOL = 1e-3  # nats a sentence, card vs CPU
@@ -2108,11 +2120,11 @@ def lattice_outputs(torch, np, c) -> dict:
     """The lattice_outputs phase: what users read from a decode, on the card.
     64 held-out utterances at noise 400, features through K2, tri.mdl's
     loglikes through K3, recipes/decode.decode_dataset_with_lattices at
-    DecodeOptions() on hclg.npz with lattice records through K1, once
-    without determinization and once with it (the native library of
-    cpp/lattice.cc); the Python determinization of the first decode's
-    lattices held to the native one, each lattice's best path to the
-    decoder's words; the LM-weight sweep, MBR, CTM with confidences, frame
+    DecodeOptions() on hclg.npz with lattice records through K1, its
+    lattices determinized by the native library of cpp/lattice.cc and by
+    the Python algorithm, which must agree, and the first 8 decoded once
+    more with determinize=True, whose lattices must equal the native ones;
+    each lattice's best path held to the decoder's words; the LM-weight sweep, MBR, CTM with confidences, frame
     posteriors, a compact-lattice archive written ark,scp: and read back;
     decode_biglm with the identity and from the pruned trigram to the
     rescore phase's 4-gram; the RNNLM at RnnLmOptions() over the 20k-word
@@ -2166,9 +2178,21 @@ def lattice_outputs(torch, np, c) -> dict:
     raw = decode.decode_dataset_with_lattices(gmm, c.system.csr, words, feats, dopts,
                                               LATTICE_BEAM, timings=d1, decoder_words=decoded)
     t0 = lap("decode_seconds", t0)
+    # the native determinization of the 64 lattices, as the decode's
+    # determinize=True runs it; the determinized decode itself on the first
+    # LATTICE_DET_UTTS only (cut from 64 for time, PERF.md §4), whose
+    # lattices must equal those
+    clats = {k: determinize_lattice_pruned(lat, LATTICE_BEAM, acoustic_scale=acs)
+             for k, lat in raw.items()}
+    t0 = lap("determinize_native_seconds", t0)
     d2 = {}
-    clats = decode.decode_dataset_with_lattices(gmm, c.system.csr, words, feats, dopts,
-                                                LATTICE_BEAM, determinize=True, timings=d2)
+    det_keys = keys[:LATTICE_DET_UTTS]
+    dclats = decode.decode_dataset_with_lattices(gmm, c.system.csr, words,
+                                                 {k: feats[k] for k in det_keys}, dopts,
+                                                 LATTICE_BEAM, determinize=True, timings=d2)
+    decode_det_differ = [k for k in det_keys if k not in dclats
+                         or clat_tuple(dclats[k]) != clat_tuple(clats[k])]
+    del dclats
     t0 = lap("decode_determinized_seconds", t0)
     py_clats = {k: determinize_lattice_pruned(lat, LATTICE_BEAM, acoustic_scale=acs,
                                               algorithm="python") for k, lat in raw.items()}
@@ -2303,7 +2327,8 @@ def lattice_outputs(torch, np, c) -> dict:
           "acoustic_scale": acs, "lattice_beam": LATTICE_BEAM,
           "lattices": len(raw), "lattice_arcs": sum(x.num_arcs for x in raw.values()),
           "compact_lattice_arcs": sum(x.num_arcs for x in clats.values()),
-          "determinize_native_seconds": d2.get("determinize_seconds"),
+          "determinized_decode_utterances": len(det_keys),
+          "determinized_decode_differs_from_native": decode_det_differ,
           "native_equals_python": len(keys) - len(det_differ),
           "native_differs_from_python": det_differ,
           "best_path_equals_decoder": len(keys) - len(best_differ),
@@ -2334,6 +2359,9 @@ def lattice_outputs(torch, np, c) -> dict:
         faults.append(f"lattice_outputs did not go through K1, K2 and K3: {counts}")
     if len(raw) != len(keys) or det_differ:
         faults.append(f"native vs Python determinization differ on {det_differ}")
+    if decode_det_differ:
+        faults.append(f"decode(determinize=True) differs from the native determinization "
+                      f"of the raw lattices on {decode_det_differ}")
     if best_differ:
         faults.append(f"lattice best paths differ from the decoder's on {best_differ}")
     if mbr_bad or ctm_bad or post_err > POST_SUM_TOL:
@@ -2359,12 +2387,319 @@ def lattice_outputs(torch, np, c) -> dict:
     return {"launches": counts, "k1": k1, "k3": k3, "faults": faults}
 
 
+# the remaining nnet3 architectures (phases architectures, architectures_parity,
+# stream_lstm): the JAX package's factories at their own widths, trained on the
+# 600 training utterances from tri_ali.pkl's labels, decoded and streamed
+ARCH_EPOCHS = 2  # NnetTrainOptions' 6 and MinilibOptions' 4, cut for time (PERF.md §4)
+ARCH_MAX_WER_PERCENT = 5.0  # a broken model reads tens of per cent
+ARCH_TOL = 1e-4  # card vs CPU: a step's loss (relative), logits and loglikes (of max|ref|)
+ARCH_CHECK_UTTS = 8  # held-out utterances of the loglikes check
+ARCH_TIMED_STEPS = 5  # card steps timed one by one for the median step time
+FBANK_BINS = 40  # the CNN-TDNN-F's mel grid (make_cnn_tdnnf's height)
+FEAT_DEVICE_TOL = 1e-4  # Fbank and PLP, card vs CPU, absolute
+STREAM_LSTM_CHUNK_SECONDS = 0.5
+# xconfig models at the recipes' widths (cell 512) whose forward and one step
+# are held card vs CPU: a BLSTMP, a projected GRU and the Descriptor DAG of
+# tests/test_descriptor.py scaled to width 512
+ARCH_PARITY_XCONFIGS = {
+    "blstmp": """input name=input dim=39
+relu-batchnorm-layer name=tdnn1 dim=512 input=Append(-2,-1,0,1,2)
+blstmp-layer name=blstm1 cell-dim=512 recurrent-projection-dim=128 non-recurrent-projection-dim=128
+relu-batchnorm-layer name=tdnn2 dim=512 input=Append(-3,0,3)
+blstmp-layer name=blstm2 cell-dim=512 recurrent-projection-dim=128 non-recurrent-projection-dim=128
+output-layer name=output dim=2000""",
+    "pgru": """input name=input dim=39
+relu-batchnorm-layer name=tdnn1 dim=512 input=Append(-2,-1,0,1,2)
+pgru-layer name=pgru1 cell-dim=512 recurrent-projection-dim=128 non-recurrent-projection-dim=128
+relu-batchnorm-layer name=tdnn2 dim=512 input=Append(-3,0,3)
+pgru-layer name=pgru2 cell-dim=512 recurrent-projection-dim=128 non-recurrent-projection-dim=128
+output-layer name=output dim=2000""",
+    "dag": """input name=input dim=39
+relu-batchnorm-layer name=tdnn1 dim=512 input=Append(-1,0,1)
+relu-batchnorm-layer name=tdnn2 dim=512
+relu-batchnorm-layer name=tdnn3 dim=512 input=Sum(tdnn2, IfDefined(Offset(tdnn1, -3)))
+relu-batchnorm-layer name=tdnn4 dim=512 input=Append(tdnn3, Failover(Offset(tdnn1, -6), tdnn2), Round(tdnn2, 3))
+output-layer name=output dim=2000""",
+}
+
+
+def architectures(torch, np, c) -> dict:
+    """Phases architectures, architectures_parity and stream_lstm; `c` holds
+    main()'s objects.  Each path's launch counts are set to 0 just before it
+    and read just after; a fault is collected and raised after the three
+    phases.  Returns {"launches": {path: K1 and K2 counts}}."""
+    import statistics
+
+    from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions
+    from old_kaldi_git_tpu_torch.feat.compute import (
+        Fbank, FbankOptions, Plp, PlpOptions, compute_utterance_fbank)
+    from old_kaldi_git_tpu_torch.hmm.hmm_utils import alignment_to_pdfs
+    from old_kaldi_git_tpu_torch.models import tdnn
+    from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+    from old_kaldi_git_tpu_torch.models.streaming_am import StreamingAmNnet
+    from old_kaldi_git_tpu_torch.models.train import (
+        NnetTrainOptions, TrainState, _chunk_batches, make_ce_train_step, make_optimizer)
+    from old_kaldi_git_tpu_torch.models.xconfig import parse_xconfig
+    from old_kaldi_git_tpu_torch.online.streaming import StreamingTokenDecoder
+    from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
+    from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
+
+    dev, card, emit, minilib, system = c.dev, c.card, c.emit, c.minilib, c.system
+    cpu = torch.device("cpu")
+    faults, launches = [], {}
+    t_arch = time.perf_counter()
+    tri, ali = minilib._tri_system("exp/minilib")
+    num_pdfs = tri.am.num_pdfs
+    labels = {k: np.asarray(alignment_to_pdfs(tri.tm, a), np.int32)
+              for k, a in ali.items() if a is not None}
+    aopts = dataclasses.replace(c.topts, num_epochs=ARCH_EPOCHS)
+    test_text = {k: list(v) for k, v in system.test_text.items()}
+
+    def fbank_feats(waves):
+        return compute_utterance_fbank(waves, minilib.SAMP_FREQ, dev, FBANK_BINS)
+
+    def mfcc_feats(waves):
+        return minilib.compute_feats(waves, device=dev)
+
+    def on(am, device):
+        """A copy of `am` on `device`."""
+        return AmNnet(am.config, copy.deepcopy(am.model),
+                      None if am.log_priors is None else am.log_priors.cpu().numpy(),
+                      device=device)
+
+    def first_batch(feats):
+        keys = [k for k in sorted(feats) if k in labels]
+        return next(_chunk_batches({k: feats[k] for k in keys}, labels, 140, 16,
+                                   np.random.default_rng(0)))
+
+    def step_parity(am, batch, timed=0):
+        """One make_ce_train_step update (NnetTrainOptions()) from am's
+        weights on `batch`, on the card and on the CPU: the two losses, and
+        the card's seconds of `timed` more steps, each ended by a
+        synchronise."""
+        out, secs = {}, []
+        for where, device in (("card", dev), ("cpu", cpu)):
+            model = copy.deepcopy(am.model).to(device).train()
+            opt = make_optimizer(NnetTrainOptions(), 100)
+            step = make_ce_train_step(model, opt)
+            state = TrainState(opt.init(dict(model.named_parameters())), 0)
+            state, m = step(state, *batch)
+            out[where] = float(m["loss"])
+            for _ in range(timed if where == "card" else 0):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, *batch)
+                float(m["loss"])
+                secs.append(time.perf_counter() - t0)
+            del model
+        rel = abs(out["card"] - out["cpu"]) / abs(out["cpu"])
+        return {"loss_card": out["card"], "loss_cpu": out["cpu"], "relative": rel}, secs
+
+    def rel_gap(got, want):
+        got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    # ---- architectures: train, decode, card vs CPU ----------------------------
+    specs = [("tdnn_lstm", tdnn.make_tdnn_lstm(39, num_pdfs), mfcc_feats, "mfcc"),
+             ("tdnn_attention", tdnn.make_tdnn_attention(39, num_pdfs), mfcc_feats, "mfcc"),
+             ("cnn_tdnnf", tdnn.make_cnn_tdnnf(FBANK_BINS, num_pdfs), fbank_feats,
+              f"fbank{FBANK_BINS}")]
+    trained, mfcc_train = {}, None
+    check_keys = sorted(system.test_waves)[:ARCH_CHECK_UTTS]
+    for name, config, front_end, feat_kind in specs:
+        t_model = time.perf_counter()
+        c.zero_counts()
+        t0 = time.perf_counter()
+        feats = front_end(c.twaves)
+        torch.cuda.synchronize()
+        fe_s = time.perf_counter() - t0
+        hist, tim = [], {}
+        am = minilib.train_am_system(None, feats, aopts, device=dev, history=hist,
+                                     timings=tim, config=config)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        tr_counts = c.read_counts(f"architectures_{name}")
+        peak = torch.cuda.max_memory_allocated()
+        c.zero_counts()
+        stages = {}
+        t0 = time.perf_counter()
+        if feat_kind == "mfcc":
+            wer, _ = minilib.decode_and_score(
+                dataclasses.replace(system, am=am), beam=BEAM, max_active=MAX_ACTIVE,
+                acoustic_scale=ACOUSTIC_SCALE, batch=BATCH, timings=stages)
+            stats = minilib.decode_and_score.last_stats
+            errors, ref_words = stats["errors"], stats["ref_words"]
+        else:
+            tfe = fbank_feats(system.test_waves)
+            hyps = minilib.decode_features(
+                dataclasses.replace(system, am=am), tfe, beam=BEAM, max_active=MAX_ACTIVE,
+                acoustic_scale=ACOUSTIC_SCALE, batch=BATCH, timings=stages)
+            ws = compute_wer(test_text, hyps)
+            wer, errors, ref_words = ws.wer, ws.errors, ws.ref_len
+        torch.cuda.synchronize()
+        decode_wall = time.perf_counter() - t0
+        de_counts = c.read_counts(f"architectures_{name}_decode")
+        launches[f"architectures_{name}"] = tr_counts
+        launches[f"architectures_{name}_decode"] = de_counts
+        # card vs CPU: one step from the trained weights, and the loglikes
+        step, secs = step_parity(am, first_batch(feats), timed=ARCH_TIMED_STEPS)
+        _, xs, _ = pad_feature_batch(front_end({k: system.test_waves[k] for k in check_keys}))
+        ll_gap = rel_gap(am.loglikes_batch(xs), on(am, cpu).loglikes_batch(xs))
+        ce = [h["loss"] for h in hist]
+        emit({"phase": "architectures", "card": card, "architecture": name,
+              "config": f"{name}({config.input_dim}, {num_pdfs}) at the JAX factory's "
+                        "widths", "features": feat_kind,
+              "layers": [l.kind for l in config.layers],
+              "parameters": sum(p.numel() for p in am.model.parameters()),
+              "utterances": len(feats), "epochs": len(hist), "steps": tim["steps"],
+              "ce_by_epoch": ce, "accuracy_by_epoch": [h["acc"] for h in hist],
+              "front_end_seconds": fe_s, "train_seconds": tim["train_seconds"],
+              "priors_seconds": tim["priors_seconds"], "train_wall_seconds": train_wall,
+              "step_ms_mean": 1e3 * tim["train_seconds"] / tim["steps"],
+              "step_ms_median": 1e3 * statistics.median(secs),
+              "peak_device_memory_bytes": peak,
+              "decode": {"graph": "exp/minilib/hclg.npz", "max_active": MAX_ACTIVE,
+                         "batch": BATCH, "beam": BEAM, "wer_percent": wer, "errors": errors,
+                         "ref_words": ref_words, "wall_seconds": decode_wall, **stages},
+              "one_step_card_vs_cpu": step,
+              "loglikes_card_vs_cpu_of_max": ll_gap, "loglikes_utterances": len(check_keys),
+              "launches": {"train": tr_counts, "decode": de_counts},
+              "phase_seconds": time.perf_counter() - t_model})
+        if not (len(ce) == ARCH_EPOCHS and all(np.isfinite(ce))
+                and all(b < a for a, b in zip(ce, ce[1:]))):
+            faults.append(f"{name}: CE by epoch {ce}, not {ARCH_EPOCHS} finite and falling")
+        if not wer <= ARCH_MAX_WER_PERCENT:
+            faults.append(f"{name}: WER {wer} % above {ARCH_MAX_WER_PERCENT} %")
+        if not step["relative"] <= ARCH_TOL:
+            faults.append(f"{name}: one step's loss card vs CPU {step}")
+        if not ll_gap <= ARCH_TOL:
+            faults.append(f"{name}: loglikes card vs CPU {ll_gap} of max|ref|")
+        if de_counts["gather"] == 0 or (feat_kind == "mfcc" and (
+                tr_counts["mfcc"] == 0 or de_counts["mfcc"] == 0)):
+            faults.append(f"{name} did not go through its kernels: {tr_counts}, {de_counts}")
+        trained[name] = am
+        if name == "tdnn_lstm":
+            mfcc_train = feats
+        del feats
+        torch.cuda.empty_cache()
+
+    # ---- architectures_parity: xconfig models at width 512, the front ends ----
+    t_par = time.perf_counter()
+    batch = first_batch(mfcc_train)
+    parity = {}
+    for name, text in ARCH_PARITY_XCONFIGS.items():
+        config = parse_xconfig(text)
+        am = AmNnet.init(config, seed=0, device=dev)
+        with torch.no_grad():
+            gap = rel_gap(am.logits(batch[0]), on(am, cpu).logits(batch[0]))
+        step, secs = step_parity(am, batch, timed=2)
+        parity[name] = {"layers": [l.kind for l in config.layers],
+                        "parameters": sum(p.numel() for p in am.model.parameters()),
+                        "logits_card_vs_cpu_of_max": gap, "one_step_card_vs_cpu": step,
+                        "step_ms_median": 1e3 * statistics.median(secs)}
+        if not (gap <= ARCH_TOL and step["relative"] <= ARCH_TOL):
+            faults.append(f"architectures_parity {name}: {parity[name]}")
+        del am
+    fkeys = sorted(system.test_waves)[:STREAM_UTTS]
+    wlen = max(len(system.test_waves[k]) for k in fkeys)
+    wav = np.zeros((len(fkeys), wlen), np.float32)
+    for i, k in enumerate(fkeys):
+        wav[i, : len(system.test_waves[k])] = system.test_waves[k]
+    front = {}
+    for name, comp in (("fbank", Fbank(FbankOptions())), ("plp", Plp(PlpOptions()))):
+        comp.opts.frame_opts.samp_freq = minilib.SAMP_FREQ
+        comp.opts.frame_opts.dither = 0.0
+        if name == "fbank":
+            comp.opts.mel_opts.num_bins = FBANK_BINS
+        x_card = torch.from_numpy(wav).to(dev)
+        got, want = comp(x_card), comp(torch.from_numpy(wav))
+        err = float((got.cpu() - want).abs().max())
+        front[name] = {"shape": list(want.shape), "max_abs_err": err,
+                       "card_ms": time_ms(torch, lambda: comp(x_card), reps=10)}
+        if not err <= FEAT_DEVICE_TOL:
+            faults.append(f"architectures_parity {name}: card vs CPU {err}")
+    emit({"phase": "architectures_parity", "card": card, "batch": list(batch[0].shape),
+          "models": parity, "front_ends": front, "utterances": len(fkeys),
+          "phase_seconds": time.perf_counter() - t_par})
+
+    # ---- stream_lstm: StreamingAmNnet into StreamingTokenDecoder --------------
+    t_str = time.perf_counter()
+    by_dur = sorted(system.test_waves, key=lambda k: len(system.test_waves[k]))
+    skeys = by_dur[::len(by_dur) // STREAM_UTTS][:STREAM_UTTS]
+    swaves = {k: system.test_waves[k] for k in skeys}
+    saudio_s = sum(len(w) for w in swaves.values()) / minilib.SAMP_FREQ
+    chunk = int(round(STREAM_LSTM_CHUNK_SECONDS * 100))  # frames at a 10 ms shift
+    svopts = ViterbiOptions(beam=BEAM, max_active=STREAM_MAX_ACTIVE, acoustic_scale=1.0)
+    streams = {}
+    for name, front_end in (("tdnn_lstm", mfcc_feats), ("cnn_tdnnf", fbank_feats)):
+        am = trained[name]
+        want = minilib.decode_features(dataclasses.replace(system, am=am),
+                                       front_end(swaves), BEAM, STREAM_MAX_ACTIVE, 1.0,
+                                       batch=STREAM_UTTS)
+        dec = StreamingTokenDecoder(system.csr, lambda x: x, c.sil, c.tid_to_phone, svopts,
+                                    chunk_quantum=STREAM_CHUNK, device=dev)
+        c.zero_counts()
+        t0 = time.perf_counter()
+        feats = front_end(swaves)
+        got, streamed, frames = {}, {}, 0
+        for k in skeys:
+            f = feats[k]
+            sam = StreamingAmNnet(am)
+            dec.reset()
+            outs = []
+            for lo in range(0, len(f), chunk):
+                ll = sam.accept(f[lo: lo + chunk], final=lo + chunk >= len(f))
+                if ll.size:
+                    dec.advance(ll, final=lo + chunk >= len(f))
+                    outs.append(ll)
+            got[k] = [system.words[w] for w in dec.best_words()]
+            streamed[k] = np.concatenate(outs)
+            frames += len(f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = c.read_counts(f"stream_lstm_{name}")
+        launches[f"stream_lstm_{name}"] = counts
+        gap = 0.0
+        for k in skeys:
+            whole = am.loglikes_batch(feats[k][None])[0].cpu().numpy()
+            gap = max(gap, float(np.abs(streamed[k] - whole).max() / np.abs(whole).max()))
+        differ = sorted(k for k in skeys if got[k] != want[k])
+        ws = compute_wer({k: test_text[k] for k in skeys}, got)
+        streams[name] = {"utterances_differing_from_batch": differ, "wer_percent": ws.wer,
+                         "loglikes_stream_vs_whole_of_max": gap, "search_frames": frames,
+                         "stream_wall_seconds": wall, "single_stream_rtf": wall / saudio_s,
+                         "ms_per_frame": 1e3 * wall / frames,
+                         "gather_launches": counts["gather"], "mfcc_launches": counts["mfcc"]}
+        if differ:
+            faults.append(f"stream_lstm {name}: {len(differ)} utterances differ from the "
+                          f"batch decode: {differ}")
+        if not gap <= ARCH_TOL:
+            faults.append(f"stream_lstm {name}: streamed loglikes off the whole by {gap}")
+        if counts["gather"] != frames:
+            faults.append(f"stream_lstm {name}: {counts['gather']} gathers for {frames} "
+                          "search frames (one a frame expected)")
+        del dec
+    emit({"phase": "stream_lstm", "card": card, "utterances": skeys,
+          "chunk_seconds": STREAM_LSTM_CHUNK_SECONDS, "max_active": STREAM_MAX_ACTIVE,
+          "beam": BEAM, "audio_seconds": saudio_s, "models": streams,
+          "phase_seconds": time.perf_counter() - t_str,
+          "all_three_phases_seconds": time.perf_counter() - t_arch})
+    del trained
+    torch.cuda.empty_cache()
+    if faults:
+        raise RuntimeError("architectures: " + "; ".join(faults))
+    return {"launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--noisy", action="store_true",
                     help="also decode the set re-synthesised at noise 400")
     ap.add_argument("--profile-frames", type=int, default=0,
                     help="frames of one chunk's search under torch.profiler")
+    ap.add_argument("--only", choices=["architectures"],
+                    help="build the kernels, load the system and run only these "
+                         "phases (no final line: a partial run)")
     args = ap.parse_args()
 
     import torch
@@ -2417,6 +2752,23 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_name_and_power_limit()
 
+    def zero_counts():
+        batched_table_gather.launches = 0
+        fused_mfcc_from_frames.launches = 0
+        fused_mfcc_from_frames.launches_by_route = {"fft": 0, "dft": 0}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def read_counts(name):
+        """K1's and K2's launches since zero_counts(), K2's by route; every
+        path's front end must take the fft route"""
+        got = {"gather": batched_table_gather.launches,
+               "mfcc": fused_mfcc_from_frames.launches,
+               "mfcc_by_route": dict(fused_mfcc_from_frames.launches_by_route)}
+        if got["mfcc_by_route"]["fft"] != got["mfcc"]:
+            raise RuntimeError(f"{name}: the front end left the fft route: {got}")
+        return got
+
     # ---- phase 1: device, build: the CUDA kernels and, beside them in
     # threads, the native graph library the training graphs need and the
     # native lattice determinization
@@ -2467,6 +2819,19 @@ def main() -> int:
         convert.load_pickle("exp/minilib/tree.pkl")[1])
     svopts = ViterbiOptions(beam=BEAM, max_active=STREAM_MAX_ACTIVE, acoustic_scale=1.0)
     fsf = chain.model.frame_subsampling_factor
+
+    def run_architectures(topts, twaves):
+        return architectures(torch, np, argparse.Namespace(
+            dev=dev, card=card, emit=emit, minilib=minilib, system=system, topts=topts,
+            twaves=twaves, zero_counts=zero_counts, read_counts=read_counts, sil=sil,
+            tid_to_phone=tid_to_phone))["launches"]
+
+    if args.only == "architectures":
+        topts = minilib.MinilibOptions()
+        run_architectures(topts, minilib.training_set(topts)[0])
+        emit({"phase": "total", "card": card, "partial": args.only,
+              "seconds": round(time.perf_counter() - t_start, 1)})
+        return 0
 
     def stream_decoder(graph, am, t2p, chunk, step=1):
         scores = am.loglikes_batch if step == 1 else (
@@ -2854,23 +3219,6 @@ def main() -> int:
     del gmm_feats
     torch.cuda.empty_cache()
 
-    def zero_counts():
-        batched_table_gather.launches = 0
-        fused_mfcc_from_frames.launches = 0
-        fused_mfcc_from_frames.launches_by_route = {"fft": 0, "dft": 0}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-
-    def read_counts(name):
-        """K1's and K2's launches since zero_counts(), K2's by route; every
-        path's front end must take the fft route"""
-        got = {"gather": batched_table_gather.launches,
-               "mfcc": fused_mfcc_from_frames.launches,
-               "mfcc_by_route": dict(fused_mfcc_from_frames.launches_by_route)}
-        if got["mfcc_by_route"]["fft"] != got["mfcc"]:
-            raise RuntimeError(f"{name}: the front end left the fft route: {got}")
-        return got
-
     def hold_to_cpu_errors(name, stats):
         """the JAX package's errors and utterances with errors on the CPU"""
         errors, utts = IVEC_CPU_ERRORS[name]
@@ -3152,6 +3500,7 @@ def main() -> int:
     # tri.mdl, mono.mdl and as the equal alignment; counts set to 0 just
     # before each, features included
     topts = minilib.MinilibOptions()
+    chain_topts = dataclasses.replace(topts, chain_epochs=CHAIN_EPOCHS)
     twaves, ttext = minilib.training_set(topts)
     taudio_s = sum(len(w) for w in twaves.values()) / minilib.SAMP_FREQ
     t0 = time.perf_counter()
@@ -3639,8 +3988,9 @@ def main() -> int:
     # train_ce: the training set's features through K2, CE training of the
     # TDNN-F final.am from tri_ali.pkl's labels (4 epochs), then the clean
     # held-out decode with the card-trained model on hclg.npz (K1, K2).
-    # train_chain: the biphone chain tree, den graph and 20 LF-MMI epochs,
-    # the model's own split-eps chain HCLG, and its decode (K1, K2).
+    # train_chain: the biphone chain tree, den graph and 10 LF-MMI epochs
+    # (MinilibOptions' 20, cut), the model's own split-eps chain HCLG, and
+    # its decode (K1, K2).
     # train_ce_step / train_chain_step: one step from the committed models'
     # parameters on the card and on the CPU, which must agree
     from old_kaldi_git_tpu_torch.chain.loss import (
@@ -3707,8 +4057,8 @@ def main() -> int:
     torch.cuda.synchronize()
     ch_fe_s = time.perf_counter() - t0
     ch_hist, ch_rep = [], {}
-    ch_system = minilib.train_chain_system(tfeats, lang, topts, device=dev, history=ch_hist,
-                                           report=ch_rep)
+    ch_system = minilib.train_chain_system(tfeats, lang, chain_topts, device=dev,
+                                           history=ch_hist, report=ch_rep)
     torch.cuda.synchronize()
     ch_wall = time.perf_counter() - t0
     ch_launches = {"train": read_counts("train_chain")}
@@ -4118,7 +4468,7 @@ def main() -> int:
     zero_counts()
     t0 = time.perf_counter()
     cv_hist, cv_rep = [], {}
-    cv_model = minilib.train_chain_ivec_system(tfeats, lang, ext, topts, device=dev,
+    cv_model = minilib.train_chain_ivec_system(tfeats, lang, ext, chain_topts, device=dev,
                                                history=cv_hist, report=cv_rep)
     torch.cuda.synchronize()
     cv_wall = time.perf_counter() - t0
@@ -4717,6 +5067,12 @@ def main() -> int:
         raise RuntimeError("lattice_outputs: " + "; ".join(lo["faults"]))
     lo_launches = lo["launches"]
 
+    # ---- phases 37-39: the remaining nnet3 architectures (TDNN-LSTM,
+    # TDNN-attention, CNN-TDNN-F on Fbank) trained, decoded and streamed,
+    # xconfig models and the Fbank / PLP front ends card vs CPU; each path's
+    # counts set to 0 just before it and read just after
+    arch_launches = run_architectures(topts, twaves)
+
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
@@ -4735,7 +5091,8 @@ def main() -> int:
                       + sum(p["gather"] for p in (tiv_launches, ng_launches, cb_launches))
                       + sum(p["gather"] for p in cfg2_launches.values())
                       + sum(p["gather"] for p in seq_launches.values())
-                      + lo_launches["gather"]),
+                      + lo_launches["gather"]
+                      + sum(p["gather"] for p in arch_launches.values())),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -4761,7 +5118,8 @@ def main() -> int:
                               "combine": cb_launches["gather"],
                               **{n: p["gather"] for n, p in cfg2_launches.items()},
                               **{n: p["gather"] for n, p in seq_launches.items()},
-                              "lattice_outputs": lo_launches["gather"]},
+                              "lattice_outputs": lo_launches["gather"],
+                              **{n: p["gather"] for n, p in arch_launches.items()}},
          "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err), "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
@@ -4787,7 +5145,8 @@ def main() -> int:
                       + sum(p["mfcc"] for p in (tiv_launches, ng_launches, cb_launches))
                       + sum(p["mfcc"] for p in cfg2_launches.values())
                       + sum(p["mfcc"] for p in seq_launches.values())
-                      + lo_launches["mfcc"]),
+                      + lo_launches["mfcc"]
+                      + sum(p["mfcc"] for p in arch_launches.values())),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -4812,7 +5171,8 @@ def main() -> int:
                               "combine": cb_launches["mfcc"],
                               **{n: p["mfcc"] for n, p in cfg2_launches.items()},
                               **{n: p["mfcc"] for n, p in seq_launches.items()},
-                              "lattice_outputs": lo_launches["mfcc"]},
+                              "lattice_outputs": lo_launches["mfcc"],
+                              **{n: p["mfcc"] for n, p in arch_launches.items()}},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -4821,7 +5181,7 @@ def main() -> int:
                  tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values(),
                  *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
                  cb_launches, *cfg2_launches.values(), *seq_launches.values(),
-                 lo_launches))
+                 lo_launches, *arch_launches.values()))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,

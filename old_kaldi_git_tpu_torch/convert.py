@@ -2,7 +2,8 @@
 
 Five things:
 
-* `am_nnet_from_jax`: a flax variable tree (as numpy) → the port's AmNnet.
+* `am_nnet_from_jax`: a flax variable tree (as numpy) → the port's AmNnet,
+  every layer kind (tdnn, tdnnf, lstmp, blstmp, pgru, attention, conv).
   flax `Dense.kernel` is [in, out], `nn.Linear.weight` is [out, in];
   `batch_stats/<layer>/batchnorm/{mean,var}` become the layers' buffers.
 * a reader for the committed pickles that does NOT import the JAX package:
@@ -39,6 +40,7 @@ from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm, AmGmmModel, DiagGmm
 from old_kaldi_git_tpu_torch.hmm.topology import HmmState, HmmTopology
 from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
+from old_kaldi_git_tpu_torch.models.recurrent import BLSTMP_NAMES
 from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, TdnnLayerSpec, TdnnModel
 from old_kaldi_git_tpu_torch.tree.context_dep import ContextDependency
 from old_kaldi_git_tpu_torch.tree.event_map import (
@@ -93,16 +95,17 @@ def _fields_of(obj: Any) -> Dict[str, Any]:
 
 
 def tdnn_config_from_fields(config_fields: Mapping[str, Any]) -> TdnnConfig:
-    """The port's TdnnConfig from the JAX config's fields.  Fields of layer
-    kinds that are not ported yet are dropped; such a kind itself is kept
-    and refused by TdnnModel."""
+    """The port's TdnnConfig from the JAX config's fields (layers as objects
+    or dicts).  A field the port does not know is dropped; one a config
+    pickled before the field existed lacks takes its default."""
     known = {f.name for f in dataclasses.fields(TdnnLayerSpec)}
     layers = []
     for layer in config_fields["layers"]:
         fields = _fields_of(layer)
         spec = {k: v for k, v in fields.items() if k in known}
-        if "offsets" in spec:
-            spec["offsets"] = tuple(int(o) for o in spec["offsets"])
+        for k in ("offsets", "height_offsets"):
+            if k in spec:
+                spec[k] = tuple(int(o) for o in spec[k])
         layers.append(TdnnLayerSpec(**spec))
     return TdnnConfig(
         input_dim=int(config_fields["input_dim"]),
@@ -112,49 +115,35 @@ def tdnn_config_from_fields(config_fields: Mapping[str, Any]) -> TdnnConfig:
     )
 
 
-def _tensor(a) -> torch.Tensor:
-    """A float32 tensor holding a copy of `a` (arrays out of a pickle or a
-    flax tree may be read-only)."""
-    return torch.from_numpy(np.array(a, np.float32))
-
-
-def _copy_dense(linear: torch.nn.Linear, params: Mapping[str, np.ndarray]) -> None:
-    kernel = np.asarray(params["kernel"], np.float32)  # [in, out]
-    if tuple(linear.weight.shape) != kernel.T.shape:
-        raise ValueError(
-            f"kernel {kernel.shape} does not fit Linear {tuple(linear.weight.shape)}")
-    with torch.no_grad():
-        linear.weight.copy_(_tensor(kernel.T))
-        if linear.bias is not None:
-            linear.bias.copy_(_tensor(params["bias"]))
-
-
 def am_nnet_from_jax(config_fields: Mapping[str, Any],
                      variables: Mapping[str, Any],
                      log_priors: Optional[np.ndarray] = None,
-                     device: DeviceLike = None, ivector_dim: int = 0) -> AmNnet:
+                     device: DeviceLike = None, ivector_dim: int = 0,
+                     lr_factors: Optional[Mapping[str, float]] = None) -> AmNnet:
     """The port's AmNnet from a JAX AmNnet's parts: `config_fields` the
     TdnnConfig's fields (layers as objects or dicts), `variables` the flax
     tree {'params': …, 'batch_stats': …} of numpy arrays, `ivector_dim` the
-    input dims that carry an online iVector."""
+    input dims that carry an online iVector, `lr_factors` its learning-rate
+    factors.  Every parameter and statistic
+    must fill the port's model exactly (names and shapes)."""
     config = tdnn_config_from_fields(config_fields)
     model = TdnnModel(config)
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    names = [f"{spec.kind}{i}" for i, spec in enumerate(config.layers)]
-    if config.final_hidden_dim:
-        names.append("prefinal")
-    for name in names:
-        layer = getattr(model, name)
-        _copy_dense(layer.affine, params[name]["affine"])
-        if hasattr(layer, "linear"):
-            _copy_dense(layer.linear, params[name]["linear"])
-        bn = stats[name]["batchnorm"]
-        with torch.no_grad():
-            layer.mean.copy_(_tensor(bn["mean"]))
-            layer.var.copy_(_tensor(bn["var"]))
-    _copy_dense(model.output, params["output"])
-    return AmNnet(config, model, log_priors, device=device, ivector_dim=ivector_dim)
+    named = torch_params_from_flax(variables["params"])
+    for layer, stats in variables.get("batch_stats", {}).items():
+        for k in ("mean", "var"):
+            named[f"{layer}.{k}"] = np.array(stats["batchnorm"][k], np.float32)
+    state = model.state_dict()
+    missing = sorted(set(state) - set(named))
+    extra = sorted(set(named) - set(state))
+    if missing or extra:
+        raise ValueError(f"flax tree does not fit the model: missing {missing}, "
+                         f"unexpected {extra}")
+    for k, v in named.items():
+        if tuple(state[k].shape) != v.shape:
+            raise ValueError(f"{k}: {v.shape} does not fit {tuple(state[k].shape)}")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in named.items()})
+    return AmNnet(config, model, log_priors, device=device, ivector_dim=ivector_dim,
+                  lr_factors=None if lr_factors is None else dict(lr_factors))
 
 
 def load_am_nnet(path: str, device: DeviceLike = None) -> AmNnet:
@@ -163,7 +152,8 @@ def load_am_nnet(path: str, device: DeviceLike = None) -> AmNnet:
     d = load_pickle(path)
     return am_nnet_from_jax(_fields_of(d["config"]), d["variables"],
                             d.get("log_priors"), device=device,
-                            ivector_dim=int(d.get("ivector_dim", 0)))
+                            ivector_dim=int(d.get("ivector_dim", 0)),
+                            lr_factors=d.get("lr_factors"))
 
 
 def _per_tid(tm: Any, column: int) -> np.ndarray:
@@ -233,13 +223,16 @@ def context_dependency_from_pickle(stub: Any) -> ContextDependency:
 def torch_params_from_flax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """A flax parameter tree {layer: {sub: {kernel, bias}}} (or {output:
     {kernel, bias}}) → {torch parameter name: float32 array} in nn.Linear's
-    orientation: `kernel` [in, out] becomes `weight` [out, in]."""
+    orientation: `kernel` [in, out] becomes `weight` [out, in].  A BLSTMP's
+    `forward` / `backward` sub-layers are the port's `forward_layer` /
+    `backward_layer` (nn.Module keeps `forward` for its method)."""
     out: Dict[str, np.ndarray] = {}
+    renamed = {v: k for k, v in BLSTMP_NAMES.items()}
 
     def walk(tree: Mapping[str, Any], prefix: str) -> None:
         for k, v in tree.items():
             if isinstance(v, Mapping):
-                walk(v, f"{prefix}{k}.")
+                walk(v, f"{prefix}{renamed.get(k, k)}.")
             elif k == "kernel":
                 out[f"{prefix}weight"] = np.array(np.asarray(v, np.float32).T)
             else:

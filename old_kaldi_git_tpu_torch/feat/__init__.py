@@ -1,8 +1,15 @@
-"""Front end of the port: framing, MFCC (through the fused CUDA kernel), deltas."""
+"""Front end of the port: framing, MFCC (through the fused CUDA kernel),
+filterbank, spectrogram, PLP, deltas."""
 
 from old_kaldi_git_tpu_torch.feat.compute import (  # noqa: F401
+    Fbank,
+    FbankOptions,
     Mfcc,
     MfccOptions,
+    Plp,
+    PlpOptions,
+    Spectrogram,
+    SpectrogramOptions,
     dct_matrix,
     lifter_coeffs,
 )

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import io
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -33,6 +33,9 @@ _ZIP_MAGIC = b"PK"
 SAVE_FORMAT = "old_kaldi_git_tpu_torch.AmNnet/1"
 BUNDLE_FORMAT = "old_kaldi_git_tpu_torch.AmNnetModel/1"
 
+# the TdnnLayerSpec fields that are tuples (saved as lists)
+TUPLE_FIELDS = ("offsets", "height_offsets")
+
 # flax's lecun_normal: a normal truncated at ±2σ, σ chosen so that the
 # truncated draw has variance 1/fan_in
 _TRUNCATED_STD = 0.87962566103423978
@@ -41,10 +44,14 @@ _TRUNCATED_STD = 0.87962566103423978
 class AmNnet:
     def __init__(self, config: TdnnConfig, model: TdnnModel,
                  log_priors: Optional[np.ndarray] = None,
-                 device: DeviceLike = None, ivector_dim: int = 0):
+                 device: DeviceLike = None, ivector_dim: int = 0,
+                 lr_factors: Optional[Dict[str, float]] = None):
         self.config = config
         # the trailing input dims that carry an online iVector (0 = none)
         self.ivector_dim = ivector_dim
+        # per-layer learning-rate factors {top-level name glob: factor}, set
+        # by models/edits.apply_edits (nnet3-copy --edits)
+        self.lr_factors = lr_factors
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.log_priors = (
@@ -67,6 +74,27 @@ class AmNnet:
         a tensor on the model's device."""
         out = torch.log_softmax(self.model(self._as_input(feats)), dim=-1)
         return out if self.log_priors is None else out - self.log_priors
+
+    def loglikes_batch_chunked(self, feats, chunk: int = 150) -> torch.Tensor:
+        """loglikes_batch in time chunks of `chunk` frames, each with the
+        model's left and right context around it: equal to the whole
+        utterance's for finite-context models while bounding activation
+        memory (reference DecodableAmNnetSimple --frames-per-chunk).  A model
+        with lstmp or blstmp layers (unbounded context) is evaluated whole,
+        as in the JAX package."""
+        if any(l.kind in ("lstmp", "blstmp") for l in self.config.layers):
+            return self.loglikes_batch(feats)
+        x = self._as_input(feats)
+        T = x.shape[1]
+        if T <= chunk:
+            return self.loglikes_batch(x)
+        lctx, rctx = self.config.left_context, self.config.right_context
+        outs = []
+        for s0 in range(0, T, chunk):
+            e0 = min(s0 + chunk, T)
+            lo, hi = max(0, s0 - lctx), min(T, e0 + rctx)
+            outs.append(self.loglikes_batch(x[:, lo:hi])[:, s0 - lo: e0 - lo])
+        return torch.cat(outs, dim=1)
 
     @torch.inference_mode()
     def set_priors_from_posteriors(self, feats_sample, num_frames=None) -> None:
@@ -95,12 +123,13 @@ class AmNnet:
             "state_dict": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
             "log_priors": None if self.log_priors is None else self.log_priors.cpu(),
             "ivector_dim": self.ivector_dim,
+            "lr_factors": None if self.lr_factors is None else dict(self.lr_factors),
         }
 
     def save(self, path: str) -> None:
         """The port's own format (torch.save of plain types and tensors):
         the config's fields, the weights and batch-norm statistics by name,
-        the priors and the iVector dims."""
+        the priors, the iVector dims and the learning-rate factors."""
         torch.save(self.saved(), path)
 
     @staticmethod
@@ -144,14 +173,16 @@ class AmNnet:
             raise ValueError(f"{path}: not a {SAVE_FORMAT} file")
         fields = dict(d["config"])
         fields["layers"] = tuple(
-            TdnnLayerSpec(**{**layer, "offsets": tuple(layer["offsets"])})
+            TdnnLayerSpec(**{**layer, **{k: tuple(layer[k]) for k in TUPLE_FIELDS
+                                         if k in layer}})
             for layer in fields["layers"])
         config = TdnnConfig(**fields)
         model = TdnnModel(config)
         model.load_state_dict(d["state_dict"])
         priors = d["log_priors"]
         return AmNnet(config, model, None if priors is None else priors.numpy(),
-                      device=device, ivector_dim=int(d["ivector_dim"]))
+                      device=device, ivector_dim=int(d["ivector_dim"]),
+                      lr_factors=d.get("lr_factors"))
 
 
 @dataclasses.dataclass

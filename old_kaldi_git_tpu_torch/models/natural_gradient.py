@@ -192,17 +192,23 @@ def activation_fisher_stats(inputs: Dict[str, torch.Tensor],
 
 class NgCollector:
     """The NG instrumentation of a model (the JAX package's `ng_dense`): while
-    `active`, every nn.Linear keeps its input from the forward and, through a
-    tensor hook on its output, the gradient of the loss with respect to that
-    output.  Each forward overwrites its layer's entries, so nothing grows
+    `active`, every instrumented nn.Linear keeps its input from the forward
+    and, through a tensor hook on its output, the gradient of the loss with
+    respect to that output.  Each forward overwrites its layer's entries, so nothing grows
     from call to call, and nothing waits on the host."""
 
     def __init__(self, model: nn.Module):
         self.active = False
         self.inputs: Dict[str, torch.Tensor] = {}
         self.grads: Dict[str, torch.Tensor] = {}
+        # the recurrent and attention layers are not instrumented (their
+        # class says `ng_instrumented = False`), as in the JAX package
+        skip = [name for name, m in model.named_modules()
+                if not getattr(m, "ng_instrumented", True)]
         self._handles = [m.register_forward_hook(self._hook(name))
-                         for name, m in model.named_modules() if isinstance(m, nn.Linear)]
+                         for name, m in model.named_modules()
+                         if isinstance(m, nn.Linear)
+                         and not any(name.startswith(f"{p}.") for p in skip)]
 
     def _hook(self, name: str):
         def fwd(module, args, output):

@@ -1,18 +1,22 @@
-"""Streaming ('looped') evaluation of TDNN acoustic models.
+"""Streaming ('looped') evaluation of nnet3-style acoustic models.
 
 Counterpart of old_kaldi_git_tpu/models/streaming_am.py (reference
 src/nnet3/nnet-compile-looped.cc, decodable-online-looped.cc): every layer
-becomes a small streaming node that keeps a short history of its input and
-emits an output frame as soon as the frame's whole receptive field has
-arrived, so outputs are delayed by the layer's right context.  Edge frames
-are clamped as splice() clamps them, so chunked output equals whole-utterance
-output.  The whole stack is StreamingAmNnet: feed feature frames, get
-loglike frames back (total delay: the sum of the layers' right contexts).
+becomes a small streaming node.
 
-Layer kinds tdnn and tdnnf, the prefinal layer and the output affine
-stream; the recurrent (lstmp, pgru), attention and conv kinds are not
-ported yet, and the port's TdnnModel refuses them (NotImplementedError)
-before a model that has them exists.
+- finite-context layers (tdnn, tdnnf, attention, conv, the prefinal layer
+  and the output affine) keep a short history of their input and emit an
+  output frame as soon as the frame's whole receptive field has arrived, so
+  outputs are delayed by the layer's right context; edge frames are clamped
+  as splice() clamps them, so chunked output equals whole-utterance output;
+- lstmp and pgru layers carry their (c, r) state from chunk to chunk and
+  run their input in pieces of QUANTUM frames (the rest flushed on final);
+- blstmp is refused (a backward scan needs the future), and so is a layer
+  with a Descriptor input (it reads nodes other than the previous layer).
+
+The whole stack is StreamingAmNnet: feed feature frames, get loglike frames
+back (delay: the sum of the layers' right contexts, and up to QUANTUM − 1
+frames a recurrent layer mid-stream).
 """
 
 from __future__ import annotations
@@ -69,6 +73,38 @@ class _FiniteCtxStream:
         return out
 
 
+class _LstmpStream:
+    """A carried-state recurrent layer (lstmp, pgru): 1:1 frames, run in
+    pieces of QUANTUM frames mid-stream; the remainder is flushed on final."""
+
+    QUANTUM = 32
+    r = 0  # right context: the carry sees no future frame
+
+    def __init__(self, layer: torch.nn.Module, device: torch.device):
+        self.layer = layer
+        self.device = device
+        cell = layer.cell
+        self.carry = (torch.zeros((1, cell.cell_dim), device=device),
+                      torch.zeros((1, cell.recurrent_dim), device=device))
+        self.pending: Optional[np.ndarray] = None
+
+    def feed(self, frames: np.ndarray, final: bool = False) -> np.ndarray:
+        if frames.size:
+            self.pending = (frames.copy() if self.pending is None
+                            else np.concatenate([self.pending, frames]))
+        if self.pending is None or not self.pending.size:
+            return np.zeros((0, 0), np.float32)
+        q = self.QUANTUM
+        n_run = len(self.pending) if final else len(self.pending) // q * q
+        if n_run == 0:
+            return np.zeros((0, 0), np.float32)
+        x = torch.from_numpy(np.ascontiguousarray(self.pending[None, :n_run])).to(self.device)
+        with torch.inference_mode():
+            y, self.carry = self.layer(x, initial_carry=self.carry, return_carry=True)
+        self.pending = self.pending[n_run:]
+        return y[0].cpu().numpy()
+
+
 class StreamingAmNnet:
     """Feed features chunk by chunk, receive loglike frames (log-softmax
     minus log priors, as AmNnet.loglikes_batch), delayed by the model's
@@ -79,12 +115,21 @@ class StreamingAmNnet:
         cfg = am.config
         model = am.model
         dev = am.device
-        self.streams: List[_FiniteCtxStream] = []
+        self.streams: List[object] = []
         for i, spec in enumerate(cfg.layers):
+            layer = getattr(model, f"{spec.kind}{i}")
+            if spec.input_desc:
+                raise ValueError(f"layer {i} ({spec.kind}) reads a Descriptor input "
+                                 f"{spec.input_desc!r}: use whole-utterance evaluation")
+            if spec.kind == "blstmp":
+                raise ValueError("blstmp cannot stream (backward scan needs the future); "
+                                 "use whole-utterance evaluation")
+            if spec.kind in ("lstmp", "pgru"):
+                self.streams.append(_LstmpStream(layer, dev))
+                continue
             offs = layer_offsets(spec)
             self.streams.append(_FiniteCtxStream(
-                getattr(model, f"{spec.kind}{i}"), -min(0, min(offs)),
-                max(0, max(offs)), dev))
+                layer, -min(0, min(offs)), max(0, max(offs)), dev))
         if cfg.final_hidden_dim:
             self.streams.append(_FiniteCtxStream(model.prefinal, 0, 0, dev))
         self.streams.append(_FiniteCtxStream(model.output, 0, 0, dev))

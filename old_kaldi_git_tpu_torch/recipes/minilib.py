@@ -90,7 +90,7 @@ from old_kaldi_git_tpu_torch.lm.arpa import ArpaLm, arpa_to_fst, parse_arpa
 from old_kaldi_git_tpu_torch.lm.ngram import (
     estimate_ngram_lm, perplexity, prune_ngram_lm, write_arpa)
 from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet
-from old_kaldi_git_tpu_torch.models.tdnn import make_tdnnf
+from old_kaldi_git_tpu_torch.models.tdnn import TdnnConfig, make_tdnnf
 from old_kaldi_git_tpu_torch.models.train import NnetTrainOptions
 from old_kaldi_git_tpu_torch.recipes.chain import (
     ChainModel, ChainTrainOptions, make_chain_decode_graph, train_chain)
@@ -467,6 +467,27 @@ def decode_test_set(
         clock.lap(None)  # loading belongs to no stage
         feats = append_ivector_feats(feats, compute_ivectors(ext, feats))
         clock.lap("ivector_seconds")
+    return decode_features(dataclasses.replace(system, am=am), feats, beam, max_active,
+                           acoustic_scale, batch, timings)
+
+
+def decode_features(
+    system: MinilibSystem,
+    feats: Dict[str, np.ndarray],
+    beam: float = 14.0,
+    max_active: int = 2048,
+    acoustic_scale: float = 1.0,
+    batch: int = 64,
+    timings: Optional[Dict[str, float]] = None,
+) -> Dict[str, List[str]]:
+    """The search half of decode_test_set, on features made elsewhere (e.g.
+    the filterbank a CNN-TDNN-F reads): system.am's loglikes of
+    duration-sorted chunks of `batch` utterances, T bucketed to multiples
+    of 128, then decode_batch_tokens on system.csr → {utt: words}.
+    timings: `acoustic_model_seconds`, `search_seconds`, `search_frames`."""
+    dev = system.am.device
+    clock = StageClock(dev, timings)
+    am = system.am
     vopts = ViterbiOptions(beam=beam, max_active=max_active,
                            acoustic_scale=acoustic_scale)
     by_dur = sorted(feats, key=lambda k: feats[k].shape[0])
@@ -915,18 +936,23 @@ def _tri_system(gmm_workdir: str) -> Tuple[AmGmmModel, Dict[str, np.ndarray]]:
 def train_am_system(workdir_out: Optional[str], feats: Dict[str, np.ndarray],
                     opts: Optional[MinilibOptions] = None, device: DeviceLike = None,
                     gmm_workdir: str = "exp/minilib", history: Optional[List[dict]] = None,
-                    timings: Optional[Dict[str, float]] = None) -> AmNnet:
+                    timings: Optional[Dict[str, float]] = None,
+                    config: Optional[TdnnConfig] = None) -> AmNnet:
     """Stage 5 of the JAX package's build_system: CE training of the TDNN-F
     make_tdnnf(39, tri.mdl's pdfs, opts.hidden_dim, opts.bottleneck_dim,
     opts.num_layers) for opts.num_epochs epochs (NnetTrainOptions' other
     defaults) on `feats` (the training set's) labelled by tri_ali.pkl
     through tri.mdl's transition model, on `device`; priors from its
-    posteriors.  With `workdir_out`, writes `final.am` there in the port's
-    format.  history, timings: train_ce's."""
+    posteriors.  `config` trains another architecture in its place (e.g.
+    make_tdnn_lstm(39, 2000), or make_cnn_tdnnf(40, 2000) on filterbank
+    features); its input_dim must be the features'.  With `workdir_out`,
+    writes `final.am` there in the port's format.  history, timings:
+    train_ce's."""
     opts = opts or MinilibOptions()
     tri, ali = _tri_system(gmm_workdir)
-    config = make_tdnnf(39, tri.am.num_pdfs, opts.hidden_dim, opts.bottleneck_dim,
-                        opts.num_layers)
+    if config is None:
+        config = make_tdnnf(39, tri.am.num_pdfs, opts.hidden_dim, opts.bottleneck_dim,
+                            opts.num_layers)
     am = train_tdnn(tri, feats, ali, opts=NnetTrainOptions(num_epochs=opts.num_epochs),
                     config=config, device=device, history=history, timings=timings)
     if workdir_out:

@@ -56,8 +56,10 @@ def train_tdnn(gmm_model: AmGmmModel, feats: Dict[str, np.ndarray],
     """CE-train a fresh TDNN (its weights drawn from a torch.Generator
     seeded 0) on GMM alignments, on `device` (None: the GPU); pdf ids come
     from the GMM's tree.  `config` overrides hidden_dim / num_layers /
-    factored; `ivectors` are appended to every frame and the model records
-    their width.  history, timings: train_ce's."""
+    factored with any architecture (make_tdnn_lstm, make_tdnn_attention,
+    make_cnn_tdnnf, an xconfig's TdnnConfig); `ivectors` are appended to
+    every frame and the model records their width.  history, timings:
+    train_ce's."""
     dev = resolve_device(device)
     ivector_dim = 0
     if ivectors is not None:

@@ -48,7 +48,8 @@ def test_port_has_the_slice_modules():
                  "chain.e2e", "chain.semisup", "recipes.semisup", "gmm.ebw",
                  "recipes.mmi", "lat.discriminative", "models.discriminative",
                  "lat.mbr", "lat.ctm", "lat.holder", "lat.native", "hmm.posterior",
-                 "models.recurrent", "lm.rnnlm"):
+                 "models.recurrent", "lm.rnnlm", "models.descriptor",
+                 "models.xconfig", "models.edits"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 
