@@ -69,7 +69,7 @@ then the first 64 held-out utterances decoded before and after
 per-utterance fMLLR on an HCLG of the new tree), and the GMM kernel at its
 two new depths (K = 48 and 88) on those models' features.  Then sequence
 training: flat-start LF-MMI (recipes/chain.train_chain_e2e) on yesno as the
-JAX package's tests run it and on the 600 training utterances at full width
+JAX package's tests run it and on 300 of the training utterances at full width
 (one step's loss held to the CPU's); semi-supervised LF-MMI
 (recipes/semisup) on yesno from four initial draws and with 64 + 64
 training utterances on chain.mdl, its lattice numerators from the
@@ -96,8 +96,27 @@ through K1 (WER at most 5 %), each with one step and 8 utterances'
 loglikes held to the CPU; a BLSTMP, a projected-GRU and a Descriptor-DAG
 xconfig model at width 512 and the filterbank and PLP front ends held to
 the CPU; and the TDNN-LSTM and CNN-TDNN-F streamed through StreamingAmNnet
-into StreamingTokenDecoder on 16 utterances in 0.5 s chunks, whose words
-must be the batch decode's.
+into StreamingTokenDecoder on 8 utterances in 0.5 s chunks, whose words
+must be the batch decode's.  Last, the command-line tools (cli):
+python -m old_kaldi_git_tpu_torch.bin's tools called in-process (add-deltas
+once through the module entry in a subprocess).  Its graph is built through
+the CLI in a spawned process from the start of the run (prepare-lang on the
+minilib lexicon, its L held to the lang bundle's; a unigram ARPA over the 600
+training transcripts' words; tree.pkl's tree as a Kaldi file; mkgraph --tree
+with tri.mdl).  The first 64 clean held-out utterances as a wave archive go
+through compute-mfcc-feats, compute-cmvn-stats, apply-cmvn and add-deltas
+(held to compute_utterance_feats), gmm-latgen-faster with tri.mdl at its
+defaults, lattice-best-path and compute-wer (words held to the library's
+decode_batch, lattice best paths plus the end state's words to the decoder's
+words), nnet3-am-init, nnet3-compute and nnet3-latgen-faster with final.am
+(held to AmNnet.loglikes_batch and the library decode); 8 of them through
+online-wav-gmm-latgen-faster and online2-wav-nnet3-latgen-faster (held to the
+library's StreamingDecoder fed the same chunks) and 2 over localhost through
+online2-tcp-nnet3-decode-faster on one connection (its final lines held to
+the online2-wav tool's words); and compile-train-graphs, gmm-align-compiled,
+align-equal-compiled and nnet3-align-compiled on the first 64 training
+utterances (tids held to align_batch on the same graphs and loglikes); then
+K1 and K3 at the phase's shapes.
 --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
@@ -124,6 +143,7 @@ import multiprocessing
 import os
 import re
 import shutil
+import struct
 import sys
 import tempfile
 import time
@@ -1572,6 +1592,7 @@ def stream_words(torch, dec, feats, chunk):
 # minilib at full width, cut in utterances where the time asks
 SEQ_UTTS = 64  # minilib utterances of the semisup (each half), MMI and sMBR runs
 E2E_MINILIB_EPOCHS = 2
+E2E_MINILIB_UTTS = 300  # of the 600 training utterances, cut for the cli phase (PERF.md §4)
 # yesno semi-supervised training: the JAX slow test's flow from init 0 (the
 # gated run), and from inits 1-3 as a record.  A 30-step seed is as sensitive
 # to its initial draw in the JAX package (its inits 0-3 give seeds at 0, 68,
@@ -1706,7 +1727,8 @@ def sequence_training(torch, np, c) -> dict:
                                 num_epochs=E2E_MINILIB_EPOCHS, tree_context_width=1)
 
     def e2e_minilib():
-        feats = minilib.compute_feats(c.twaves, device=dev)
+        feats = minilib.compute_feats({k: c.twaves[k] for k in sorted(c.twaves)[
+            :E2E_MINILIB_UTTS]}, device=dev)
         hist, rep = [], {}
         ch = chain_recipe.train_chain_e2e(feats, c.ttext, c.lang, mopts, device=dev,
                                           history=hist, report=rep)
@@ -2398,6 +2420,7 @@ ARCH_TIMED_STEPS = 5  # card steps timed one by one for the median step time
 FBANK_BINS = 40  # the CNN-TDNN-F's mel grid (make_cnn_tdnnf's height)
 FEAT_DEVICE_TOL = 1e-4  # Fbank and PLP, card vs CPU, absolute
 STREAM_LSTM_CHUNK_SECONDS = 0.5
+STREAM_LSTM_UTTS = 8  # PR 14's 16, cut for the cli phase's time (PERF.md §4)
 # xconfig models at the recipes' widths (cell 512) whose forward and one step
 # are held card vs CPU: a BLSTMP, a projected GRU and the Descriptor DAG of
 # tests/test_descriptor.py scaled to width 512
@@ -2625,7 +2648,7 @@ def architectures(torch, np, c) -> dict:
     # ---- stream_lstm: StreamingAmNnet into StreamingTokenDecoder --------------
     t_str = time.perf_counter()
     by_dur = sorted(system.test_waves, key=lambda k: len(system.test_waves[k]))
-    skeys = by_dur[::len(by_dur) // STREAM_UTTS][:STREAM_UTTS]
+    skeys = by_dur[::len(by_dur) // STREAM_LSTM_UTTS][:STREAM_LSTM_UTTS]
     swaves = {k: system.test_waves[k] for k in skeys}
     saudio_s = sum(len(w) for w in swaves.values()) / minilib.SAMP_FREQ
     chunk = int(round(STREAM_LSTM_CHUNK_SECONDS * 100))  # frames at a 10 ms shift
@@ -2635,7 +2658,7 @@ def architectures(torch, np, c) -> dict:
         am = trained[name]
         want = minilib.decode_features(dataclasses.replace(system, am=am),
                                        front_end(swaves), BEAM, STREAM_MAX_ACTIVE, 1.0,
-                                       batch=STREAM_UTTS)
+                                       batch=STREAM_LSTM_UTTS)
         dec = StreamingTokenDecoder(system.csr, lambda x: x, c.sil, c.tid_to_phone, svopts,
                                     chunk_quantum=STREAM_CHUNK, device=dev)
         c.zero_counts()
@@ -2691,13 +2714,447 @@ def architectures(torch, np, c) -> dict:
     return {"launches": launches}
 
 
+CLI_UTTS = 64  # held-out utterances of the feature, decode and TDNN tools
+CLI_ONLINE_UTTS = 8  # of them, through the two online tools
+CLI_TCP_UTTS = 2  # of them, on one connection to the TCP server
+CLI_TCP_GAP_SECONDS = 1.0  # the endpoint rule's silence; noise is sent up to 4 times it
+CLI_ALIGN_UTTS = 64  # training utterances of the alignment tools
+CLI_MAX_STATES = 300_000  # past this the unigram keeps the words seen twice
+CLI_NNET_TOL = 1e-4  # nnet3-compute vs AmNnet.loglikes_batch, absolute
+
+
+def cli_graph(workdir: str, max_states: int = CLI_MAX_STATES) -> dict:
+    """The cli phase's graph, built in a spawned process through the CLI
+    (host work only: the port's tools, the native graph library): the
+    minilib lexicon as lexicon.txt → prepare-lang (its L held to the lang
+    bundle's, array for array) → a unigram ARPA over the words of the 600
+    training transcripts, counted from them → tree.pkl's tree as a Kaldi
+    ContextDependency file → mkgraph --tree with tri.mdl."""
+    import numpy as np
+
+    from old_kaldi_git_tpu_torch import convert
+    from old_kaldi_git_tpu_torch.bin import tools
+    from old_kaldi_git_tpu_torch.fst.vector_fst import read_arrays
+    from old_kaldi_git_tpu_torch.lm.ngram import estimate_ngram_lm, write_arpa
+    from old_kaldi_git_tpu_torch.recipes import minilib
+
+    t_start = time.perf_counter()
+    p = lambda *a: os.path.join(workdir, *a)  # noqa: E731
+    opts = minilib.MinilibOptions()
+    lex = minilib.make_lexicon(opts)
+    with open(p("lexicon.txt"), "w") as f:
+        for w in sorted(lex):
+            f.write(f"{w} {lex[w]}\n")
+    walls = {}
+
+    def run(label, *argv):
+        t0 = time.perf_counter()
+        if tools.main(list(argv)) != 0:
+            raise RuntimeError(f"cli graph: {argv[0]} failed")
+        walls[label] = time.perf_counter() - t0
+
+    run("prepare-lang", "prepare-lang", p("lexicon.txt"), p("lang"))
+    bundle = minilib.make_lang(opts)
+    l_equal = True
+    for name, fst in (("L.fst", bundle.L), ("L_disambig.fst", bundle.L_disambig)):
+        with open(p("lang", name), "rb") as f:
+            got = read_arrays(f)
+        want = fst.to_arrays()
+        l_equal &= got[0] == want[0] and all(np.array_equal(a, b)
+                                             for a, b in zip(got[1:], want[1:]))
+    with open(p("lang", "words.txt")) as f:
+        l_equal &= [ln.split()[0] for ln in f] == bundle.words.symbols()
+    sents = [minilib._to_words(s) for s in minilib.make_text(
+        opts, opts.num_train, opts.seed + 4, min_len=4, max_len=11)]
+    with open(p("tree"), "wb") as f:
+        convert.context_dependency_from_pickle(
+            convert.load_pickle("exp/minilib/tree.pkl")[0]).write(f)
+    counts = {}
+    for s in sents:
+        for w in s:
+            counts[w] = counts.get(w, 0) + 1
+    cut = None
+    for min_count in (1, 2):
+        kept = [[w for w in s if counts[w] >= min_count] for s in sents]
+        write_arpa(estimate_ngram_lm([s for s in kept if s], order=1), p("G.arpa"))
+        run(f"mkgraph_min_count_{min_count}", "mkgraph", f"--tree={p('tree')}", p("lang"),
+            p("G.arpa"), os.path.abspath("exp/minilib/tri.mdl"), p("graph"))
+        with open(p("graph", "HCLG.fst"), "rb") as f:
+            f.read(8)
+            _, states, arcs = struct.unpack("<iqi", f.read(16))
+        words = sum(1 for c in counts.values() if c >= min_count)
+        if states <= max_states:
+            break
+        cut = {"states_before": states, "arcs_before": arcs, "words_before": words}
+    return {"workdir": workdir, "L_equal_to_bundle": bool(l_equal), "states": states,
+            "arcs": arcs, "unigram_words": words, "cut_to_words_seen_twice": cut,
+            "tool_seconds": walls, "seconds": time.perf_counter() - t_start}
+
+
+def cli(torch, np, c) -> dict:
+    """The cli phase: the port's command-line tools on the card, called
+    in-process through bin.tools.main (one through a `python -m
+    old_kaldi_git_tpu_torch.bin` subprocess), each held to the port's
+    library on the same inputs.  The kernels' counts are set to 0 just
+    before the tools run and read just after; the library references and the
+    kernel checks at the phase's shapes come after."""
+    import contextlib
+    import io
+    import socket
+    import subprocess
+    import threading
+
+    from old_kaldi_git_tpu_torch.bin import tools
+    from old_kaldi_git_tpu_torch.decoder.csr import fst_to_csr_native
+    from old_kaldi_git_tpu_torch.decoder.graph import read_hclg_csr
+    from old_kaldi_git_tpu_torch.decoder.viterbi import (
+        ViterbiOptions, align_batch, align_shape, decode_batch)
+    from old_kaldi_git_tpu_torch.feat.compute import MfccOptions, compute_utterance_feats
+    from old_kaldi_git_tpu_torch.fst.native import NativeFst
+    from old_kaldi_git_tpu_torch.fst.symbols import SymbolTable
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+    from old_kaldi_git_tpu_torch.lat.lattice import lattice_best_path
+    from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet, AmNnetModel
+    from old_kaldi_git_tpu_torch.models.streaming_am import StreamingAmNnet
+    from old_kaldi_git_tpu_torch.online.streaming import (
+        OnlineFeaturePipeline, StreamingDecoder)
+    from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
+    from old_kaldi_git_tpu_torch.utils.table import TableWriter, read_table
+    from old_kaldi_git_tpu_torch.utils.wav import WaveData
+
+    t_start = time.perf_counter()
+    dev, minilib, sr = c.dev, c.minilib, c.minilib.SAMP_FREQ
+    wd = c.workdir
+    p = lambda *a: os.path.join(wd, *a)  # noqa: E731
+    tri, final_am = os.path.abspath("exp/minilib/tri.mdl"), os.path.abspath("exp/minilib/final.am")
+    faults = []
+    walls = {}
+
+    def run(label, *argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = tools.main(list(argv))
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"cli: {label} exited {rc}")
+
+    # inputs, before the counts start: the first 64 clean held-out waves as a
+    # wave archive with wav.scp (int16 samples, as a wav file holds them),
+    # the first 64 training utterances' transcripts and features (library)
+    keys = sorted(c.system.test_waves)[:CLI_UTTS]
+    with TableWriter(f"ark,scp:{p('wav.ark')},{p('wav.scp')}", "wav") as w:
+        for k in keys:
+            w[k] = WaveData(samp_freq=sr, data=np.asarray(c.system.test_waves[k],
+                                                          np.float32)[None])
+    waves = {k: v.data[0] for k, v in read_table(f"scp:{p('wav.scp')}", "wav").items()}
+    with open(p("wav.scp")) as f:
+        scp_lines = f.readlines()
+    with open(p("wav_online.scp"), "w") as f:
+        f.writelines(scp_lines[:CLI_ONLINE_UTTS])
+    with TableWriter(f"ark,t:{p('ref.txt')}", "text") as w:
+        for k in keys:
+            w[k] = " ".join(c.system.test_text[k])
+    tkeys = sorted(c.twaves)[:CLI_ALIGN_UTTS]
+    with TableWriter(f"ark,t:{p('train_text.txt')}", "text") as w:
+        for k in tkeys:
+            w[k] = " ".join(c.ttext[k])
+    tfeats = minilib.compute_feats({k: c.twaves[k] for k in tkeys}, device=dev)
+    with TableWriter(f"ark:{p('train_feats.ark')}", "mat") as w:
+        for k in tkeys:
+            w[k] = tfeats[k]
+    sil = str(c.sil[0])
+    t_phase = time.perf_counter()
+    c.zero_counts()
+    c.gmm_loglikes.launches = 0
+    # ---- features: MFCC (K2) → per-utterance CMVN → deltas; the deltas
+    # through the module entry in a subprocess
+    run("compute-mfcc-feats", "compute-mfcc-feats", f"--samp-freq={sr}", "--dither=0",
+        f"scp:{p('wav.scp')}", f"ark:{p('raw.ark')}")
+    run("compute-cmvn-stats", "compute-cmvn-stats", f"ark:{p('raw.ark')}",
+        f"ark:{p('cmvn.ark')}")
+    run("apply-cmvn", "apply-cmvn", f"ark:{p('cmvn.ark')}", f"ark:{p('raw.ark')}",
+        f"ark:{p('cmn.ark')}")
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "old_kaldi_git_tpu_torch.bin", "add-deltas",
+                          f"ark:{p('cmn.ark')}", f"ark:{p('feats.ark')}"],
+                         capture_output=True, text=True, timeout=600)
+    walls["add-deltas (python -m old_kaldi_git_tpu_torch.bin)"] = time.perf_counter() - t0
+    if sub.returncode != 0:
+        raise RuntimeError(f"cli: the module entry's add-deltas exited {sub.returncode}: "
+                           f"{sub.stderr[-2000:]}")
+    # ---- the graph, built in its own process since the phase's start
+    t0 = time.perf_counter()
+    graph = c.graph_future.result()
+    graph_wait = time.perf_counter() - t0
+    c.graph_pool.shutdown()
+    if graph["workdir"] != wd:
+        raise RuntimeError("cli: the graph was built in another directory")
+    hclg, words_txt = p("graph", "HCLG.fst"), p("graph", "words.txt")
+    wt = f"--word-symbol-table={words_txt}"
+    # ---- GMM decode (K3) → best path → WER
+    run("gmm-latgen-faster", "gmm-latgen-faster", wt, tri, hclg, f"ark:{p('feats.ark')}",
+        f"ark:{p('lat.ark')}", f"ark,t:{p('gmm_words.txt')}")
+    run("lattice-best-path", "lattice-best-path", wt, f"ark:{p('lat.ark')}",
+        f"ark,t:{p('bp_words.txt')}")
+    t0 = time.perf_counter()
+
+    def text_sink():  # a stdout with a .buffer, as the table writers expect
+        return io.TextIOWrapper(io.BytesIO(), encoding="utf-8")
+
+    wer_out = text_sink()
+    with contextlib.redirect_stdout(wer_out):
+        if tools.main(["compute-wer", f"ark:{p('ref.txt')}",
+                       f"ark:{p('gmm_words.txt')}"]) != 0:
+            raise RuntimeError("cli: compute-wer failed")
+    walls["compute-wer"] = time.perf_counter() - t0
+    # ---- TDNN: bundle, loglikes, decode
+    run("nnet3-am-init", "nnet3-am-init", tri, final_am, p("final.mdl"))
+    run("nnet3-compute", "nnet3-compute", final_am, f"ark:{p('feats.ark')}",
+        f"ark:{p('nnet_ll.ark')}")
+    run("nnet3-latgen-faster", "nnet3-latgen-faster", wt, p("final.mdl"), hclg,
+        f"ark:{p('feats.ark')}", f"ark:{p('nlat.ark')}", f"ark,t:{p('nnet_words.txt')}")
+    # ---- online: 8 utterances through each online tool, 2 through the server
+    online = [wt, f"--samp-freq={sr}", f"--silence-phone-id={sil}"]
+    with contextlib.redirect_stdout(text_sink()):
+        run("online-wav-gmm-latgen-faster", "online-wav-gmm-latgen-faster", *online, tri,
+            hclg, f"scp:{p('wav_online.scp')}", f"ark,t:{p('online_gmm.txt')}")
+        run("online2-wav-nnet3-latgen-faster", "online2-wav-nnet3-latgen-faster", *online,
+            p("final.mdl"), hclg, f"scp:{p('wav_online.scp')}", f"ark,t:{p('online_nnet.txt')}")
+    # the server reads 0.18 s chunks (its default) and starts a new
+    # utterance at an endpoint; the first utterance, padded with noise to
+    # whole chunks, is followed by noise a chunk at a time until the server
+    # answers its final line, so that the second utterance reaches a fresh
+    # pipeline and decoder exactly as the online2-wav tool's does
+    rng = np.random.default_rng(15)
+    cs = int(0.18 * sr)
+    tcp_keys = keys[:CLI_TCP_UTTS]
+    first = waves[tcp_keys[0]]
+    first = np.concatenate([first, 40.0 * rng.standard_normal(-len(first) % cs)])
+
+    def pcm(x):
+        return np.clip(x, -32768, 32767).astype("<i2").tobytes()
+
+    rcs, received = [], b""
+    if os.path.exists(p("tcp.port")):
+        os.remove(p("tcp.port"))
+    server = threading.Thread(target=lambda: rcs.append(tools.main([
+        "online2-tcp-nnet3-decode-faster", "--port-num=0", f"--port-file={p('tcp.port')}",
+        "--num-connections=1", *online, p("final.mdl"), hclg])), daemon=True)
+    t0 = time.perf_counter()
+    server.start()
+    while not (os.path.exists(p("tcp.port")) and open(p("tcp.port")).read().strip()):
+        if not server.is_alive():
+            raise RuntimeError("cli: the TCP server ended before it bound a port")
+        time.sleep(0.05)
+    with socket.create_connection(("127.0.0.1", int(open(p("tcp.port")).read())),
+                                  timeout=300) as conn:
+
+        def read_until(n_partials, wait):
+            nonlocal received
+            conn.settimeout(wait)
+            while received.count(b"\r") < n_partials or wait < 1.0:
+                try:
+                    data = conn.recv(65536)
+                except socket.timeout:
+                    break
+                if not data:
+                    break
+                received += data
+            conn.settimeout(300)
+
+        conn.sendall(pcm(first))
+        sent = len(first) // cs
+        read_until(sent, 300.0)
+        gap_chunks = 0
+        while b"\n" not in received and gap_chunks * cs < CLI_TCP_GAP_SECONDS * 4 * sr:
+            conn.sendall(pcm(40.0 * rng.standard_normal(cs)))
+            sent += 1
+            gap_chunks += 1
+            read_until(sent, 300.0)
+            read_until(sent, 0.3)  # the endpoint's final line follows its partial
+        conn.sendall(pcm(waves[tcp_keys[1]]))
+        conn.shutdown(socket.SHUT_WR)
+        conn.settimeout(300)
+        while True:
+            data = conn.recv(65536)
+            if not data:
+                break
+            received += data
+    server.join(timeout=300)
+    walls["online2-tcp-nnet3-decode-faster"] = time.perf_counter() - t0
+    if rcs != [0]:
+        raise RuntimeError(f"cli: the TCP server returned {rcs}")
+    tcp_gap_seconds = gap_chunks * cs / sr
+    # ---- alignment: training graphs, then the three aligners (K1)
+    run("compile-train-graphs", "compile-train-graphs", p("tree"), tri, p("lang"), f"ark,t:{p('train_text.txt')}", f"ark:{p('graphs.ark')}")
+    aligners = (("gmm-align-compiled", tri), ("align-equal-compiled", tri),
+                ("nnet3-align-compiled", p("final.mdl")))
+    for name, mdl in aligners:
+        run(name, name, mdl, f"ark:{p('graphs.ark')}", f"ark:{p('train_feats.ark')}",
+            f"ark:{p(name + '.ark')}")
+    torch.cuda.synchronize()
+    tools_wall = time.perf_counter() - t_phase - graph_wait
+    launches = c.read_counts("cli")
+    launches["gmm"] = c.gmm_loglikes.launches
+
+    # ---- the library on the same inputs
+    words = SymbolTable.read(words_txt)
+    text_of = lambda ids: " ".join(words[i] for i in ids)  # noqa: E731
+    feats = read_table(f"ark:{p('feats.ark')}", "mat")
+    want = compute_utterance_feats(waves, sr, dev, deltas=True)
+    feat_err = {k: float(np.abs(feats[k] - want[k]).max()) if feats[k].shape == want[k].shape
+                else float("inf") for k in keys}
+    feat_ok = sorted(feats) == keys and all(
+        feat_err[k] <= 1e-3 + 1e-5 * float(np.abs(want[k]).max()) for k in keys)
+    if not feat_ok:
+        faults.append(f"CLI features part from compute_utterance_feats: "
+                      f"{max(feat_err.values())}")
+    gmm = AmGmmModel.load(tri, device=dev)
+    csr = read_hclg_csr(hclg, gmm.tm.tid_to_pdf_array())
+    fkeys, fpad, fnf = pad_feature_batch(feats)
+    fx = torch.from_numpy(fpad).to(dev)
+    ll = gmm.am.loglikes_batch(fx)
+    lib = decode_batch(csr, ll, fnf, ViterbiOptions(), want_lattice=True, device=dev)
+    lib_plain = decode_batch(csr, ll, fnf, ViterbiOptions(), device=dev)
+    tool_words = read_table(f"ark:{p('gmm_words.txt')}", "text")
+    gmm_same = sum(tool_words.get(k) == text_of(r.words) for k, r in zip(fkeys, lib))
+    plain_same = sum(text_of(a.words) == text_of(b.words) for a, b in zip(lib, lib_plain))
+    lats = read_table(f"ark:{p('lat.ark')}", "lat")
+    bp_same = 0
+    for k, r in zip(fkeys, lib):
+        if k in lats:
+            ws, _, _ = lattice_best_path(lats[k], 1.0, 0.1)
+            bp_same += list(ws) + end_state_words(np, csr, r) == list(r.words)
+    wer_out.flush()
+    wer_line = next((ln for ln in wer_out.buffer.getvalue().decode().splitlines()
+                     if ln.startswith("%WER")), "")
+    if gmm_same != len(keys) or bp_same != len(keys):
+        faults.append(f"gmm-latgen-faster: words {gmm_same}/{len(keys)}, lattice best "
+                      f"paths {bp_same}/{len(keys)}")
+    del ll, lib, lib_plain
+    am = AmNnet.load(final_am, device=dev)
+    nll = read_table(f"ark:{p('nnet_ll.ark')}", "mat")
+    nnet_err = max(float(np.abs(nll[k] - am.loglikes_batch(feats[k][None])[0].cpu().numpy()
+                                ).max()) for k in keys)
+    if not nnet_err <= CLI_NNET_TOL:
+        faults.append(f"nnet3-compute parts from AmNnet.loglikes_batch by {nnet_err}")
+    bundle = AmNnetModel.load(p("final.mdl"), device=dev)
+    nlib = decode_batch(csr, bundle.am.loglikes_batch_chunked(fpad), fnf,
+                        ViterbiOptions(acoustic_scale=1.0), want_lattice=True, device=dev)
+    ntool = read_table(f"ark:{p('nnet_words.txt')}", "text")
+    nnet_same = sum(ntool.get(k) == text_of(r.words) for k, r in zip(fkeys, nlib))
+    if nnet_same != len(keys):
+        faults.append(f"nnet3-latgen-faster: words {nnet_same}/{len(keys)}")
+    del nlib
+    # the library's streaming decoders fed as the online tools feed them
+    mfcc_opts = MfccOptions()
+    mfcc_opts.frame_opts.samp_freq, mfcc_opts.frame_opts.dither = sr, 0.0
+    chunk = int(0.5 * sr)
+
+    def stream(k, nnet):
+        pipe = OnlineFeaturePipeline(mfcc_opts, device=dev)
+        if nnet:
+            sam = StreamingAmNnet(bundle.am)
+            dec = StreamingDecoder(csr, lambda x: x, [int(sil)],
+                                   bundle.tm.tid_to_phone_array(),
+                                   ViterbiOptions(acoustic_scale=1.0), device=dev)
+        else:
+            dec = StreamingDecoder(csr, gmm.am.loglikes_batch, [int(sil)],
+                                   gmm.tm.tid_to_phone_array(), ViterbiOptions(), device=dev)
+        x = waves[k]
+        for lo in range(0, len(x), chunk):
+            f = pipe.accept_waveform(x[lo: lo + chunk])
+            dec.advance(sam.accept(f) if nnet else f)
+            if dec.endpoint_detected():
+                if nnet:
+                    return text_of(dec.best_words())
+                break
+        f = pipe.input_finished()
+        dec.advance(sam.accept(f, final=True) if nnet else f, final=True)
+        return text_of(dec.best_words())
+
+    okeys = keys[:CLI_ONLINE_UTTS]
+    online_gmm = read_table(f"ark:{p('online_gmm.txt')}", "text")
+    online_nnet = read_table(f"ark:{p('online_nnet.txt')}", "text")
+    ogmm_same = sum(online_gmm.get(k) == stream(k, False) for k in okeys)
+    onnet_same = sum(online_nnet.get(k) == stream(k, True) for k in okeys)
+    text = received.decode()
+    finals = [seg.split("\r")[-1].strip() for seg in text.split("\n") if seg.strip("\r")]
+    tcp_want = [online_nnet.get(k) for k in tcp_keys]
+    if (ogmm_same, onnet_same) != (len(okeys), len(okeys)) or finals != tcp_want:
+        faults.append(f"online tools: gmm {ogmm_same}/{len(okeys)}, nnet3 {onnet_same}/"
+                      f"{len(okeys)}, TCP finals {finals} against {tcp_want}")
+    # the aligners against align_batch on the same graphs and loglikes
+    graphs = read_table(f"ark:{p('graphs.ark')}", "fst")
+    akeys, apad, anf = pad_feature_batch({k: tfeats[k] for k in tkeys if k in graphs})
+    ax = torch.from_numpy(apad).to(dev)
+    align_same, k1_shapes = {}, {}
+    for name, mdl in aligners:
+        model = bundle if name.startswith("nnet3") else gmm
+        t2p = model.tm.tid_to_pdf_array()
+        acsr = [fst_to_csr_native(NativeFst.from_arrays(*graphs[k].to_arrays()), t2p)
+                for k in akeys]
+        if name == "align-equal-compiled":
+            all_ = torch.zeros((len(akeys), apad.shape[1], gmm.am.num_pdfs), device=dev)
+            vo = ViterbiOptions(beam=1e9, acoustic_scale=1.0)
+        else:
+            all_ = model.am.loglikes_batch(ax)
+            vo = ViterbiOptions(beam=200.0, acoustic_scale=1.0)
+        alis, _ = align_batch(acsr, all_, anf, vo, device=dev)
+        got = read_table(f"ark:{p(name + '.ark')}", "ivec")
+        align_same[name] = sum(a is not None and k in got and np.array_equal(got[k], a)
+                               for k, a in zip(akeys, alis))
+        S, A = align_shape(acsr)
+        k1_shapes[name] = (S, A, int(all_.shape[-1]))
+        del all_
+    if any(v != len(tkeys) for v in align_same.values()) or len(akeys) != len(tkeys):
+        faults.append(f"aligners: tids equal on {align_same} of {len(tkeys)}")
+
+    # ---- the kernels at the phase's new shapes, against their plain versions
+    S, A, Pa = k1_shapes["gmm-align-compiled"]
+    B = len(akeys)
+    k1_err = c.check_gather(torch, c.batched_table_gather, c.batched_table_gather_plain,
+                            [(B, Pa, A, 3, 1), (B, S, A, 1, 0), (B, Pa, A - 1, 3, 2)], seed=15)
+    k1 = {"align_loglikes": c.gather_at(B, Pa, A, int(anf.max())),
+          "align_alpha": c.gather_at(B, S, A, 1)}
+    gw = gmm.am.weights()
+    k3 = {"cli_decode_features": c.k3_at(torch, c.gmm_loglikes, c.gmm_loglikes_plain, gw,
+                                          fx.reshape(-1, fx.shape[-1]).contiguous(), c.plug),
+          "cli_align_features": c.k3_at(torch, c.gmm_loglikes, c.gmm_loglikes_plain, gw,
+                                        ax.reshape(-1, ax.shape[-1]).contiguous(), c.plug)}
+    del fx, ax
+    torch.cuda.empty_cache()
+    c.emit({"phase": "cli", "card": c.card, "utterances": len(keys),
+            "online_utterances": len(okeys), "tcp_utterances": len(tcp_keys),
+            "align_utterances": len(tkeys), "graph": {k: v for k, v in graph.items()
+                                                      if k != "workdir"},
+            "graph_wait_seconds": graph_wait, "tools_wall_seconds": tools_wall,
+            "phase_seconds": time.perf_counter() - t_start,
+            "tool_seconds": walls,
+            "launches": {k: launches[k] for k in ("gather", "mfcc", "gmm")},
+            "features_max_abs_err": max(feat_err.values()), "features_equal": feat_ok,
+            "gmm_latgen_words_equal": gmm_same, "gmm_latgen_lattice_best_paths_equal": bp_same,
+            "lattice_mode_words_vs_plain_decode_equal": plain_same, "compute_wer": wer_line,
+            "nnet3_compute_max_abs_err": nnet_err, "nnet3_latgen_words_equal": nnet_same,
+            "online_gmm_words_equal": ogmm_same, "online_nnet3_words_equal": onnet_same,
+            "tcp_finals": finals, "tcp_partial_lines": text.count("\r"),
+            "tcp_noise_seconds_to_the_endpoint": tcp_gap_seconds,
+            "align_tids_equal": align_same,
+            "gather_at_cli_shapes": {"exact": k1_err == 0.0, **k1},
+            "gmm_at_cli_shapes": k3})
+    if min(launches["gather"], launches["mfcc"], launches["gmm"]) == 0:
+        faults.append(f"the cli phase did not go through every kernel: {launches}")
+    return {"faults": faults, "launches": launches, "k1": k1, "k1_err": k1_err, "k3": k3}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--noisy", action="store_true",
                     help="also decode the set re-synthesised at noise 400")
     ap.add_argument("--profile-frames", type=int, default=0,
                     help="frames of one chunk's search under torch.profiler")
-    ap.add_argument("--only", choices=["architectures"],
+    ap.add_argument("--only", choices=["architectures", "cli"],
                     help="build the kernels, load the system and run only these "
                          "phases (no final line: a partial run)")
     args = ap.parse_args()
@@ -2788,6 +3245,15 @@ def main() -> int:
                     "mfcc": ptxas_by_entry(logs.get("mfcc", "")),
                     "gmm": ptxas_by_depth(logs.get("gmm", ""))}})
 
+    # the cli phase's graph, built through the CLI in a spawned process from
+    # here on (host work); the phase waits for it at the end of the run
+    cli_dir = tempfile.mkdtemp(prefix="okt_cli_")
+    cli_pool = cli_graph_future = None
+    if args.only != "architectures":
+        cli_pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        cli_graph_future = cli_pool.submit(cli_graph, cli_dir)
+
     # ---- the system (needed for the main path's kernel shapes) --------------
     t0 = time.perf_counter()
     system = minilib.load_system("exp/minilib", device=dev)
@@ -2825,6 +3291,26 @@ def main() -> int:
             dev=dev, card=card, emit=emit, minilib=minilib, system=system, topts=topts,
             twaves=twaves, zero_counts=zero_counts, read_counts=read_counts, sil=sil,
             tid_to_phone=tid_to_phone))["launches"]
+
+    def run_cli(twaves, ttext):
+        """The cli phase; its faults end the run."""
+        nonlocal plug
+        plug = torch.randn((8192, 8192), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(15))
+        res = cli(torch, np, argparse.Namespace(
+            dev=dev, card=card, emit=emit, minilib=minilib, system=system, twaves=twaves,
+            ttext=ttext, sil=sil, workdir=cli_dir, graph_future=cli_graph_future,
+            graph_pool=cli_pool, zero_counts=zero_counts, read_counts=read_counts,
+            gmm_loglikes=gmm_loglikes, gmm_loglikes_plain=gmm_loglikes_plain,
+            check_gather=check_gather, batched_table_gather=batched_table_gather,
+            batched_table_gather_plain=batched_table_gather_plain,
+            gather_at=lambda *a: gather_at(*a), k3_at=k3_at, plug=plug))
+        plug = None
+        torch.cuda.empty_cache()
+        shutil.rmtree(cli_dir, ignore_errors=True)
+        if res["faults"]:
+            raise RuntimeError("cli: " + "; ".join(res["faults"]))
+        return res
 
     if args.only == "architectures":
         topts = minilib.MinilibOptions()
@@ -3052,6 +3538,12 @@ def main() -> int:
           "refusals": refusals,
           "check_launches": {"gather": batched_table_gather.launches,
                              "mfcc": fused_mfcc_from_frames.launches}})
+
+    if args.only == "cli":
+        run_cli(*minilib.training_set(minilib.MinilibOptions()))
+        emit({"phase": "total", "card": card, "partial": args.only,
+              "seconds": round(time.perf_counter() - t_start, 1)})
+        return 0
 
     # ---- phase 3: the acoustic model on one chunk ----------------------------
     feats = minilib.compute_feats(
@@ -5073,6 +5565,11 @@ def main() -> int:
     # counts set to 0 just before it and read just after
     arch_launches = run_architectures(topts, twaves)
 
+    # ---- phase 40: the command-line tools (cli), the counts set to 0 just
+    # before the tools run and read just after
+    cli_res = run_cli(twaves, ttext)
+    cli_launches = cli_res["launches"]
+
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
@@ -5092,7 +5589,8 @@ def main() -> int:
                       + sum(p["gather"] for p in cfg2_launches.values())
                       + sum(p["gather"] for p in seq_launches.values())
                       + lo_launches["gather"]
-                      + sum(p["gather"] for p in arch_launches.values())),
+                      + sum(p["gather"] for p in arch_launches.values())
+                      + cli_launches["gather"]),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -5119,8 +5617,10 @@ def main() -> int:
                               **{n: p["gather"] for n, p in cfg2_launches.items()},
                               **{n: p["gather"] for n, p in seq_launches.items()},
                               "lattice_outputs": lo_launches["gather"],
-                              **{n: p["gather"] for n, p in arch_launches.items()}},
-         "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err), "ms": k1_ms,
+                              **{n: p["gather"] for n, p in arch_launches.items()},
+                              "cli": cli_launches["gather"]},
+         "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err, cli_res["k1_err"]),
+         "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
          "at_other_shapes": {"decode_chain": k1_chain, "rescore": k1_rescore,
@@ -5130,7 +5630,7 @@ def main() -> int:
                                 for k, v in g.items()},
                              **{f"train_yesno_{k}": v for k, v in k1_yesno.items()},
                              "train_chain_decode": k1_trained_chain, **seq["k1"],
-                             **lo["k1"]}},
+                             **lo["k1"], **{f"cli_{k}": v for k, v in cli_res["k1"].items()}}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
@@ -5146,7 +5646,8 @@ def main() -> int:
                       + sum(p["mfcc"] for p in cfg2_launches.values())
                       + sum(p["mfcc"] for p in seq_launches.values())
                       + lo_launches["mfcc"]
-                      + sum(p["mfcc"] for p in arch_launches.values())),
+                      + sum(p["mfcc"] for p in arch_launches.values())
+                      + cli_launches["mfcc"]),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -5172,7 +5673,8 @@ def main() -> int:
                               **{n: p["mfcc"] for n, p in cfg2_launches.items()},
                               **{n: p["mfcc"] for n, p in seq_launches.items()},
                               "lattice_outputs": lo_launches["mfcc"],
-                              **{n: p["mfcc"] for n, p in arch_launches.items()}},
+                              **{n: p["mfcc"] for n, p in arch_launches.items()},
+                              "cli": cli_launches["mfcc"]},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -5181,7 +5683,7 @@ def main() -> int:
                  tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values(),
                  *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
                  cb_launches, *cfg2_launches.values(), *seq_launches.values(),
-                 lo_launches, *arch_launches.values()))
+                 lo_launches, *arch_launches.values(), cli_launches))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
@@ -5196,7 +5698,7 @@ def main() -> int:
                       + ty_launches["gmm"] + sum(t["gmm"] for t in tr_launches.values())
                       + sum(p["gmm"] for p in cfg2_launches.values())
                       + sum(p["gmm"] for p in seq_launches.values())
-                      + lo_launches["gmm"]),
+                      + lo_launches["gmm"] + cli_launches["gmm"]),
          "launches_by_path": {"decode": k3_tdnn_launches,
                               "decode_gmm": g_launches["gmm"],
                               **{n: a["gmm"] for n, a in a_launches.items()},
@@ -5204,19 +5706,21 @@ def main() -> int:
                               **{n: t["gmm"] for n, t in tr_launches.items()},
                               **{n: p["gmm"] for n, p in cfg2_launches.items()},
                               **{n: p["gmm"] for n, p in seq_launches.items()},
-                              "lattice_outputs": lo_launches["gmm"]},
+                              "lattice_outputs": lo_launches["gmm"],
+                              "cli": cli_launches["gmm"]},
          "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]
                             + [v["max_abs_err"] for v in k3_train.values()]
                             + [v["max_abs_err"] for v in k3_depths.values()]
                             + [v["max_abs_err"] for v in seq["k3"].values()]
-                            + [v["max_abs_err"] for v in lo["k3"].values()]),
+                            + [v["max_abs_err"] for v in lo["k3"].values()]
+                            + [v["max_abs_err"] for v in cli_res["k3"].values()]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": max(k3_ops_ms, k3_bytes_ms),
          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
          "library_ms": None,
          "at_other_shapes": {**k3_align, **{f"train_{k}": v for k, v in k3_train.items()},
                              **{f"depth_{k}": v for k, v in k3_depths.items()},
-                             **seq["k3"], **lo["k3"]}},
+                             **seq["k3"], **lo["k3"], **cli_res["k3"]}},
     ]})
     if args.noisy:
         waves, text = minilib.make_test_set(minilib.MinilibOptions(),

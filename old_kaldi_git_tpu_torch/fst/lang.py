@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, List, Sequence, Tuple
 
 from old_kaldi_git_tpu_torch.fst.symbols import SymbolTable
@@ -225,3 +226,31 @@ def make_unigram_grammar_fst(
         fst.add_arc(s, Arc(wid, wid, -math.log(c / max(total, 1)), s))
     fst.arcsort("ilabel")
     return fst
+
+
+def read_lexicon_file(path: str) -> Dict[str, List[str]]:
+    """lexicon.txt (`word phone phone ...`) → {word: [pronunciation, ...]},
+    in file order."""
+    lex: Dict[str, List[str]] = {}
+    with open(path) as f:
+        for ln in f:
+            parts = ln.split()
+            if len(parts) >= 2:
+                lex.setdefault(parts[0], []).append(" ".join(parts[1:]))
+    return lex
+
+
+def lang_from_lexicon_file(path: str, silence_phone: str = "SIL",
+                           sil_prob: float = 0.5) -> Lang:
+    """A Lang from a lexicon file.  The list-of-lists form is unambiguous
+    for words with several single-phone pronunciations."""
+    lex = read_lexicon_file(path)
+    return Lang(Lexicon.from_dict({w: [p.split() for p in v] for w, v in lex.items()}),
+                silence_phone=silence_phone, sil_prob=sil_prob)
+
+
+def load_lang_dir(path: str, silence_phone: str = "SIL", sil_prob: float = 0.5) -> Lang:
+    """Rebuild a Lang from a prepare-lang output directory (lexicon.txt is
+    reread so the original pronunciations survive the round trip)."""
+    return lang_from_lexicon_file(os.path.join(path, "lexicon.txt"), silence_phone,
+                                  sil_prob)

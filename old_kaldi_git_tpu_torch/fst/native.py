@@ -32,7 +32,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from old_kaldi_git_tpu_torch.fst.vector_fst import INF, VectorFst
+from old_kaldi_git_tpu_torch.fst.vector_fst import VectorFst
 from old_kaldi_git_tpu_torch.utils.log import KaldiError
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -171,15 +171,7 @@ class NativeFst:
 
     @staticmethod
     def from_vector_fst(fst: VectorFst) -> "NativeFst":
-        counts = np.asarray([len(a) for a in fst.arcs], np.int64)
-        row_ptr = np.zeros(fst.num_states + 1, np.int64)
-        np.cumsum(counts, out=row_ptr[1:])
-        flat = [(a.ilabel, a.olabel, a.weight, a.nextstate)
-                for lst in fst.arcs for a in lst]
-        cols = np.asarray(flat, np.float64).reshape(-1, 4)
-        finals = np.asarray([np.inf if f == INF else f for f in fst.finals], np.float32)
-        return NativeFst.from_arrays(
-            fst.start, row_ptr, cols[:, 0], cols[:, 1], cols[:, 2], cols[:, 3], finals)
+        return NativeFst.from_arrays(*fst.to_arrays())
 
     # -- pipeline ops (each returns a new NativeFst unless noted in place) --
 

@@ -1,6 +1,7 @@
 """Symbol tables (OpenFst SymbolTable equivalent; words.txt/phones.txt).
 
-Own copy of old_kaldi_git_tpu/fst/symbols.py, the part the lang bundle uses.
+Own copy of old_kaldi_git_tpu/fst/symbols.py: the lang bundle's tables and
+their text files (`symbol id` per line).
 """
 
 from __future__ import annotations
@@ -50,3 +51,21 @@ class SymbolTable:
 
     def ids(self) -> List[int]:
         return sorted(self._id2sym)
+
+    def __len__(self) -> int:
+        return len(self._sym2id)
+
+    def write(self, path: str) -> None:
+        with open(path, "w") as f:
+            for i in sorted(self._id2sym):
+                f.write(f"{self._id2sym[i]} {i}\n")
+
+    @staticmethod
+    def read(path: str) -> "SymbolTable":
+        t = SymbolTable()
+        with open(path) as f:
+            for ln in f:
+                parts = ln.split()
+                if parts:
+                    t.add(parts[0], int(parts[1]))
+        return t

@@ -5,7 +5,10 @@ compiler and GMM training use: GetHTransducer (reference
 src/hmm/hmm-utils.h; Ha, without self-loops, with disambig pass-through),
 SplitToPhones, the alignment → phones / pdfs maps and ConvertAlignment
 (same topology).  AddSelfLoops runs in the native library (fst/native.py
-`NativeFst.add_self_loops`).  The alignment utilities work on an
+`NativeFst.add_self_loops`, float32) for the decoders' graphs; the host
+copy here (`add_self_loops`, float64, the JAX package's arithmetic) gives
+the graph files of the mkgraph and compile-train-graphs tools, byte for byte
+the JAX tools'.  The alignment utilities work on an
 utterance's whole tid array at once, through the transition model's
 per-tid arrays.
 
@@ -21,7 +24,7 @@ Probability convention (documented; matches the reference's scaling scheme):
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -108,6 +111,58 @@ def make_h_transducer(
             if piece.finals[s] != INF:
                 fst.add_arc(offset + s, Arc(EPS, EPS, piece.finals[s], loop))
     return fst, disambig_tids
+
+
+def add_self_loops(fst: VectorFst, tm: TransitionModel,
+                   self_loop_scale: float = 0.1) -> VectorFst:
+    """Reference AddSelfLoops with reorder=true, on the host in float64 (the
+    JAX package's `add_self_loops`): the (1 - p_self) correction on every
+    non-self-loop tid arc, states split so that all incoming arcs share one
+    transition-state class, then a loop arc at each state whose incoming
+    class has a self-loop.  Returns a new VectorFst."""
+    out = fst.copy()
+    tstate = tm.id2state
+
+    def arc_class(a: Arc) -> int:
+        return 0 if a.ilabel == EPS else int(tstate[a.ilabel]) + 1
+
+    # 1. the weight correction on non-self-loop tid arcs
+    for s in out.states():
+        for a in out.arcs[s]:
+            if a.ilabel != EPS:
+                p_self = tm.self_loop_prob(int(tstate[a.ilabel]))
+                if p_self > 0.0:
+                    a.weight += -self_loop_scale * math.log(max(1.0 - p_self, 1e-20))
+    # 2. split the states with mixed incoming classes
+    incoming: List[set] = [set() for _ in out.states()]
+    for s in out.states():
+        for a in out.arcs[s]:
+            incoming[a.nextstate].add(arc_class(a))
+    copies: Dict[Tuple[int, int], int] = {}
+    for s in range(out.num_states):
+        classes = sorted(incoming[s])
+        copies[(s, classes[0] if classes else 0)] = s
+        for c in classes[1:]:
+            ns = out.add_state()
+            copies[(s, c)] = ns
+            out.arcs[ns] = [a.copy() for a in out.arcs[s]]
+            out.finals[ns] = out.finals[s]
+    for s in range(out.num_states):
+        for a in out.arcs[s]:
+            key = (a.nextstate, arc_class(a))
+            if key in copies:
+                a.nextstate = copies[key]
+    # 3. the self-loop arcs, keyed by the incoming class
+    state_class = {st: c for (_orig, c), st in copies.items()}
+    for s in out.states():
+        c = state_class.get(s, 0)
+        if c == 0:
+            continue
+        loop_tid = tm.self_loop_tid(c - 1)
+        if loop_tid:
+            w = -self_loop_scale * math.log(max(tm.self_loop_prob(c - 1), 1e-20))
+            out.add_arc(s, Arc(loop_tid, EPS, w, s))
+    return out
 
 
 # ---------------------------------------------------------------------------

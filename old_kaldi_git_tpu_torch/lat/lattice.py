@@ -131,15 +131,20 @@ def lattice_from_decode(
             d[slot] = lat.add_state(time=t)
         return d[slot]
 
+    # the via-cost test below in the dtype that the scalar arithmetic
+    # `np.float32 + float` takes under this numpy (float32 under NEP 50),
+    # so that the arrays keep exactly the arcs a per-arc loop keeps
+    dt = (np.float32(0) + 0.0).dtype
+    slot_cur = np.full(graph.num_states, -1, np.int64)  # graph state -> slot at t
     prev_map: Dict[int, int] = {}  # graph state -> slot at t-1
+    prev_s = prev_k = np.zeros(0, np.int64)
     for t in range(T):
         slot_state.append({})
         states_t = frame_states[t]
         costs_t = frame_costs[t]
-        cur_alive = [
-            (k, int(s)) for k, s in enumerate(states_t) if s >= 0 and costs_t[k] < BIG
-        ]
-        cur_map = {s: k for k, s in cur_alive}
+        alive = np.nonzero((states_t >= 0) & (costs_t < BIG))[0]
+        # graph state -> slot (a repeated state keeps its last slot)
+        cur_map = dict(zip(states_t[alive].astype(np.int64).tolist(), alive.tolist()))
         if t == 0:
             # arcs from the virtual start (graph.start) to frame-0 tokens
             lo, hi = graph.row_ptr[graph.start], graph.row_ptr[graph.start + 1]
@@ -149,31 +154,28 @@ def lattice_from_decode(
                     k = cur_map[ns]
                     ac = -float(loglikes[0, graph.pdf[a]])
                     _emit(lat, graph, start, get_lat_state(0, k), a, ac)
-        else:
-            # candidate arcs: all arcs out of alive prev states
-            prev_items = list(prev_map.items())
-            if prev_items:
-                pstates = np.asarray([s for s, _ in prev_items])
-                lo = graph.row_ptr[pstates]
-                hi = graph.row_ptr[pstates + 1]
-                for (ps, pk), l, h in zip(prev_items, lo, hi):
-                    p_cost = frame_costs[t - 1, pk]
-                    for a in range(l, h):
-                        ns = int(graph.nextstate[a])
-                        k = cur_map.get(ns)
-                        if k is None:
-                            continue
-                        ac = -float(loglikes[t, graph.pdf[a]])
-                        via = (
-                            p_cost + graph.weight[a] + acoustic_scale * ac
-                        )
-                        if via <= costs_t[k] + lattice_beam:
-                            _emit(
-                                lat, graph,
-                                get_lat_state(t - 1, pk), get_lat_state(t, k),
-                                a, ac,
-                            )
-        prev_map = {s: k for k, s in cur_alive}
+        elif len(prev_s):
+            # every arc out of the alive states of t-1, in their order
+            slot_cur[list(cur_map)] = list(cur_map.values())
+            lo = graph.row_ptr[prev_s].astype(np.int64)
+            cnt = graph.row_ptr[prev_s + 1].astype(np.int64) - lo
+            owner = np.repeat(np.arange(len(prev_s)), cnt)
+            arcs = (np.arange(int(cnt.sum()), dtype=np.int64)
+                    - np.repeat(np.cumsum(cnt) - cnt, cnt) + lo[owner])
+            k = slot_cur[graph.nextstate[arcs]]
+            hit = np.nonzero(k >= 0)[0]
+            arcs, owner, k = arcs[hit], owner[hit], k[hit]
+            ac = -loglikes[t, graph.pdf[arcs]].astype(np.float64)
+            base = frame_costs[t - 1, prev_k[owner]] + graph.weight[arcs]
+            via = base.astype(dt) + (acoustic_scale * ac).astype(dt)
+            keep = np.nonzero(via <= costs_t[k].astype(dt) + dt.type(lattice_beam))[0]
+            for i in keep.tolist():
+                _emit(lat, graph, get_lat_state(t - 1, int(prev_k[owner[i]])),
+                      get_lat_state(t, int(k[i])), int(arcs[i]), float(ac[i]))
+            slot_cur[list(cur_map)] = -1
+        prev_map = cur_map
+        prev_s = np.fromiter(prev_map.keys(), np.int64, len(prev_map))
+        prev_k = np.fromiter(prev_map.values(), np.int64, len(prev_map))
 
     # finals on the last frame's tokens
     any_final = False

@@ -4,8 +4,9 @@ Own copy of the parts of old_kaldi_git_tpu/lm/arpa.py that lattice
 rescoring and the chain graph use (reference
 src/lm/{arpa-file-parser,const-arpa-lm}.{h,cc} and arpa-lm-compiler): read
 the \\data\\ / \\N-grams: sections (log10 probabilities and backoffs, kept
-in natural log), score a word after a history with Katz backoff, and
-compile the grammar acceptor G (`arpa_to_fst`).
+in natural log), score a word after a history with Katz backoff, compile
+the grammar acceptor G (`arpa_to_fst`), and read the const-arpa binary that
+the JAX package writes (`load_lm` takes either form).
 """
 
 from __future__ import annotations
@@ -161,3 +162,39 @@ def arpa_to_fst(lm: ArpaLm, words: SymbolTable,
         log.warning("arpa_to_fst: skipped %d ngrams with OOV words", skipped)
     log.info("G: %d states, %d arcs", fst.num_states, fst.num_arcs)
     return fst
+
+
+# ---------------------------------------------------------------------------
+# const-arpa binary (reference src/lm/const-arpa-lm.cc role: a pre-parsed LM
+# that loads faster than the ARPA text).  Layout, the JAX package's: the
+# magic line b"CARPA1\n", the order, "<blob bytes> <n>", the n-gram keys
+# (words joined by \x01, keys by \x00), then the n logprobs and n backoffs
+# as float64.
+# ---------------------------------------------------------------------------
+
+_CARPA_MAGIC = b"CARPA1\n"
+
+
+def read_const_arpa(path: str) -> ArpaLm:
+    import numpy as np
+
+    with open(path, "rb") as f:
+        if f.read(len(_CARPA_MAGIC)) != _CARPA_MAGIC:
+            raise ValueError(f"{path}: not a const-arpa file")
+        order = int(f.readline())
+        nblob, n = (int(x) for x in f.readline().split())
+        keys = f.read(nblob).decode("utf-8").split("\x00") if nblob else []
+        probs = np.frombuffer(f.read(8 * n), np.float64)
+        bos = np.frombuffer(f.read(8 * n), np.float64)
+    return ArpaLm(order=order, ngrams={tuple(k.split("\x01")): (float(p), float(b))
+                                       for k, p, b in zip(keys, probs, bos)})
+
+
+def load_lm(path: str) -> ArpaLm:
+    """An LM from either the const-arpa binary or the ARPA text."""
+    with open(path, "rb") as f:
+        magic = f.read(len(_CARPA_MAGIC))
+    if magic == _CARPA_MAGIC:
+        return read_const_arpa(path)
+    with open(path) as f:
+        return parse_arpa(f.read())

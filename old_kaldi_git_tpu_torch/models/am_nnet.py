@@ -96,6 +96,16 @@ class AmNnet:
             outs.append(self.loglikes_batch(x[:, lo:hi])[:, s0 - lo: e0 - lo])
         return torch.cat(outs, dim=1)
 
+    def set_priors_from_alignment_counts(self, counts: np.ndarray,
+                                         prior_floor_frac: float = 0.01) -> None:
+        """Priors from the training data's pdf occupancy (the JAX package's
+        set_priors_from_alignment_counts): (counts + 0.5), normalised, floored
+        at prior_floor_frac / num_pdfs so that a pdf the alignments never
+        visited gets no unbounded pseudo-loglike boost."""
+        p = np.asarray(counts, np.float64) + 0.5
+        p = np.maximum(p / p.sum(), prior_floor_frac / len(p))
+        self.log_priors = torch.from_numpy(np.log(p).astype(np.float32)).to(self.device)
+
     @torch.inference_mode()
     def set_priors_from_posteriors(self, feats_sample, num_frames=None) -> None:
         """Priors = the model's average posterior over a sample of the

@@ -1,7 +1,7 @@
 """Logging and error handling (counterpart of old_kaldi_git_tpu/utils/log.py).
 
-stderr logging with file:line provenance and the framework's fatal-error
-exception type.
+stderr logging with file:line provenance, the framework's fatal-error
+exception type and the verbosity level the CLI's --verbose sets.
 """
 
 from __future__ import annotations
@@ -29,3 +29,9 @@ def get_logger(name: str = _ROOT) -> logging.Logger:
     if not name.startswith(_ROOT):
         name = f"{_ROOT}.{name}"
     return logging.getLogger(name)
+
+
+def set_verbose_level(level: int) -> None:
+    """--verbose=N: N >= 1 enables DEBUG (reference KALDI_VLOG semantics)."""
+    get_logger()
+    logging.getLogger(_ROOT).setLevel(logging.DEBUG if level >= 1 else logging.INFO)

@@ -177,6 +177,9 @@ _LAZY_PROVIDERS = {
     "clat": "old_kaldi_git_tpu_torch.lat.holder",
     "post": "old_kaldi_git_tpu_torch.hmm.posterior",
     "gpost": "old_kaldi_git_tpu_torch.hmm.posterior",
+    "fst": "old_kaldi_git_tpu_torch.fst.holder",
+    "kfst": "old_kaldi_git_tpu_torch.fst.kaldi_fst_io",
+    "kclat": "old_kaldi_git_tpu_torch.fst.kaldi_fst_io",
 }
 
 

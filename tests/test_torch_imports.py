@@ -49,7 +49,10 @@ def test_port_has_the_slice_modules():
                  "recipes.mmi", "lat.discriminative", "models.discriminative",
                  "lat.mbr", "lat.ctm", "lat.holder", "lat.native", "hmm.posterior",
                  "models.recurrent", "lm.rnnlm", "models.descriptor",
-                 "models.xconfig", "models.edits"):
+                 "models.xconfig", "models.edits", "bin", "bin.__main__", "bin.tools",
+                 "bin.nnet3_tools", "bin.train_tools", "utils.data_dir", "fst.algorithms",
+                 "fst.holder", "fst.kaldi_fst_io", "feat.cmvn", "feat.signal", "feat.pitch",
+                 "feat.resample", "ivector.vad"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 

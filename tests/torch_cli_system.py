@@ -1,0 +1,138 @@
+"""A small on-disk system that the CLI tests of both packages share (a
+helper, not a test module).
+
+From the committed exp/minilib: `tri.mdl`, its tree (`tree.pkl` written as a
+Kaldi ContextDependency file), `final.am` bundled with tri.mdl's transition
+model by each package's nnet3-am-init, a lexicon.txt of the minilib
+lexicon's words that those sentences use and the first words that cover
+every phone (so that the phone ids are the 20k-word lexicon's), a lang dir
+from the port's prepare-lang, a unigram ARPA over the words of the first
+NUM_UTTS held-out sentences and the HCLG the port's mkgraph builds from it, for tri.mdl and for mono.mdl (the GMM decode tests score the smaller
+mono.mdl: the GMM kernel's plain version is the CPU's cost); those utterances synthesised at 8 kHz as a wave archive with wav.scp,
+their features (13 MFCC with CMN and deltas, as the minilib system's), text
+and word-id references.  Built once per process."""
+
+import atexit
+import os
+import shutil
+import tempfile
+
+import numpy as np
+import pytest
+
+import old_kaldi_git_tpu.bin.tools as jtools
+import old_kaldi_git_tpu_torch.bin.tools as ttools
+from old_kaldi_git_tpu_torch import convert
+from old_kaldi_git_tpu_torch.feat.compute import compute_utterance_feats
+from old_kaldi_git_tpu_torch.fst.symbols import SymbolTable
+from old_kaldi_git_tpu_torch.lm.ngram import estimate_ngram_lm, write_arpa
+from old_kaldi_git_tpu_torch.recipes import minilib
+from old_kaldi_git_tpu_torch.utils.table import TableWriter, read_table
+from old_kaldi_git_tpu_torch.utils.wav import WaveData
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKDIR = os.path.join(REPO, "exp", "minilib")
+NUM_UTTS = 4
+SR = minilib.SAMP_FREQ
+
+_SYSTEM = {}
+
+
+def jax_tool(*argv) -> int:
+    return jtools.main(list(argv))
+
+
+def port_tool(*argv) -> int:
+    """A port tool on the CPU (--device=cpu right after the tool's name for
+    the tools that make tensors)."""
+    name, rest = argv[0], list(argv[1:])
+    return ttools.main([name] + (["--device=cpu"] if name in TENSOR_TOOLS else []) + rest)
+
+
+# the tools that register --device
+TENSOR_TOOLS = frozenset((
+    "compute-mfcc-feats", "compute-fbank-feats", "compute-spectrogram-feats",
+    "compute-plp-feats", "compute-kaldi-pitch-feats", "process-kaldi-pitch-feats",
+    "compute-cmvn-stats", "apply-cmvn", "add-deltas", "compute-vad",
+    "gmm-latgen-faster", "online-wav-gmm-latgen-faster", "nnet3-info", "nnet3-compute",
+    "nnet3-average", "nnet3-init", "nnet3-copy", "nnet3-am-init", "nnet3-align-compiled",
+    "nnet3-latgen-faster", "online2-wav-nnet3-latgen-faster",
+    "online2-tcp-nnet3-decode-faster", "align-equal-compiled", "gmm-align-compiled"))
+
+
+def lattices_equal(a, b, atol=1e-5, ac_rtol=2e-5):
+    """Equal arc for arc: graph costs within atol, acoustic costs within
+    atol + ac_rtol·|cost|."""
+    assert a.num_states == b.num_states and a.start == b.start
+    assert list(a.state_time) == list(b.state_time)
+    for (ga, aa), (gb, ab) in zip(a.finals, b.finals):
+        assert ga == pytest.approx(gb, abs=atol)
+        assert aa == pytest.approx(ab, abs=atol, rel=ac_rtol)
+    for s in range(a.num_states):
+        assert len(a.arcs[s]) == len(b.arcs[s])
+        for x, y in zip(a.arcs[s], b.arcs[s]):
+            assert (x.ilabel, x.olabel, x.nextstate) == (y.ilabel, y.olabel, y.nextstate)
+            assert x.graph_cost == pytest.approx(y.graph_cost, abs=atol)
+            assert x.acoustic_cost == pytest.approx(y.acoustic_cost, abs=atol, rel=ac_rtol)
+
+
+def run(capsys, fn, *argv):
+    """(exit code, stdout) of an in-process tool."""
+    capsys.readouterr()
+    rc = fn(*argv)
+    return rc, capsys.readouterr().out
+
+
+def system() -> dict:
+    """Paths and data of the shared system (built at the first call)."""
+    if _SYSTEM:
+        return _SYSTEM
+    root = tempfile.mkdtemp(prefix="okt_cli_")
+    atexit.register(shutil.rmtree, root, True)
+    p = lambda *a: os.path.join(root, *a)  # noqa: E731
+    opts = minilib.MinilibOptions()
+    sents = minilib.make_text(opts, NUM_UTTS, opts.seed + 6)
+    waves, text = minilib.synth_set(opts, sents, "test", opts.seed + 7)
+    lex = minilib.make_lexicon(opts)
+    keep = {w for ws in text.values() for w in ws}
+    phones = {ph for w in lex for ph in lex[w].split()}
+    for w in sorted(lex):
+        if phones <= {ph for k in keep for ph in lex[k].split()}:
+            break
+        keep.add(w)
+    with open(p("lexicon.txt"), "w") as f:
+        for w in sorted(keep):
+            f.write(f"{w} {lex[w]}\n")
+    assert ttools.main(["prepare-lang", p("lexicon.txt"), p("lang")]) == 0
+    write_arpa(estimate_ngram_lm(list(text.values()), order=1), p("G.arpa"))
+    with open(p("tree"), "wb") as f:
+        convert.context_dependency_from_pickle(
+            convert.load_pickle(os.path.join(WORKDIR, "tree.pkl"))[0]).write(f)
+    tri, mono = os.path.join(WORKDIR, "tri.mdl"), os.path.join(WORKDIR, "mono.mdl")
+    assert ttools.main(["mkgraph", f"--tree={p('tree')}", p("lang"), p("G.arpa"), tri,
+                        p("graph")]) == 0
+    assert ttools.main(["mkgraph", p("lang"), p("G.arpa"), mono, p("graph_mono")]) == 0
+    with TableWriter(f"ark,scp:{p('wav.ark')},{p('wav.scp')}", "wav") as w:
+        for k in sorted(waves):
+            w[k] = WaveData(samp_freq=SR, data=np.asarray(waves[k], np.float32)[None])
+    read_back = read_table(f"scp:{p('wav.scp')}", "wav")
+    feats = compute_utterance_feats({k: v.data[0] for k, v in read_back.items()}, SR,
+                                    "cpu")
+    with TableWriter(f"ark:{p('feats.ark')}", "mat") as w:
+        for k in sorted(feats):
+            w[k] = feats[k]
+    words = SymbolTable.read(p("lang", "words.txt"))
+    with TableWriter(f"ark,t:{p('text.ark')}", "text") as w:
+        for k in sorted(text):
+            w[k] = " ".join(text[k])
+    with TableWriter(f"ark,t:{p('ref_ids.ark')}", "text") as w:
+        for k in sorted(text):
+            w[k] = " ".join(str(words[x]) for x in text[k])
+    final_am = os.path.join(WORKDIR, "final.am")
+    assert jtools.main(["nnet3-am-init", tri, final_am, p("final_jax.mdl")]) == 0
+    assert ttools.main(["nnet3-am-init", "--device=cpu", tri, final_am,
+                        p("final.mdl")]) == 0
+    _SYSTEM.update(root=root, p=p, tri=tri, mono=mono, final_am=final_am, waves=waves,
+                   text=text, feats=feats, words=words, hclg=p("graph", "HCLG.fst"),
+                   hclg_mono=p("graph_mono", "HCLG.fst"))
+    return _SYSTEM
