@@ -116,7 +116,17 @@ online2-tcp-nnet3-decode-faster on one connection (its final lines held to
 the online2-wav tool's words); and compile-train-graphs, gmm-align-compiled,
 align-equal-compiled and nnet3-align-compiled on the first 64 training
 utterances (tids held to align_batch on the same graphs and loglikes); then
-K1 and K3 at the phase's shapes.
+K1 and K3 at the phase's shapes.  Then the second batch of tools
+(cli_lattice, on the cli phase's work directory): the 42 of bin/lat_tools.py
+and the 24 of bin/util_tools.py, each run once in-process; the six that make
+tensors (gmm-decode-faster and gmm-rescore-lattice through K3,
+gmm-acc-stats, rnnlm-train, lattice-lmrescore-rnnlm,
+ivector-extract-online2) on all 64 utterances, the per-utterance lattice
+tools on the first 4 lattices; every output held to the port's library on
+the same inputs (words and alignments to decode_batch and to the lattices'
+best paths plus end-state words, accumulators to accumulate_corpus on the
+card and the CPU, RNNLM rescoring (16 of the lattices) and iVectors card vs CPU, archives
+byte for byte), then K3 at the phase's batch.
 --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
@@ -3022,10 +3032,11 @@ def cli(torch, np, c) -> dict:
     plain_same = sum(text_of(a.words) == text_of(b.words) for a, b in zip(lib, lib_plain))
     lats = read_table(f"ark:{p('lat.ark')}", "lat")
     bp_same = 0
+    end_words = {k: end_state_words(np, csr, r) for k, r in zip(fkeys, lib)}
     for k, r in zip(fkeys, lib):
         if k in lats:
             ws, _, _ = lattice_best_path(lats[k], 1.0, 0.1)
-            bp_same += list(ws) + end_state_words(np, csr, r) == list(r.words)
+            bp_same += list(ws) + end_words[k] == list(r.words)
     wer_out.flush()
     wer_line = next((ln for ln in wer_out.buffer.getvalue().decode().splitlines()
                      if ln.startswith("%WER")), "")
@@ -3145,7 +3156,706 @@ def cli(torch, np, c) -> dict:
             "gmm_at_cli_shapes": k3})
     if min(launches["gather"], launches["mfcc"], launches["gmm"]) == 0:
         faults.append(f"the cli phase did not go through every kernel: {launches}")
-    return {"faults": faults, "launches": launches, "k1": k1, "k1_err": k1_err, "k3": k3}
+    return {"faults": faults, "launches": launches, "k1": k1, "k1_err": k1_err, "k3": k3,
+            "end_words": end_words}
+
+
+CLI_RNNLM_OPTS = dict(embed_dim=16, cell_dim=32, recurrent_dim=16, num_epochs=3)
+CLI_RNNLM_TOL = 1e-3  # a rescored path's graph cost, card vs CPU (RNNLM_SCORE_TOL's rule)
+CLI_ACC_REL = 1e-9  # gmm-acc-stats vs accumulate_corpus, of each array's max|ref|
+CLI_IVEC_REL = 1e-9  # ivector-extract-online2 vs extract_online_ivectors on the card
+CLI_IVEC_CPU_REL = 1e-4  # the same on the CPU (PR 11's rule), of each utterance's max|ref|
+CLI_LAT_TOL = (1e-5, 2e-5)  # acoustic costs: atol + rtol·|cost| (tests/test_torch_cli_decode.py)
+CLI_SMALL_LEXICON = 40  # words of the lexicon whose lang the fst* tools take
+CLI_LATTICE_HOST_UTTS = 4  # of the 64 lattices, through the per-utterance host tools
+CLI_CTM_UTTS = 2  # lattices through lattice-to-ctm-conf
+CLI_RNNLM_CPU_UTTS = 16  # of the 64 rescored lattices, rescored again on the CPU
+
+
+def lattices_close(a, b, atol: float, rtol: float) -> bool:
+    """Equal arc for arc: labels and states exactly, graph costs within atol,
+    acoustic costs within atol + rtol·|cost|."""
+    if (a.num_states, a.start) != (b.num_states, b.start):
+        return False
+    for (ga, aa), (gb, ab) in zip(a.finals, b.finals):
+        if (ga == float("inf")) != (gb == float("inf")):
+            return False
+        if ga != float("inf") and (abs(ga - gb) > atol or abs(aa - ab) > atol + rtol * abs(ab)):
+            return False
+    for xs, ys in zip(a.arcs, b.arcs):
+        if len(xs) != len(ys):
+            return False
+        for x, y in zip(xs, ys):
+            if ((x.ilabel, x.olabel, x.nextstate) != (y.ilabel, y.olabel, y.nextstate)
+                    or abs(x.graph_cost - y.graph_cost) > atol
+                    or abs(x.acoustic_cost - y.acoustic_cost) > atol + rtol * abs(y.acoustic_cost)):
+                return False
+    return True
+
+
+def cli_lattice(torch, np, c) -> dict:
+    """The cli_lattice phase: the second batch of command-line tools
+    (bin/lat_tools.py, bin/util_tools.py: 66 tools) in-process through
+    bin.tools.main, on the cli phase's work directory (its 64 clean held-out
+    utterances' wave archive and CLI features, tri.mdl's lattices from
+    gmm-latgen-faster and final.am's loglikes from nnet3-compute, the HCLG,
+    lang dir, tree and unigram ARPA).  The kernels' counts are set to 0
+    just before the tools run and read just after.  Each tool is then held
+    to the port's library on the same inputs; a tool that reads an archived
+    lattice's state times finds none (the state-time fault, ROADMAP queue 3),
+    in the library too."""
+    import contextlib
+    import io
+    import random
+
+    from old_kaldi_git_tpu_torch.bin import tools
+    from old_kaldi_git_tpu_torch.decoder.graph import read_hclg_csr
+    from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch
+    from old_kaldi_git_tpu_torch.fst import algorithms as falg
+    from old_kaldi_git_tpu_torch.fst.context import add_subsequential_loop, compose_context
+    from old_kaldi_git_tpu_torch.fst.lang import load_lang_dir
+    from old_kaldi_git_tpu_torch.fst.rand import rand_fst
+    from old_kaldi_git_tpu_torch.fst.symbols import SymbolTable
+    from old_kaldi_git_tpu_torch.fst.vector_fst import VectorFst, linear_fst
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+    from old_kaldi_git_tpu_torch.gmm.mle import AccumAmDiagGmm, read_accs
+    from old_kaldi_git_tpu_torch.hmm.hmm_utils import split_to_phones
+    from old_kaldi_git_tpu_torch.hmm.posterior import scale_post
+    from old_kaldi_git_tpu_torch.ivector.extractor import (
+        IvectorExtractor, extract_online_ivectors)
+    from old_kaldi_git_tpu_torch.lat.ctm import (
+        align_words_boundary, align_words_lexicon, lattice_to_ctm_conf)
+    from old_kaldi_git_tpu_torch.lat.determinize import (
+        determinize_lattice, minimize_compact_lattice, push_compact_lattice)
+    from old_kaldi_git_tpu_torch.lat.discriminative import forward_backward_mpe_variants
+    from old_kaldi_git_tpu_torch.lat.lattice import (
+        Lattice, LatticeArc, lattice_best_path, lattice_interp, lattice_nbest_paths,
+        lattice_state_times, lattice_to_post, lattice_to_word_fst, linear_lattice_from_path)
+    from old_kaldi_git_tpu_torch.lat.rescore import (
+        compose_lattice_pruned, lmrescore_compact_lattice, rescore_lattice_acoustics)
+    from old_kaldi_git_tpu_torch.lm.arpa import arpa_to_fst, load_lm, parse_arpa
+    from old_kaldi_git_tpu_torch.lm.rnnlm import RnnLmOptions, load_rnnlm, make_rnnlm
+    from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
+    from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
+    from old_kaldi_git_tpu_torch.utils.io_funcs import (
+        init_kaldi_input_stream, read_matrix, read_vector)
+    from old_kaldi_git_tpu_torch.utils.log import KaldiError
+    from old_kaldi_git_tpu_torch.utils.table import TableWriter, read_table
+
+    t_start = time.perf_counter()
+    dev, wd = c.dev, c.workdir
+    on_card = dev.type == "cuda"
+    p = lambda *a: os.path.join(wd, *a)  # noqa: E731
+    tri = c.tri
+    dev_opt = [] if on_card else ["--device=cpu"]
+    faults, walls, checks = [], {}, {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run(label, *argv, rcs=(0,)):
+        """A tool in-process: (exit code, what it printed); its wall under
+        `label`, ended by a device synchronise."""
+        out = io.TextIOWrapper(io.BytesIO(), encoding="utf-8")
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tools.main(list(argv))
+        sync()
+        walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
+        if rc not in rcs:
+            raise RuntimeError(f"cli_lattice: {label} exited {rc}")
+        out.flush()
+        return rc, out.buffer.getvalue().decode()
+
+    def data(name):
+        with open(p(name), "rb") as f:
+            return f.read()
+
+    def same(name, path, holder, items):
+        """The tool's archive at `path` byte for byte an archive of the
+        library's (key, value) items, written as the tools write."""
+        want = p(f"want_{name}")
+        with TableWriter(f"ark:{want}", holder) as w:
+            for k, v in items:
+                w[k] = v
+        checks[name] = data(path) == data(want)
+
+    # ---- inputs, before the counts start (host work)
+    keys = list(c.keys)
+    sil = int(c.sil[0])
+    hclg, words_txt = p("graph", "HCLG.fst"), p("graph", "words.txt")
+    wt = f"--word-symbol-table={words_txt}"
+    feats_r, lat_r = f"ark:{p('feats.ark')}", f"ark:{p('lat.ark')}"
+    few_r = f"ark:{p('lat_few.ark')}"  # the lattices of the host tools
+    rnn_cpu_r = f"ark:{p('lat_rnn_cpu.ark')}"  # those the RNNLM rescores on the CPU too
+    words = SymbolTable.read(words_txt)
+    with TableWriter(f"ark,t:{p('rnn_text.txt')}", "text") as w:
+        for k in sorted(c.ttext):
+            w[k] = " ".join(c.ttext[k])
+    os.makedirs(p("data"), exist_ok=True)
+    with open(p("wav.scp")) as f, open(p("data", "wav.scp"), "w") as g:
+        g.write(f.read())
+    ref = read_table(f"ark:{p('ref.txt')}", "text")
+    with open(p("data", "text"), "w") as f:
+        f.writelines(f"{k} {ref[k]}\n" for k in keys)
+    with open(p("data", "utt2spk"), "w") as f:
+        f.writelines(f"{k} spk{i % 8}\n" for i, k in enumerate(keys))
+    # a lang of the lexicon's first words, for the fst* tools (prepare-lang:
+    # the cli phase's tool), its LG through the library, and a top-level
+    # grammar whose word 1 expands into a sub-FST
+    with open(p("lexicon.txt")) as f:
+        small = [next(f) for _ in range(CLI_SMALL_LEXICON)]
+    with open(p("small_lexicon.txt"), "w") as f:
+        f.writelines(small)
+    if tools.main(["prepare-lang", p("small_lexicon.txt"), p("small_lang")]) != 0:
+        raise RuntimeError("cli_lattice: prepare-lang of the small lexicon failed")
+    small_words = SymbolTable.read(p("small_lang", "words.txt"))
+    small_arpa = ("\\data\\\nngram 1=%d\n\n\\1-grams:\n" % (len(small) + 2)
+                  + "".join(f"-1.5\t{ln.split()[0]}\n" for ln in small)
+                  + "-1.5\t</s>\n-99\t<s>\n\n\\end\\\n")
+    with open(p("small.arpa"), "w") as f:
+        f.write(small_arpa)
+    with open(p("small_G.fst"), "wb") as f:
+        arpa_to_fst(parse_arpa(small_arpa), small_words).write(f)
+    with open(p("small_lang", "phones.txt")) as f:
+        small_disambig = [int(i) for sym, i in (ln.split() for ln in f) if sym.startswith("#")]
+    with open(p("disambig.int"), "w") as f:
+        f.write(" ".join(map(str, small_disambig)) + "\n")
+    with open(p("loops_in.int"), "w") as f:
+        f.write(f"{small_disambig[0]}\n")
+    with open(p("loops_out.int"), "w") as f:
+        f.write("0\n")
+    for name, fst in (("top.fst", linear_fst([2, 1, 3])), ("sub.fst", linear_fst([4, 5]))):
+        with open(p(name), "wb") as f:
+            fst.write(f)
+    fmat = read_table(feats_r, "mat")
+    for path, n in ((few_r, CLI_LATTICE_HOST_UTTS), (rnn_cpu_r, CLI_RNNLM_CPU_UTTS)):
+        with TableWriter(path, "lat") as w:
+            for k, v in list(read_table(lat_r, "lat").items())[:n]:
+                w[k] = v
+    # lattice-to-ctm-conf stops at the first lattice whose best path it
+    # cannot align to the lexicon (a best path without its end state's
+    # words: ROADMAP queue 3), so it reads the first CLI_CTM_UTTS lattices
+    # the library aligns; those it skips are recorded
+    gmm_host = AmGmmModel.load(tri, device="cpu")
+    tm = gmm_host.tm
+    lang = load_lang_dir(p("lang"))
+    ctm_skipped = {}
+    with TableWriter(f"ark:{p('lat_ctm.ark')}", "lat") as w:
+        n_ctm = 0
+        for k, v in read_table(lat_r, "lat").items():
+            if n_ctm == CLI_CTM_UTTS:
+                break
+            try:
+                lattice_to_ctm_conf(v, tm, lang, utt=k)
+            except KaldiError as e:
+                ctm_skipped[k] = {"error": str(e), "end_state_words": c.end_words[k]}
+                continue
+            w[k] = v
+            n_ctm += 1
+    with TableWriter(f"ark:{p('vec.ark')}", "vec") as w:
+        for k in keys:
+            w[k] = fmat[k].mean(0)
+    with open(p("segments"), "w") as f:
+        f.writelines(f"seg_{k} {k} 0.50 1.73\n" for k in keys[:8])
+    with open(p("sym.map"), "w") as f:
+        f.writelines(f"{w_} W{i}\n" for i, w_ in enumerate(sorted(
+            {w_ for v in ref.values() for w_ in v.split()})))
+    with open(p("ids.txt"), "w") as f:
+        f.writelines(f"{k}\n" for k in keys[::3])
+    rnn_opts = [f"--{k.replace('_', '-')}={v}" for k, v in CLI_RNNLM_OPTS.items()]
+
+    # ---- the tools, the counts set to 0 just before them
+    t_phase = time.perf_counter()
+    c.zero_counts()
+    c.gmm_loglikes.launches = 0
+    k3_by_tool = {}
+    for name, argv in (
+            ("gmm-decode-faster", [*dev_opt, wt, tri, hclg, feats_r,
+                                   f"ark,t:{p('gdf_words.txt')}", f"ark:{p('gdf_ali.ark')}"]),
+            ("gmm-rescore-lattice", [*dev_opt, tri, lat_r, feats_r, f"ark:{p('resc.ark')}"])):
+        before = c.gmm_loglikes.launches
+        run(name, name, *argv)
+        k3_by_tool[name] = c.gmm_loglikes.launches - before
+    ali_r = f"ark:{p('gdf_ali.ark')}"
+    run("lattice-to-post", "lattice-to-post", tri, few_r, f"ark:{p('post.ark')}")
+    run("lattice-to-mpe-post", "lattice-to-mpe-post", f"--silence-phones={sil}", tri, ali_r,
+        few_r, f"ark:{p('mpe.ark')}")
+    for post in ("post", "mpe"):
+        run(f"gmm-acc-stats ({post})", "gmm-acc-stats", *dev_opt, tri, feats_r,
+            f"ark:{p(post + '.ark')}", p(f"{post}.acc"))
+    run("rnnlm-train", "rnnlm-train", *dev_opt, *rnn_opts, f"ark:{p('rnn_text.txt')}",
+        words_txt, p("cli.rnnlm"))
+    run("lattice-lmrescore-rnnlm", "lattice-lmrescore-rnnlm", *dev_opt, p("cli.rnnlm"), lat_r,
+        f"ark:{p('rnn.ark')}")
+    ie = os.path.abspath("exp/minilib/final.ie")
+    run("ivector-extract-online2", "ivector-extract-online2", *dev_opt, ie, feats_r,
+        f"ark:{p('iv.ark')}")
+    tensor_wall = sum(walls.values())
+    # the host tools
+    o = lambda n: f"ark:{p(n)}"  # noqa: E731
+    run("lattice-1best", "lattice-1best", few_r, o("1best.ark"))
+    run("lattice-copy", "lattice-copy", few_r, o("copy.ark"))
+    run("lattice-add-penalty", "lattice-add-penalty", "--word-ins-penalty=0.5", few_r,
+        o("pen.ark"))
+    run("lattice-rmali", "lattice-rmali", few_r, o("rmali.ark"))
+    ctm_rc, _ = run("lattice-to-ctm-conf", "lattice-to-ctm-conf", tri, p("lang"),
+                    f"ark:{p('lat_ctm.ark')}", p("lat.ctm"), rcs=(0, 1))
+    alw_rc, _ = run("lattice-align-words-lexicon", "lattice-align-words-lexicon", p("lang"),
+                    tri, few_r, f"ark,t:{p('alw.txt')}", rcs=(0, 1))
+    run("lattice-to-fst", "lattice-to-fst", few_r, o("wfst.ark"))
+    for n in (4, 1):
+        run(f"lattice-determinize --num-threads={n}", "lattice-determinize",
+            f"--num-threads={n}", few_r, o(f"clat{n}.ark"))
+    run("lattice-push", "lattice-push", o("clat4.ark"), o("push.ark"))
+    run("lattice-minimize", "lattice-minimize", o("push.ark"), o("min.ark"))
+    run("lattice-lmrescore", "lattice-lmrescore", f"--words={words_txt}", "--lm-scale=-1.0",
+        o("clat4.ark"), p("G.arpa"), o("lmr.ark"))
+    run("arpa-to-const-arpa", "arpa-to-const-arpa", p("G.arpa"), p("G.carpa"))
+    run("lattice-lmrescore-pruned", "lattice-lmrescore-pruned", f"--words={words_txt}",
+        "--lm-scale=0.5", o("clat4.ark"), p("G.carpa"), o("pruned.ark"))
+    run("lattice-rescore-mapped", "lattice-rescore-mapped", tri, few_r, o("nnet_ll.ark"),
+        o("mapped.ark"))
+    run("lattice-boost-ali", "lattice-boost-ali", "--b=0.5", tri, few_r, ali_r, o("boost.ark"))
+    interp_rc, _ = run("lattice-interp", "lattice-interp", few_r, o("pen.ark"), o("interp.ark"),
+                       rcs=(0, 1))
+    # linear lattices of the decoder's alignments, a word on each
+    # non-silence phone, and a word-boundary file that makes each such
+    # phone a singleton word and SIL a nonword
+    alis = read_table(ali_r, "ivec")
+    with open(p("wb.int"), "w") as f:
+        f.writelines(f"{ph} {'nonword' if ph == sil else 'singleton'}\n"
+                     for ph in sorted(set(tm.tid_to_phone_array()[1:].tolist())))
+    with TableWriter(o("linear.ark"), "lat") as w:
+        for k, ali in alis.items():
+            lat = Lattice()
+            cur = lat.start = lat.add_state(0)
+            for seg in split_to_phones(tm, list(ali)):
+                ph = tm.tid_to_phone(seg[0])
+                for i, tid in enumerate(seg):
+                    nxt = lat.add_state(lat.state_time[cur] + 1)
+                    lat.arcs[cur].append(LatticeArc(int(tid), 1 + ph if i == 0 and ph != sil
+                                                    else 0, 0.0, 0.0, nxt))
+                    cur = nxt
+            lat.finals[cur] = (0.0, 0.0)
+            w[k] = lat
+    run("lattice-align-words", "lattice-align-words", p("wb.int"), tri, o("linear.ark"),
+        f"ark,t:{p('alb.txt')}")
+    run("phone-align-lattice", "phone-align-lattice", tri, few_r, f"ark,t:{p('pal.txt')}")
+    run("lattice-to-smbr-post", "lattice-to-smbr-post", f"--silence-phones={sil}", tri, ali_r,
+        few_r, o("smbr.ark"))
+    run("lattice-confidence", "lattice-confidence", few_r, f"ark,t:{p('conf.txt')}")
+    run("copy-post", "copy-post", "--scale=0.5", o("mpe.ark"), o("cpost.ark"))
+    run("scale-post", "scale-post", o("mpe.ark"), "2.0", o("spost.ark"))
+    run("sum-post", "sum-post", "--scale2=0.5", o("mpe.ark"), o("smbr.ark"), o("sumpost.ark"))
+    run("vector-scale", "vector-scale", "--scale=2.0", o("vec.ark"), o("vec2.ark"))
+    run("vector-sum", "vector-sum", o("vec.ark"), o("vec2.ark"), o("vsum.ark"))
+    run("vector-sum --sum-all", "vector-sum", "--sum-all", o("vec.ark"), p("vall.vec"))
+    _, dim_out = run("feat-to-dim", "feat-to-dim", feats_r, "-")
+    run("feat-to-len", "feat-to-len", feats_r, f"ark,t:{p('len.txt')}")
+    run("wav-to-duration", "wav-to-duration", f"scp:{p('wav.scp')}", f"ark,t:{p('dur.txt')}")
+    run("fsttablecompose", "fsttablecompose", p("small_lang", "L_disambig.fst"),
+        p("small_G.fst"), p("LG.fst"))
+    stoch_rc, stoch_out = run("fstisstochastic", "fstisstochastic", p("small_G.fst"),
+                              rcs=(0, 1))
+    subseq = 1 + max(a.ilabel for lst in VectorFst.read(open(p("LG.fst"), "rb")).arcs
+                     for a in lst)
+    run("fstaddsubsequentialloop", "fstaddsubsequentialloop", str(subseq), p("LG.fst"),
+        p("LG_subseq.fst"))
+    run("fstcomposecontext", "fstcomposecontext", f"--read-disambig-syms={p('disambig.int')}",
+        p("ilabels.txt"), p("LG.fst"), p("CLG.fst"))
+    run("fstrand", "fstrand", "--srand=16", "--num-states=8", "--num-arcs=14", p("rand.fst"))
+    _, equiv_out = run("fstequivalent", "fstequivalent", p("rand.fst"), p("rand.fst"))
+    run("make-grammar-fst", "make-grammar-fst", p("top.fst"), "1", p("sub.fst"),
+        p("grammar.fst"))
+    run("fstaddselfloops", "fstaddselfloops", p("loops_in.int"), p("loops_out.int"),
+        p("LG.fst"), p("LG_loops.fst"))
+    run("gmm-copy", "gmm-copy", tri, p("copy.mdl"))
+    run("utt2spk-to-spk2utt", "utt2spk-to-spk2utt", p("data", "utt2spk"), p("data", "spk2utt"))
+    run("spk2utt-to-utt2spk", "spk2utt-to-utt2spk", p("data", "spk2utt"), p("utt2spk.back"))
+    _, valid_out = run("validate-data-dir", "validate-data-dir", p("data"))
+    run("split-data", "split-data", p("data"), "4")
+    run("subset-data-dir", "subset-data-dir", "--per-spk", p("data"), "2", p("data_sub"))
+    _, tree_out = run("tree-info", "tree-info", p("tree"))
+    _, am_out = run("am-info", "am-info", tri)
+    _, dot = run("draw-tree", "draw-tree", p("lang", "phones.txt"), p("tree"))
+    run("wav-copy", "wav-copy", f"scp:{p('wav.scp')}", o("wav_copy.ark"))
+    run("est-pca", "est-pca", "--dim=20", feats_r, p("pca.mat"))
+    run("modify-cmvn-stats", "modify-cmvn-stats", "0:12", o("cmvn.ark"), o("cmvn_mod.ark"))
+    run("extract-feature-segments", "extract-feature-segments", feats_r, p("segments"),
+        o("feat_segs.ark"))
+    _, show_out = run("show-alignments", "show-alignments", p("lang", "phones.txt"), tri, ali_r)
+    run("analyze-counts", "analyze-counts", ali_r, p("counts.txt"))
+    run("subset-feats", "subset-feats", "--n=10", feats_r, o("sub_feats.ark"))
+    run("feat-to-post", "feat-to-post", "--top-n=3", feats_r, o("fpost.ark"))
+    run("sym2int", "sym2int", words_txt, p("data", "text"), p("text.int"))
+    run("int2sym", "int2sym", words_txt, p("text.int"), p("text.sym"))
+    run("apply-map", "apply-map", p("sym.map"), p("data", "text"), p("text.map"))
+    run("filter-scp", "filter-scp", p("ids.txt"), p("wav.scp"), p("wav_some.scp"))
+    _, boot_out = run("compute-wer-bootci", "compute-wer-bootci", "--replications=2000",
+                      f"ark:{p('ref.txt')}", f"ark:{p('gmm_words.txt')}")
+    sync()
+    tools_wall = time.perf_counter() - t_phase
+    launches = c.read_counts("cli_lattice")
+    launches["gmm"] = c.gmm_loglikes.launches
+
+    # ---- the library on the same inputs
+    t_check = time.perf_counter()
+    lats = read_table(lat_r, "lat")
+    gmm = AmGmmModel.load(tri, device=dev)
+    csr = read_hclg_csr(hclg, gmm.tm.tid_to_pdf_array())
+    fkeys, fpad, fnf = pad_feature_batch(fmat)
+    fx = torch.from_numpy(fpad).to(dev)
+    ll = gmm.am.loglikes_batch(fx)
+    lib = decode_batch(csr, ll, fnf, ViterbiOptions(), device=dev)
+    gdf = read_table(f"ark:{p('gdf_words.txt')}", "text")
+    text_of = lambda ids: " ".join(words[i] for i in ids)  # noqa: E731
+    checks["gmm-decode-faster words = decode_batch"] = sum(
+        gdf.get(k) == text_of(r.words) for k, r in zip(fkeys, lib))
+    checks["gmm-decode-faster alignments = decode_batch"] = sum(
+        np.array_equal(alis[k], r.alignment) for k, r in zip(fkeys, lib))
+    checks["gmm-decode-faster words = lattice best path + end-state words"] = sum(
+        gdf.get(k) == text_of(list(lattice_best_path(lats[k], 1.0, 0.1)[0]) + c.end_words[k])
+        for k in fkeys)
+    # gmm-rescore-lattice: the library on the same lattices and loglikes
+    ll_host = ll.cpu().numpy()
+    rows = {k: ll_host[i, : fnf[i]] for i, k in enumerate(fkeys)}
+    resc = read_table(f"ark:{p('resc.ark')}", "lat")
+    want = read_table(lat_r, "lat")
+    for k in fkeys:
+        rescore_lattice_acoustics(want[k], rows[k], gmm.tm.tid_to_pdf)
+    checks["gmm-rescore-lattice = rescore_lattice_acoustics"] = sum(
+        lattices_close(resc[k], want[k], *CLI_LAT_TOL) for k in fkeys)
+    changed = sum(x.acoustic_cost != y.acoustic_cost for k in fkeys
+                  for xs, ys in zip(resc[k].arcs, lats[k].arcs) for x, y in zip(xs, ys))
+    # with the times recomputed, the tool's one padded launch rescores as a
+    # launch per utterance does (those launches come after the counts)
+    per_utt_gap, per_utt_same = 0.0, 0
+    for i, k in enumerate(fkeys[:CLI_LATTICE_HOST_UTTS]):
+        one = gmm.am.loglikes_batch(fx[i: i + 1, : fnf[i]])[0].cpu().numpy()
+        per_utt_gap = max(per_utt_gap, float(np.abs(one - rows[k]).max()))
+        a, b = read_table(lat_r, "lat")[k], lats[k]
+        for lat, r in ((a, rows[k]), (b, one)):
+            lattice_state_times(lat)
+            rescore_lattice_acoustics(lat, r, gmm.tm.tid_to_pdf)
+        per_utt_same += lattices_close(a, b, *CLI_LAT_TOL)
+    checks["gmm-rescore-lattice batch rows = per-utterance launches (times recomputed)"] = \
+        per_utt_same == len(fkeys[:CLI_LATTICE_HOST_UTTS])
+    lats = read_table(few_r, "lat")
+    # posteriors and gmm-acc-stats
+    same("lattice-to-post", p("post.ark"), "post",
+         ((k, lattice_to_post(lats[k], tm, 1.0, 0.1, 0.01)) for k in lats))
+    post_frames = sum(len(v) for v in read_table(o("post.ark"), "post").values())
+    mpe_items = []
+    for k, lat in lats.items():
+        if k in alis:
+            mpe_items.append((k, forward_backward_mpe_variants(
+                lat, tm, alis[k], criterion="mpfe", silence_phones=[sil], lm_scale=1.0,
+                ac_scale=0.1)[0]))
+    same("lattice-to-mpe-post", p("mpe.ark"), "post", mpe_items)
+    smbr_items = [(k, forward_backward_mpe_variants(
+        lats[k], tm, alis[k], criterion="smbr", silence_phones=[sil], lm_scale=1.0,
+        ac_scale=0.1)[0]) for k in lats if k in alis]
+    same("lattice-to-smbr-post", p("smbr.ark"), "post", smbr_items)
+    acc_err = {}
+    for post in ("post", "mpe"):
+        posts = read_table(o(post + ".ark"), "post")
+        frames, rows_, tids, wts = [], [], [], []
+        n = 0
+        for k in fmat:
+            if k in posts and len(posts[k]) == len(fmat[k]):
+                for t, fr in enumerate(posts[k]):
+                    for tid, wgt in fr:
+                        rows_.append(n + t)
+                        tids.append(int(tid))
+                        wts.append(float(wgt))
+                frames.append(fmat[k])
+                n += len(fmat[k])
+        with open(p(f"{post}.acc"), "rb") as f:
+            got, trans = read_accs(f, device=dev)
+        want_trans = np.zeros(gmm.tm.num_tids + 1)
+        np.add.at(want_trans, np.asarray(tids, np.int64), np.asarray(wts))
+        err = {"entries": len(tids), "transition_stats_equal": bool(np.array_equal(trans,
+                                                                                  want_trans))}
+        for where, model in (("card", gmm), ("cpu", gmm_host)):
+            accs = AccumAmDiagGmm(model.am)
+            if tids:
+                x = np.concatenate(frames)[np.asarray(rows_)]
+                accs.accumulate_corpus(model.am, torch.from_numpy(x).to(model.am.device),
+                                       gmm.tm.tid_to_pdf_array()[np.asarray(tids)],
+                                       weights=np.asarray(wts))
+            err[where] = max(float((getattr(got, f).cpu() - getattr(accs, f).cpu()).abs().max()
+                                   / max(float(getattr(accs, f).abs().max()), 1e-300))
+                             for f in ("occ", "mean_acc", "var_acc"))
+        acc_err[post] = err
+        checks[f"gmm-acc-stats ({post}) = accumulate_corpus"] = (
+            err["transition_stats_equal"] and err["card"] <= CLI_ACC_REL
+            and err["cpu"] <= CLI_ACC_REL)
+    # the RNNLM: its training sentences' log-probability before and after,
+    # and the rescoring card vs CPU
+    rnn = load_rnnlm(p("cli.rnnlm"), device=dev)
+    seqs = [[words[w_] for w_ in c.ttext[k] if w_ in words] for k in sorted(c.ttext)]
+    seqs = [s_ for s_ in seqs if s_]
+    init = make_rnnlm(max(words.ids()), RnnLmOptions(**CLI_RNNLM_OPTS), device="cpu")
+    init.model.to(dev)
+    rnn_before = float(np.mean(init.logprobs_batch(seqs)))
+    rnn_after = float(np.mean(rnn.logprobs_batch(seqs)))
+    checks["rnnlm-train loss falls"] = rnn_after > rnn_before
+    run("lattice-lmrescore-rnnlm (cpu)", "lattice-lmrescore-rnnlm", "--device=cpu",
+        p("cli.rnnlm"), rnn_cpu_r, o("rnn_cpu.ark"))
+    rc_card, rc_cpu = read_table(o("rnn.ark"), "lat"), read_table(o("rnn_cpu.ark"), "lat")
+    checks["lattice-lmrescore-rnnlm card = cpu"] = (
+        sorted(rc_card) == keys and len(rc_cpu) == min(CLI_RNNLM_CPU_UTTS, len(keys))
+        and all(lattices_close(rc_card[k], v, CLI_RNNLM_TOL, 0.0) for k, v in rc_cpu.items()))
+    rnn_gap = max(abs(x.graph_cost - y.graph_cost) for k, v in rc_cpu.items()
+                  for xs, ys in zip(rc_card[k].arcs, v.arcs) for x, y in zip(xs, ys))
+    # iVectors: the library on the card and the CPU
+    iv = read_table(o("iv.ark"), "mat")
+    ivec_err = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        ext = IvectorExtractor.load(ie, device=d)
+        ivec_err[where] = max(float(np.abs(iv[k] - extract_online_ivectors(
+            ext, fmat[k]).cpu().numpy()).max() / np.abs(iv[k]).max()) for k in keys)
+    checks["ivector-extract-online2 = extract_online_ivectors (card, cpu)"] = (
+        sorted(iv) == keys and ivec_err["card"] <= CLI_IVEC_REL
+        and ivec_err["cpu"] <= CLI_IVEC_CPU_REL)
+    # the host lattice tools
+    same("lattice-1best", p("1best.ark"), "lat",
+         ((k, linear_lattice_from_path(*lattice_nbest_paths(v, 1, 1.0, 0.1)[0]))
+          for k, v in lats.items()))
+    checks["lattice-copy"] = data("copy.ark") == data("lat_few.ark")
+    pen = read_table(few_r, "lat")
+    for v in pen.values():
+        for s in range(v.num_states):
+            v.arcs[s] = [LatticeArc(a.ilabel, a.olabel, a.graph_cost + (0.5 if a.olabel else 0.0),
+                                    a.acoustic_cost, a.nextstate) for a in v.arcs[s]]
+    same("lattice-add-penalty", p("pen.ark"), "lat", pen.items())
+    rm = read_table(few_r, "lat")
+    for v in rm.values():
+        for s in range(v.num_states):
+            v.arcs[s] = [LatticeArc(0, a.olabel, a.graph_cost, a.acoustic_cost, a.nextstate)
+                         for a in v.arcs[s]]
+    same("lattice-rmali", p("rmali.ark"), "lat", rm.items())
+    ctm_lines, ctm_failed = [], None
+    for k, v in read_table(f"ark:{p('lat_ctm.ark')}", "lat").items():
+        try:
+            ctm_lines += [e.line() for e in lattice_to_ctm_conf(v, tm, lang, utt=k)]
+        except Exception as e:  # noqa: BLE001 — the tool stops at the same lattice
+            ctm_failed = f"{k}: {e}"
+            break
+    with open(p("lat.ctm")) as f:
+        checks["lattice-to-ctm-conf"] = bool(f.read().splitlines() == ctm_lines and ctm_lines
+                                              and ctm_rc == (1 if ctm_failed else 0))
+    alw, alw_failed = [], 0
+    for k, v in lats.items():
+        ws, tids_, _ = lattice_best_path(v, 1.0, 0.1)
+        try:
+            alw.append((k, " ; ".join(f"{a} {b} {n_}" for a, b, n_ in
+                                      align_words_lexicon(tm, lang, ws, tids_))))
+        except Exception:  # noqa: BLE001 — counted, as the tool counts it
+            alw_failed += 1
+    same("lattice-align-words-lexicon", p("alw.txt"), "text", alw)
+    checks["lattice-align-words-lexicon"] &= alw_rc == (0 if alw or not alw_failed else 1)
+    same("lattice-to-fst", p("wfst.ark"), "fst",
+         ((k, lattice_to_word_fst(v, 1.0, 0.0)) for k, v in lats.items()))
+    checks["lattice-determinize 4 threads = 1 thread"] = data("clat4.ark") == data("clat1.ark")
+    same("lattice-determinize", p("clat1.ark"), "clat",
+         ((k, determinize_lattice(v)) for k, v in lats.items()))
+    clats = read_table(o("clat4.ark"), "clat")
+    same("lattice-push", p("push.ark"), "clat",
+         ((k, push_compact_lattice(v)) for k, v in clats.items()))
+    same("lattice-minimize", p("min.ark"), "clat",
+         ((k, minimize_compact_lattice(v)) for k, v in read_table(o("push.ark"),
+                                                                    "clat").items()))
+    lm = load_lm(p("G.arpa"))
+    same("lattice-lmrescore", p("lmr.ark"), "clat",
+         ((k, lmrescore_compact_lattice(v, words, lm, new_scale=-1.0)) for k, v in clats.items()))
+    checks["arpa-to-const-arpa"] = load_lm(p("G.carpa")).ngrams == lm.ngrams
+    same("lattice-lmrescore-pruned", p("pruned.ark"), "clat",
+         ((k, compose_lattice_pruned(v, words, lm, new_scale=0.5, lattice_beam=6.0,
+                                     max_arcs=200000)) for k, v in clats.items()))
+    nll = read_table(o("nnet_ll.ark"), "mat")
+    mapped = read_table(few_r, "lat")
+    for k, v in mapped.items():
+        rescore_lattice_acoustics(v, nll[k], tm.tid_to_pdf)
+    same("lattice-rescore-mapped", p("mapped.ark"), "lat", mapped.items())
+    checks["lattice-boost-ali (unchanged: state times)"] = (data("boost.ark")
+                                                           == data("lat_few.ark"))
+    pen = read_table(o("pen.ark"), "lat")
+    interp = [(k, lattice_interp(v, pen[k], alpha=0.5)) for k, v in lats.items() if k in pen]
+    same("lattice-interp", p("interp.ark"), "lat", [(k, v) for k, v in interp if v is not None])
+    checks["lattice-interp"] &= interp_rc == (0 if any(v is not None for _, v in interp) else 1)
+    boundary = {int(a): b for a, b in (ln.split() for ln in open(p("wb.int")))}
+    same("lattice-align-words", p("alb.txt"), "text",
+         ((k, " ; ".join(f"{a} {b} {n_}" for a, b, n_ in align_words_boundary(
+             tm, boundary, *lattice_best_path(v, 1.0, 0.1)[:2])))
+          for k, v in read_table(o("linear.ark"), "lat").items()))
+    pal = []
+    for k, v in lats.items():
+        t, segs = 0, []
+        for seg in split_to_phones(tm, list(lattice_best_path(v, 1.0, 0.1)[1])):
+            segs.append(f"{tm.tid_to_phone(seg[0])} {t} {len(seg)}")
+            t += len(seg)
+        pal.append((k, " ; ".join(segs)))
+    same("phone-align-lattice", p("pal.txt"), "text", pal)
+    conf = read_table(f"ark:{p('conf.txt')}", "flt")
+    checks["lattice-confidence"] = sorted(conf) == sorted(lats) and all(
+        0.0 <= v <= 1e10 for v in conf.values())
+    mpe = read_table(o("mpe.ark"), "post")
+    same("copy-post", p("cpost.ark"), "post", ((k, scale_post(v, 0.5)) for k, v in mpe.items()))
+    same("scale-post", p("spost.ark"), "post", ((k, scale_post(v, 2.0)) for k, v in mpe.items()))
+    smbr = read_table(o("smbr.ark"), "post")
+    sums = []
+    for k, v in mpe.items():
+        frames_ = []
+        for f1, f2 in zip(v, smbr[k]):
+            d = {}
+            for i, x in f1:
+                d[i] = d.get(i, 0.0) + x
+            for i, x in f2:
+                d[i] = d.get(i, 0.0) + 0.5 * x
+            frames_.append(sorted(d.items()))
+        sums.append((k, frames_))
+    same("sum-post", p("sumpost.ark"), "post", sums)
+    vec = read_table(o("vec.ark"), "vec")
+    same("vector-scale", p("vec2.ark"), "vec", ((k, v * 2.0) for k, v in vec.items()))
+    vec2 = read_table(o("vec2.ark"), "vec")
+    same("vector-sum", p("vsum.ark"), "vec",
+         ((k, (np.asarray(v, np.float64) + vec2[k]).astype(np.float32)) for k, v in vec.items()))
+    with open(p("vall.vec"), "rb") as f:
+        init_kaldi_input_stream(f)
+        vall = read_vector(f)
+    checks["vector-sum --sum-all"] = np.allclose(
+        vall, np.sum([np.asarray(v, np.float64) for v in vec.values()], 0), rtol=1e-6)
+    checks["feat-to-dim"] = dim_out.strip() == str(fmat[keys[0]].shape[1])
+    checks["feat-to-len"] = read_table(f"ark:{p('len.txt')}", "text") == {
+        k: str(len(v)) for k, v in fmat.items()}
+    waves = read_table(f"scp:{p('wav.scp')}", "wav")
+    checks["wav-to-duration"] = read_table(f"ark:{p('dur.txt')}", "text") == {
+        k: f"{v.data.shape[1] / v.samp_freq:.5g}" for k, v in waves.items()}
+    checks["wav-copy"] = all(np.array_equal(v.data, waves[k].data) for k, v in
+                             read_table(o("wav_copy.ark"), "wav").items())
+
+    def fst_bytes(fst):
+        buf = io.BytesIO()
+        fst.write(buf)
+        return buf.getvalue()
+
+    L = VectorFst.read(open(p("small_lang", "L_disambig.fst"), "rb"))
+    LG = falg.compose(L, VectorFst.read(open(p("small_G.fst"), "rb")))
+    checks["fsttablecompose"] = data("LG.fst") == fst_bytes(LG)
+    checks["fstaddsubsequentialloop"] = data("LG_subseq.fst") == fst_bytes(
+        add_subsequential_loop(LG, subseq))
+    clg, info = compose_context(LG, 3, 1, small_disambig, subseq)
+    with open(p("ilabels.txt")) as f:
+        checks["fstcomposecontext"] = (data("CLG.fst") == fst_bytes(clg) and f.read().splitlines()
+                                       == [" ".join(map(str, i)) for i in info])
+    rfst = rand_fst(random.Random(16), 8, 14, 3, 3)
+    checks["fstrand"] = data("rand.fst") == fst_bytes(rfst)
+    checks["fstequivalent"] = equiv_out.strip() == "equivalent"
+    checks["make-grammar-fst"] = data("grammar.fst") == fst_bytes(falg.replace_fst(
+        linear_fst([2, 1, 3]), {1: linear_fst([4, 5])}))
+    falg.add_disambig_self_loops(LG, [(small_disambig[0], 0)])
+    checks["fstaddselfloops"] = data("LG_loops.fst") == fst_bytes(LG)
+    checks["fstisstochastic"] = len(stoch_out.split()) == 2
+    a, b = AmGmmModel.load(p("copy.mdl"), device="cpu"), gmm_host
+    checks["gmm-copy"] = all(
+        np.array_equal(x.means, y.means) and np.array_equal(x.vars, y.vars)
+        and np.array_equal(x.weights, y.weights) for x, y in zip(a.am.pdfs, b.am.pdfs))
+    with open(p("data", "utt2spk")) as f, open(p("utt2spk.back")) as g:
+        checks["utt2spk-to-spk2utt / spk2utt-to-utt2spk"] = sorted(f) == sorted(g)
+    checks["validate-data-dir"] = valid_out.strip() == f"validate-data-dir: OK ({len(keys)} utterances)"
+    shards = [open(p("data", "split4", str(i), "utt2spk")).read().split("\n")[:-1]
+              for i in range(1, 5)]
+    checks["split-data"] = sorted(ln.split()[0] for s_ in shards for ln in s_) == keys
+    per_spk = {}
+    for i, k in enumerate(keys):
+        per_spk[i % 8] = per_spk.get(i % 8, 0) + 1
+    checks["subset-data-dir"] = len(open(p("data_sub", "utt2spk")).readlines()) == sum(
+        min(2, n_) for n_ in per_spk.values())
+    checks["tree-info"] = tree_out.splitlines()[0] == "num-pdfs 2000"
+    checks["am-info"] = f"number of pdfs {gmm.am.num_pdfs}" in am_out
+    checks["draw-tree"] = dot.startswith("digraph tree {") and dot.count("pdf ") >= 2000
+    with open(p("pca.mat"), "rb") as f:
+        init_kaldi_input_stream(f)
+        pca = read_matrix(f)
+    xs = np.concatenate([fmat[k] for k in fmat]).astype(np.float64)
+    mean = xs.mean(0)
+    ev, evec = np.linalg.eigh(xs.T @ xs / len(xs) - np.outer(mean, mean))
+    top = evec[:, ::-1][:, :20].T
+    signs = np.sign((pca[:, :-1] * top).sum(1))[:, None]
+    checks["est-pca (up to sign)"] = bool(np.abs(pca[:, :-1] * signs - top).max() < 1e-4)
+    cm = read_table(o("cmvn.ark"), "mat")
+    mod = read_table(o("cmvn_mod.ark"), "mat")
+    checks["modify-cmvn-stats"] = all(
+        mod[k][0, 0] == 0 and mod[k][0, 12] == 0 and mod[k][1, 0] == cm[k][0, -1]
+        and np.array_equal(mod[k][:, 1:12], cm[k][:, 1:12]) for k in cm)
+    segs = read_table(o("feat_segs.ark"), "mat")
+    checks["extract-feature-segments"] = all(
+        np.array_equal(segs[f"seg_{k}"], fmat[k][50:173]) for k in keys[:8])
+    checks["show-alignments"] = len(show_out.splitlines()) == len(alis)
+    counts = np.bincount(np.concatenate(list(alis.values())))
+    with open(p("counts.txt")) as f:
+        checks["analyze-counts"] = [int(x) for x in f.read().split()[1:-1]] == counts.tolist()
+    checks["subset-feats"] = sorted(read_table(o("sub_feats.ark"), "mat")) == keys[:10]
+    fpost = read_table(o("fpost.ark"), "post")
+    k0 = keys[0]
+    checks["feat-to-post"] = all(
+        sorted(i for i, _ in fr) == sorted(np.argsort(-fmat[k0][t])[:3].tolist())
+        for t, fr in enumerate(fpost[k0]))
+    with open(p("text.sym")) as f, open(p("data", "text")) as g:
+        checks["sym2int / int2sym"] = f.read() == g.read()
+    with open(p("text.map")) as f:
+        checks["apply-map"] = len(f.readlines()) == len(keys)
+    with open(p("wav_some.scp")) as f:
+        checks["filter-scp"] = [ln.split()[0] for ln in f] == keys[::3]
+    stats = compute_wer({k: ref[k].split() for k in keys},
+                        {k: v.split() for k, v in read_table(
+                            f"ark:{p('gmm_words.txt')}", "text").items()})
+    checks["compute-wer-bootci"] = f"WER {stats.wer:.2f} " in boot_out
+    check_seconds = time.perf_counter() - t_check
+    # K3 at the phase's batch, against its plain version
+    k3 = {}
+    if on_card:
+        k3["cli_lattice_features"] = c.k3_at(torch, c.gmm_loglikes, c.gmm_loglikes_plain,
+                                             gmm.am.weights(),
+                                             fx.reshape(-1, fx.shape[-1]).contiguous(), c.plug)
+    del fx, ll
+    bad = {k: v for k, v in checks.items()
+           if v is not True and not (isinstance(v, (int, np.integer)) and not isinstance(v, bool)
+                                     and v == len(keys))}
+    tools_run = {label.split(" ")[0] for label in walls}
+    batch = {n for n, fn in tools.TOOLS.items()
+             if fn.__module__.rsplit(".", 1)[-1] in ("lat_tools", "util_tools")}
+    c.emit({"phase": "cli_lattice", "card": c.card, "utterances": len(keys),
+            "tools": len(tools_run & batch), "tools_wall_seconds": tools_wall,
+            "tensor_tools_wall_seconds": tensor_wall, "check_seconds": check_seconds,
+            "phase_seconds": time.perf_counter() - t_start, "tool_seconds": walls,
+            "launches": {k: launches[k] for k in ("gather", "mfcc", "gmm")},
+            "gmm_launches_by_tool": k3_by_tool,
+            "checks": {k: (bool(v) if isinstance(v, (bool, np.bool_)) else int(v))
+                       for k, v in checks.items()},
+            "rescore_arcs_changed": changed, "rescore_batch_vs_per_utterance_max_abs": per_utt_gap,
+            "lattice_to_post_frames": post_frames, "acc_stats": acc_err,
+            "rnnlm": {"options": CLI_RNNLM_OPTS, "sentences": len(seqs),
+                      "train_logprob_before": rnn_before, "train_logprob_after": rnn_after,
+                      "rescore_card_vs_cpu_max_abs": rnn_gap},
+            "ivector_max_rel_err": ivec_err, "ctm_lines": len(ctm_lines),
+            "ctm_lattices_skipped": ctm_skipped,
+            "align_words_lexicon_failed": alw_failed, "fstisstochastic": stoch_out.strip(),
+            "compute_wer_bootci": boot_out.strip().splitlines()[-1], "gmm_at_cli_lattice_shapes": k3})
+    if bad:
+        faults.append(f"cli_lattice: checks failed: {sorted(bad)}")
+    if tools_run != batch or len(batch) != 66:
+        faults.append(f"cli_lattice: tools not run: {sorted(batch - tools_run)}")
+    if on_card and (launches["gmm"] == 0 or min(k3_by_tool.values()) == 0):
+        faults.append(f"cli_lattice: the GMM kernel was not launched by each scoring tool: "
+                      f"{k3_by_tool}")
+    if on_card and tensor_wall > 40.0:
+        faults.append(f"cli_lattice: the tensor tools took {tensor_wall:.1f} s (aim 40)")
+    return {"faults": faults, "launches": launches, "k3": k3}
 
 
 def main() -> int:
@@ -3154,9 +3864,10 @@ def main() -> int:
                     help="also decode the set re-synthesised at noise 400")
     ap.add_argument("--profile-frames", type=int, default=0,
                     help="frames of one chunk's search under torch.profiler")
-    ap.add_argument("--only", choices=["architectures", "cli"],
+    ap.add_argument("--only", choices=["architectures", "cli", "cli_lattice"],
                     help="build the kernels, load the system and run only these "
-                         "phases (no final line: a partial run)")
+                         "phases (no final line: a partial run); cli_lattice runs "
+                         "the cli phase first, whose work directory it reads")
     args = ap.parse_args()
 
     import torch
@@ -3292,25 +4003,40 @@ def main() -> int:
             twaves=twaves, zero_counts=zero_counts, read_counts=read_counts, sil=sil,
             tid_to_phone=tid_to_phone))["launches"]
 
-    def run_cli(twaves, ttext):
-        """The cli phase; its faults end the run."""
+    def run_cli(twaves, ttext, lattice=True):
+        """The cli phase and, with `lattice`, cli_lattice after it on its
+        work directory, which is removed at the end; their faults end the
+        run.  Returns both phases' results (None for a phase not run)."""
         nonlocal plug
         plug = torch.randn((8192, 8192), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(15))
-        res = cli(torch, np, argparse.Namespace(
-            dev=dev, card=card, emit=emit, minilib=minilib, system=system, twaves=twaves,
-            ttext=ttext, sil=sil, workdir=cli_dir, graph_future=cli_graph_future,
-            graph_pool=cli_pool, zero_counts=zero_counts, read_counts=read_counts,
-            gmm_loglikes=gmm_loglikes, gmm_loglikes_plain=gmm_loglikes_plain,
-            check_gather=check_gather, batched_table_gather=batched_table_gather,
-            batched_table_gather_plain=batched_table_gather_plain,
-            gather_at=lambda *a: gather_at(*a), k3_at=k3_at, plug=plug))
-        plug = None
-        torch.cuda.empty_cache()
-        shutil.rmtree(cli_dir, ignore_errors=True)
-        if res["faults"]:
-            raise RuntimeError("cli: " + "; ".join(res["faults"]))
-        return res
+        lat = None
+        try:
+            res = cli(torch, np, argparse.Namespace(
+                dev=dev, card=card, emit=emit, minilib=minilib, system=system, twaves=twaves,
+                ttext=ttext, sil=sil, workdir=cli_dir, graph_future=cli_graph_future,
+                graph_pool=cli_pool, zero_counts=zero_counts, read_counts=read_counts,
+                gmm_loglikes=gmm_loglikes, gmm_loglikes_plain=gmm_loglikes_plain,
+                check_gather=check_gather, batched_table_gather=batched_table_gather,
+                batched_table_gather_plain=batched_table_gather_plain,
+                gather_at=lambda *a: gather_at(*a), k3_at=k3_at, plug=plug))
+            if res["faults"]:
+                raise RuntimeError("cli: " + "; ".join(res["faults"]))
+            if lattice:
+                lat = cli_lattice(torch, np, argparse.Namespace(
+                    dev=dev, card=card, emit=emit, workdir=cli_dir,
+                    tri=os.path.abspath("exp/minilib/tri.mdl"),
+                    keys=sorted(system.test_waves)[:CLI_UTTS], sil=sil, ttext=ttext,
+                    end_words=res["end_words"], zero_counts=zero_counts,
+                    read_counts=read_counts, gmm_loglikes=gmm_loglikes,
+                    gmm_loglikes_plain=gmm_loglikes_plain, k3_at=k3_at, plug=plug))
+                if lat["faults"]:
+                    raise RuntimeError("cli_lattice: " + "; ".join(lat["faults"]))
+        finally:
+            plug = None
+            torch.cuda.empty_cache()
+            shutil.rmtree(cli_dir, ignore_errors=True)
+        return res, lat
 
     if args.only == "architectures":
         topts = minilib.MinilibOptions()
@@ -3539,8 +4265,9 @@ def main() -> int:
           "check_launches": {"gather": batched_table_gather.launches,
                              "mfcc": fused_mfcc_from_frames.launches}})
 
-    if args.only == "cli":
-        run_cli(*minilib.training_set(minilib.MinilibOptions()))
+    if args.only in ("cli", "cli_lattice"):
+        run_cli(*minilib.training_set(minilib.MinilibOptions()),
+                lattice=args.only == "cli_lattice")
         emit({"phase": "total", "card": card, "partial": args.only,
               "seconds": round(time.perf_counter() - t_start, 1)})
         return 0
@@ -5567,8 +6294,8 @@ def main() -> int:
 
     # ---- phase 40: the command-line tools (cli), the counts set to 0 just
     # before the tools run and read just after
-    cli_res = run_cli(twaves, ttext)
-    cli_launches = cli_res["launches"]
+    cli_res, lat_res = run_cli(twaves, ttext)
+    cli_launches, lat_launches = cli_res["launches"], lat_res["launches"]
 
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
@@ -5590,7 +6317,7 @@ def main() -> int:
                       + sum(p["gather"] for p in seq_launches.values())
                       + lo_launches["gather"]
                       + sum(p["gather"] for p in arch_launches.values())
-                      + cli_launches["gather"]),
+                      + cli_launches["gather"] + lat_launches["gather"]),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -5618,7 +6345,8 @@ def main() -> int:
                               **{n: p["gather"] for n, p in seq_launches.items()},
                               "lattice_outputs": lo_launches["gather"],
                               **{n: p["gather"] for n, p in arch_launches.items()},
-                              "cli": cli_launches["gather"]},
+                              "cli": cli_launches["gather"],
+                              "cli_lattice": lat_launches["gather"]},
          "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err, cli_res["k1_err"]),
          "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
@@ -5647,7 +6375,7 @@ def main() -> int:
                       + sum(p["mfcc"] for p in seq_launches.values())
                       + lo_launches["mfcc"]
                       + sum(p["mfcc"] for p in arch_launches.values())
-                      + cli_launches["mfcc"]),
+                      + cli_launches["mfcc"] + lat_launches["mfcc"]),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -5674,7 +6402,8 @@ def main() -> int:
                               **{n: p["mfcc"] for n, p in seq_launches.items()},
                               "lattice_outputs": lo_launches["mfcc"],
                               **{n: p["mfcc"] for n, p in arch_launches.items()},
-                              "cli": cli_launches["mfcc"]},
+                              "cli": cli_launches["mfcc"],
+                              "cli_lattice": lat_launches["mfcc"]},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -5683,7 +6412,7 @@ def main() -> int:
                  tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values(),
                  *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
                  cb_launches, *cfg2_launches.values(), *seq_launches.values(),
-                 lo_launches, *arch_launches.values(), cli_launches))
+                 lo_launches, *arch_launches.values(), cli_launches, lat_launches))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
@@ -5698,7 +6427,7 @@ def main() -> int:
                       + ty_launches["gmm"] + sum(t["gmm"] for t in tr_launches.values())
                       + sum(p["gmm"] for p in cfg2_launches.values())
                       + sum(p["gmm"] for p in seq_launches.values())
-                      + lo_launches["gmm"] + cli_launches["gmm"]),
+                      + lo_launches["gmm"] + cli_launches["gmm"] + lat_launches["gmm"]),
          "launches_by_path": {"decode": k3_tdnn_launches,
                               "decode_gmm": g_launches["gmm"],
                               **{n: a["gmm"] for n, a in a_launches.items()},
@@ -5707,20 +6436,22 @@ def main() -> int:
                               **{n: p["gmm"] for n, p in cfg2_launches.items()},
                               **{n: p["gmm"] for n, p in seq_launches.items()},
                               "lattice_outputs": lo_launches["gmm"],
-                              "cli": cli_launches["gmm"]},
+                              "cli": cli_launches["gmm"],
+                              "cli_lattice": lat_launches["gmm"]},
          "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]
                             + [v["max_abs_err"] for v in k3_train.values()]
                             + [v["max_abs_err"] for v in k3_depths.values()]
                             + [v["max_abs_err"] for v in seq["k3"].values()]
                             + [v["max_abs_err"] for v in lo["k3"].values()]
-                            + [v["max_abs_err"] for v in cli_res["k3"].values()]),
+                            + [v["max_abs_err"] for v in cli_res["k3"].values()]
+                            + [v["max_abs_err"] for v in lat_res["k3"].values()]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": max(k3_ops_ms, k3_bytes_ms),
          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
          "library_ms": None,
          "at_other_shapes": {**k3_align, **{f"train_{k}": v for k, v in k3_train.items()},
                              **{f"depth_{k}": v for k, v in k3_depths.items()},
-                             **seq["k3"], **lo["k3"], **cli_res["k3"]}},
+                             **seq["k3"], **lo["k3"], **cli_res["k3"], **lat_res["k3"]}},
     ]})
     if args.noisy:
         waves, text = minilib.make_test_set(minilib.MinilibOptions(),

@@ -1461,6 +1461,8 @@ def wav_reverberate_tool(argv: List[str]) -> int:
     return 0
 
 
-# registration side effect: the nnet3 serving and the alignment tools
+# registration side effect: the nnet3 serving, alignment, lattice and utility tools
 from old_kaldi_git_tpu_torch.bin import nnet3_tools  # noqa: E402,F401  (isort:skip)
 from old_kaldi_git_tpu_torch.bin import train_tools  # noqa: E402,F401  (isort:skip)
+from old_kaldi_git_tpu_torch.bin import lat_tools  # noqa: E402,F401  (isort:skip)
+from old_kaldi_git_tpu_torch.bin import util_tools  # noqa: E402,F401  (isort:skip)

@@ -6,19 +6,22 @@ up front by forwarding: every state's outgoing arc set is
 { eps-closure ∘ emitting arc }, with closure weights folded in and the
 closure's output labels remembered on the host for word recovery.  This
 module holds the container, the flat output-label store, the per-state tile
-layout and the conversions from a native FST handle: folded
-(`fst_to_csr_native`) and split-eps from its raw arrays
-(`fst_to_split_csr_arrays`, the chain graph's backoff shape).
+layout and the conversions: folded from a native FST handle
+(`fst_to_csr_native`) or from a VectorFst in host Python (`fst_to_csr`, the
+JAX package's export, array for array the native one), and split-eps from an FST's
+raw arrays (`fst_to_split_csr_arrays`, the chain graph's backoff shape).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from old_kaldi_git_tpu_torch.fst.vector_fst import EPS, INF
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
 
 log = get_logger("csr")
@@ -190,6 +193,74 @@ def fst_to_csr_native(nfst, tid_to_pdf: np.ndarray) -> CsrGraph:
         final_olabels=FlatOlabels(folab_off, folab_val),
     )
     csr._olabel_mask = olab_off[1:] > olab_off[:-1]
+    return csr
+
+
+def _eps_closure(fst, s: int) -> List[Tuple[int, float, Tuple[int, ...]]]:
+    """Dijkstra over the eps-input arcs from s: [(state, weight, olabels)],
+    the least weight of each reachable state, its olabels those of the
+    argmin path."""
+    dist: Dict[int, float] = {s: 0.0}
+    lab: Dict[int, Tuple[int, ...]] = {s: ()}
+    heap: List[Tuple[float, int]] = [(0.0, s)]
+    while heap:
+        d, u = heapq.heappop(heap)
+        if d > dist[u] + 1e-12:
+            continue
+        for a in fst.arcs[u]:
+            if a.ilabel != EPS:
+                continue
+            nd = d + a.weight
+            if nd < dist.get(a.nextstate, INF) - 1e-12:
+                dist[a.nextstate] = nd
+                lab[a.nextstate] = lab[u] + ((a.olabel,) if a.olabel != EPS else ())
+                heapq.heappush(heap, (nd, a.nextstate))
+    return [(u, dist[u], lab[u]) for u in dist]
+
+
+def fst_to_csr(fst, tid_to_pdf: np.ndarray) -> CsrGraph:
+    """The folded CsrGraph of a VectorFst (input labels tids, 0 = eps), in
+    host Python: each state's eps closure by Dijkstra in float64, each
+    emitting arc reached through it kept once per (tid, destination) at its
+    least weight, arcs in (tid, destination) order.  The JAX package's
+    `fst_to_csr`, array for array; `decoder/graph.read_hclg_csr` gives the
+    same arrays from the native export (tests/test_torch_fst_context.py)."""
+    if fst.start < 0:
+        raise KaldiError("fst has no start state")
+    S = fst.num_states
+    rows = []
+    final_weight = np.full(S, np.inf, dtype=np.float32)
+    final_olabels: List[Tuple[int, ...]] = [()] * S
+    for s in range(S):
+        arcs_out: Dict[Tuple[int, int], Tuple[float, Tuple[int, ...]]] = {}
+        best_final, best_final_lab = INF, ()
+        for u, w_eps, olab in _eps_closure(fst, s):
+            if fst.finals[u] != INF and w_eps + fst.finals[u] < best_final:
+                best_final, best_final_lab = w_eps + fst.finals[u], olab
+            for a in fst.arcs[u]:
+                if a.ilabel == EPS:
+                    continue
+                w = w_eps + a.weight
+                key = (a.ilabel, a.nextstate)
+                if key not in arcs_out or w < arcs_out[key][0]:
+                    arcs_out[key] = (w, olab + ((a.olabel,) if a.olabel != EPS else ()))
+        rows.append(sorted(arcs_out.items()))
+        if best_final != INF:
+            final_weight[s] = best_final
+            final_olabels[s] = best_final_lab
+    row_ptr = np.zeros(S + 1, dtype=np.int32)
+    np.cumsum([len(r) for r in rows], out=row_ptr[1:])
+    flat = [item for r in rows for item in r]
+    A = len(flat)
+    tid = np.fromiter((il for (il, _), _ in flat), np.int32, A)
+    nextstate = np.fromiter((ns for (_, ns), _ in flat), np.int32, A)
+    weight = np.fromiter((w for _, (w, _) in flat), np.float32, A)
+    csr = CsrGraph(start=fst.start, row_ptr=row_ptr, tid=tid,
+                   pdf=np.asarray(tid_to_pdf, np.int64)[tid].astype(np.int32),
+                   weight=weight, nextstate=nextstate, final_weight=final_weight,
+                   arc_olabels=[labs for _, (_, labs) in flat],
+                   final_olabels=final_olabels)
+    log.debug("csr: %d states, %d arcs", csr.num_states, csr.num_arcs)
     return csr
 
 

@@ -16,6 +16,11 @@ Parity with reference src/fstext (SURVEY.md §2.4):
   push_special       — fstext/push-special.cc (uniform per-state outflow via
                        power iteration, preserves equivalence mod constant)
   shortest_path, project — evaluation helpers
+  fst_equivalent     — bounded-length weighted equivalence (RandEquivalent's
+                       test role; fstequivalent)
+  add_disambig_self_loops — fstbin/fstaddselfloops
+  replace_fst        — static expansion of nonterminal arcs (GrammarFst's
+                       build-time role; make-grammar-fst)
 """
 
 from __future__ import annotations
@@ -444,3 +449,116 @@ def shortest_path(fst: VectorFst) -> Tuple[float, List[int], List[int]]:
             olabels.append(a.olabel)
         s = src
     return best_w, ilabels[::-1], olabels[::-1]
+
+
+def _string_weights(fst: VectorFst, max_len: int, use_log: bool, max_strings: int = 20000
+                    ) -> Dict[Tuple[Tuple[int, ...], Tuple[int, ...]], float]:
+    """Total weight of every (istring, ostring) pair of paths up to max_len
+    arcs long, breadth first over (state, istring, ostring).  Exponential in
+    the worst case: for test-sized FSTs."""
+    plus = _logadd if use_log else min
+    out: Dict[Tuple[Tuple[int, ...], Tuple[int, ...]], float] = {}
+    if fst.start == NO_STATE:
+        return out
+    frontier: Dict[Tuple[int, Tuple[int, ...], Tuple[int, ...]], float] = {
+        (fst.start, (), ()): 0.0}
+    for _ in range(max_len + 1):
+        new: Dict[Tuple[int, Tuple[int, ...], Tuple[int, ...]], float] = {}
+        for (s, istr, ostr), w in frontier.items():
+            if fst.finals[s] != INF:
+                key = (istr, ostr)
+                out[key] = plus(out.get(key, INF), w + fst.finals[s])
+            for a in fst.arcs[s]:
+                ni = istr + ((a.ilabel,) if a.ilabel != EPS else ())
+                no = ostr + ((a.olabel,) if a.olabel != EPS else ())
+                if len(ni) > max_len or len(no) > max_len:
+                    continue
+                k = (a.nextstate, ni, no)
+                new[k] = plus(new.get(k, INF), w + a.weight)
+                if len(new) > max_strings:
+                    raise KaldiError("string-weight enumeration blow-up")
+        frontier = new
+        if not frontier:
+            break
+    return out
+
+
+def fst_equivalent(a: VectorFst, b: VectorFst, max_len: int = 6, tol: float = 1e-4,
+                   use_log: bool = False) -> bool:
+    """Bounded-length weighted equivalence (the test role of OpenFst's
+    RandEquivalent): every (istring, ostring) pair of up to max_len labels
+    has the same total weight, within tol, in both."""
+    wa = _string_weights(a, max_len, use_log)
+    wb = _string_weights(b, max_len, use_log)
+    for k in set(wa) | set(wb):
+        x, y = wa.get(k, INF), wb.get(k, INF)
+        if x == INF or y == INF:
+            if x != y:
+                return False
+        elif abs(x - y) > tol:
+            return False
+    return True
+
+
+def add_disambig_self_loops(fst: VectorFst, pairs) -> None:
+    """Propagate disambiguation symbols through an FST by (ilabel, olabel)
+    self-loops (reference fstbin/fstaddselfloops.cc, fstext-utils-inl.h
+    AddSelfLoops), in place: a loop for every pair at the start state, at
+    every final state and at every state with a non-epsilon output label on
+    an outgoing arc."""
+    targets = {fst.start}
+    for s in fst.states():
+        if fst.is_final(s) or any(a.olabel != 0 for a in fst.arcs[s]):
+            targets.add(s)
+    for s in targets:
+        for il, ol in pairs:
+            fst.add_arc(s, Arc(int(il), int(ol), 0.0, s))
+
+
+def replace_fst(root: VectorFst, replacements, _active=frozenset()) -> VectorFst:
+    """RTN expansion: sub-FSTs spliced in place of nonterminal arcs (the
+    GrammarFst capability of reference src/decoder/grammar-fst.{h,cc},
+    OpenFst Replace semantics), expanded at build time so that the decoder
+    gets a static graph.
+
+    `replacements` maps an olabel (a nonterminal word id) to the sub-FST
+    its arcs expand into.  Each such arc (ilabel eps or equal to the
+    olabel, as in an acceptor G) becomes an eps entry arc with its weight
+    into a fresh copy of the (recursively expanded) sub-FST, and eps exit
+    arcs from the copy's final states, with their final weights, to the
+    arc's destination.  A nonterminal reachable from its own expansion is
+    refused."""
+    out = VectorFst()
+    for _ in root.states():
+        out.add_state()
+    out.set_start(root.start)
+    for s in root.states():
+        if root.is_final(s):
+            out.set_final(s, root.finals[s])
+    expanded = {}  # label -> its expanded sub-FST, shared by every call site
+    for s in root.states():
+        for a in root.arcs[s]:
+            if a.olabel not in replacements:
+                out.add_arc(s, a.copy())
+                continue
+            if a.ilabel not in (0, a.olabel):
+                raise KaldiError("nonterminal arc must be acceptor-like or eps-input, "
+                                 f"got {a.ilabel}:{a.olabel}")
+            if a.olabel in _active:
+                raise KaldiError(f"recursive grammar at nonterminal {a.olabel}")
+            if a.olabel not in expanded:
+                expanded[a.olabel] = replace_fst(replacements[a.olabel], replacements,
+                                                 _active | {a.olabel})
+            sub = expanded[a.olabel]
+            base = out.num_states
+            for _ in sub.states():
+                out.add_state()
+            for ss in sub.states():
+                for sa in sub.arcs[ss]:
+                    out.add_arc(base + ss, Arc(sa.ilabel, sa.olabel, sa.weight,
+                                               base + sa.nextstate))
+                if sub.is_final(ss):
+                    out.add_arc(base + ss, Arc(0, 0, sub.finals[ss], a.nextstate))
+            out.add_arc(s, Arc(0, 0, a.weight, base + sub.start))
+    out.connect()
+    return out

@@ -24,8 +24,9 @@ src/gmm/{mle-diag-gmm.h,mle-am-diag-gmm.h}, gmm-mixup, gmm-init-model):
 - `mixup` and `init_am_from_tree_stats` are host numpy, as in the JAX
   package, and draw the same numbers from the same seeds.
 
-The accumulator file I/O (`write_accs`, `read_accs`, `AccumDiagGmm`) serves
-the command-line tools and is not ported.
+- `write_accs` / `read_accs`: the accumulator file of `gmm-acc-stats`, in
+  the JAX package's binary layout (a single GMM's `AccumDiagGmm` is not
+  ported).
 """
 
 from __future__ import annotations
@@ -261,3 +262,59 @@ def leaf_gmms(leaf_stats, glob) -> List[DiagGmm]:
             mean, var = gmean.copy(), gvar.copy()
         pdfs.append(DiagGmm(np.ones(1), mean[None, :], var[None, :]))
     return pdfs
+
+
+# ---------------------------------------------------------------------------
+# accumulator files (reference gmm-acc-stats writes the GMM statistics and the
+# transition occupancies as one object, which gmm-sum-accs adds and gmm-est
+# reads).  The JAX package's layout, byte for byte: "<GmmAccs>", the
+# transition stats as a float64 vector, P, M and D, occ [P, M], Σx and Σx²
+# [P·M, D] as float64 matrices, the total likelihood and frames as doubles,
+# "</GmmAccs>".
+# ---------------------------------------------------------------------------
+
+
+def write_accs(f, accs: AccumAmDiagGmm, trans_stats: np.ndarray) -> None:
+    from old_kaldi_git_tpu_torch.utils import io_funcs as iof
+
+    occ, mean_acc, var_acc = (t.detach().cpu().numpy()
+                              for t in (accs.occ, accs.mean_acc, accs.var_acc))
+    P, M, D = mean_acc.shape
+    iof.init_kaldi_output_stream(f, True)
+    iof.write_token(f, "<GmmAccs>")
+    iof.write_vector(f, np.asarray(trans_stats, np.float64), dtype=np.float64)
+    for n in (P, M, D):
+        iof.write_int32(f, n)
+    iof.write_matrix(f, occ, dtype=np.float64)
+    iof.write_matrix(f, mean_acc.reshape(P * M, D), dtype=np.float64)
+    iof.write_matrix(f, var_acc.reshape(P * M, D), dtype=np.float64)
+    iof.write_double(f, accs.tot_like)
+    iof.write_double(f, accs.tot_frames)
+    iof.write_token(f, "</GmmAccs>")
+
+
+def read_accs(f, device=None):
+    """(AccumAmDiagGmm with its float64 tensors on `device`, the transition
+    stats as a float64 numpy vector) from a file `write_accs` or the JAX
+    package wrote."""
+    from old_kaldi_git_tpu_torch.device import resolve_device
+    from old_kaldi_git_tpu_torch.utils import io_funcs as iof
+
+    dev = resolve_device(device)
+    if not iof.init_kaldi_input_stream(f):
+        raise KaldiError("accs file must be binary")
+    iof.expect_token(f, "<GmmAccs>")
+    trans_stats = np.asarray(iof.read_vector(f), np.float64)
+    P, M, D = (iof.read_int32(f) for _ in range(3))
+    accs = AccumAmDiagGmm.__new__(AccumAmDiagGmm)
+
+    def tensor(a, shape):
+        return torch.from_numpy(np.asarray(a, np.float64).reshape(shape)).to(dev)
+
+    accs.occ = tensor(iof.read_matrix(f), (P, M))
+    accs.mean_acc = tensor(iof.read_matrix(f), (P, M, D))
+    accs.var_acc = tensor(iof.read_matrix(f), (P, M, D))
+    accs.tot_like = iof.read_float(f)
+    accs.tot_frames = iof.read_float(f)
+    iof.expect_token(f, "</GmmAccs>")
+    return accs, trans_stats

@@ -5,8 +5,9 @@ rescoring and the chain graph use (reference
 src/lm/{arpa-file-parser,const-arpa-lm}.{h,cc} and arpa-lm-compiler): read
 the \\data\\ / \\N-grams: sections (log10 probabilities and backoffs, kept
 in natural log), score a word after a history with Katz backoff, compile
-the grammar acceptor G (`arpa_to_fst`), and read the const-arpa binary that
-the JAX package writes (`load_lm` takes either form).
+the grammar acceptor G (`arpa_to_fst`), and write and read the const-arpa
+binary in the JAX package's layout (`write_const_arpa`; `load_lm` takes
+either form).
 """
 
 from __future__ import annotations
@@ -173,6 +174,24 @@ def arpa_to_fst(lm: ArpaLm, words: SymbolTable,
 # ---------------------------------------------------------------------------
 
 _CARPA_MAGIC = b"CARPA1\n"
+
+
+def write_const_arpa(lm: ArpaLm, path: str) -> None:
+    """The const-arpa file of `lm`, n-grams in the LM's order: byte for byte
+    the JAX package's."""
+    import numpy as np
+
+    keys = ["\x01".join(ng) for ng in lm.ngrams]
+    probs = np.fromiter((p for p, _ in lm.ngrams.values()), np.float64, len(keys))
+    bos = np.fromiter((b for _, b in lm.ngrams.values()), np.float64, len(keys))
+    blob = "\x00".join(keys).encode("utf-8")
+    with open(path, "wb") as f:
+        f.write(_CARPA_MAGIC)
+        f.write(f"{lm.order}\n".encode())
+        f.write(f"{len(blob)} {len(keys)}\n".encode())
+        f.write(blob)
+        f.write(probs.tobytes())
+        f.write(bos.tobytes())
 
 
 def read_const_arpa(path: str) -> ArpaLm:

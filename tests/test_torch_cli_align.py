@@ -6,7 +6,7 @@ self-loops added on the host in float64, as the JAX tool adds them);
 gmm-align-compiled (tri.mdl), align-equal-compiled and nnet3-align-compiled
 (final.am bundled with tri.mdl) give the JAX tools' tids, and the port's
 library `align_batch` on the same graphs and loglikes.  The interface: the
-module entry lists exactly the 60 ported tools, an unknown tool exits 1, the
+module entry lists exactly the 126 ported tools, an unknown tool exits 1, the
 tools that make tensors take --device (the others do not) and raise without
 a card when it is left at cuda."""
 
@@ -105,7 +105,13 @@ def test_the_module_entry_lists_exactly_the_ported_tools():
     for f in ("tools.py", "nnet3_tools.py", "train_tools.py"):
         jax_names |= set(_registered_names(os.path.join(JAX_BIN, f)))
     assert want <= jax_names
-    assert listed == sorted(want) and len(listed) == 60
+    batch2 = set()
+    for f, n in (("lat_tools.py", 42), ("util_tools.py", 24)):
+        names = set(_registered_names(os.path.join(JAX_BIN, f)))
+        assert len(names) == n and not names & (want | batch2)
+        batch2 |= names
+    want |= batch2
+    assert listed == sorted(want) and len(listed) == 126
     assert set(ttools.TOOLS) == want
 
 

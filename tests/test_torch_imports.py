@@ -52,7 +52,8 @@ def test_port_has_the_slice_modules():
                  "models.xconfig", "models.edits", "bin", "bin.__main__", "bin.tools",
                  "bin.nnet3_tools", "bin.train_tools", "utils.data_dir", "fst.algorithms",
                  "fst.holder", "fst.kaldi_fst_io", "feat.cmvn", "feat.signal", "feat.pitch",
-                 "feat.resample", "ivector.vad"):
+                 "feat.resample", "ivector.vad", "bin.lat_tools", "bin.util_tools",
+                 "fst.context", "fst.rand", "utils.threads"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 

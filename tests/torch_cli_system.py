@@ -57,7 +57,9 @@ TENSOR_TOOLS = frozenset((
     "gmm-latgen-faster", "online-wav-gmm-latgen-faster", "nnet3-info", "nnet3-compute",
     "nnet3-average", "nnet3-init", "nnet3-copy", "nnet3-am-init", "nnet3-align-compiled",
     "nnet3-latgen-faster", "online2-wav-nnet3-latgen-faster",
-    "online2-tcp-nnet3-decode-faster", "align-equal-compiled", "gmm-align-compiled"))
+    "online2-tcp-nnet3-decode-faster", "align-equal-compiled", "gmm-align-compiled",
+    "gmm-decode-faster", "gmm-rescore-lattice", "gmm-acc-stats", "rnnlm-train",
+    "lattice-lmrescore-rnnlm", "ivector-extract-online2"))
 
 
 def lattices_equal(a, b, atol=1e-5, ac_rtol=2e-5):
