@@ -126,7 +126,23 @@ tools on the first 4 lattices; every output held to the port's library on
 the same inputs (words and alignments to decode_batch and to the lattices'
 best paths plus end-state words, accumulators to accumulate_corpus on the
 card and the CPU, RNNLM rescoring (16 of the lattices) and iVectors card vs CPU, archives
-byte for byte), then K3 at the phase's batch.
+byte for byte), then K3 at the phase's batch.  Then the third batch
+(cli_train, on the same work directory): the 54 tools of bin/train_tools.py
+not run before, each once in-process, as the Kaldi recipes run them:
+train_deltas.sh on the 64 training utterances and tri.mdl's alignments
+(tree statistics of two halves summed, questions, a 200-leaf tree, its
+model, mix-up, converted alignments, two EM iterations: alignment through
+K3 and K1, statistics, sum, re-estimation), train_lda_mllt.sh and
+train_sat.sh (LDA, MLLT in the LDA space, fMLLR per speaker, the
+Gaussian-posterior path), adaptation with tri.mdl on the 64 held-out
+utterances (a regression tree, MLLR and fMLLR per speaker from the best
+paths of the cli phase's lattices, the two regtree decoders on its HCLG:
+MLLR through K3 a speaker, basis fMLLR, linear VTLN) and fMPE from
+lattice-to-mpe-post's posteriors with an offset GMM made by the library;
+every output held to the port's library on the same inputs (files byte for
+byte, float64 statistics within 1e-9, words equal), then K1 at the
+alignment's shapes and K3 at two new packings (the EM model, the
+MLLR-adapted tri.mdl).
 --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
@@ -3858,16 +3874,740 @@ def cli_lattice(torch, np, c) -> dict:
     return {"faults": faults, "launches": launches, "k3": k3}
 
 
+CLI_TRAIN_LEAVES = 200  # build-tree's --max-leaves on the 64 training utterances
+CLI_TRAIN_MIXUP = 300  # gmm-mixup's total after gmm-init-model
+CLI_TRAIN_MIX = (400, 500)  # gmm-est --mix-up of the two EM iterations
+CLI_TRAIN_REL = 1e-9  # tool vs library: float64 statistics and models, of max|ref|
+CLI_TRAIN_SPEAKERS = 8  # speakers of the 64 training and of the 64 held-out utterances
+CLI_TRAIN_LDA_DIM = 30
+CLI_TRAIN_UBM = 64  # Gaussians of the fMPE offset GMM
+CLI_TRAIN_REGTREE = 32  # gmm-make-regtree's baseclasses
+CLI_TRAIN_MIN_COUNT = 200.0  # gmm-est-fmllr{,-gpost}'s --fmllr-min-count (SAT)
+CLI_TRAIN_REGTREE_MIN_COUNT = 1000.0  # the regtree tools' --min-count (their default)
+# the tools of bin/train_tools.py that take --device (the phase passes
+# --device=cpu to them when it is rehearsed on the CPU)
+CLI_TRAIN_TENSOR_TOOLS = frozenset((
+    "gmm-align-compiled", "gmm-acc-stats-ali", "gmm-est", "gmm-compute-likes", "acc-lda",
+    "gmm-acc-mllt", "gmm-est-fmllr", "gmm-post-to-gpost", "gmm-est-fmllr-gpost",
+    "gmm-basis-fmllr-training", "gmm-est-basis-fmllr", "gmm-train-lvtln-special",
+    "gmm-est-lvtln-trans", "gmm-est-regtree-fmllr", "gmm-est-regtree-mllr",
+    "gmm-decode-faster-regtree-fmllr", "gmm-decode-faster-regtree-mllr",
+    "gmm-get-stats-deriv", "gmm-fmpe-acc-stats", "fmpe-apply-transform"))
+
+
+def cli_train(torch, np, c) -> dict:
+    """The cli_train phase: the rest of bin/train_tools.py (54 tools) in-process
+    through bin.tools.main, on the cli phase's work directory (its 64
+    training utterances' features, transcripts and tri.mdl alignments, its
+    64 held-out utterances' features and tri.mdl lattices, HCLG, lang dir
+    and tree), as the Kaldi recipes run them: train_deltas.sh (tree
+    statistics of two halves summed, questions, a 200-leaf tree, the model,
+    mix-up, converted alignments, training graphs, two EM iterations of
+    alignment, statistics, sum and re-estimation), train_lda_mllt.sh and
+    train_sat.sh (LDA, MLLT in the LDA space, fMLLR per speaker, the
+    Gaussian-posterior path), adaptation on the held-out set with tri.mdl
+    (regression tree, MLLR and fMLLR per speaker from the best paths of
+    gmm-latgen-faster, the two regtree decoders on the HCLG, basis fMLLR,
+    linear VTLN) and fMPE (MPE posteriors of the lattices, an offset GMM of
+    64 Gaussians made by the library).  The kernels' counts are set to 0
+    just before the tools run and read just after; each tool is then held to
+    the port's library on the same inputs (files byte for byte, float64
+    statistics and models within CLI_TRAIN_REL of each array's largest
+    magnitude, decoded words equal)."""
+    import contextlib
+    import io
+
+    from old_kaldi_git_tpu_torch.bin import tools
+    from old_kaldi_git_tpu_torch.bin.train_tools import (
+        _Corpus, _read_mat, _write_mat, read_arrays, regtree_loglikes)
+    from old_kaldi_git_tpu_torch.decoder.csr import fst_to_csr_native
+    from old_kaldi_git_tpu_torch.decoder.graph import read_hclg_csr
+    from old_kaldi_git_tpu_torch.decoder.viterbi import (
+        ViterbiOptions, align_batch, align_shape, decode_batch)
+    from old_kaldi_git_tpu_torch.fst.native import NativeFst
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel, DiagGmm
+    from old_kaldi_git_tpu_torch.gmm.mle import (
+        AccumAmDiagGmm, init_am_from_tree_stats, mixup, mle_am_diag_gmm_update, read_accs)
+    from old_kaldi_git_tpu_torch.hmm.hmm_utils import convert_alignment
+    from old_kaldi_git_tpu_torch.hmm.posterior import ali_to_post, weight_silence_post
+    from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
+    from old_kaldi_git_tpu_torch.transform import basis_fmllr, fmpe, lvtln, regtree
+    from old_kaldi_git_tpu_torch.transform.fmllr import FmllrAccs, compute_fmllr_transforms
+    from old_kaldi_git_tpu_torch.transform.lda import LdaEstimate
+    from old_kaldi_git_tpu_torch.transform.mllt import MlltAccs, update_mllt
+    from old_kaldi_git_tpu_torch.tree.build_tree import (
+        accumulate_tree_stats, build_tree, cluster_phones_into_questions, read_tree_stats,
+        sum_tree_stats, write_tree_stats)
+    from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
+    from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
+    from old_kaldi_git_tpu_torch.utils.table import TableWriter, read_table
+
+    t_start = time.perf_counter()
+    dev, wd = c.dev, c.workdir
+    on_card = dev.type == "cuda"
+    p = lambda *a: os.path.join(wd, *a)  # noqa: E731
+    o = lambda n: f"ark:{p(n)}"  # noqa: E731
+    tri = c.tri
+    faults, walls, checks, gaps = [], {}, {}, {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run(label, *argv, rcs=(0,)):
+        """A tool in-process (--device=cpu added to a tensor tool off the
+        card): what it printed; its wall under `label`, ended by a device
+        synchronise."""
+        argv = list(argv)
+        if not on_card and argv[0] in CLI_TRAIN_TENSOR_TOOLS:
+            argv.insert(1, "--device=cpu")
+        out = io.TextIOWrapper(io.BytesIO(), encoding="utf-8")
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tools.main(argv)
+        sync()
+        walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
+        if rc not in rcs:
+            raise RuntimeError(f"cli_train: {label} exited {rc}")
+        out.flush()
+        return out.buffer.getvalue().decode()
+
+    def data(name):
+        with open(name if os.path.isabs(name) else p(name), "rb") as f:
+            return f.read()
+
+    def as_bytes(write, *a):
+        buf = io.BytesIO()
+        write(buf, *a)
+        return buf.getvalue()
+
+    def gap(name, got, want):
+        """|got − want| over max|want| (arrays or tensors), kept under `name`."""
+        got = got.detach().cpu().numpy() if hasattr(got, "detach") else np.asarray(got)
+        want = want.detach().cpu().numpy() if hasattr(want, "detach") else np.asarray(want)
+        g = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300)) \
+            if got.shape == want.shape else float("inf")
+        gaps[name] = max(gaps.get(name, 0.0), g)
+        return g
+
+    def same_archive(name, path, holder, items):
+        want = p(f"want_{name}")
+        with TableWriter(f"ark:{want}", holder) as w:
+            for k, v in items:
+                w[k] = v
+        checks[name] = data(path) == data(want)
+
+    def same_file(name, path, save):
+        """The tool's file byte for byte the library's, written by `save(path)`."""
+        save(p(f"want_{name}"))
+        checks[name] = data(path) == data(f"want_{name}")
+
+    # ---- inputs, before the counts start (host work and the library's UBM)
+    tri_host = AmGmmModel.load(tri, device="cpu")
+    tm = tri_host.tm
+    sil = str(int(c.sil[0]))
+    tfeats = read_table(o("train_feats.ark"), "mat")
+    tkeys = sorted(tfeats)
+    hfeats = read_table(o("feats.ark"), "mat")
+    hkeys = sorted(hfeats)
+    tali = read_table(o("gmm-align-compiled.ark"), "ivec")
+    for name, keys in (("train", tkeys), ("test", hkeys)):
+        with open(p(f"{name}_spk2utt"), "w") as f:
+            for s in range(min(CLI_TRAIN_SPEAKERS, len(keys))):
+                f.write(f"spk{s} " + " ".join(keys[s::CLI_TRAIN_SPEAKERS]) + "\n")
+        with open(p(f"{name}_utt2spk"), "w") as f:
+            f.writelines(f"{k} spk{i % CLI_TRAIN_SPEAKERS}\n" for i, k in enumerate(keys))
+    halves = (tkeys[: len(tkeys) // 2], tkeys[len(tkeys) // 2:])
+    for i, ks in enumerate(halves):
+        with TableWriter(o(f"tr_feats{i}.ark"), "mat") as w:
+            for k in ks:
+                w[k] = tfeats[k]
+    rng = np.random.default_rng(17)
+    warp = np.eye(tfeats[tkeys[0]].shape[1]) + 0.05 * rng.standard_normal(
+        (tfeats[tkeys[0]].shape[1],) * 2)
+    with TableWriter(o("tr_warped.ark"), "mat") as w:
+        for k in tkeys:
+            w[k] = (tfeats[k].astype(np.float64) @ warp.T).astype(np.float32)
+    xs = np.concatenate([tfeats[k] for k in tkeys]).astype(np.float64)
+    pick = rng.choice(len(xs), CLI_TRAIN_UBM, replace=False)
+    DiagGmm(np.full(CLI_TRAIN_UBM, 1.0 / CLI_TRAIN_UBM), xs[pick],
+            np.tile(xs.var(0), (CLI_TRAIN_UBM, 1))).save(p("ubm"))
+    from old_kaldi_git_tpu_torch.utils.io_funcs import init_kaldi_output_stream, write_matrix
+    for i in range(2):
+        with open(p(f"m{i}.mat"), "wb") as f:
+            init_kaldi_output_stream(f, True)
+            write_matrix(f, rng.standard_normal((5, 6)))
+    with open(p("ilabels_h.txt"), "w") as f:
+        f.write("\n-42\n0 2 3\n2 3 4\n3 4 0\n0\n")
+    with open(p("ilabels_nd.txt"), "w") as f:
+        f.write("\n0 2 3\n2 3 4\n3 4 0\n")
+    hhalves = (hkeys[: len(hkeys) // 2], hkeys[len(hkeys) // 2:])
+    for i, ks in enumerate(hhalves):
+        with TableWriter(o(f"te_feats{i}.ark"), "mat") as w:
+            for k in ks:
+                w[k] = hfeats[k]
+    phones = ":".join(str(x) for x in tm.topo.phones)
+    dev_tools = {}  # K3 / K1 launches by tool
+
+    def counted(label, *argv):
+        g0, k0 = c.gmm_loglikes.launches, c.batched_table_gather.launches
+        out = run(label, *argv)
+        dev_tools[label] = {"gmm": c.gmm_loglikes.launches - g0,
+                            "gather": c.batched_table_gather.launches - k0}
+        return out
+
+    # ---- the tools, the counts set to 0 just before them
+    t_phase = time.perf_counter()
+    c.zero_counts()
+    c.gmm_loglikes.launches = 0
+    # train_deltas.sh: tree statistics (two halves, summed), questions, tree
+    for i in range(2):
+        run("acc-tree-stats", "acc-tree-stats", tri, o(f"tr_feats{i}.ark"),
+            o("gmm-align-compiled.ark"), p(f"tree{i}.stats"))
+    run("sum-tree-stats", "sum-tree-stats", p("tree.stats"), p("tree0.stats"), p("tree1.stats"))
+    run("cluster-phones", "cluster-phones", p("tree.stats"), phones, p("questions.txt"))
+    run("compile-questions", "compile-questions", tri, p("questions.txt"), p("questions.qst"))
+    run("build-tree", "build-tree", f"--max-leaves={CLI_TRAIN_LEAVES}",
+        f"--questions={p('questions.qst')}", p("tree.stats"), tri, p("tree2"))
+    run("build-tree-two-level", "build-tree-two-level", f"--max-leaves-second={CLI_TRAIN_LEAVES}",
+        "--max-leaves-first=40", f"--questions={p('questions.qst')}", p("tree.stats"), tri,
+        p("tree2b"), p("tree2b.map"))
+    run("gmm-init-model", "gmm-init-model", p("tree2"), p("tree.stats"), tri, p("1.mdl"))
+    run("gmm-mixup", "gmm-mixup", f"--mix-up={CLI_TRAIN_MIXUP}", p("1.mdl"), p("1m.mdl"))
+    run("convert-ali", "convert-ali", tri, p("1m.mdl"), p("tree2"), o("gmm-align-compiled.ark"),
+        o("ali_conv.ark"))
+    run("compile-train-graphs", "compile-train-graphs", p("tree2"), p("1m.mdl"), p("lang"),
+        f"ark,t:{p('train_text.txt')}", o("graphs2.ark"))
+    mdl = p("1m.mdl")
+    for it, mix in enumerate(CLI_TRAIN_MIX):
+        counted(f"gmm-align-compiled (iteration {it + 1})", "gmm-align-compiled", mdl,
+                o("graphs2.ark"), o("train_feats.ark"), o(f"ali{it}.ark"))
+        for i in range(2):
+            run("gmm-acc-stats-ali", "gmm-acc-stats-ali", mdl, o(f"tr_feats{i}.ark"),
+                o(f"ali{it}.ark"), p(f"{it}.{i}.acc"))
+        run("gmm-sum-accs", "gmm-sum-accs", p(f"{it}.acc"), p(f"{it}.0.acc"), p(f"{it}.1.acc"))
+        run("gmm-est", "gmm-est", f"--mix-up={mix}", mdl, p(f"{it}.acc"), p(f"{it + 2}.mdl"))
+        mdl = p(f"{it + 2}.mdl")
+    counted("gmm-compute-likes", "gmm-compute-likes", mdl, o("train_feats.ark"), o("likes.ark"))
+    run("gmm-boost-silence", "gmm-boost-silence", "--boost=1.2", sil, mdl, p("boost.mdl"))
+    run("gmm-init-mono", "gmm-init-mono", p("lang"), o("train_feats.ark"), p("mono0.mdl"),
+        p("mono0.tree"))
+    # posteriors and train_lda_mllt.sh / train_sat.sh
+    last_ali = o(f"ali{len(CLI_TRAIN_MIX) - 1}.ark")
+    run("ali-to-pdf", "ali-to-pdf", mdl, last_ali, o("pdf.ark"))
+    run("ali-to-post", "ali-to-post", last_ali, o("post.ark"))
+    run("weight-silence-post", "weight-silence-post", "0.0", sil, mdl, o("post.ark"),
+        o("wpost.ark"))
+    run("post-to-pdf-post", "post-to-pdf-post", mdl, o("wpost.ark"), o("pdfpost.ark"))
+    run("post-to-weights", "post-to-weights", o("wpost.ark"), o("weights.ark"))
+    run("acc-lda", "acc-lda", mdl, o("train_feats.ark"), o("wpost.ark"), p("lda.acc"))
+    run("est-lda", "est-lda", f"--dim={CLI_TRAIN_LDA_DIM}", p("lda.acc"), p("lda.mat"))
+    run("transform-feats", "transform-feats", p("lda.mat"), o("train_feats.ark"), o("lda.ark"))
+    run("acc-tree-stats", "acc-tree-stats", mdl, o("lda.ark"), last_ali, p("lda.stats"))
+    run("gmm-init-model", "gmm-init-model", p("tree2"), p("lda.stats"), mdl, p("lda0.mdl"))
+    run("gmm-acc-mllt", "gmm-acc-mllt", p("lda0.mdl"), o("lda.ark"), o("wpost.ark"), p("mllt.acc"))
+    run("est-mllt", "est-mllt", p("mllt.acc"), p("mllt.mat"))
+    run("gmm-transform-means", "gmm-transform-means", p("mllt.mat"), p("lda0.mdl"), p("mllt.mdl"))
+    run("compose-transforms", "compose-transforms", p("mllt.mat"), p("lda.mat"),
+        p("ldamllt.mat"))
+    run("transform-feats", "transform-feats", p("ldamllt.mat"), o("train_feats.ark"),
+        o("ldamllt.ark"))
+    spk_t = f"--spk2utt={p('train_spk2utt')}"
+    mc = f"--fmllr-min-count={CLI_TRAIN_MIN_COUNT}"
+    run("gmm-est-fmllr", "gmm-est-fmllr", spk_t, mc, p("mllt.mdl"), o("ldamllt.ark"),
+        o("wpost.ark"), o("fmllr.ark"))
+    run("transform-feats", "transform-feats", f"--utt2spk={p('train_utt2spk')}", o("fmllr.ark"),
+        o("ldamllt.ark"), o("sat.ark"))
+    run("gmm-post-to-gpost", "gmm-post-to-gpost", p("mllt.mdl"), o("ldamllt.ark"),
+        o("wpost.ark"), o("gpost.ark"))
+    run("gmm-est-fmllr-gpost", "gmm-est-fmllr-gpost", spk_t, mc, p("mllt.mdl"), o("ldamllt.ark"),
+        o("gpost.ark"), o("gfmllr.ark"))
+    # adaptation with tri.mdl: its training alignments as silence-weighted
+    # posteriors, the best paths of the cli phase's held-out lattices as
+    # posteriors (adapting from silence-free statistics gives the silence
+    # Gaussians a speech node's transform)
+    run("ali-to-post", "ali-to-post", o("gmm-align-compiled.ark"), o("tri_post.ark"))
+    run("weight-silence-post", "weight-silence-post", "0.0", sil, tri, o("tri_post.ark"),
+        o("tri_wpost.ark"))
+    run("lattice-best-path", "lattice-best-path", "--acoustic-scale=0.1", o("lat.ark"),
+        o("bp_w.txt"), o("bp_ali.ark"))
+    run("ali-to-post", "ali-to-post", o("bp_ali.ark"), o("bp_post.ark"))
+    spk_h = f"--spk2utt={p('test_spk2utt')}"
+    mcr = f"--min-count={CLI_TRAIN_REGTREE_MIN_COUNT}"
+    run("gmm-make-regtree", "gmm-make-regtree", f"--max-leaves={CLI_TRAIN_REGTREE}", tri,
+        p("regtree"))
+    for kind in ("mllr", "fmllr"):
+        run(f"gmm-est-regtree-{kind}", f"gmm-est-regtree-{kind}", spk_h, mcr, tri, p("regtree"),
+            o("feats.ark"), o("bp_post.ark"), o(f"{kind}.regx"))
+        counted(f"gmm-decode-faster-regtree-{kind}", f"gmm-decode-faster-regtree-{kind}",
+                f"--utt2spk={p('test_utt2spk')}", tri, p("regtree"),
+                p("graph", "HCLG.fst"), o("feats.ark"), o(f"{kind}.regx"),
+                f"ark,t:{p(kind + '_words.txt')}", o(f"{kind}_ali.ark"))
+    run("gmm-basis-fmllr-training", "gmm-basis-fmllr-training", spk_t, "--num-bases=40", tri,
+        o("train_feats.ark"), o("tri_wpost.ark"), p("fmllr.basis"))
+    run("gmm-est-basis-fmllr", "gmm-est-basis-fmllr", spk_h, tri, p("fmllr.basis"),
+        o("feats.ark"), o("bp_post.ark"), o("basis_fmllr.ark"))
+    dim = tfeats[tkeys[0]].shape[1]
+    run("gmm-init-lvtln", "gmm-init-lvtln", f"--dim={dim}", "--num-classes=3",
+        "--min-warp=0.9", "--max-warp=1.1", p("0.lvtln"))
+    run("gmm-train-lvtln-special", "gmm-train-lvtln-special", "0", p("0.lvtln"), p("1.lvtln"),
+        o("train_feats.ark"), o("tr_warped.ark"))
+    run("gmm-est-lvtln-trans", "gmm-est-lvtln-trans", spk_h, tri, p("1.lvtln"), o("feats.ark"),
+        o("bp_post.ark"), o("lvtln.ark"), f"ark,t:{p('warps.txt')}")
+    # fMPE on the held-out set: MPE posteriors of the lattices
+    run("lattice-to-mpe-post", "lattice-to-mpe-post", f"--silence-phones={sil}", tri,
+        o("bp_ali.ark"), o("lat.ark"), o("mpe.ark"))
+    run("fmpe-init", "fmpe-init", p("ubm"), p("0.fmpe"))
+    run("gmm-get-stats-deriv", "gmm-get-stats-deriv", tri, p("0.fmpe"), o("feats.ark"),
+        o("mpe.ark"), o("bp_ali.ark"), p("deriv.stats"))
+    for i in range(2):
+        run("gmm-fmpe-acc-stats", "gmm-fmpe-acc-stats", f"--model-derivs={p('deriv.stats')}",
+            f"--ali={o('bp_ali.ark')}", tri, p("0.fmpe"), o(f"te_feats{i}.ark"), o("mpe.ark"),
+            p(f"fmpe{i}.acc"))
+    run("fmpe-sum-accs", "fmpe-sum-accs", p("fmpe.acc"), p("fmpe0.acc"), p("fmpe1.acc"))
+    run("fmpe-est", "fmpe-est", "--learning-rate=0.1", p("0.fmpe"), p("fmpe.acc"), p("1.fmpe"))
+    run("fmpe-apply-transform", "fmpe-apply-transform", p("1.fmpe"), o("feats.ark"),
+        o("fmpe_feats.ark"))
+    # the utilities
+    run("copy-matrix", "copy-matrix", "--scale=0.5", o("lda.ark"), o("copy_mat.ark"))
+    run("copy-vector", "copy-vector", "--scale=2", o("weights.ark"), o("copy_vec.ark"))
+    run("copy-int-vector", "copy-int-vector", last_ali, o("copy_ali.ark"))
+    run("sum-matrices", "sum-matrices", p("sum.mat"), p("m0.mat"), p("m1.mat"))
+    show = run("show-transitions", "show-transitions", p("lang", "phones.txt"), mdl)
+    run("align-text", "align-text", f"ark:{p('ref.txt')}", f"ark:{p('mllr_words.txt')}",
+        f"ark,t:{p('align.txt')}")
+    run("make-h-transducer", "make-h-transducer", p("ilabels_h.txt"), p("tree2"), mdl, p("Ha.fst"))
+    run("make-h-transducer", "make-h-transducer", p("ilabels_nd.txt"), p("tree2"), mdl,
+        p("Ha_nd.fst"))
+    run("add-self-loops", "add-self-loops", mdl, p("Ha_nd.fst"), p("Ha_loops.fst"))
+    sync()
+    tools_wall = time.perf_counter() - t_phase
+    launches = c.read_counts("cli_train")
+    launches["gmm"] = c.gmm_loglikes.launches
+
+    # ---- the library on the same inputs
+    t_check = time.perf_counter()
+    # trees
+    lib_half = []
+    for i, ks in enumerate(halves):
+        st = {}
+        for k in ks:
+            accumulate_tree_stats(tali[k], tfeats[k], tm, stats=st)
+        lib_half.append(st)
+        checks[f"acc-tree-stats (half {i})"] = data(f"tree{i}.stats") == as_bytes(
+            write_tree_stats, st)
+    stats = sum_tree_stats(sum_tree_stats({}, lib_half[0]), lib_half[1])
+    checks["sum-tree-stats"] = data("tree.stats") == as_bytes(write_tree_stats, stats)
+    with open(p("tree.stats"), "rb") as f:
+        stats = read_tree_stats(f)
+    topo = tm.topo
+    npc = {ph: topo.num_pdf_classes(ph) for ph in topo.phones}
+    qs = cluster_phones_into_questions(stats, list(topo.phones), P=1)
+    checks["cluster-phones"] = data("questions.txt").decode() == "".join(
+        " ".join(str(x) for x in sorted(q)) + "\n" for q in qs)
+    inventory, seen, cq = set(topo.phones), set(), []
+    for q in qs:
+        q = sorted(set(q) & inventory)
+        if q and tuple(q) not in seen:
+            seen.add(tuple(q))
+            cq.append(q)
+    if tuple(sorted(inventory)) not in seen:
+        cq.append(sorted(inventory))
+    checks["compile-questions"] = data("questions.qst").decode() == "".join(
+        " ".join(map(str, q)) + "\n" for q in cq)
+    ctx2 = build_tree(stats, topo.phones, npc, questions=[set(q) for q in cq],
+                      max_leaves=CLI_TRAIN_LEAVES, thresh=20.0)
+    checks["build-tree"] = data("tree2") == as_bytes(ctx2.write)
+    from old_kaldi_git_tpu_torch.tree.build_tree import cluster_leaves
+    from old_kaldi_git_tpu_torch.utils.io_funcs import write_int_vector
+
+    def map_bytes(f, mapping):
+        init_kaldi_output_stream(f, True)
+        write_int_vector(f, mapping)
+
+    checks["build-tree-two-level"] = (data("tree2b") == data("tree2") and data("tree2b.map")
+                                      == as_bytes(map_bytes, cluster_leaves(stats, ctx2, 40)))
+    tm2 = TransitionModel.from_context_dependency(ctx2, topo)
+    am1 = init_am_from_tree_stats(ctx2, stats, device="cpu")
+    same_file("gmm-init-model", "1.mdl", AmGmmModel(tm2, am1).save)
+    m1 = AmGmmModel.load(p("1.mdl"), device="cpu")  # mix-up reads the float32 file
+    same_file("gmm-mixup", "1m.mdl", AmGmmModel(m1.tm, mixup(m1.am, CLI_TRAIN_MIXUP)).save)
+    same_archive("convert-ali", p("ali_conv.ark"), "ivec",
+                 ((k, convert_alignment(a, tm, tm2, ctx2)) for k, a in tali.items()))
+    # the EM iterations: alignments against align_batch, the statistics
+    # against accumulate_corpus on the same device, the M-step on the
+    # tool's statistics
+    graphs2 = read_table(o("graphs2.ark"), "fst")
+    akeys, apad, anf = pad_feature_batch({k: tfeats[k] for k in tkeys if k in graphs2})
+    ax = torch.from_numpy(apad).to(dev)
+    like_per_frame, mdl_i = [], p("1m.mdl")
+    for it, mix in enumerate(CLI_TRAIN_MIX):
+        model = AmGmmModel.load(mdl_i, device=dev)
+        t2p = model.tm.tid_to_pdf_array()
+        csr = [fst_to_csr_native(NativeFst.from_arrays(*graphs2[k].to_arrays()), t2p)
+               for k in akeys]
+        alis, _ = align_batch(csr, model.am.loglikes_batch(ax), anf,
+                              ViterbiOptions(beam=200.0, acoustic_scale=1.0), device=dev)
+        got = read_table(o(f"ali{it}.ark"), "ivec")
+        checks[f"gmm-align-compiled (iteration {it + 1})"] = sum(
+            a is not None and np.array_equal(got.get(k), a) for k, a in zip(akeys, alis))
+        if it == 0:
+            S, A = align_shape(csr)
+        rows = [k for k in tkeys if k in got and len(got[k]) == len(tfeats[k])]
+        lib = AccumAmDiagGmm(model.am)
+        lib.accumulate_corpus(model.am, torch.from_numpy(
+            np.concatenate([tfeats[k] for k in rows])).to(dev),
+            t2p[np.concatenate([got[k] for k in rows])])
+        trans = np.zeros(model.tm.num_tids + 1)
+        for k in rows:
+            model.tm.accumulate(got[k], trans)
+        with open(p(f"{it}.acc"), "rb") as f:
+            accs, tstats = read_accs(f, device=dev)
+        g = max(gap("gmm-acc-stats-ali / gmm-sum-accs", getattr(accs, n), getattr(lib, n))
+                for n in ("occ", "mean_acc", "var_acc"))
+        checks[f"gmm-acc-stats-ali + gmm-sum-accs (iteration {it + 1})"] = (
+            g <= CLI_TRAIN_REL and np.array_equal(tstats, trans)
+            and abs(accs.tot_like - lib.tot_like) <= CLI_TRAIN_REL * abs(lib.tot_like))
+        like_per_frame.append(accs.tot_like / accs.tot_frames)
+        new_am = mle_am_diag_gmm_update(model.am, accs)
+        model.tm.mle_update(tstats)
+        new_am = mixup(new_am, mix, occs=accs.pdf_occupancy())
+        same_file(f"gmm-est (iteration {it + 1})", f"{it + 2}.mdl",
+                  AmGmmModel(model.tm, new_am).save)
+        mdl_i = p(f"{it + 2}.mdl")
+    final = AmGmmModel.load(mdl, device=dev)
+    lkeys, lpad, lnf = pad_feature_batch(tfeats)
+    ll = final.am.loglikes_batch(torch.from_numpy(lpad).to(dev)).cpu().numpy()
+    likes = read_table(o("likes.ark"), "mat")
+    checks["gmm-compute-likes"] = sorted(likes) == lkeys and all(
+        np.array_equal(likes[k], ll[i, :lnf[i]]) for i, k in enumerate(lkeys))
+    del ll
+    boost = AmGmmModel.load(mdl, device="cpu")
+    for pdf in sorted({boost.tm.tid_to_pdf(t) for t in range(1, boost.tm.num_tids + 1)
+                       if boost.tm.tid_to_phone(t) == int(sil)}):
+        boost.am.pdfs[pdf].weights = boost.am.pdfs[pdf].weights * 1.2
+    same_file("gmm-boost-silence", "boost.mdl", boost.save)
+    # gmm-init-mono: the global mean and variance of the training features
+    from old_kaldi_git_tpu_torch.fst.lang import load_lang_dir
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm
+    from old_kaldi_git_tpu_torch.hmm.topology import HmmTopology
+    from old_kaldi_git_tpu_torch.tree.context_dep import monophone_context_dependency
+
+    lang = load_lang_dir(p("lang"))
+    x64 = [tfeats[k].astype(np.float64) for k in tkeys]
+    n = sum(len(x) for x in x64)
+    s1, s2 = None, None
+    for x in x64:
+        s1 = x.sum(0) if s1 is None else s1 + x.sum(0)
+        s2 = (x ** 2).sum(0) if s2 is None else s2 + (x ** 2).sum(0)
+    mean = s1 / n
+    mtopo = HmmTopology.standard(lang.real_phone_ids, silence_phones=[lang.silence_id])
+    mctx = monophone_context_dependency(lang.real_phone_ids, {
+        ph: mtopo.num_pdf_classes(ph) for ph in lang.real_phone_ids})
+    same_file("gmm-init-mono", "mono0.mdl", AmGmmModel(
+        TransitionModel.from_context_dependency(mctx, mtopo),
+        AmDiagGmm.init_mono(mctx.num_pdfs, mean, np.maximum(s2 / n - mean ** 2, 1e-3),
+                            device="cpu")).save)
+    checks["gmm-init-mono (tree)"] = data("mono0.tree") == as_bytes(mctx.write)
+    # posteriors
+    from old_kaldi_git_tpu_torch.hmm.hmm_utils import alignment_to_pdfs
+    from old_kaldi_git_tpu_torch.hmm.posterior import post_to_pdf_post, post_to_weights
+
+    final_tm = AmGmmModel.load(mdl, device="cpu").tm
+    last = read_table(last_ali, "ivec")
+    same_archive("ali-to-pdf", p("pdf.ark"), "ivec",
+                 ((k, np.asarray(alignment_to_pdfs(final_tm, a), np.int32))
+                  for k, a in last.items()))
+    same_archive("ali-to-post", p("post.ark"), "post",
+                 ((k, ali_to_post(a)) for k, a in last.items()))
+    wpost = {k: weight_silence_post(ali_to_post(a), final_tm, [int(sil)], 0.0)
+             for k, a in last.items()}
+    same_archive("weight-silence-post", p("wpost.ark"), "post", wpost.items())
+    same_archive("post-to-pdf-post", p("pdfpost.ark"), "post",
+                 ((k, post_to_pdf_post(v, final_tm)) for k, v in wpost.items()))
+    same_archive("post-to-weights", p("weights.ark"), "vec",
+                 ((k, np.asarray(post_to_weights(v), np.float32)) for k, v in wpost.items()))
+    # LDA, MLLT, fMLLR
+    corpus = _Corpus(final_tm, tfeats, wpost, {k: [k] for k in tfeats})
+    lda = LdaEstimate(final.am.num_pdfs, corpus.dim, dev)
+    lda.accumulate(corpus.x, corpus.pdf, corpus.w)
+    acc = read_arrays(p("lda.acc"), "LdaAccs")
+    checks["acc-lda"] = max(gap("acc-lda", acc[k], getattr(lda, k))
+                            for k in ("counts", "first", "second")) <= CLI_TRAIN_REL
+    est = LdaEstimate(acc["counts"].shape[0], acc["first"].shape[1], "cpu")
+    for k in ("counts", "first", "second"):
+        setattr(est, k, torch.from_numpy(np.asarray(acc[k], np.float64)))
+    lda_mat = est.estimate(CLI_TRAIN_LDA_DIM)
+
+    same_file("est-lda", "lda.mat", lambda path: _write_mat(path, lda_mat))
+    lda_r = _read_mat(p("lda.mat"))
+    same_archive("transform-feats", p("lda.ark"), "mat",
+                 ((k, (tfeats[k].astype(np.float64) @ lda_r.T).astype(np.float32))
+                  for k in tkeys))
+    lda_feats = read_table(o("lda.ark"), "mat")
+    lda0 = AmGmmModel.load(p("lda0.mdl"), device=dev)
+    lcorpus = _Corpus(lda0.tm, lda_feats, wpost, {k: [k] for k in tfeats})
+    mllt = MlltAccs(lcorpus.dim, dev)
+    mllt.accumulate(lda0.am, lcorpus.x, lcorpus.pdf, lcorpus.w, lcorpus.utt)
+    macc = read_arrays(p("mllt.acc"), "MlltAccs")
+    checks["gmm-acc-mllt"] = (gap("gmm-acc-mllt", macc["G"], mllt.G) <= CLI_TRAIN_REL
+                              and abs(macc["beta"][0] - mllt.beta) <= CLI_TRAIN_REL * mllt.beta)
+    est_m = MlltAccs(macc["G"].shape[1], "cpu")
+    est_m.G += torch.from_numpy(np.asarray(macc["G"], np.float64))
+    est_m.beta += float(macc["beta"][0])
+    mllt_mat, mllt_impr = update_mllt(est_m)
+    same_file("est-mllt", "mllt.mat", lambda path: _write_mat(path, mllt_mat))
+    from old_kaldi_git_tpu_torch.transform.mllt import transform_gmm_means
+
+    m_r = _read_mat(p("mllt.mat"))
+    lda0_host = AmGmmModel.load(p("lda0.mdl"), device="cpu")
+    transform_gmm_means(lda0_host.am, m_r)
+    same_file("gmm-transform-means", "mllt.mdl", lda0_host.save)
+    same_file("compose-transforms", "ldamllt.mat", lambda path: _write_mat(path, m_r @ lda_r))
+    lm_r = _read_mat(p("ldamllt.mat"))
+    same_archive("transform-feats (LDA+MLLT)", p("ldamllt.ark"), "mat",
+                 ((k, (tfeats[k].astype(np.float64) @ lm_r.T).astype(np.float32))
+                  for k in tkeys))
+    lm_feats = read_table(o("ldamllt.ark"), "mat")
+    mllt_model = AmGmmModel.load(p("mllt.mdl"), device=dev)
+    with open(p("train_spk2utt")) as f:
+        spk2utt_t = {ln.split()[0]: ln.split()[1:] for ln in f}
+    scorpus = _Corpus(mllt_model.tm, lm_feats, wpost, spk2utt_t)
+    trans = compute_fmllr_transforms(scorpus.fmllr_accs(mllt_model.am, dev),
+                                     min_count=CLI_TRAIN_MIN_COUNT)
+    same_archive("gmm-est-fmllr", p("fmllr.ark"), "mat",
+                 ((s_, t.astype(np.float32)) for s_, t in zip(scorpus.speakers, trans)
+                  if t is not None))
+    from old_kaldi_git_tpu_torch.hmm.posterior import post_to_gpost
+
+    gposts = {k: post_to_gpost(wpost[k], mllt_model.tm, mllt_model.am, lm_feats[k])
+              for k in tkeys}
+    same_archive("gmm-post-to-gpost", p("gpost.ark"), "gpost", ((k, gposts[k]) for k in tkeys))
+    gread = read_table(o("gpost.ark"), "gpost")
+    gaccs = []
+    for s_, utts in spk2utt_t.items():
+        a_ = FmllrAccs(lm_feats[utts[0]].shape[1], dev)
+        for u in utts:
+            a_.accumulate_gpost(mllt_model.am, lm_feats[u], gread[u])
+        gaccs.append(a_)
+    same_archive("gmm-est-fmllr-gpost", p("gfmllr.ark"), "mat",
+                 ((s_, t.astype(np.float32)) for s_, t in zip(
+                     spk2utt_t, compute_fmllr_transforms(gaccs, min_count=CLI_TRAIN_MIN_COUNT))
+                  if t is not None))
+    fm = read_table(o("fmllr.ark"), "mat")
+    checks["fmllr speakers"] = len(fm)
+    with open(p("train_utt2spk")) as f:
+        utt2spk_t = dict(ln.split() for ln in f)
+    same_archive("transform-feats (per speaker)", p("sat.ark"), "mat", (
+        (k, (lm_feats[k].astype(np.float64) @ fm[utt2spk_t[k]][:, :-1].astype(np.float64).T
+             + fm[utt2spk_t[k]][:, -1]).astype(np.float32))
+        for k in tkeys if utt2spk_t[k] in fm))
+    # adaptation with tri.mdl
+    tri_dev = AmGmmModel.load(tri, device=dev)
+    with open(p("test_spk2utt")) as f:
+        spk2utt_h = {ln.split()[0]: ln.split()[1:] for ln in f}
+    utt2spk_h = {u: s_ for s_, us in spk2utt_h.items() for u in us}
+    bp = read_table(o("bp_ali.ark"), "ivec")
+    bp_post = {k: ali_to_post(a) for k, a in bp.items()}
+    checks["best paths as long as the features"] = all(len(bp[k]) == len(hfeats[k]) for k in bp)
+    rt = regtree.RegressionTree.build(tri_host.am, CLI_TRAIN_REGTREE, seed=0)
+    checks["gmm-make-regtree"] = data("regtree") == as_bytes(rt.write)
+    hcorpus = _Corpus(tm, hfeats, bp_post, spk2utt_h)
+    csr_h = read_hclg_csr(p("graph", "HCLG.fst"), tm.tid_to_pdf_array())
+    ref = {k: v.split() for k, v in read_table(f"ark:{p('ref.txt')}", "text").items()}
+    words_txt = {}
+    for line in open(p("graph", "words.txt")):
+        w_, i_ = line.split()
+        words_txt[int(i_)] = w_
+    wer, adapted_models = {}, []
+    for kind, accs_of, estimate in (
+            ("mllr", regtree.RegtreeMllrAccs,
+             lambda a, t, m: [regtree.estimate_regtree_mllr(x, t, m) for x in a]),
+            ("fmllr", regtree.RegtreeFmllrAccs, regtree.estimate_regtree_fmllr_speakers)):
+        accs_ = []
+        for si in range(len(hcorpus.speakers)):
+            a_ = accs_of(tri_dev.am.dim, rt.num_baseclasses, dev)
+            x_, pd_, w_, u_ = hcorpus.of(si)
+            a_.accumulate(tri_dev.am, rt, x_, pd_, w_, u_)
+            accs_.append(a_)
+        xf = dict(zip(hcorpus.speakers, estimate(accs_, rt, CLI_TRAIN_REGTREE_MIN_COUNT)))
+        same_archive(f"gmm-est-regtree-{kind}", p(f"{kind}.regx"), "regx", xf.items())
+        xr = read_table(o(f"{kind}.regx"), "regx")
+        if kind == "mllr":
+            adapted_models.append(
+                regtree.apply_mllr_to_model(tri_dev.am, rt, xr[hcorpus.speakers[0]]))
+        keys_, ll_, nf_ = regtree_loglikes(tri_dev, rt, xr, utt2spk_h, hfeats, kind, dev)
+        res = decode_batch(csr_h, ll_, nf_, ViterbiOptions(), device=dev)
+        got = read_table(f"ark:{p(kind + '_words.txt')}", "text")
+        checks[f"gmm-decode-faster-regtree-{kind}"] = got == {
+            k: " ".join(str(w) for w in r.words) for k, r in zip(keys_, res) if r is not None}
+        hyp = {k: [words_txt[int(w)] for w in v.split()] for k, v in got.items()}
+        wer[kind] = compute_wer({k: ref[k] for k in hyp}, hyp).wer
+        del ll_
+    tcorpus = _Corpus(tm, tfeats, {k: weight_silence_post(ali_to_post(a), tm, [int(sil)], 0.0)
+                                   for k, a in tali.items()}, spk2utt_t)
+    basis = basis_fmllr.estimate_fmllr_basis(
+        [a_ for a_ in tcorpus.fmllr_accs(tri_dev.am, dev) if a_.beta > 0], 40)
+    same_file("gmm-basis-fmllr-training", "fmllr.basis", basis.save)
+    basis = basis_fmllr.BasisFmllr.load(p("fmllr.basis"))
+    bx = []
+    for spk, a_ in zip(hcorpus.speakers, hcorpus.fmllr_accs(tri_dev.am, dev)):
+        if a_.beta > 0:
+            r_ = basis_fmllr.compute_fmllr_basis_transform(a_, basis)
+            if r_ is not None:
+                bx.append((spk, r_[0].astype(np.float32)))
+    same_archive("gmm-est-basis-fmllr", p("basis_fmllr.ark"), "mat", bx)
+    lv = lvtln.LinearVtln.init(dim, np.linspace(0.9, 1.1, 3).tolist())
+    same_file("gmm-init-lvtln", "0.lvtln", lv.save)
+    warped = read_table(o("tr_warped.ark"), "mat")
+    lv.set_transform(0, lvtln.train_lvtln_class([(warped[k], tfeats[k]) for k in tkeys], dev))
+    same_file("gmm-train-lvtln-special", "1.lvtln", lv.save)
+    lv = lvtln.LinearVtln.load(p("1.lvtln"))
+    lx, warps_ = [], []
+    for spk, a_ in zip(hcorpus.speakers, hcorpus.fmllr_accs(tri_dev.am, dev)):
+        r_ = lvtln.select_lvtln_transform(a_, lv)
+        if r_ is not None:
+            lx.append((spk, r_[0].astype(np.float32)))
+            warps_.append((spk, f"{r_[1]:.4f}"))
+    same_archive("gmm-est-lvtln-trans", p("lvtln.ark"), "mat", lx)
+    checks["gmm-est-lvtln-trans (warps)"] = read_table(f"ark:{p('warps.txt')}", "text") == dict(
+        warps_)
+    # fMPE
+    mpe = read_table(o("mpe.ark"), "post")
+    checks["MPE posterior frames"] = sum(len(v) for v in mpe.values())
+    f0 = fmpe.Fmpe.init(DiagGmm.load(p("ubm")), device="cpu")
+    same_file("fmpe-init", "0.fmpe", f0.save)
+    f0 = fmpe.Fmpe.load(p("0.fmpe"), dev)
+    ds = fmpe.ModelDerivStats(tri_dev.am)
+    for k in hkeys:
+        if k in mpe and k in bp:
+            ds.accumulate(tri_dev.am, tm, f0.transformed(hfeats[k]), mpe[k], bp[k])
+    same_file("gmm-get-stats-deriv", "deriv.stats", ds.save)
+    ds = fmpe.ModelDerivStats.load(p("deriv.stats"), tri_dev.am)
+    fa = []
+    for i, ks in enumerate(hhalves):
+        acc_i = fmpe.FmpeAccs.zeros_like(f0)
+        for k in ks:
+            if k not in mpe:
+                continue
+            xt = f0.transformed(hfeats[k])
+            d_ = fmpe.model_deriv_direct(tri_dev.am, tm, xt, mpe[k])
+            if k in bp:
+                d_ = d_ + fmpe.model_deriv_indirect(tri_dev.am, tm, xt, bp[k], ds)
+            acc_i.add(f0.acc_from_deriv(hfeats[k], d_))
+        got = fmpe.FmpeAccs.load(p(f"fmpe{i}.acc"), dev)
+        checks[f"gmm-fmpe-acc-stats (half {i})"] = max(
+            gap("gmm-fmpe-acc-stats", got.pos, acc_i.pos),
+            gap("gmm-fmpe-acc-stats", got.neg, acc_i.neg)) <= CLI_TRAIN_REL
+        fa.append(fmpe.FmpeAccs.load(p(f"fmpe{i}.acc"), "cpu"))
+    fa[0].add(fa[1])
+    same_file("fmpe-sum-accs", "fmpe.acc", fa[0].save)
+    f1 = fmpe.Fmpe.load(p("0.fmpe"), "cpu")
+    step = f1.update(fmpe.FmpeAccs.load(p("fmpe.acc"), "cpu"), 0.1)
+    same_file("fmpe-est", "1.fmpe", f1.save)
+    f1 = fmpe.Fmpe.load(p("1.fmpe"), dev)
+    same_archive("fmpe-apply-transform", p("fmpe_feats.ark"), "mat",
+                 ((k, f1.apply(hfeats[k]).cpu().numpy()) for k in hkeys))
+    # the utilities
+    same_archive("copy-matrix", p("copy_mat.ark"), "mat",
+                 ((k, np.asarray(v) * 0.5) for k, v in read_table(o("lda.ark"), "mat").items()))
+    same_archive("copy-vector", p("copy_vec.ark"), "vec",
+                 ((k, np.asarray(v) * 2.0) for k, v in read_table(o("weights.ark"), "vec").items()))
+    checks["copy-int-vector"] = data("copy_ali.ark") == data(last_ali[4:])
+    same_file("sum-matrices", "sum.mat",
+              lambda path: _write_mat(path, _read_mat(p("m0.mat")) + _read_mat(p("m1.mat"))))
+    names = {}
+    for line in open(p("lang", "phones.txt")):
+        parts = line.split()
+        if len(parts) == 2:
+            names[int(parts[1])] = parts[0]
+    want_show = []
+    for ts_, (ph, hs, pdf) in enumerate(final_tm.tuples):
+        want_show.append(f"Transition-state {ts_ + 1}: phone = {names.get(ph, ph)} "
+                         f"hmm-state = {hs} pdf = {pdf}")
+        for tid in range(final_tm.state2id[ts_], final_tm.state2id[ts_ + 1]):
+            want_show.append(f" Transition-id = {tid} p = "
+                             f"{float(np.exp(final_tm.log_probs[tid])):.2f}")
+    checks["show-transitions"] = show.splitlines() == want_show
+    aligned = read_table(f"ark:{p('align.txt')}", "text")
+    mllr_words = read_table(f"ark:{p('mllr_words.txt')}", "text")
+    checks["align-text"] = sorted(aligned) == sorted(mllr_words) and all(
+        [a.split()[0] for a in v.split(" ; ") if a.split()[0] != "<eps>"] == ref[k]
+        and [a.split()[1] for a in v.split(" ; ") if a.split()[1] != "<eps>"]
+        == mllr_words[k].split() for k, v in aligned.items() if v)
+    from old_kaldi_git_tpu_torch.fst.vector_fst import VectorFst
+    from old_kaldi_git_tpu_torch.hmm.hmm_utils import add_self_loops, make_h_transducer
+
+    for name, ilab in (("Ha.fst", "ilabels_h.txt"), ("Ha_nd.fst", "ilabels_nd.txt")):
+        with open(p(ilab)) as f:
+            info = [[int(x) for x in ln.split()] for ln in f]
+        ha, _ = make_h_transducer(info, ctx2, final_tm)
+        checks[f"make-h-transducer ({name})"] = data(name) == as_bytes(ha.write)
+    with open(p("Ha_nd.fst"), "rb") as f:
+        checks["add-self-loops"] = data("Ha_loops.fst") == as_bytes(
+            add_self_loops(VectorFst.read(f), final_tm, self_loop_scale=0.1).write)
+    check_seconds = time.perf_counter() - t_check
+    # the kernels at the phase's shapes, against their plain versions
+    k1, k3, k1_err = {}, {}, 0.0
+    if on_card:
+        B = len(akeys)
+        k1_err = c.check_gather(torch, c.batched_table_gather, c.batched_table_gather_plain,
+                                [(B, final.am.num_pdfs, A, 3, 1), (B, S, A, 1, 0)], seed=17)
+        k1 = {"cli_train_align_loglikes": c.gather_at(B, final.am.num_pdfs, A, int(anf.max())),
+              "cli_train_align_alpha": c.gather_at(B, S, A, 1)}
+        hx = torch.from_numpy(pad_feature_batch(hfeats)[1]).to(dev)
+        hx = hx.reshape(-1, hx.shape[-1]).contiguous()
+        k3 = {"cli_train_em_model": c.k3_at(torch, c.gmm_loglikes, c.gmm_loglikes_plain,
+                                            final.am.weights(),
+                                            ax.reshape(-1, ax.shape[-1]).contiguous(), c.plug),
+              "cli_train_mllr_adapted_tri": c.k3_at(torch, c.gmm_loglikes,
+                                                    c.gmm_loglikes_plain,
+                                                    adapted_models[0].weights(), hx, c.plug)}
+        del hx
+    del ax
+    tools_run = {label.split(" ")[0] for label in walls}
+    batch = {n for n, fn in tools.TOOLS.items() if fn.__module__.endswith("train_tools")} - {
+        "compile-train-graphs", "align-equal-compiled", "gmm-align-compiled"}
+    # a check is a truth, or a count that must be positive
+    bad = {k: v for k, v in checks.items()
+           if not (bool(v) if isinstance(v, (bool, np.bool_)) else v > 0)}
+    bad.update({k: v for k, v in gaps.items() if not v <= CLI_TRAIN_REL})
+    c.emit({"phase": "cli_train", "card": c.card, "train_utterances": len(tkeys),
+            "test_utterances": len(hkeys), "speakers": CLI_TRAIN_SPEAKERS,
+            "tools": len(tools_run & batch), "tools_wall_seconds": tools_wall,
+            "check_seconds": check_seconds, "phase_seconds": time.perf_counter() - t_start,
+            "tool_seconds": walls,
+            "launches": {k: launches[k] for k in ("gather", "mfcc", "gmm")},
+            "launches_by_tool": dev_tools, "tree_leaves": ctx2.num_pdfs,
+            "em_like_per_frame": like_per_frame, "em_gaussians": final.am.num_gauss,
+            "wer_percent": wer, "mllt_objf_impr": mllt_impr, "fmpe_mean_step": step,
+            "checks": {k: (bool(v) if isinstance(v, (bool, np.bool_)) else int(v))
+                       for k, v in checks.items()},
+            "max_rel_gaps": gaps, "gather_at_cli_train_shapes": {"exact": k1_err == 0.0, **k1},
+            "gmm_at_cli_train_shapes": k3})
+    if bad:
+        faults.append(f"cli_train: checks failed: {sorted(bad)}")
+    if tools_run < batch or len(batch) != 54:
+        faults.append(f"cli_train: tools not run: {sorted(batch - tools_run)}")
+    if not like_per_frame[1] > like_per_frame[0]:
+        faults.append(f"cli_train: like/frame did not rise: {like_per_frame}")
+    if on_card and min(launches["gmm"], launches["gather"]) == 0:
+        faults.append(f"cli_train: the GMM and gather kernels were not both launched: {launches}")
+    return {"faults": faults, "launches": launches, "k1": k1, "k1_err": k1_err, "k3": k3}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--noisy", action="store_true",
                     help="also decode the set re-synthesised at noise 400")
     ap.add_argument("--profile-frames", type=int, default=0,
                     help="frames of one chunk's search under torch.profiler")
-    ap.add_argument("--only", choices=["architectures", "cli", "cli_lattice"],
+    ap.add_argument("--only", choices=["architectures", "cli", "cli_lattice", "cli_train"],
                     help="build the kernels, load the system and run only these "
-                         "phases (no final line: a partial run); cli_lattice runs "
-                         "the cli phase first, whose work directory it reads")
+                         "phases (no final line: a partial run); cli_lattice and "
+                         "cli_train run the cli phase first, whose work directory "
+                         "they read")
     args = ap.parse_args()
 
     import torch
@@ -4003,14 +4743,15 @@ def main() -> int:
             twaves=twaves, zero_counts=zero_counts, read_counts=read_counts, sil=sil,
             tid_to_phone=tid_to_phone))["launches"]
 
-    def run_cli(twaves, ttext, lattice=True):
-        """The cli phase and, with `lattice`, cli_lattice after it on its
-        work directory, which is removed at the end; their faults end the
-        run.  Returns both phases' results (None for a phase not run)."""
+    def run_cli(twaves, ttext, lattice=True, train=True):
+        """The cli phase and, with `lattice`, cli_lattice, with `train`,
+        cli_train after it on its work directory, which is removed at the
+        end; their faults end the run.  Returns the three phases' results
+        (None for a phase not run)."""
         nonlocal plug
         plug = torch.randn((8192, 8192), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(15))
-        lat = None
+        lat = trn = None
         try:
             res = cli(torch, np, argparse.Namespace(
                 dev=dev, card=card, emit=emit, minilib=minilib, system=system, twaves=twaves,
@@ -4032,11 +4773,22 @@ def main() -> int:
                     gmm_loglikes_plain=gmm_loglikes_plain, k3_at=k3_at, plug=plug))
                 if lat["faults"]:
                     raise RuntimeError("cli_lattice: " + "; ".join(lat["faults"]))
+            if train:
+                trn = cli_train(torch, np, argparse.Namespace(
+                    dev=dev, card=card, emit=emit, workdir=cli_dir,
+                    tri=os.path.abspath("exp/minilib/tri.mdl"), sil=sil,
+                    zero_counts=zero_counts, read_counts=read_counts, gmm_loglikes=gmm_loglikes,
+                    gmm_loglikes_plain=gmm_loglikes_plain, check_gather=check_gather,
+                    batched_table_gather=batched_table_gather,
+                    batched_table_gather_plain=batched_table_gather_plain,
+                    gather_at=lambda *a: gather_at(*a), k3_at=k3_at, plug=plug))
+                if trn["faults"]:
+                    raise RuntimeError("cli_train: " + "; ".join(trn["faults"]))
         finally:
             plug = None
             torch.cuda.empty_cache()
             shutil.rmtree(cli_dir, ignore_errors=True)
-        return res, lat
+        return res, lat, trn
 
     if args.only == "architectures":
         topts = minilib.MinilibOptions()
@@ -4265,9 +5017,9 @@ def main() -> int:
           "check_launches": {"gather": batched_table_gather.launches,
                              "mfcc": fused_mfcc_from_frames.launches}})
 
-    if args.only in ("cli", "cli_lattice"):
+    if args.only in ("cli", "cli_lattice", "cli_train"):
         run_cli(*minilib.training_set(minilib.MinilibOptions()),
-                lattice=args.only == "cli_lattice")
+                lattice=args.only == "cli_lattice", train=args.only == "cli_train")
         emit({"phase": "total", "card": card, "partial": args.only,
               "seconds": round(time.perf_counter() - t_start, 1)})
         return 0
@@ -6294,8 +7046,9 @@ def main() -> int:
 
     # ---- phase 40: the command-line tools (cli), the counts set to 0 just
     # before the tools run and read just after
-    cli_res, lat_res = run_cli(twaves, ttext)
-    cli_launches, lat_launches = cli_res["launches"], lat_res["launches"]
+    cli_res, lat_res, trn_res = run_cli(twaves, ttext)
+    cli_launches, lat_launches, trn_launches = (
+        cli_res["launches"], lat_res["launches"], trn_res["launches"])
 
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
@@ -6317,7 +7070,8 @@ def main() -> int:
                       + sum(p["gather"] for p in seq_launches.values())
                       + lo_launches["gather"]
                       + sum(p["gather"] for p in arch_launches.values())
-                      + cli_launches["gather"] + lat_launches["gather"]),
+                      + cli_launches["gather"] + lat_launches["gather"]
+                      + trn_launches["gather"]),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -6346,8 +7100,10 @@ def main() -> int:
                               "lattice_outputs": lo_launches["gather"],
                               **{n: p["gather"] for n, p in arch_launches.items()},
                               "cli": cli_launches["gather"],
-                              "cli_lattice": lat_launches["gather"]},
-         "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err, cli_res["k1_err"]),
+                              "cli_lattice": lat_launches["gather"],
+                              "cli_train": trn_launches["gather"]},
+         "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err, cli_res["k1_err"],
+                            trn_res["k1_err"]),
          "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
@@ -6358,7 +7114,8 @@ def main() -> int:
                                 for k, v in g.items()},
                              **{f"train_yesno_{k}": v for k, v in k1_yesno.items()},
                              "train_chain_decode": k1_trained_chain, **seq["k1"],
-                             **lo["k1"], **{f"cli_{k}": v for k, v in cli_res["k1"].items()}}},
+                             **lo["k1"], **{f"cli_{k}": v for k, v in cli_res["k1"].items()},
+                             **trn_res["k1"]}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
@@ -6375,7 +7132,7 @@ def main() -> int:
                       + sum(p["mfcc"] for p in seq_launches.values())
                       + lo_launches["mfcc"]
                       + sum(p["mfcc"] for p in arch_launches.values())
-                      + cli_launches["mfcc"] + lat_launches["mfcc"]),
+                      + cli_launches["mfcc"] + lat_launches["mfcc"] + trn_launches["mfcc"]),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -6403,7 +7160,8 @@ def main() -> int:
                               "lattice_outputs": lo_launches["mfcc"],
                               **{n: p["mfcc"] for n, p in arch_launches.items()},
                               "cli": cli_launches["mfcc"],
-                              "cli_lattice": lat_launches["mfcc"]},
+                              "cli_lattice": lat_launches["mfcc"],
+                              "cli_train": trn_launches["mfcc"]},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -6412,7 +7170,8 @@ def main() -> int:
                  tl_launches, sd_launches, *ce_launches.values(), *ch_launches.values(),
                  *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
                  cb_launches, *cfg2_launches.values(), *seq_launches.values(),
-                 lo_launches, *arch_launches.values(), cli_launches, lat_launches))
+                 lo_launches, *arch_launches.values(), cli_launches, lat_launches,
+                 trn_launches))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
@@ -6427,7 +7186,8 @@ def main() -> int:
                       + ty_launches["gmm"] + sum(t["gmm"] for t in tr_launches.values())
                       + sum(p["gmm"] for p in cfg2_launches.values())
                       + sum(p["gmm"] for p in seq_launches.values())
-                      + lo_launches["gmm"] + cli_launches["gmm"] + lat_launches["gmm"]),
+                      + lo_launches["gmm"] + cli_launches["gmm"] + lat_launches["gmm"]
+                      + trn_launches["gmm"]),
          "launches_by_path": {"decode": k3_tdnn_launches,
                               "decode_gmm": g_launches["gmm"],
                               **{n: a["gmm"] for n, a in a_launches.items()},
@@ -6437,21 +7197,24 @@ def main() -> int:
                               **{n: p["gmm"] for n, p in seq_launches.items()},
                               "lattice_outputs": lo_launches["gmm"],
                               "cli": cli_launches["gmm"],
-                              "cli_lattice": lat_launches["gmm"]},
+                              "cli_lattice": lat_launches["gmm"],
+                              "cli_train": trn_launches["gmm"]},
          "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]
                             + [v["max_abs_err"] for v in k3_train.values()]
                             + [v["max_abs_err"] for v in k3_depths.values()]
                             + [v["max_abs_err"] for v in seq["k3"].values()]
                             + [v["max_abs_err"] for v in lo["k3"].values()]
                             + [v["max_abs_err"] for v in cli_res["k3"].values()]
-                            + [v["max_abs_err"] for v in lat_res["k3"].values()]),
+                            + [v["max_abs_err"] for v in lat_res["k3"].values()]
+                            + [v["max_abs_err"] for v in trn_res["k3"].values()]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": max(k3_ops_ms, k3_bytes_ms),
          "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
          "library_ms": None,
          "at_other_shapes": {**k3_align, **{f"train_{k}": v for k, v in k3_train.items()},
                              **{f"depth_{k}": v for k, v in k3_depths.items()},
-                             **seq["k3"], **lo["k3"], **cli_res["k3"], **lat_res["k3"]}},
+                             **seq["k3"], **lo["k3"], **cli_res["k3"], **lat_res["k3"],
+                             **trn_res["k3"]}},
     ]})
     if args.noisy:
         waves, text = minilib.make_test_set(minilib.MinilibOptions(),

@@ -136,6 +136,19 @@ class DiagGmm:
         variances = 1.0 / inv_vars
         return DiagGmm(w, means_invvars * variances, variances)
 
+    def save(self, path: str) -> None:
+        """A binary file of the one GMM (a diagonal UBM)."""
+        with open(path, "wb") as f:
+            iof.init_kaldi_output_stream(f, True)
+            self.write(f)
+
+    @staticmethod
+    def load(path: str) -> "DiagGmm":
+        with open(path, "rb") as f:
+            if not iof.init_kaldi_input_stream(f):
+                raise KaldiError("DiagGmm.load: expected binary stream")
+            return DiagGmm.read(f)
+
 
 class AmDiagGmm:
     """All pdfs' GMMs, with their rows packed on one device for the kernel."""
@@ -159,11 +172,22 @@ class AmDiagGmm:
     def num_gauss(self) -> int:
         return sum(p.num_mix for p in self.pdfs)
 
+    def derived(self, name: str, make):
+        """What `make()` derives from the pdfs' parameters (padded tensors of
+        the transforms), made at the first request under `name` and kept
+        until `invalidate`."""
+        cache = self.__dict__.setdefault("_derived", {})
+        if name not in cache:
+            cache[name] = make()
+        return cache[name]
+
     def invalidate(self) -> None:
         """Forget what derives from the pdfs' parameters, after they were
         changed in place (transform/mllt.py `transform_gmm_means`): the
-        packed kernel rows and every DiagGmm's device tensors."""
+        packed kernel rows, the `derived` tensors and every DiagGmm's device
+        tensors."""
         self._weights = None
+        self.__dict__.pop("_derived", None)
         for pdf in self.pdfs:
             pdf.__dict__.pop("_dev", None)
 

@@ -139,6 +139,14 @@ class AccumAmDiagGmm:
         self.tot_frames += float(w_all.sum())
         return like_f
 
+    def add(self, other: "AccumAmDiagGmm") -> None:
+        """Adds another accumulator of the same model's shape (gmm-sum-accs)."""
+        self.occ += other.occ.to(self.occ.device)
+        self.mean_acc += other.mean_acc.to(self.occ.device)
+        self.var_acc += other.var_acc.to(self.occ.device)
+        self.tot_like += other.tot_like
+        self.tot_frames += other.tot_frames
+
     def pdf_occupancy(self) -> np.ndarray:
         """[P] float64 on the host: each pdf's occupancy (mixup's allocation
         key), summed over its Gaussians as the JAX package sums it."""

@@ -40,7 +40,12 @@ CHUNK_ELEMENTS = 1 << 24  # float64 elements of a chunk's largest intermediate
 def padded_gaussians(am: AmDiagGmm) -> Tuple[torch.Tensor, ...]:
     """(gconsts [P, M] with −inf past a pdf's Gaussians, means_invvars,
     inv_vars and means [P, M, D], the mixture counts [P]) as float64 /
-    int64 tensors on the model's device."""
+    int64 tensors on the model's device, made once a model (`AmDiagGmm.derived`:
+    read them, do not change them)."""
+    return am.derived("padded_gaussians", lambda: _padded_gaussians(am))
+
+
+def _padded_gaussians(am: AmDiagGmm) -> Tuple[torch.Tensor, ...]:
     P, D = am.num_pdfs, am.dim
     nmix = np.asarray([p.num_mix for p in am.pdfs], np.int64)
     M = int(nmix.max())
@@ -61,6 +66,23 @@ def _as_dev(a: ArrayLike, dev: torch.device, dtype: torch.dtype) -> torch.Tensor
     return a.to(device=dev, dtype=dtype)
 
 
+def gaussian_posteriors(am: AmDiagGmm, x: torch.Tensor, pdf: torch.Tensor) -> torch.Tensor:
+    """[N, M] float64: frame n's posteriors over the Gaussians of pdf[n]
+    (reference DiagGmm::ComponentPosteriors), 0 past its mixture; x [N, D]
+    float64 and pdf [N] int64 on the model's device."""
+    gc, miv, iv, _, _ = padded_gaussians(am)
+    N, M, D = x.shape[0], gc.shape[1], x.shape[1]
+    post = torch.zeros((N, M), dtype=torch.float64, device=x.device)
+    step = max(1, CHUNK_ELEMENTS // (M * D))
+    for a in range(0, N, step):
+        xs, ps = x[a:a + step], pdf[a:a + step]
+        comp = (gc[ps] + torch.einsum("nd,nmd->nm", xs, miv[ps])
+                - 0.5 * torch.einsum("nd,nmd->nm", xs * xs, iv[ps]))
+        e = torch.exp(comp - comp.max(dim=1, keepdim=True).values)
+        post[a:a + step] = e / e.sum(dim=1, keepdim=True)
+    return post
+
+
 def aligned_gaussian_posteriors(am: AmDiagGmm, feats: ArrayLike, pdf_ids: ArrayLike,
                                 groups: Optional[ArrayLike] = None,
                                 weights: Optional[ArrayLike] = None
@@ -75,22 +97,14 @@ def aligned_gaussian_posteriors(am: AmDiagGmm, feats: ArrayLike, pdf_ids: ArrayL
     x = _as_dev(feats, dev, torch.float64)
     pdf = _as_dev(pdf_ids, dev, torch.int64)
     N = x.shape[0]
-    gc, miv, iv, _, nmix = padded_gaussians(am)
-    M, D = gc.shape[1], x.shape[1]
-    post = torch.zeros((N, M), dtype=torch.float64, device=dev)
-    step = max(1, CHUNK_ELEMENTS // (M * D))
-    for a in range(0, N, step):
-        xs, ps = x[a:a + step], pdf[a:a + step]
-        comp = (gc[ps] + torch.einsum("nd,nmd->nm", xs, miv[ps])
-                - 0.5 * torch.einsum("nd,nmd->nm", xs * xs, iv[ps]))
-        e = torch.exp(comp - comp.max(dim=1, keepdim=True).values)
-        post[a:a + step] = e / e.sum(dim=1, keepdim=True)
+    post = gaussian_posteriors(am, x, pdf)
     if weights is not None:
         post *= _as_dev(weights, dev, torch.float64)[:, None]
     g = (torch.zeros(N, dtype=torch.int64, device=dev) if groups is None
          else _as_dev(groups, dev, torch.int64))
     _, inv = torch.unique(g * am.num_pdfs + pdf, return_inverse=True)
-    tot = torch.zeros((int(inv.max()) + 1 if N else 0, M), dtype=torch.float64, device=dev)
+    tot = torch.zeros((int(inv.max()) + 1 if N else 0, post.shape[1]), dtype=torch.float64,
+                      device=dev)
     tot.index_put_((inv,), post, accumulate=True)
     post *= (tot[inv] >= MIN_GAUSSIAN_TOTAL).to(post.dtype)
     return x, pdf, post

@@ -5,8 +5,8 @@ src/tree/{build-tree.h,build-tree-utils.h,cluster-utils.h,
 clusterable-classes.h}): GaussClusterable sufficient stats, tree stats from
 alignments, questions by agglomerative phone clustering, and greedy
 likelihood-gain splitting with max-leaves / min-gain stopping, one root per
-central phone.  The tree-stats file I/O and `cluster_leaves` serve the
-command-line tools and are not ported.
+central phone, and the tree-stats file I/O and `cluster_leaves` of the
+command-line tools (acc-tree-stats, sum-tree-stats, build-tree-two-level).
 
 Host numpy, like the JAX package's, and built to give its tree on the same
 stats: the same split at every node, the same pdf numbering.  The JAX
@@ -19,7 +19,12 @@ A question that puts the leaf's events into the same "yes" and "no" sets
 as an earlier question gets the same gain, and the first of equal gains
 wins, so only the first question of each partition is scored.  Tree
 statistics are accumulated by `np.add.at`, which adds frame by frame in
-order, as the JAX package's per-frame loop does.
+order, as the JAX package's per-frame loop does.  `cluster_leaves` merges
+as the JAX package's does, the pair of least loss first (the first in
+row-major order of equal losses), but keeps each pair's loss from one
+merge to the next and computes anew only the pairs of the merged cluster:
+the same operations on the same stats, so every loss is the JAX package's
+to the bit.
 """
 
 from __future__ import annotations
@@ -404,3 +409,107 @@ def leaf_digests(ctx_dep: ContextDependency, stats: Dict[tuple, GaussClusterable
         by_leaf.setdefault(ctx_dep.root.map(event), []).append(i)
     return sorted(f"{zlib.crc32(np.asarray(v, '<i4').tobytes()):08x}"
                   for v in by_leaf.values())
+
+
+# ---------------------------------------------------------------------------
+# tree-stats files (reference bin/acc-tree-stats writes BuildTreeStatsType;
+# bin/sum-tree-stats adds; bin/build-tree reads).  The JAX package's layout:
+# "<TreeStats>", the number of events, then per event in sorted order its
+# (key, value) pairs as int32s, the count as a double and Σx, Σx² as float64
+# vectors, "</TreeStats>".
+# ---------------------------------------------------------------------------
+
+def write_tree_stats(f, stats: Dict[tuple, GaussClusterable]) -> None:
+    from old_kaldi_git_tpu_torch.utils import io_funcs as iof
+
+    iof.init_kaldi_output_stream(f, True)
+    iof.write_token(f, "<TreeStats>")
+    iof.write_int32(f, len(stats))
+    for event, gc in sorted(stats.items()):
+        iof.write_int32(f, len(event))
+        for k, v in event:
+            iof.write_int32(f, int(k))
+            iof.write_int32(f, int(v))
+        iof.write_double(f, gc.count)
+        iof.write_vector(f, gc.x, dtype=np.float64)
+        iof.write_vector(f, gc.x2, dtype=np.float64)
+    iof.write_token(f, "</TreeStats>")
+
+
+def read_tree_stats(f) -> Dict[tuple, GaussClusterable]:
+    """{event → GaussClusterable} in the file's (sorted) order."""
+    from old_kaldi_git_tpu_torch.utils import io_funcs as iof
+
+    if not iof.init_kaldi_input_stream(f):
+        raise KaldiError("tree-stats file must be binary")
+    iof.expect_token(f, "<TreeStats>")
+    stats: Dict[tuple, GaussClusterable] = {}
+    for _ in range(iof.read_int32(f)):
+        ne = iof.read_int32(f)
+        event = tuple((iof.read_int32(f), iof.read_int32(f)) for _ in range(ne))
+        gc = GaussClusterable()
+        gc.count = iof.read_float(f)
+        gc.x = np.asarray(iof.read_vector(f), np.float64)
+        gc.x2 = np.asarray(iof.read_vector(f), np.float64)
+        stats[event] = gc
+    iof.expect_token(f, "</TreeStats>")
+    return stats
+
+
+def sum_tree_stats(dsts: Dict[tuple, GaussClusterable],
+                   src: Dict[tuple, GaussClusterable]) -> Dict[tuple, GaussClusterable]:
+    """Adds src's stats into dsts (a copy for a new event); returns dsts."""
+    for event, gc in src.items():
+        if event in dsts:
+            dsts[event].add(gc)
+        else:
+            dsts[event] = gc.copy()
+    return dsts
+
+
+def cluster_leaves(stats: Dict[tuple, GaussClusterable], ctx_dep,
+                   num_clusters: int) -> List[int]:
+    """Bottom-up clustering of a tree's leaves into `num_clusters` groups by
+    likelihood loss (reference build-tree-two-level / ClusterBottomUp): the
+    leaf → cluster mapping, clusters numbered 0..K-1 in the order of their
+    smallest leaf; a leaf without stats goes to cluster 0."""
+    num_pdfs = ctx_dep.num_pdfs
+    pooled: List[Optional[GaussClusterable]] = [None] * num_pdfs
+    for event, st in stats.items():
+        leaf = ctx_dep.root.map(event)
+        if leaf is None:
+            continue
+        if pooled[leaf] is None:
+            pooled[leaf] = st.copy()
+        else:
+            pooled[leaf].add(st)
+    live = {i: pooled[i] for i in range(num_pdfs) if pooled[i] is not None}
+    members: Dict[int, List[int]] = {i: [i] for i in live}
+    objf = {i: g.objf() for i, g in live.items()}
+    # loss[a, b] for live a < b (inf elsewhere): row-major argmin is the
+    # first pair of least loss in the JAX package's scan order
+    loss = np.full((num_pdfs, num_pdfs), np.inf)
+
+    def pair(a: int, b: int) -> None:
+        loss[a, b] = objf[a] + objf[b] - merged_objf(live[a], live[b])
+
+    keys = sorted(live)
+    for ai, a in enumerate(keys):
+        for b in keys[ai + 1:]:
+            pair(a, b)
+    while len(live) > max(1, num_clusters):
+        a, b = divmod(int(np.argmin(loss)), num_pdfs)
+        live[a].add(live.pop(b))
+        members[a].extend(members.pop(b))
+        objf[a] = live[a].objf()
+        loss[b, :] = loss[:, b] = np.inf
+        for k in live:
+            if k < a:
+                pair(k, a)
+            elif k > a:
+                pair(a, k)
+    mapping = [0] * num_pdfs
+    for cluster, (_, leaves) in enumerate(sorted(members.items())):
+        for leaf in leaves:
+            mapping[leaf] = cluster
+    return mapping

@@ -180,6 +180,7 @@ _LAZY_PROVIDERS = {
     "fst": "old_kaldi_git_tpu_torch.fst.holder",
     "kfst": "old_kaldi_git_tpu_torch.fst.kaldi_fst_io",
     "kclat": "old_kaldi_git_tpu_torch.fst.kaldi_fst_io",
+    "regx": "old_kaldi_git_tpu_torch.transform.regtree",
 }
 
 

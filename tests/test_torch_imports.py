@@ -53,7 +53,8 @@ def test_port_has_the_slice_modules():
                  "bin.nnet3_tools", "bin.train_tools", "utils.data_dir", "fst.algorithms",
                  "fst.holder", "fst.kaldi_fst_io", "feat.cmvn", "feat.signal", "feat.pitch",
                  "feat.resample", "ivector.vad", "bin.lat_tools", "bin.util_tools",
-                 "fst.context", "fst.rand", "utils.threads"):
+                 "fst.context", "fst.rand", "utils.threads", "transform.basis_fmllr",
+                 "transform.lvtln", "transform.regtree", "transform.fmpe"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 

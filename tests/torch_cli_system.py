@@ -59,7 +59,13 @@ TENSOR_TOOLS = frozenset((
     "nnet3-latgen-faster", "online2-wav-nnet3-latgen-faster",
     "online2-tcp-nnet3-decode-faster", "align-equal-compiled", "gmm-align-compiled",
     "gmm-decode-faster", "gmm-rescore-lattice", "gmm-acc-stats", "rnnlm-train",
-    "lattice-lmrescore-rnnlm", "ivector-extract-online2"))
+    "lattice-lmrescore-rnnlm", "ivector-extract-online2", "gmm-acc-stats-ali", "gmm-est",
+    "gmm-compute-likes", "acc-lda", "gmm-acc-mllt", "gmm-est-fmllr", "gmm-post-to-gpost",
+    "gmm-est-fmllr-gpost", "gmm-basis-fmllr-training", "gmm-est-basis-fmllr",
+    "gmm-train-lvtln-special", "gmm-est-lvtln-trans", "gmm-est-regtree-fmllr",
+    "gmm-est-regtree-mllr", "gmm-decode-faster-regtree-fmllr",
+    "gmm-decode-faster-regtree-mllr", "gmm-get-stats-deriv", "gmm-fmpe-acc-stats",
+    "fmpe-apply-transform"))
 
 
 def lattices_equal(a, b, atol=1e-5, ac_rtol=2e-5):
@@ -138,3 +144,85 @@ def system() -> dict:
                    text=text, feats=feats, words=words, hclg=p("graph", "HCLG.fst"),
                    hclg_mono=p("graph_mono", "HCLG.fst"))
     return _SYSTEM
+
+
+_TRAIN = {}
+
+
+def train_system() -> dict:
+    """system() and the training tools' shared inputs (built once): the
+    training graphs of the utterances' transcripts with tri.mdl and its
+    tree, their equal alignments (the port's align-equal-compiled: the GMM
+    kernel's plain version on tri.mdl is the CPU's cost, 6 s), those
+    as posteriors (post.ark) and a spk2utt of two speakers of two
+    utterances each."""
+    s = system()
+    if _TRAIN:
+        return _TRAIN
+    p = s["p"]
+    assert port_tool("compile-train-graphs", p("tree"), s["tri"], p("lang"),
+                     f"ark:{p('text.ark')}", f"ark:{p('train_graphs.ark')}") == 0
+    assert port_tool("align-equal-compiled", s["tri"], f"ark:{p('train_graphs.ark')}",
+                     f"ark:{p('feats.ark')}", f"ark:{p('ali.ark')}") == 0
+    assert port_tool("ali-to-post", f"ark:{p('ali.ark')}", f"ark:{p('post.ark')}") == 0
+    keys = sorted(s["feats"])
+    with open(p("spk2utt"), "w") as f:
+        f.write(f"spkA {keys[0]} {keys[1]}\nspkB {keys[2]} {keys[3]}\n")
+    with open(p("utt2spk"), "w") as f:
+        f.writelines(f"{k} {'spkA' if i < 2 else 'spkB'}\n" for i, k in enumerate(keys))
+    _TRAIN.update(s, ali=f"ark:{p('ali.ark')}", post=f"ark:{p('post.ark')}",
+                  feats_r=f"ark:{p('feats.ark')}", spk2utt=p("spk2utt"),
+                  utt2spk=p("utt2spk"), keys=keys)
+    return _TRAIN
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def both(name: str, *argv, tag: str = "", rc: int = 0) -> None:
+    """Runs a tool in both packages on the same arguments, "{out}" in an
+    argument replaced by "jax" / "port" (+ tag), so that each writes its
+    own files; asserts both exit with rc."""
+    for pre, fn in (("jax", jax_tool), ("port", port_tool)):
+        got = fn(name, *[a.replace("{out}", pre + tag) for a in argv])
+        assert got == rc, f"{pre} {name} exited {got}"
+
+
+def mono_train_system() -> dict:
+    """train_system() and mono.mdl's inputs (built once): the port's
+    gmm-decode-faster best paths of the utterances with mono.mdl at
+    --acoustic-scale=1.0 (mono_ali) and those as posteriors (mono_post)."""
+    s = train_system()
+    if "mono_ali" not in _TRAIN:
+        p = s["p"]
+        assert port_tool("gmm-decode-faster", "--acoustic-scale=1.0", "--max-active=500",
+                         s["mono"], s["hclg_mono"], s["feats_r"], f"ark,t:{p('mono_w.txt')}",
+                         f"ark:{p('mono_ali.ark')}") == 0
+        assert port_tool("ali-to-post", f"ark:{p('mono_ali.ark')}",
+                         f"ark:{p('mono_post.ark')}") == 0
+        _TRAIN.update(mono_ali=f"ark:{p('mono_ali.ark')}", mono_post=f"ark:{p('mono_post.ark')}")
+    return _TRAIN
+
+
+def lda_system() -> dict:
+    """train_system() and a 13-dimensional LDA space, as train_lda_mllt.sh
+    builds it (the port's tools, once): silence-weighted posteriors of the
+    alignments (wpost), the LDA features (lda_feats) and a single-Gaussian
+    model on tri.mdl's tree in that space (lda_mdl)."""
+    s = train_system()
+    if "lda_mdl" not in _TRAIN:
+        p = s["p"]
+        for argv in (("weight-silence-post", "0.1", "1", s["tri"], s["post"],
+                      f"ark:{p('wpost.ark')}"),
+                     ("acc-lda", s["tri"], s["feats_r"], f"ark:{p('wpost.ark')}", p("x.lacc")),
+                     ("est-lda", "--dim=13", p("x.lacc"), p("x_lda.mat")),
+                     ("transform-feats", p("x_lda.mat"), s["feats_r"], f"ark:{p('x_lda.ark')}"),
+                     ("acc-tree-stats", s["tri"], f"ark:{p('x_lda.ark')}", s["ali"],
+                      p("x_lda.stats")),
+                     ("gmm-init-model", p("tree"), p("x_lda.stats"), s["tri"], p("x_lda.mdl"))):
+            assert port_tool(*argv) == 0
+        _TRAIN.update(wpost=f"ark:{p('wpost.ark')}", lda_feats=f"ark:{p('x_lda.ark')}",
+                      lda_mdl=p("x_lda.mdl"))
+    return _TRAIN
