@@ -27,7 +27,7 @@ computed on the CPU, to tell a search fault from acoustic float order).
 Then the iVector systems at bench.py's K=2048, B=64: the CE+iVec model
 final_ivec.am (decode_and_score(..., use_ivectors=True)) and chain_ivec.mdl
 (load_chain_system(..., use_ivectors=True)), features with online iVectors
-from final.ie appended.  Then streaming, on 16 utterances spread over the
+from final.ie appended.  Then streaming, on 8 utterances spread over the
 durations: online/streaming.StreamingTokenDecoder fed the batch features in
 32-frame chunks with final.am on hclg.npz (and 30-frame chunks with
 chain.mdl on chain_hclg.npz at frame-subsampling 3), whose words must equal
@@ -67,18 +67,19 @@ solved for its speakers at once), LDA+MLLT at minilib scale
 from tri.mdl, 2,000 leaves, 40 dimensions, held to the port's CPU run;
 then the first 64 held-out utterances decoded before and after
 per-utterance fMLLR on an HCLG of the new tree), and the GMM kernel at its
-two new depths (K = 48 and 88) on those models' features.  Then sequence
+two new depths (K = 48 and 88) on those models' features (these two after
+sequence training, while that HCLG builds in its own process).  Then sequence
 training: flat-start LF-MMI (recipes/chain.train_chain_e2e) on yesno as the
-JAX package's tests run it and on 300 of the training utterances at full width
+JAX package's tests run it and on 150 of the training utterances at full width
 (one step's loss held to the CPU's); semi-supervised LF-MMI
-(recipes/semisup) on yesno from four initial draws and with 64 + 64
+(recipes/semisup) on yesno from two initial draws and with 32 + 32
 training utterances on chain.mdl, its lattice numerators from the
 token-sparse lattice records on chain_hclg.npz, each held to num ≤ den;
-MMI by EBW (recipes/mmi.train_mmi) on yesno and with tri.mdl on 64
+MMI by EBW (recipes/mmi.train_mmi) on yesno and with tri.mdl on 32
 training utterances, the first iteration's statistics and update held to
 the CPU's from the same lattices, and the GMM kernel on the updated
 models; nnet3 sMBR / MMI (models/discriminative) on the two-path toy and
-of final.am on 64 training utterances, its gradient held to the CPU's.
+of final.am on 32 training utterances, its gradient held to the CPU's.
 Then what users read from a decode (lattice_outputs): tri.mdl decodes 64
 held-out utterances at noise 400 with lattices (DecodeOptions(), K1, K2,
 K3), once determinized by the native library of cpp/lattice.cc, which the
@@ -86,8 +87,9 @@ Python determinization must equal on every lattice, each lattice's best
 path the decoder's words; the LM-weight sweep, MBR, CTM with confidences,
 frame posteriors, a compact-lattice archive read back, decode_biglm with
 the identity and from the pruned trigram to the rescore phase's 4-gram,
-and an LSTMP RNNLM over the 20k words trained one epoch on the card (held
-to the CPU) rescoring 10-best lists.  Then the remaining nnet3
+and an LSTMP RNNLM over the 20k words trained one epoch of 10,000
+sentences on the card (held to the CPU) rescoring 10-best lists.  Then the
+remaining nnet3
 architectures (architectures, architectures_parity, stream_lstm): the JAX
 package's TDNN-LSTM, TDNN-attention (features through K2) and CNN-TDNN-F
 (40-bin filterbank) at its factories' widths, trained 2 epochs on the 600
@@ -97,9 +99,16 @@ loglikes held to the CPU; a BLSTMP, a projected-GRU and a Descriptor-DAG
 xconfig model at width 512 and the filterbank and PLP front ends held to
 the CPU; and the TDNN-LSTM and CNN-TDNN-F streamed through StreamingAmNnet
 into StreamingTokenDecoder on 8 utterances in 0.5 s chunks, whose words
-must be the batch decode's.  Last, the command-line tools (cli):
+must be the batch decode's.  Then the legacy model families (nnet12): nnet1
+(a 2 × 256 sigmoid MLP, frame-shuffled SGD with newbob) and nnet2 (2 × p-norm
+512 → 64 on a whitening fixed affine, parallel SGD with model averaging over
+a jobs axis) trained on the architectures phase's features of the 600
+training utterances and decoded on the clean set through K1 (WER at most
+5 %), each family's yesno flow (WER at most 2.0) and one epoch / iteration
+held to the CPU.  Last, the command-line tools (cli):
 python -m old_kaldi_git_tpu_torch.bin's tools called in-process (add-deltas
-once through the module entry in a subprocess).  Its graph is built through
+also through the module entry in a subprocess, beside them, to the same
+bytes).  Its graph is built through
 the CLI in a spawned process from the start of the run (prepare-lang on the
 minilib lexicon, its L held to the lang bundle's; a unigram ARPA over the 600
 training transcripts' words; tree.pkl's tree as a Kaldi file; mkgraph --tree
@@ -109,7 +118,7 @@ through compute-mfcc-feats, compute-cmvn-stats, apply-cmvn and add-deltas
 defaults, lattice-best-path and compute-wer (words held to the library's
 decode_batch, lattice best paths plus the end state's words to the decoder's
 words), nnet3-am-init, nnet3-compute and nnet3-latgen-faster with final.am
-(held to AmNnet.loglikes_batch and the library decode); 8 of them through
+(held to AmNnet.loglikes_batch and the library decode); 4 of them through
 online-wav-gmm-latgen-faster and online2-wav-nnet3-latgen-faster (held to the
 library's StreamingDecoder fed the same chunks) and 2 over localhost through
 online2-tcp-nnet3-decode-faster on one connection (its final lines held to
@@ -142,7 +151,21 @@ lattice-to-mpe-post's posteriors with an offset GMM made by the library;
 every output held to the port's library on the same inputs (files byte for
 byte, float64 statistics within 1e-9, words equal), then K1 at the
 alignment's shapes and K3 at two new packings (the EM model, the
-MLLR-adapted tri.mdl).
+MLLR-adapted tri.mdl).  Then the fourth batch (cli_nnet3): the 21 nnet3 and
+chain tools not run before, as train_dnn.py and chain/train.py run them on
+the 64 training utterances: features through the feature tools (K2),
+tri.mdl's alignments (K3, K1), CE egs (get, shuffle, copy to 2 archives,
+merge), one epoch of nnet3-train fine-tuning final.am, compute-prob before
+and after, nnet3-combine, nnet3-adjust-priors, nnet3-am-init and the 64
+held-out utterances' decode; the phone LM, both chain trees (the biphone
+den graph refused as by the JAX tool), the monophone den graph, a chain
+TDNN-F at chain.mdl's widths from nnet3-chain-init, chain egs, one epoch of
+nnet3-chain-train and its combination; sMBR on final.am's lattices of the
+64; every output held to the port's library on the same inputs (archives,
+the phone LM and trees byte for byte, models through loglikes and
+objectives within 1e-4, the sMBR objective within 1e-5, words equal) and
+one chain step to the CPU's.  In the kernels phase K2 is also held on the
+mel tables VTLN-warped by 0.9 and 1.1.
 --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
@@ -227,7 +250,8 @@ IVEC_CPU_ERRORS = {
         "test_0238", "test_0246"]),
 }
 # benchmarks/streaming_bench.py's setting; chain chunks are a multiple of 3
-STREAM_UTTS, STREAM_MAX_ACTIVE, STREAM_CHUNK, STREAM_CHAIN_CHUNK = 16, 2048, 32, 30
+# STREAM_UTTS: 8, cut from 16 for the smoke's time limit (PERF.md §4)
+STREAM_UTTS, STREAM_MAX_ACTIVE, STREAM_CHUNK, STREAM_CHAIN_CHUNK = 8, 2048, 32, 30
 ONLINE2_CHUNK_SAMPLES = 4000  # 0.5 s at 8 kHz
 PIPELINE_TOL = 1e-4  # chunked vs whole-stream features (tests/test_online.py)
 # online2's words on the CPU, the port's and the JAX package's:
@@ -1216,6 +1240,7 @@ GMM_MAX_ERRORS = 2  # 0.07 % of 2,868 words; the JAX package makes 0 with tri.md
 GMM_TOL = (2e-3, 2e-3)  # |kernel - plain| <= atol + rtol·|plain| (tests/test_ops.py)
 MFCC_TOL = 1e-3  # |kernel - plain| on every cepstrum (tests/test_ops.py: 1e-3 + 1e-3·|ref|)
 MFCC_TOL64 = 1e-4  # |kernel - plain version run in float64|
+VTLN_WARPS = (0.9, 1.1)  # K2 held on the mel tables warped by these factors
 
 
 def emit(obj) -> None:
@@ -1616,14 +1641,17 @@ def stream_words(torch, dec, feats, chunk):
 # sequence training (phases train_e2e, train_semisup, train_mmi,
 # train_discriminative): the JAX package's tests' flows at yesno scale, and
 # minilib at full width, cut in utterances where the time asks
-SEQ_UTTS = 64  # minilib utterances of the semisup (each half), MMI and sMBR runs
+# minilib utterances of the semisup (each half), MMI and sMBR runs: 32, cut
+# from 64 for time (PERF.md §4)
+SEQ_UTTS = 32
 E2E_MINILIB_EPOCHS = 2
-E2E_MINILIB_UTTS = 300  # of the 600 training utterances, cut for the cli phase (PERF.md §4)
+E2E_MINILIB_UTTS = 150  # of the 600 training utterances, cut for time (PERF.md §4)
 # yesno semi-supervised training: the JAX slow test's flow from init 0 (the
-# gated run), and from inits 1-3 as a record.  A 30-step seed is as sensitive
-# to its initial draw in the JAX package (its inits 0-3 give seeds at 0, 68,
-# 53 and 5 % WER) as in the port, and 6 test utterances hold 19 words
-SEMISUP_YESNO_INITS = (0, 1, 2, 3)
+# gated run), and from init 1 as a record (inits 2-3 cut for time: PERF.md
+# §4).  A 30-step seed is as sensitive to its initial draw in the JAX
+# package (its inits 0-3 give seeds at 0, 68, 53 and 5 % WER) as in the
+# port, and 6 test utterances hold 19 words
+SEMISUP_YESNO_INITS = (0, 1)
 NUM_LE_DEN_TOL = 1e-3  # num ≤ den + this on random or trained logits (tests/test_semisup.py)
 EBW_MEAN_TOL = 1e-6  # EBW's means after one iteration, card vs CPU from the same lattices
 DISC_GRAD_TOL = 1e-5  # discriminative_grad from the card's vs the CPU's loglikes
@@ -2156,7 +2184,7 @@ def sequence_training(torch, np, c) -> dict:
 LATTICE_UTTS = 64  # held-out utterances at NOISE_EVAL of the lattice_outputs phase
 LATTICE_BEAM = 10.0  # decode_dataset_with_lattices' default
 LATTICE_DET_UTTS = 8  # of the 64: decoded once more with determinize=True
-RNNLM_SENTENCES = 20_000  # the first of the 4-gram's own LM text
+RNNLM_SENTENCES = 10_000  # the first of the 4-gram's own LM text (cut from 20,000)
 RNNLM_HELD_OUT = 256  # sentences scored on the card and on the CPU
 RNNLM_SCORE_TOL = 1e-3  # nats a sentence, card vs CPU
 RNNLM_STEP_TOL = 1e-5  # one step's loss, card vs CPU, relative
@@ -2737,11 +2765,11 @@ def architectures(torch, np, c) -> dict:
     torch.cuda.empty_cache()
     if faults:
         raise RuntimeError("architectures: " + "; ".join(faults))
-    return {"launches": launches}
+    return {"launches": launches, "feats": mfcc_train, "labels": labels, "num_pdfs": num_pdfs}
 
 
 CLI_UTTS = 64  # held-out utterances of the feature, decode and TDNN tools
-CLI_ONLINE_UTTS = 8  # of them, through the two online tools
+CLI_ONLINE_UTTS = 4  # of them, through the two online tools (cut from 8)
 CLI_TCP_UTTS = 2  # of them, on one connection to the TCP server
 CLI_TCP_GAP_SECONDS = 1.0  # the endpoint rule's silence; noise is sent up to 4 times it
 CLI_ALIGN_UTTS = 64  # training utterances of the alignment tools
@@ -2901,14 +2929,14 @@ def cli(torch, np, c) -> dict:
         f"ark:{p('cmvn.ark')}")
     run("apply-cmvn", "apply-cmvn", f"ark:{p('cmvn.ark')}", f"ark:{p('raw.ark')}",
         f"ark:{p('cmn.ark')}")
-    t0 = time.perf_counter()
-    sub = subprocess.run([sys.executable, "-m", "old_kaldi_git_tpu_torch.bin", "add-deltas",
-                          f"ark:{p('cmn.ark')}", f"ark:{p('feats.ark')}"],
-                         capture_output=True, text=True, timeout=600)
-    walls["add-deltas (python -m old_kaldi_git_tpu_torch.bin)"] = time.perf_counter() - t0
-    if sub.returncode != 0:
-        raise RuntimeError(f"cli: the module entry's add-deltas exited {sub.returncode}: "
-                           f"{sub.stderr[-2000:]}")
+    # the deltas through the module entry in a subprocess too, whose archive
+    # must be the in-process tool's bytes; its start (8-12 s) overlaps the
+    # tools below
+    module_entry = subprocess.Popen(
+        [sys.executable, "-m", "old_kaldi_git_tpu_torch.bin", "add-deltas",
+         f"ark:{p('cmn.ark')}", f"ark:{p('feats_module.ark')}"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    run("add-deltas", "add-deltas", f"ark:{p('cmn.ark')}", f"ark:{p('feats.ark')}")
     # ---- the graph, built in its own process since the phase's start
     t0 = time.perf_counter()
     graph = c.graph_future.result()
@@ -2940,7 +2968,7 @@ def cli(torch, np, c) -> dict:
         f"ark:{p('nnet_ll.ark')}")
     run("nnet3-latgen-faster", "nnet3-latgen-faster", wt, p("final.mdl"), hclg,
         f"ark:{p('feats.ark')}", f"ark:{p('nlat.ark')}", f"ark,t:{p('nnet_words.txt')}")
-    # ---- online: 8 utterances through each online tool, 2 through the server
+    # ---- online: 4 utterances through each online tool, 2 through the server
     online = [wt, f"--samp-freq={sr}", f"--silence-phone-id={sil}"]
     with contextlib.redirect_stdout(text_sink()):
         run("online-wav-gmm-latgen-faster", "online-wav-gmm-latgen-faster", *online, tri,
@@ -2989,6 +3017,22 @@ def cli(torch, np, c) -> dict:
                 received += data
             conn.settimeout(300)
 
+        def read_final(wait):
+            """Until the endpoint's final line has come, or `wait` seconds of
+            nothing: the server sends it after the chunk's partial, once its
+            search's best path is read back."""
+            nonlocal received
+            conn.settimeout(wait)
+            while b"\n" not in received:
+                try:
+                    data = conn.recv(65536)
+                except socket.timeout:
+                    break
+                if not data:
+                    break
+                received += data
+            conn.settimeout(300)
+
         conn.sendall(pcm(first))
         sent = len(first) // cs
         read_until(sent, 300.0)
@@ -2998,7 +3042,11 @@ def cli(torch, np, c) -> dict:
             sent += 1
             gap_chunks += 1
             read_until(sent, 300.0)
-            read_until(sent, 0.3)  # the endpoint's final line follows its partial
+            # once the noise is long enough for the endpoint rule, its final
+            # line may follow this partial: a noise chunk sent before it
+            # arrives would open the next utterance (a slow host's readback
+            # can outlast 0.3 s)
+            read_final(0.3 if gap_chunks * cs < CLI_TCP_GAP_SECONDS * sr else 5.0)
         conn.sendall(pcm(waves[tcp_keys[1]]))
         conn.shutdown(socket.SHUT_WR)
         conn.settimeout(300)
@@ -3023,6 +3071,16 @@ def cli(torch, np, c) -> dict:
     tools_wall = time.perf_counter() - t_phase - graph_wait
     launches = c.read_counts("cli")
     launches["gmm"] = c.gmm_loglikes.launches
+    t0 = time.perf_counter()
+    _, err = module_entry.communicate(timeout=600)
+    walls["add-deltas (python -m old_kaldi_git_tpu_torch.bin), the wait"] = (
+        time.perf_counter() - t0)
+    if module_entry.returncode != 0:
+        raise RuntimeError(f"cli: the module entry's add-deltas exited "
+                           f"{module_entry.returncode}: {err[-2000:]}")
+    with open(p("feats_module.ark"), "rb") as f, open(p("feats.ark"), "rb") as g:
+        if f.read() != g.read():
+            faults.append("cli: the module entry's add-deltas wrote other bytes than the tool")
 
     # ---- the library on the same inputs
     words = SymbolTable.read(words_txt)
@@ -4597,17 +4655,657 @@ def cli_train(torch, np, c) -> dict:
     return {"faults": faults, "launches": launches, "k1": k1, "k1_err": k1_err, "k3": k3}
 
 
+CLI_NNET3_MINIBATCH = 32  # nnet3-train's --minibatch-size (the egs of 64 frames)
+# nnet3-train's and nnet3-chain-train's learning rates.  At the tools' 1e-3,
+# Adam's first sign-like steps undo more than one epoch does: the CE of
+# final.am's egs rises from 0.60 to 0.89 nats a frame (4 utterances, CPU
+# rehearsal), and the fresh chain model's objective in eval mode, whose
+# batch-norm statistics move 1 % a step, falls from -20.3 to -22.4 over the
+# epoch's 8 steps (64 utterances, CPU; -22.8 to -30.9 on the card), where
+# 1e-4 raises it to -6.3
+CLI_NNET3_LR = (1e-4, 1e-5)
+CLI_NNET3_TOL = 1e-4  # tool vs library: loglikes (of max|ref|), printed objectives
+CLI_NNET3_CHECK_UTTS = 8  # held-out utterances of the trained model's loglikes check
+CLI_CHAIN_MINIBATCH = 8  # nnet3-chain-train's default
+CLI_CHAIN_COMBINE_STEPS = 10  # nnet3-chain-combine's --num-steps (40 by default: 12 s)
+CLI_DISC_TOL = 1e-5  # the sMBR objective, tool vs library
+CLI_DISC_UTTS = 16  # of the 64 training utterances, sMBR's (cut for time: PERF.md §4)
+# a chain TDNN-F at chain.mdl's widths (its trunk and prefinal layer), with
+# the output of the tree that chain-build-tree makes
+CLI_CHAIN_XCONFIG = """input name=input dim=39
+relu-batchnorm-layer name=tdnn0 dim=512 input=Append(-1,0,1)
+tdnnf-layer name=tdnnf1 dim=512 bottleneck-dim=64 time-stride=1
+tdnnf-layer name=tdnnf2 dim=512 bottleneck-dim=64 time-stride=1
+tdnnf-layer name=tdnnf3 dim=512 bottleneck-dim=64 time-stride=1
+tdnnf-layer name=tdnnf4 dim=512 bottleneck-dim=64 time-stride=3
+tdnnf-layer name=tdnnf5 dim=512 bottleneck-dim=64 time-stride=3
+prefinal-layer name=prefinal dim=512
+output-layer name=output dim={pdfs}
+"""
+CLI_NNET3_TENSOR_TOOLS = frozenset((
+    "compute-mfcc-feats", "compute-cmvn-stats", "apply-cmvn", "add-deltas",
+    "gmm-align-compiled", "nnet3-copy", "nnet3-am-init", "nnet3-latgen-faster", "nnet3-train",
+    "nnet3-compute-prob", "nnet3-adjust-priors", "nnet3-combine", "nnet3-chain-init",
+    "nnet3-chain-train", "nnet3-chain-compute-prob", "nnet3-chain-combine",
+    "nnet3-discriminative-train", "nnet3-discriminative-compute-objf"))
+
+
+def cli_nnet3(torch, np, c) -> dict:
+    """The cli_nnet3 phase: the 21 nnet3 / chain tools of bin/nnet3_tools.py
+    not run before, in-process through bin.tools.main on the cli phase's
+    work directory, as Kaldi's train_dnn.py / chain/train.py run them on the
+    64 training utterances: features by the feature tools (the MFCC
+    kernel), tri.mdl's alignments (gmm-align-compiled: the GMM and gather
+    kernels), CE egs (get, shuffle, copy to 2 archives, merge), one epoch of
+    nnet3-train from the committed TDNN-F, combination, priors and the
+    decode of the 64 held-out utterances; the chain graph tools, a chain
+    TDNN-F at chain.mdl's widths from nnet3-chain-init, chain egs, one epoch
+    of nnet3-chain-train and combination; sMBR on the committed model's
+    lattices.  The kernels' counts are set to 0 just before the tools run
+    and read just after; each tool is then held to the port's library on
+    the same inputs (files byte for byte, models through their loglikes and
+    objectives within CLI_NNET3_TOL, words equal)."""
+    import contextlib
+    import io
+
+    from old_kaldi_git_tpu_torch.bin import tools
+    from old_kaldi_git_tpu_torch.bin.nnet3_tools import chain_batches, read_den_graph
+    from old_kaldi_git_tpu_torch.chain.den_graph import make_denominator_graph
+    from old_kaldi_git_tpu_torch.chain.loss import ChainLossOptions, chain_loss
+    from old_kaldi_git_tpu_torch.chain.phone_lm import estimate_phone_lm
+    from old_kaldi_git_tpu_torch.decoder.graph import read_hclg_csr
+    from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch
+    from old_kaldi_git_tpu_torch.fst.symbols import SymbolTable
+    from old_kaldi_git_tpu_torch.fst.vector_fst import VectorFst
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+    from old_kaldi_git_tpu_torch.hmm.hmm_utils import alignment_to_pdfs, alignment_to_phones
+    from old_kaldi_git_tpu_torch.models.am_nnet import AmNnet, AmNnetModel
+    from old_kaldi_git_tpu_torch.models.discriminative import (
+        DiscriminativeOptions, compute_discriminative_objf)
+    from old_kaldi_git_tpu_torch.models.egs import (
+        batch_ce_egs, batch_chain_egs, get_ce_egs, get_chain_egs, iter_merged)
+    from old_kaldi_git_tpu_torch.models.train import (
+        NnetTrainOptions, TrainState, combine_models, make_ce_train_step, make_optimizer)
+    from old_kaldi_git_tpu_torch.recipes.chain import (
+        ChainModel, ChainTrainOptions, build_chain_objects, combine_chain_models,
+        make_chain_step)
+    from old_kaldi_git_tpu_torch.tree.context_dep import (
+        ContextDependency, monophone_context_dependency)
+    from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
+    from old_kaldi_git_tpu_torch.utils.log import KaldiError
+    from old_kaldi_git_tpu_torch.utils.table import TableWriter, read_table
+    from old_kaldi_git_tpu_torch.utils.wav import WaveData
+
+    t_start = time.perf_counter()
+    dev, wd = c.dev, c.workdir
+    on_card = dev.type == "cuda"
+    p = lambda *a: os.path.join(wd, *a)  # noqa: E731
+    o = lambda n: f"ark:{p(n)}"  # noqa: E731
+    tri, final_am = c.tri, os.path.abspath("exp/minilib/final.am")
+    faults, walls, checks, gaps, tols = [], {}, {}, {}, {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run(label, *argv, rcs=(0,)):
+        """A tool in-process (--device=cpu added to a tensor tool off the
+        card): what it printed; its wall under `label`, ended by a device
+        synchronise."""
+        argv = list(argv)
+        if not on_card and argv[0] in CLI_NNET3_TENSOR_TOOLS:
+            argv.insert(1, "--device=cpu")
+        out = io.TextIOWrapper(io.BytesIO(), encoding="utf-8")
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tools.main(argv)
+        sync()
+        walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
+        if rc not in rcs:
+            raise RuntimeError(f"cli_nnet3: {label} exited {rc}")
+        out.flush()
+        return out.buffer.getvalue().decode()
+
+    def data(name):
+        with open(name if os.path.isabs(name) else p(name), "rb") as f:
+            return f.read()
+
+    def same_archive(name, path, holder, items):
+        want = p(f"want_{name}")
+        with TableWriter(f"ark:{want}", holder) as w:
+            for k, v in items:
+                w[k] = v
+        checks[name] = data(path) == data(want)
+
+    def gap(name, got, want, rel=True, tol=CLI_NNET3_TOL):
+        """|got − want|, over max|want| when `rel`, kept under `name` with
+        its tolerance.  A figure a tool prints to 4 decimals (`got` a
+        float) is allowed its rounding, 5e-5, besides."""
+        printed = isinstance(got, float)
+        got = got.detach().cpu().numpy() if hasattr(got, "detach") else np.asarray(got)
+        want = want.detach().cpu().numpy() if hasattr(want, "detach") else np.asarray(want)
+        g = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        scale = max(float(np.abs(want).max()), 1e-300) if rel else 1.0
+        gaps[name] = g / scale
+        tols[name] = tol + (5e-5 / scale if printed and tol > CLI_DISC_TOL else 0.0)
+
+    def number(out, pattern):
+        return float(re.search(pattern, out)[1])
+
+    # ---- inputs, before the counts start (host work)
+    tkeys = sorted(c.twaves)[:CLI_ALIGN_UTTS]
+    with TableWriter(f"ark,scp:{p('twav.ark')},{p('twav.scp')}", "wav") as w:
+        for k in tkeys:
+            w[k] = WaveData(samp_freq=c.minilib.SAMP_FREQ,
+                            data=np.asarray(c.twaves[k], np.float32)[None])
+    tri_host = AmGmmModel.load(tri, device="cpu")
+    tm = tri_host.tm
+    phones = ":".join(str(x) for x in tm.topo.phones)
+    chain_opts = ChainTrainOptions(tree_context_width=2)
+
+    # ---- the tools, the counts set to 0 just before them
+    t_phase = time.perf_counter()
+    c.zero_counts()
+    c.gmm_loglikes.launches = 0
+    # features (K2) and tri.mdl's alignments (K3, K1)
+    run("compute-mfcc-feats", "compute-mfcc-feats", f"--samp-freq={c.minilib.SAMP_FREQ}",
+        "--dither=0", f"scp:{p('twav.scp')}", o("traw.ark"))
+    run("compute-cmvn-stats", "compute-cmvn-stats", o("traw.ark"), o("tcmvn.ark"))
+    run("apply-cmvn", "apply-cmvn", o("tcmvn.ark"), o("traw.ark"), o("tcmn.ark"))
+    run("add-deltas", "add-deltas", o("tcmn.ark"), o("tfeats.ark"))
+    run("gmm-align-compiled", "gmm-align-compiled", tri, o("graphs.ark"), o("tfeats.ark"),
+        o("nali.ark"))
+    # CE egs
+    run("ali-to-pdf", "ali-to-pdf", tri, o("nali.ark"), o("npdf.ark"))
+    run("nnet3-get-egs", "nnet3-get-egs", o("tfeats.ark"), o("npdf.ark"), o("egs.ark"))
+    run("nnet3-shuffle-egs", "nnet3-shuffle-egs", "--srand=1", o("egs.ark"), o("egs_shuf.ark"))
+    run("nnet3-copy-egs", "nnet3-copy-egs", o("egs_shuf.ark"), o("egs_0.ark"), o("egs_1.ark"))
+    run("nnet3-merge-egs", "nnet3-merge-egs", f"--minibatch-size={CLI_NNET3_MINIBATCH}",
+        o("egs_0.ark"), o("egs_train.ark"))
+    # CE training from the committed TDNN-F, combination, priors, the bundle
+    run("nnet3-copy", "nnet3-copy", final_am, p("start.raw"))
+    prob0 = number(run("nnet3-compute-prob", "nnet3-compute-prob", p("start.raw"),
+                       o("egs_train.ark")), r"log-probability per frame: (\S+)")
+    train_opts = (f"--minibatch-size={CLI_NNET3_MINIBATCH}", "--srand=2",
+                  f"--initial-lr={CLI_NNET3_LR[0]}", f"--final-lr={CLI_NNET3_LR[1]}")
+    run("nnet3-train", "nnet3-train", *train_opts, p("start.raw"), o("egs_train.ark"),
+        p("trained.raw"))
+    prob1 = number(run("nnet3-compute-prob", "nnet3-compute-prob", p("trained.raw"),
+                       o("egs_train.ark")), r"log-probability per frame: (\S+)")
+    valid = {}
+    for name in ("start", "trained"):
+        valid[name] = number(run("nnet3-compute-prob", "nnet3-compute-prob", p(f"{name}.raw"),
+                                 o("egs_1.ark")), r"log-probability per frame: (\S+)")
+    run("nnet3-combine", "nnet3-combine", p("start.raw"), p("trained.raw"), o("egs_1.ark"),
+        p("combined.raw"))
+    valid["combined"] = number(run("nnet3-compute-prob", "nnet3-compute-prob",
+                                   p("combined.raw"), o("egs_1.ark")),
+                               r"log-probability per frame: (\S+)")
+    run("nnet3-adjust-priors", "nnet3-adjust-priors", p("combined.raw"), o("egs_0.ark"),
+        p("final_cli.raw"))
+    run("nnet3-am-init", "nnet3-am-init", tri, p("final_cli.raw"), p("final_cli.mdl"))
+    wt = f"--word-symbol-table={p('graph', 'words.txt')}"
+    hclg = p("graph", "HCLG.fst")
+    run("nnet3-latgen-faster", "nnet3-latgen-faster", wt, p("final_cli.mdl"), hclg,
+        o("feats.ark"), o("cli_nlat.ark"), f"ark,t:{p('cli_nwords.txt')}")
+    # the chain graph tools: phone LM, trees, den graph
+    run("ali-to-phones", "ali-to-phones", tri, o("nali.ark"), o("nphones.ark"))
+    run("chain-est-phone-lm", "chain-est-phone-lm", "--ngram-order=2", o("nphones.ark"),
+        p("phone_lm.fst"))
+    tree_args = (tri, o("tfeats.ark"), o("nali.ark"))
+    run("chain-build-tree", "chain-build-tree", "--context-width=2",
+        f"--max-leaves={chain_opts.tree_max_leaves}", f"--thresh={chain_opts.tree_thresh}",
+        *tree_args, p("ctree2"))
+    # the biphone den graph is refused, as by the JAX tool: the phone LM's
+    # file carries no state histories (ROADMAP queue 3)
+    run("chain-make-den-fst", "chain-make-den-fst", p("ctree2"), p("phone_lm.fst"), p("den2"),
+        rcs=(1,))
+    run("chain-build-tree", "chain-build-tree", "--context-width=1", *tree_args, p("ctree1"))
+    run("chain-make-den-fst", "chain-make-den-fst", p("ctree1"), p("phone_lm.fst"), p("den"))
+    with open(p("ctree1"), "rb") as f:
+        ctx1 = ContextDependency.read(f)
+    with open(p("chain.xconfig"), "w") as f:
+        f.write(CLI_CHAIN_XCONFIG.format(pdfs=ctx1.num_pdfs))
+    run("nnet3-chain-init", "nnet3-chain-init", "--srand=3", p("ctree1"), p("den"),
+        p("chain.xconfig"), phones, p("chain0.mdl"))
+    run("nnet3-chain-get-egs", "nnet3-chain-get-egs", "--frame-subsampling-factor=3", tri,
+        p("ctree1"), p("den"), o("tfeats.ark"), o("nali.ark"), o("cegs.ark"))
+    run("nnet3-chain-shuffle-egs", "nnet3-chain-shuffle-egs", "--srand=4", o("cegs.ark"),
+        o("cegs_shuf.ark"))
+    run("nnet3-chain-copy-egs", "nnet3-chain-copy-egs", o("cegs_shuf.ark"), o("cegs_0.ark"),
+        o("cegs_1.ark"))
+    run("nnet3-chain-merge-egs", "nnet3-chain-merge-egs", o("cegs_shuf.ark"),
+        o("cegs_train.ark"))
+    cprob0 = number(run("nnet3-chain-compute-prob", "nnet3-chain-compute-prob",
+                        p("chain0.mdl"), o("cegs_train.ark")), r"objective per frame: (\S+)")
+    t0 = time.perf_counter()
+    run("nnet3-chain-train", "nnet3-chain-train", "--srand=5", f"--initial-lr={CLI_NNET3_LR[0]}",
+        f"--final-lr={CLI_NNET3_LR[1]}", p("chain0.mdl"), o("cegs_train.ark"), p("chain1.mdl"))
+    chain_train_wall = time.perf_counter() - t0
+    cprob1 = number(run("nnet3-chain-compute-prob", "nnet3-chain-compute-prob",
+                        p("chain1.mdl"), o("cegs_train.ark")), r"objective per frame: (\S+)")
+    run("nnet3-chain-combine", "nnet3-chain-combine", f"--num-steps={CLI_CHAIN_COMBINE_STEPS}",
+        p("chain0.mdl"), p("chain1.mdl"), o("cegs_1.ark"), p("chain_comb.mdl"))
+    cprob_comb = number(run("nnet3-chain-compute-prob", "nnet3-chain-compute-prob",
+                            p("chain_comb.mdl"), o("cegs_1.ark")), r"objective per frame: (\S+)")
+    # sequence training on the committed model's lattices of the first
+    # CLI_DISC_UTTS utterances
+    run("subset-feats", "subset-feats", f"--n={CLI_DISC_UTTS}", o("tfeats.ark"),
+        o("dfeats.ark"))
+    disc = ("--criterion=smbr", "--acoustic-scale=1.0")
+    run("nnet3-latgen-faster", "nnet3-latgen-faster", "--acoustic-scale=1.0", p("final.mdl"),
+        hclg, o("dfeats.ark"), o("denlat.ark"))
+    disc_in = (o("dfeats.ark"), o("nali.ark"), o("denlat.ark"))
+    dobj0 = number(run("nnet3-discriminative-compute-objf", "nnet3-discriminative-compute-objf",
+                       *disc, p("final.mdl"), *disc_in), r"objf per frame: (\S+)")
+    run("nnet3-discriminative-train", "nnet3-discriminative-train", *disc, p("final.mdl"),
+        *disc_in, p("smbr.mdl"))
+    dobj1 = number(run("nnet3-discriminative-compute-objf", "nnet3-discriminative-compute-objf",
+                       *disc, p("smbr.mdl"), *disc_in), r"objf per frame: (\S+)")
+    sync()
+    tools_wall = time.perf_counter() - t_phase
+    launches = c.read_counts("cli_nnet3")
+    launches["gmm"] = c.gmm_loglikes.launches
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    # ---- the library on the same inputs
+    t_check = time.perf_counter()
+    tfeats = read_table(o("tfeats.ark"), "mat")
+    nali = read_table(o("nali.ark"), "ivec")
+    pdf_ali = {k: np.asarray(alignment_to_pdfs(tm, a), np.int32) for k, a in nali.items()}
+    checks["ali-to-pdf"] = read_table(o("npdf.ark"), "ivec").keys() == pdf_ali.keys() and all(
+        np.array_equal(v, pdf_ali[k]) for k, v in read_table(o("npdf.ark"), "ivec").items())
+    lib_egs = [(f"{k}-{i}", eg) for k in tfeats if k in pdf_ali
+               for i, eg in enumerate(get_ce_egs(tfeats[k], pdf_ali[k]))]
+    same_archive("nnet3-get-egs", p("egs.ark"), "egs", lib_egs)
+    shuffled = read_table(o("egs.ark"), "egs")
+    pairs = list(shuffled.items())
+    np.random.default_rng(1).shuffle(pairs)
+    same_archive("nnet3-shuffle-egs", p("egs_shuf.ark"), "egs", pairs)
+    same_archive("nnet3-copy-egs (0)", p("egs_0.ark"), "egs", pairs[0::2])
+    same_archive("nnet3-copy-egs (1)", p("egs_1.ark"), "egs", pairs[1::2])
+    merged = sorted(pairs[0::2], key=lambda kv: kv[1].feats.shape[0])
+    same_archive("nnet3-merge-egs", p("egs_train.ark"), "egs", merged)
+    train_egs = [eg for _k, eg in merged]
+    valid_egs = [eg for _k, eg in pairs[1::2]]
+
+    def lib_ce(am, egs):
+        """The masked CE per frame of `am` over `egs`, in runs of 128, by
+        the library's batching (nnet3-compute-prob's figure)."""
+        tot = n = 0.0
+        with torch.no_grad():
+            for group in iter_merged(egs, 128):
+                bf, bl, bm = batch_ce_egs(group)
+                logp = torch.log_softmax(am.logits(bf), dim=-1)
+                y = torch.from_numpy(bl).to(dev).long()
+                m = torch.from_numpy(bm).to(dev)
+                tot += float((logp.gather(-1, y[..., None])[..., 0] * m).sum())
+                n += float(m.sum())
+        return tot / n
+
+    start = AmNnet.load(final_am, device=dev)
+    gap("nnet3-compute-prob (start)", prob0, lib_ce(start, train_egs), rel=False)
+    # nnet3-train's flow by the library: sort, merge, shuffle the runs, step
+    lib_am = AmNnet.load(final_am, device=dev)
+    egs_sorted = sorted(train_egs, key=lambda e: e.feats.shape[0])
+    steps = max(1, len(egs_sorted) // CLI_NNET3_MINIBATCH)
+    optimizer = make_optimizer(NnetTrainOptions(initial_lr=CLI_NNET3_LR[0],
+                                                final_lr=CLI_NNET3_LR[1]),
+                               steps, lr_factors=lib_am.lr_factors)
+    model = lib_am.model.train()
+    state = TrainState(optimizer.init(dict(model.named_parameters())), 0)
+    step_fn = make_ce_train_step(model, optimizer)
+    groups = list(iter_merged(egs_sorted, CLI_NNET3_MINIBATCH))
+    np.random.default_rng(2).shuffle(groups)
+    step_secs = []
+    for group in groups:
+        batch = batch_ce_egs(group)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, *batch)
+        float(metrics["loss"])
+        step_secs.append(time.perf_counter() - t0)
+    model.eval()
+    trained = AmNnet.load(p("trained.raw"), device=dev)
+    check_keys = sorted(tfeats)[:CLI_NNET3_CHECK_UTTS]
+    _, cx, _ = pad_feature_batch({k: tfeats[k] for k in check_keys})
+    gap("nnet3-train (loglikes of 8 utterances)", trained.loglikes_batch(cx),
+        lib_am.loglikes_batch(cx))
+    gap("nnet3-compute-prob (trained)", prob1, lib_ce(trained, train_egs), rel=False)
+    combined = AmNnet.load(p("combined.raw"), device=dev)
+    lib_comb = combine_models([AmNnet.load(p("start.raw"), device=dev), trained],
+                              {f"eg{i}": e.feats for i, e in enumerate(
+                                  sorted(valid_egs, key=lambda e: e.feats.shape[0])[:128])},
+                              {f"eg{i}": e.labels for i, e in enumerate(
+                                  sorted(valid_egs, key=lambda e: e.feats.shape[0])[:128])})
+    gap("nnet3-combine (loglikes of 8 utterances)", combined.loglikes_batch(cx),
+        lib_comb.loglikes_batch(cx))
+    final_cli = AmNnet.load(p("final_cli.raw"), device=dev)
+    bf, _bl, bm = batch_ce_egs([eg for _k, eg in pairs[0::2]][:512])
+    combined.set_priors_from_posteriors(bf, bm.sum(axis=1).astype(np.int32))
+    gap("nnet3-adjust-priors", final_cli.log_priors, combined.log_priors, rel=False,
+        tol=CLI_DISC_TOL)
+    bundle = AmNnetModel.load(p("final_cli.mdl"), device=dev)
+    csr = read_hclg_csr(hclg, tm.tid_to_pdf_array())
+    hfeats = read_table(o("feats.ark"), "mat")
+    hkeys, hpad, hnf = pad_feature_batch(hfeats)
+    lib = decode_batch(csr, bundle.am.loglikes_batch_chunked(hpad), hnf,
+                       ViterbiOptions(acoustic_scale=1.0), want_lattice=True, device=dev)
+    words = read_table(f"ark:{p('cli_nwords.txt')}", "text")
+    wtab = SymbolTable.read(p("graph", "words.txt"))
+    same_words = sum(r is not None and words.get(k) == " ".join(wtab[w] for w in r.words)
+                     for k, r in zip(hkeys, lib))
+    checks["nnet3-latgen-faster (words = library decode_batch, 64 of 64)"] = (
+        same_words == len(hkeys))
+    ref = read_table(f"ark:{p('ref.txt')}", "text")
+    wer_errors = sum(1 for k in hkeys if words.get(k) != ref[k])
+    # the chain graph tools
+    seqs = [alignment_to_phones(tm, nali[k]) for k in sorted(nali)]
+    lm = estimate_phone_lm(seqs, 2)
+    checks["chain-est-phone-lm"] = data("phone_lm.fst") == _bytes_of(lm.write)
+    ph = [int(x) for x in phones.split(":")]
+    checks["chain-build-tree (width 1)"] = data("ctree1") == _bytes_of(
+        monophone_context_dependency(ph, {q: 1 for q in ph}).write)
+    ctx2, _tm2, _den2 = build_chain_objects(tri_host, nali, c.minilib.make_lang(), chain_opts,
+                                            feats=tfeats)
+    checks["chain-build-tree (width 2)"] = data("ctree2") == _bytes_of(ctx2.write)
+    with open(p("phone_lm.fst"), "rb") as f:
+        lib_den = make_denominator_graph(VectorFst.read(f), ctx1)
+    den = read_den_graph(p("den"))
+    checks["chain-make-den-fst (arrays)"] = all(
+        np.array_equal(getattr(den, f.name), getattr(lib_den, f.name))
+        if isinstance(getattr(lib_den, f.name), np.ndarray)
+        else getattr(den, f.name) == getattr(lib_den, f.name)
+        for f in dataclasses.fields(lib_den))
+    lib_cegs = []
+    for k in tfeats:
+        if k in nali:
+            try:
+                lib_cegs += [(f"{k}-{i}", eg) for i, eg in enumerate(get_chain_egs(
+                    tfeats[k], nali[k], tm, ctx1, lib_den, 3, 5, 5))]
+            except KaldiError:  # counted by the tool as it skips them
+                pass
+    same_archive("nnet3-chain-get-egs", p("cegs.ark"), "cegs", lib_cegs)
+    cpairs = list(read_table(o("cegs.ark"), "cegs").items())
+    np.random.default_rng(4).shuffle(cpairs)
+    same_archive("nnet3-chain-shuffle-egs", p("cegs_shuf.ark"), "cegs", cpairs)
+    same_archive("nnet3-chain-copy-egs (0)", p("cegs_0.ark"), "cegs", cpairs[0::2])
+    same_archive("nnet3-chain-copy-egs (1)", p("cegs_1.ark"), "cegs", cpairs[1::2])
+    cmerged = sorted(cpairs, key=lambda kv: kv[1].feats.shape[0])
+    same_archive("nnet3-chain-merge-egs", p("cegs_train.ark"), "cegs", cmerged)
+    cegs = [eg for _k, eg in cmerged]
+
+    def lib_chain(cm, egs):
+        """The frame-weighted chain objective per frame of `cm` over `egs`,
+        in length order and groups of 8, l2 and xent off."""
+        lopts = ChainLossOptions(l2_regularize=0.0, xent_regularize=0.0)
+        tot = frames = 0.0
+        with torch.no_grad():
+            for group in iter_merged(sorted(egs, key=lambda e: e.feats.shape[0]), 8):
+                bf, *sup, _x = (torch.from_numpy(np.asarray(a)).to(dev)
+                                for a in batch_chain_egs(group))
+                logits = cm.am.logits(bf, output_stride=cm.frame_subsampling_factor)
+                _l, met = chain_loss(logits[:, : sup[1].shape[1]], cm.den, *sup, lopts)
+                n = float(sup[2].sum())
+                tot += float(met["objf"]) * n
+                frames += n
+        return tot / frames
+
+    cm0 = ChainModel.load(p("chain0.mdl"), device=dev)
+    gap("nnet3-chain-compute-prob (start)", cprob0, lib_chain(cm0, cegs))
+    cm1 = ChainModel.load(p("chain1.mdl"), device=dev)
+    gap("nnet3-chain-compute-prob (trained)", cprob1, lib_chain(cm1, cegs))
+    # nnet3-chain-train's minibatches: its step captures the objective once
+    # for each distinct set of supervision shapes; one step card vs CPU
+    loss_opts = ChainLossOptions()
+    csteps = max(1, len(cegs) // CLI_CHAIN_MINIBATCH)
+    batches = chain_batches(cegs, CLI_CHAIN_MINIBATCH, np.random.default_rng(5))
+    captures = len({tuple(np.shape(a) for a in b[1:]) for b in batches})
+    step_gap = {}
+    for where in ("card", "cpu"):
+        wdev = dev if where == "card" else torch.device("cpu")
+        wcm = ChainModel.load(p("chain0.mdl"), device=wdev)
+        wmodel = copy.deepcopy(wcm.am.model).train()
+        wopt = make_optimizer(NnetTrainOptions(initial_lr=CLI_NNET3_LR[0],
+                                               final_lr=CLI_NNET3_LR[1]), csteps)
+        _s, loss, met = make_chain_step(wmodel, wcm.den, wopt, loss_opts, 3)(
+            TrainState(wopt.init(dict(wmodel.named_parameters())), 0), *batches[0])
+        step_gap[where] = {"loss": float(loss), "num": float(met["num"]),
+                           "den": float(met["den"])}
+    frames = float(np.sum(batches[0][3]))
+    scale = max(abs(step_gap["cpu"]["num"]), abs(step_gap["cpu"]["den"])) * len(
+        batches[0][3]) / frames
+    step_rel = abs(step_gap["card"]["loss"] - step_gap["cpu"]["loss"]) / scale
+    lib_ccomb = combine_chain_models([ChainModel.load(p("chain0.mdl"), device=dev), cm1],
+                                     [eg for _k, eg in cpairs[1::2]],
+                                     num_steps=CLI_CHAIN_COMBINE_STEPS)
+    gap("nnet3-chain-combine (objective)", cprob_comb,
+        lib_chain(lib_ccomb, [eg for _k, eg in cpairs[1::2]]))
+    # sequence training
+    dfeats = {k: np.asarray(v, np.float32) for k, v in list(tfeats.items())[:CLI_DISC_UTTS]}
+    checks["subset-feats"] = sorted(read_table(o("dfeats.ark"), "mat")) == sorted(dfeats)
+    dlats = read_table(o("denlat.ark"), "lat")
+    dopts = DiscriminativeOptions(criterion="smbr", acoustic_scale=1.0)
+    dbundle = AmNnetModel.load(p("final.mdl"), device=dev)
+    gap("nnet3-discriminative-compute-objf", dobj0,
+        compute_discriminative_objf(dbundle.am, dfeats, nali, dlats, dbundle.tm, dopts),
+        rel=False, tol=CLI_DISC_TOL)
+    check_seconds = time.perf_counter() - t_check
+    new_tools = {n for n, fn in tools.TOOLS.items() if fn.__module__.endswith("nnet3_tools")} - {
+        "nnet3-init", "nnet3-copy", "nnet3-am-init", "nnet3-align-compiled",
+        "nnet3-latgen-faster", "online2-wav-nnet3-latgen-faster",
+        "online2-tcp-nnet3-decode-faster"}
+    tools_run = {label.split(" ")[0] for label in walls}
+    bad = {k: v for k, v in checks.items() if not v}
+    bad.update({k: v for k, v in gaps.items() if not v <= tols[k]})
+    c.emit({"phase": "cli_nnet3", "card": c.card, "train_utterances": len(tkeys),
+            "test_utterances": len(hkeys), "tools": len(tools_run & new_tools),
+            "tools_wall_seconds": tools_wall, "check_seconds": check_seconds,
+            "phase_seconds": time.perf_counter() - t_start, "tool_seconds": walls,
+            "launches": {k: launches[k] for k in ("gather", "mfcc", "gmm")},
+            "peak_memory_bytes": peak,
+            "egs": {"ce": len(lib_egs), "ce_train": len(train_egs), "ce_valid": len(valid_egs),
+                    "chain": len(cegs)},
+            "ce_log_prob_per_frame": {"start": prob0, "trained": prob1, "valid": valid},
+            "ce_step_ms_median": 1e3 * float(np.median(step_secs)), "ce_steps": len(step_secs),
+            "chain_tree_pdfs": {"width1": ctx1.num_pdfs, "width2": ctx2.num_pdfs},
+            "chain_objf_per_frame": {"start": cprob0, "trained": cprob1,
+                                     "combined_valid": cprob_comb},
+            "chain_steps": len(batches), "chain_train_tool_seconds": chain_train_wall,
+            "chain_train_ms_a_step": 1e3 * chain_train_wall / len(batches),
+            "chain_cuda_graph_captures": captures,
+            "chain_step_card_vs_cpu": dict(step_gap, relative_to_term_per_frame=step_rel),
+            "smbr_objf_per_frame": {"start": dobj0, "trained": dobj1},
+            "decode": {"words_equal_library": same_words, "utterances": len(hkeys),
+                       "utterances_with_errors": wer_errors},
+            "checks": {k: bool(v) for k, v in checks.items()}, "gaps": gaps,
+            "tolerances": tols})
+    if bad:
+        faults.append(f"cli_nnet3: checks failed: {sorted(bad)}")
+    if tools_run < new_tools or len(new_tools) != 21:
+        faults.append(f"cli_nnet3: tools not run: {sorted(new_tools - tools_run)}")
+    if not (prob1 > prob0 and valid["combined"] >= max(valid["start"], valid["trained"]) - 1e-3):
+        faults.append(f"cli_nnet3: CE did not rise or the combination lost: {prob0} → {prob1}, "
+                      f"valid {valid}")
+    if not (cprob0 < cprob1 <= 0.0 and np.isfinite(cprob1)):
+        faults.append(f"cli_nnet3: chain objective did not rise: {cprob0} → {cprob1}")
+    if not step_rel <= NNET_STEP_TOL:
+        faults.append(f"cli_nnet3: chain step card vs CPU {step_rel}")
+    if not dobj1 >= dobj0 - 1e-6:
+        faults.append(f"cli_nnet3: sMBR objective fell: {dobj0} → {dobj1}")
+    if on_card and min(launches["gmm"], launches["gather"], launches["mfcc"]) == 0:
+        faults.append(f"cli_nnet3: the kernels were not all launched: {launches}")
+    return {"faults": faults, "launches": launches}
+
+
+def _bytes_of(write) -> bytes:
+    """What write(f) writes to a file."""
+    import io
+
+    buf = io.BytesIO()
+    write(buf)
+    return buf.getvalue()
+
+
+NNET12_MAX_WER_PERCENT = 5.0  # ARCH_MAX_WER_PERCENT's rule: a model not converged
+NNET12_YESNO_MAX_WER = 2.0  # the JAX package's own gate (tests/test_nnet12.py)
+NNET12_TOL = 1e-4  # one nnet1 epoch / nnet2 iteration card vs CPU: the loss, relative
+NNET12_CPU_UTTS = 64  # training utterances of that card vs CPU pass (the CPU's cost)
+# the minilib cells' learning rates: those of the JAX package's yesno tests.
+# At the options' defaults (nnet1 8e-3 on the mean CE; nnet2 2e-3 → 2e-4)
+# neither model learns in the phase's epochs on the CPU rehearsal (PERF.md §4)
+NNET1_MINILIB = dict(learn_rate=6e-2, momentum=0.5)
+NNET2_MINILIB = dict(initial_lr=1e-2, final_lr=1e-3)
+
+
+def nnet12(torch, np, c) -> dict:
+    """The nnet12 phase: nnet1 (Nnet1Config's 2 × 256 sigmoid units at ±5
+    frames, nnet-train-frmshuff with newbob, up to 20 epochs) and nnet2
+    (Nnet2Config's 2 × p-norm 512 → 64 at ±4 frames on the whitening fixed
+    affine, 10 iterations of parallel SGD with averaging, jobs 2 → 4, Adam)
+    trained on the architectures phase's features of the 600 training
+    utterances and tri_ali.pkl's labels, each decoding the 256 clean
+    held-out utterances on hclg.npz at K = 1024, B = 128 (the MFCC and
+    gather kernels); each family's yesno flow (recipes/nnet12.py); one nnet1
+    epoch and one nnet2 iteration on the first NNET12_CPU_UTTS utterances on
+    the card and on the CPU from the same weights.  Each path's counts are set to 0 just before it and read just
+    after."""
+    from old_kaldi_git_tpu_torch.models.nnet1 import (
+        AmNnet1, Nnet1Config, Nnet1TrainOptions, train_nnet1_frmshuff)
+    from old_kaldi_git_tpu_torch.models.nnet2 import (
+        AmNnet2, Nnet2Config, Nnet2TrainOptions, make_fixed_affine, train_nnet2_parallel)
+    from old_kaldi_git_tpu_torch.recipes import nnet12 as recipe, triphone
+
+    dev, card, minilib, system = c.dev, c.card, c.minilib, c.system
+    cpu = torch.device("cpu")
+    feats, labels = c.feats, c.labels
+    frames = sum(min(len(feats[k]), len(labels[k])) for k in labels if k in feats)
+    faults, launches, lines = [], {}, {}
+    t_phase = time.perf_counter()
+
+    def nnet2_config():
+        cfg = Nnet2Config(39, c.num_pdfs)
+        spliced = np.concatenate([triphone.splice_numpy(feats[k], cfg.left_context,
+                                                        cfg.right_context)
+                                  for k in sorted(feats)])
+        return dataclasses.replace(cfg, fixed_affine=make_fixed_affine(spliced))
+
+    def init(family, cfg, device):
+        gen = torch.Generator().manual_seed(0)
+        return (AmNnet1 if family == "nnet1" else AmNnet2).init(cfg, gen, device=device)
+
+    def train(family, am, opts, history, keys=None):
+        f = feats if keys is None else {k: feats[k] for k in keys}
+        if family == "nnet1":
+            return train_nnet1_frmshuff(am, f, labels, opts, history=history)
+        return train_nnet2_parallel(am, f, labels, opts, history=history)
+
+    configs = {"nnet1": Nnet1Config(39, c.num_pdfs), "nnet2": nnet2_config()}
+    options = {"nnet1": Nnet1TrainOptions(**NNET1_MINILIB),
+               "nnet2": Nnet2TrainOptions(**NNET2_MINILIB)}
+    for family in ("nnet1", "nnet2"):
+        cfg, opts = configs[family], options[family]
+        c.zero_counts()
+        hist = []
+        t0 = time.perf_counter()
+        am = train(family, init(family, cfg, dev), opts, hist)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        tr_counts = c.read_counts(f"nnet12_{family}")
+        c.zero_counts()
+        t0 = time.perf_counter()
+        wer, _ = minilib.decode_and_score(dataclasses.replace(system, am=am), beam=BEAM,
+                                          max_active=MAX_ACTIVE, acoustic_scale=ACOUSTIC_SCALE,
+                                          batch=BATCH)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        stats = minilib.decode_and_score.last_stats
+        de_counts = c.read_counts(f"nnet12_{family}_decode")
+        launches[f"nnet12_{family}"] = tr_counts
+        launches[f"nnet12_{family}_decode"] = de_counts
+        # a first epoch / iteration on the first NNET12_CPU_UTTS utterances,
+        # on the card and on the CPU
+        one, sub = {}, sorted(k for k in feats if k in labels)[:NNET12_CPU_UTTS]
+        for where, device in (("card", dev), ("cpu", cpu)):
+            h = []
+            if family == "nnet1":
+                train(family, init(family, cfg, device),
+                      dataclasses.replace(opts, max_epochs=1), h, sub)
+                one[where] = (h[0]["train"], h[0]["cv"], h[0]["accepted"], h[0]["halving"])
+            else:
+                train(family, init(family, cfg, device),
+                      dataclasses.replace(opts, num_epochs=1), h, sub)
+                one[where] = (h[0]["loss"],)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(one["card"], one["cpu"])
+                  if isinstance(a, float))
+        losses = [h["cv" if family == "nnet1" else "loss"] for h in hist]
+        steps = sum(h["steps"] * (h.get("jobs", 1)) for h in hist)
+        lines[family] = {
+            "config": dataclasses.asdict(dataclasses.replace(cfg, fixed_affine=None))
+            if family == "nnet2" else dataclasses.asdict(cfg),
+            "options": dataclasses.asdict(opts), "frames": frames,
+            "epochs" if family == "nnet1" else "iterations": len(hist),
+            "losses": losses, "train_seconds": train_s,
+            "step_ms": 1e3 * train_s / max(1, sum(h["steps"] for h in hist)),
+            "frames_per_second": frames * len(hist) / train_s,
+            "peak_memory_bytes": peak, "decode_seconds": decode_s, "wer_percent": wer,
+            "errors": stats["errors"], "ref_words": stats["ref_words"],
+            "launches": {"train": tr_counts, "decode": de_counts},
+            "card_vs_cpu_first_pass": {"card": one["card"], "cpu": one["cpu"],
+                                       "relative": rel}}
+        if family == "nnet1":
+            lines[family]["halvings"] = sum(h["halving"] for h in hist)
+            lines[family]["accepted"] = [h["accepted"] for h in hist]
+        else:
+            lines[family]["jobs"] = [h["jobs"] for h in hist]
+            lines[family]["replica_steps"] = steps
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            faults.append(f"nnet12 {family}: the loss did not fall: {losses}")
+        if not wer <= NNET12_MAX_WER_PERCENT:
+            faults.append(f"nnet12 {family}: WER {wer} > {NNET12_MAX_WER_PERCENT}")
+        if not (rel <= NNET12_TOL and one["card"][2:] == one["cpu"][2:]):
+            faults.append(f"nnet12 {family}: card vs CPU {one}")
+        if min(de_counts["gather"], de_counts["mfcc"]) == 0:
+            faults.append(f"nnet12 {family}: the decode did not go through its kernels: "
+                          f"{de_counts}")
+        del am
+        torch.cuda.empty_cache()
+    # the JAX package's yesno flows of both families
+    c.zero_counts()
+    t0 = time.perf_counter()
+    ys = recipe.yesno_system(dev)
+    yesno = {}
+    for family, fn in (("nnet1", recipe.train_nnet1_yesno), ("nnet2", recipe.train_nnet2_yesno)):
+        h = []
+        stats = recipe.decode_wer(ys, fn(ys, history=h))
+        yesno[family] = {"wer_percent": stats.wer, "errors": stats.errors,
+                         "ref_words": stats.ref_len, "passes": len(h)}
+        if not stats.wer <= NNET12_YESNO_MAX_WER:
+            faults.append(f"nnet12 yesno {family}: {stats.report()}")
+    torch.cuda.synchronize()
+    launches["nnet12_yesno"] = c.read_counts("nnet12_yesno")
+    c.emit({"phase": "nnet12", "card": card, **lines,
+            "yesno": dict(yesno, seconds=time.perf_counter() - t0,
+                          launches=launches["nnet12_yesno"]),
+            "phase_seconds": time.perf_counter() - t_phase})
+    return {"faults": faults, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--noisy", action="store_true",
                     help="also decode the set re-synthesised at noise 400")
     ap.add_argument("--profile-frames", type=int, default=0,
                     help="frames of one chunk's search under torch.profiler")
-    ap.add_argument("--only", choices=["architectures", "cli", "cli_lattice", "cli_train"],
+    ap.add_argument("--only", choices=["architectures", "nnet12", "cli", "cli_lattice",
+                                       "cli_train", "cli_nnet3"],
                     help="build the kernels, load the system and run only these "
-                         "phases (no final line: a partial run); cli_lattice and "
-                         "cli_train run the cli phase first, whose work directory "
-                         "they read")
+                         "phases (no final line: a partial run); cli_lattice, "
+                         "cli_train and cli_nnet3 run the cli phase first, whose work "
+                         "directory they read; nnet12 runs architectures first, whose "
+                         "features it trains on")
     args = ap.parse_args()
 
     import torch
@@ -4700,10 +5398,18 @@ def main() -> int:
     # here on (host work); the phase waits for it at the end of the run
     cli_dir = tempfile.mkdtemp(prefix="okt_cli_")
     cli_pool = cli_graph_future = None
-    if args.only != "architectures":
+    if args.only not in ("architectures", "nnet12"):
         cli_pool = concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn"))
         cli_graph_future = cli_pool.submit(cli_graph, cli_dir)
+    # host work of later phases in another spawned process, from here on: the
+    # rescore phase's 4-gram (about 40 s), then train_chain's graph
+    host_pool = rescore_lm_future = None
+    if not args.only:
+        host_pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        rescore_lm_future = host_pool.submit(minilib.rescore_lm, minilib.MinilibOptions(),
+                                             RESCORE["full_lm_order"])
 
     # ---- the system (needed for the main path's kernel shapes) --------------
     t0 = time.perf_counter()
@@ -4737,21 +5443,33 @@ def main() -> int:
     svopts = ViterbiOptions(beam=BEAM, max_active=STREAM_MAX_ACTIVE, acoustic_scale=1.0)
     fsf = chain.model.frame_subsampling_factor
 
-    def run_architectures(topts, twaves):
-        return architectures(torch, np, argparse.Namespace(
+    def run_architectures(topts, twaves, with_nnet12=True):
+        """Phases architectures, architectures_parity, stream_lstm and, with
+        `with_nnet12`, nnet12 on the architectures' training features; a
+        fault ends the run.  Returns their K1 and K2 counts by path."""
+        arch = architectures(torch, np, argparse.Namespace(
             dev=dev, card=card, emit=emit, minilib=minilib, system=system, topts=topts,
             twaves=twaves, zero_counts=zero_counts, read_counts=read_counts, sil=sil,
-            tid_to_phone=tid_to_phone))["launches"]
+            tid_to_phone=tid_to_phone))
+        if not with_nnet12:
+            return arch["launches"]
+        res = nnet12(torch, np, argparse.Namespace(
+            dev=dev, card=card, emit=emit, minilib=minilib, system=system, feats=arch["feats"],
+            labels=arch["labels"], num_pdfs=arch["num_pdfs"], zero_counts=zero_counts,
+            read_counts=read_counts))
+        if res["faults"]:
+            raise RuntimeError("nnet12: " + "; ".join(res["faults"]))
+        return {**arch["launches"], **res["launches"]}
 
-    def run_cli(twaves, ttext, lattice=True, train=True):
+    def run_cli(twaves, ttext, lattice=True, train=True, nnet3=True):
         """The cli phase and, with `lattice`, cli_lattice, with `train`,
-        cli_train after it on its work directory, which is removed at the
-        end; their faults end the run.  Returns the three phases' results
-        (None for a phase not run)."""
+        cli_train, with `nnet3`, cli_nnet3 after it on its work directory,
+        which is removed at the end; their faults end the run.  Returns the
+        four phases' results (None for a phase not run)."""
         nonlocal plug
         plug = torch.randn((8192, 8192), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(15))
-        lat = trn = None
+        lat = trn = nn3 = None
         try:
             res = cli(torch, np, argparse.Namespace(
                 dev=dev, card=card, emit=emit, minilib=minilib, system=system, twaves=twaves,
@@ -4784,15 +5502,24 @@ def main() -> int:
                     gather_at=lambda *a: gather_at(*a), k3_at=k3_at, plug=plug))
                 if trn["faults"]:
                     raise RuntimeError("cli_train: " + "; ".join(trn["faults"]))
+            if nnet3:
+                nn3 = cli_nnet3(torch, np, argparse.Namespace(
+                    dev=dev, card=card, emit=emit, workdir=cli_dir, minilib=minilib,
+                    twaves=twaves, tri=os.path.abspath("exp/minilib/tri.mdl"),
+                    zero_counts=zero_counts, read_counts=read_counts,
+                    gmm_loglikes=gmm_loglikes))
+                if nn3["faults"]:
+                    raise RuntimeError("cli_nnet3: " + "; ".join(nn3["faults"]))
         finally:
             plug = None
             torch.cuda.empty_cache()
             shutil.rmtree(cli_dir, ignore_errors=True)
-        return res, lat, trn
+        return res, lat, trn, nn3
 
-    if args.only == "architectures":
+    if args.only in ("architectures", "nnet12"):
         topts = minilib.MinilibOptions()
-        run_architectures(topts, minilib.training_set(topts)[0])
+        run_architectures(topts, minilib.training_set(topts)[0],
+                          with_nnet12=args.only == "nnet12")
         emit({"phase": "total", "card": card, "partial": args.only,
               "seconds": round(time.perf_counter() - t_start, 1)})
         return 0
@@ -4949,6 +5676,22 @@ def main() -> int:
                        for r in by_route}
     if k2_check_routes != {"fft": 6, "dft": 3}:
         raise RuntimeError(f"K2's checks took the routes {k2_check_routes}")
+    # K2 on VTLN-warped mel tables (Mfcc(..., vtln_warp=w)), the first
+    # front-end chunk's frames, against both plain versions on the same
+    # warped tables; their spans must fit the kernel's span table
+    k2_vtln = {}
+    for warp in VTLN_WARPS:
+        ww = make_mfcc_weights(opts8, device=dev, vtln_warp=warp)
+        ww64 = make_mfcc_weights(opts8, device=dev, dtype=torch.float64, vtln_warp=warp)
+        err, err64, _ = check_mfcc(torch, fused_mfcc_from_frames, fused_mfcc_reference,
+                                   [(frames8, ww, ww64, True)])
+        k2_vtln[str(warp)] = {
+            "max_abs_err": err, "max_abs_err_vs_float64_plain": err64,
+            "span_bins": int(mel_spans(ww[2].cpu().numpy())[:, 1].sum()),
+            "span_table_bins": 2 * ww[2].shape[0] + ww[2].shape[1],
+            "mel_table_differs_from_unwarped": not torch.equal(ww[2], w8[2]),
+            "kernel_ms": time_ms(torch, lambda: fused_mfcc_from_frames(frames8, ww), reps=10,
+                                 plug=plug)}
     mfcc_smem = _build.bind("mfcc", "okt_fused_mfcc_smem", [ctypes.c_int] * 4,
                             restype=ctypes.c_longlong)
     k2_smem = {str(wd): mfcc_smem(mfcc_route(wd) == "fft", wd, w8[2].shape[1], w8[3].shape[1])
@@ -5011,15 +5754,17 @@ def main() -> int:
                    "w400_dft_route_ms": k2_400_ms,
                    "fp32_plain_vs_float64_where_fp32_not_checked": k2_plain_own,
                    "smem_bytes_by_window": k2_smem,
-                   "check_launches_by_route": k2_check_routes},
+                   "check_launches_by_route": k2_check_routes,
+                   "vtln_warped_tables": k2_vtln},
           "timing": "mean of back-to-back launches, inputs resident in L2",
           "refusals": refusals,
           "check_launches": {"gather": batched_table_gather.launches,
                              "mfcc": fused_mfcc_from_frames.launches}})
 
-    if args.only in ("cli", "cli_lattice", "cli_train"):
+    if args.only in ("cli", "cli_lattice", "cli_train", "cli_nnet3"):
         run_cli(*minilib.training_set(minilib.MinilibOptions()),
-                lattice=args.only == "cli_lattice", train=args.only == "cli_train")
+                lattice=args.only == "cli_lattice", train=args.only == "cli_train",
+                nnet3=args.only == "cli_nnet3")
         emit({"phase": "total", "card": card, "partial": args.only,
               "seconds": round(time.perf_counter() - t_start, 1)})
         return 0
@@ -5279,9 +6024,12 @@ def main() -> int:
     t0 = time.perf_counter()
     rstages = {}
     rescore_lms = {}  # the two LMs, kept for lattice_outputs' big-LM decode
+    full_lm = rescore_lm_future.result()  # estimated in the spawned process
+    rstages["lm_wait_seconds"] = time.perf_counter() - t0
     before, after = minilib.rescore_and_score(
         system, max_active=RESCORE_MAX_ACTIVE, batch=RESCORE_BATCH, timings=rstages,
-        lms=rescore_lms, **RESCORE)
+        lms=rescore_lms, full_lm=full_lm, **RESCORE)
+    del full_lm
     torch.cuda.synchronize()
     rwall_s = time.perf_counter() - t0
     rstats = dict(minilib.rescore_and_score.last_stats)
@@ -5365,7 +6113,7 @@ def main() -> int:
     civ_launches = ivector_phase("decode_chain_ivec", "exp/minilib/chain_ivec.mdl + final.ie",
                                  minilib.decode_and_score_chain, chain_iv)
 
-    # ---- phases 12-13: streaming, TDNN and chain, on 16 utterances spread
+    # ---- phases 12-13: streaming, TDNN and chain, on 8 utterances spread
     # over the durations; the batch decode's words first, then the counts
     # set to 0 just before the front end and the streaming loop
     by_dur = sorted(system.test_waves, key=lambda k: len(system.test_waves[k]))
@@ -6028,74 +6776,22 @@ def main() -> int:
     torch.cuda.synchronize()
     ch_fe_s = time.perf_counter() - t0
     ch_hist, ch_rep = [], {}
-    ch_system = minilib.train_chain_system(tfeats, lang, chain_topts, device=dev,
-                                           history=ch_hist, report=ch_rep)
+    ch_model = minilib.train_chain_model(tfeats, lang, chain_topts, device=dev,
+                                         history=ch_hist, report=ch_rep)
     torch.cuda.synchronize()
     ch_wall = time.perf_counter() - t0
     ch_launches = {"train": read_counts("train_chain")}
     ch_peak = torch.cuda.max_memory_allocated()
     del tfeats
-    zero_counts()
-    ch_stages = {}
-    ch_wer, _ = minilib.decode_and_score_chain(
-        ch_system, beam=BEAM, max_active=CHAIN_MAX_ACTIVE, batch=CHAIN_BATCH,
-        timings=ch_stages)
-    ch_launches["decode"] = read_counts("train_chain_decode")
-    ch_stats = minilib.decode_and_score_chain.last_stats
+    # stage 8's graph is host work (52-80 s): it builds in the spawned process
+    # while the phases up to train_chain_ivec's training run, and
+    # train_chain's decode waits for it there
+    ch_graph_future = host_pool.submit(minilib.chain_graph, ch_model.ctx_dep, ch_model.tm,
+                                       None, chain_topts)
     ch_objf = [h["objf"] for h in ch_hist]
-    chain_s = sum(ch_rep[k] for k in ("g_seconds", "lg_seconds", "hclg_seconds",
-                                      "export_seconds"))
-    # K1 at the card-trained chain model's decode shape (its own pdfs and
-    # graph), against its plain version
-    ntg = build_tile_graph(ch_system.csr)
-    Pn = ch_system.model.am.config.num_outputs
-    En = _token_budget(ch_system.csr, Kc, ntg.md) * ntg.md
-    k1_trained_chain_err = check_gather(
-        torch, batched_table_gather, batched_table_gather_plain,
-        [(CHAIN_BATCH, Pn, En, 256, 7), (CHAIN_BATCH, Pn, En, 1, 0)], seed=17)
-    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
-    k1_trained_chain = gather_at(CHAIN_BATCH, Pn, En, 256)
-    del plug
-    emit({"phase": "train_chain", "card": card,
-          "tree_pdfs": ch_rep["tree_pdfs"], "committed_chain_mdl_pdfs": chain.model.am.config.num_outputs,
-          "den_states": ch_rep["den_states"], "den_arcs": ch_rep["den_arcs"],
-          "supervision_failures": ch_rep["supervision_failures"],
-          "epochs": len(ch_hist), "steps": ch_rep["steps"],
-          "objf_by_epoch": ch_objf, "xent_by_epoch": [h["xent"] for h in ch_hist],
-          "wall_seconds": ch_wall, "front_end_seconds": ch_fe_s,
-          "objects_seconds": ch_rep["objects_seconds"],
-          "supervision_seconds": ch_rep["supervision_seconds"],
-          "train_seconds": ch_rep["train_seconds"],
-          "step_ms": 1e3 * ch_rep["train_seconds"] / ch_rep["steps"],
-          "steps_per_second": ch_rep["steps"] / ch_rep["train_seconds"],
-          "peak_device_memory_bytes": ch_peak,
-          "mfcc_launches": ch_launches["train"]["mfcc"],
-          "graph": {"g_seconds": ch_rep["g_seconds"], "g_states": ch_rep["g_states"],
-                    "g_arcs": ch_rep["g_arcs"], "lg_seconds": ch_rep["lg_seconds"],
-                    "hclg_seconds": ch_rep["hclg_seconds"],
-                    "export_seconds": ch_rep["export_seconds"], "seconds": chain_s,
-                    "states": ch_rep["hclg_states"], "emitting_arcs": ch_rep["hclg_arcs"],
-                    "backoff_arcs": ch_rep["hclg_backoff_arcs"],
-                    "eps_depth": ch_system.csr.eps_depth},
-          "gather_kernel_at_decode_shape": {"exact": k1_trained_chain_err == 0.0,
-                                            **k1_trained_chain},
-          "decode": {"max_active": CHAIN_MAX_ACTIVE, "batch": CHAIN_BATCH,
-                     "wer_percent": ch_wer, "errors": ch_stats["errors"],
-                     "ref_words": ch_stats["ref_words"],
-                     "utterances_with_errors": ch_stats["utterances_with_errors"],
-                     **ch_stages, "gather_launches": ch_launches["decode"]["gather"],
-                     "mfcc_launches": ch_launches["decode"]["mfcc"]}})
     if not (len(ch_hist) == CHAIN_EPOCHS and all(np.isfinite(ch_objf))):
         nnet_faults.append(f"train_chain: objf by epoch {ch_objf}, not {CHAIN_EPOCHS} "
                            "finite")
-    if ch_wer > MAX_WER_PERCENT:
-        nnet_faults.append(f"train_chain: WER {ch_wer} % above {MAX_WER_PERCENT} %")
-    if k1_trained_chain_err != 0.0:
-        nnet_faults.append(f"train_chain: K1 differs from its plain version by "
-                           f"{k1_trained_chain_err}")
-    if not (ch_launches["train"]["mfcc"] > 0 and ch_launches["decode"]["gather"] > 0
-            and ch_launches["decode"]["mfcc"] > 0):
-        nnet_faults.append(f"train_chain did not go through its kernels: {ch_launches}")
     torch.cuda.empty_cache()
 
     # one step from the same inputs on both devices, the features computed
@@ -6444,6 +7140,74 @@ def main() -> int:
     torch.cuda.synchronize()
     cv_wall = time.perf_counter() - t0
     cv_launches = {"train": read_counts("train_chain_ivec")}
+    # ---- train_chain's decode (phase 27), on stage 8's graph from the
+    # spawned process
+    t0 = time.perf_counter()
+    ch_csr, ch_graph_rep = ch_graph_future.result()
+    ch_graph_wait = time.perf_counter() - t0
+    host_pool.shutdown()
+    ch_rep.update(ch_graph_rep)
+    ch_system = minilib.ChainSystem(minilib.word_table(minilib.make_lexicon(topts)), ch_csr,
+                                    ch_model)
+    zero_counts()
+    ch_stages = {}
+    ch_wer, _ = minilib.decode_and_score_chain(
+        ch_system, beam=BEAM, max_active=CHAIN_MAX_ACTIVE, batch=CHAIN_BATCH,
+        timings=ch_stages)
+    ch_launches["decode"] = read_counts("train_chain_decode")
+    ch_stats = minilib.decode_and_score_chain.last_stats
+    chain_s = sum(ch_rep[k] for k in ("g_seconds", "lg_seconds", "hclg_seconds",
+                                      "export_seconds"))
+    # K1 at the card-trained chain model's decode shape (its own pdfs and
+    # graph), against its plain version
+    ntg = build_tile_graph(ch_system.csr)
+    Pn = ch_system.model.am.config.num_outputs
+    En = _token_budget(ch_system.csr, Kc, ntg.md) * ntg.md
+    k1_trained_chain_err = check_gather(
+        torch, batched_table_gather, batched_table_gather_plain,
+        [(CHAIN_BATCH, Pn, En, 256, 7), (CHAIN_BATCH, Pn, En, 1, 0)], seed=17)
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    k1_trained_chain = gather_at(CHAIN_BATCH, Pn, En, 256)
+    del plug
+    emit({"phase": "train_chain", "card": card,
+          "tree_pdfs": ch_rep["tree_pdfs"], "committed_chain_mdl_pdfs": chain.model.am.config.num_outputs,
+          "den_states": ch_rep["den_states"], "den_arcs": ch_rep["den_arcs"],
+          "supervision_failures": ch_rep["supervision_failures"],
+          "epochs": len(ch_hist), "steps": ch_rep["steps"],
+          "objf_by_epoch": ch_objf, "xent_by_epoch": [h["xent"] for h in ch_hist],
+          "wall_seconds": ch_wall, "front_end_seconds": ch_fe_s,
+          "graph_wait_seconds": ch_graph_wait,
+          "objects_seconds": ch_rep["objects_seconds"],
+          "supervision_seconds": ch_rep["supervision_seconds"],
+          "train_seconds": ch_rep["train_seconds"],
+          "step_ms": 1e3 * ch_rep["train_seconds"] / ch_rep["steps"],
+          "steps_per_second": ch_rep["steps"] / ch_rep["train_seconds"],
+          "peak_device_memory_bytes": ch_peak,
+          "mfcc_launches": ch_launches["train"]["mfcc"],
+          "graph": {"g_seconds": ch_rep["g_seconds"], "g_states": ch_rep["g_states"],
+                    "g_arcs": ch_rep["g_arcs"], "lg_seconds": ch_rep["lg_seconds"],
+                    "hclg_seconds": ch_rep["hclg_seconds"],
+                    "export_seconds": ch_rep["export_seconds"], "seconds": chain_s,
+                    "states": ch_rep["hclg_states"], "emitting_arcs": ch_rep["hclg_arcs"],
+                    "backoff_arcs": ch_rep["hclg_backoff_arcs"],
+                    "eps_depth": ch_system.csr.eps_depth},
+          "gather_kernel_at_decode_shape": {"exact": k1_trained_chain_err == 0.0,
+                                            **k1_trained_chain},
+          "decode": {"max_active": CHAIN_MAX_ACTIVE, "batch": CHAIN_BATCH,
+                     "wer_percent": ch_wer, "errors": ch_stats["errors"],
+                     "ref_words": ch_stats["ref_words"],
+                     "utterances_with_errors": ch_stats["utterances_with_errors"],
+                     **ch_stages, "gather_launches": ch_launches["decode"]["gather"],
+                     "mfcc_launches": ch_launches["decode"]["mfcc"]}})
+    if ch_wer > MAX_WER_PERCENT:
+        tool_faults.append(f"train_chain: WER {ch_wer} % above {MAX_WER_PERCENT} %")
+    if k1_trained_chain_err != 0.0:
+        tool_faults.append(f"train_chain: K1 differs from its plain version by "
+                           f"{k1_trained_chain_err}")
+    if not (ch_launches["train"]["mfcc"] > 0 and ch_launches["decode"]["gather"] > 0
+            and ch_launches["decode"]["mfcc"] > 0):
+        tool_faults.append(f"train_chain did not go through its kernels: {ch_launches}")
+
     same_tree = tree_key(cv_model.ctx_dep) == tree_key(ch_system.model.ctx_dep)
     cv_wer, cv_stats, cv_stages = None, {}, {}
     if same_tree:
@@ -6889,6 +7653,27 @@ def main() -> int:
         cfg2_faults.append(f"train_sat: transforms for {sorted(sat_w)}, "
                            f"{len(sat_ali)} alignments")
 
+
+    # ---- phases 32-35: sequence training (flat-start and semi-supervised
+    # LF-MMI, MMI of GMMs by EBW, nnet3 MMI / sMBR), each path's counts set to
+    # 0 just before it and read just after
+    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
+    seq = sequence_training(torch, np, argparse.Namespace(
+        dev=dev, card=card, emit=emit, minilib=minilib, convert=convert, chain=chain,
+        system=system, twaves=twaves, ttext=ttext, lang=lang, topts=topts, gen=gen,
+        plug=plug, zero_counts=zero_counts, read_counts=read_counts,
+        gmm_loglikes=gmm_loglikes, gmm_loglikes_plain=gmm_loglikes_plain,
+        gather_at=gather_at,
+        token_budget=lambda k: _token_budget(system.csr, max(4, min(k, system.csr.num_states)),
+                                             tg.md) * tg.md))
+    del plug
+    torch.cuda.empty_cache()
+    seq_launches = seq["launches"]
+
+    # ---- lda_mllt_minilib's decode and gmm_kernel_depths (BASELINE config
+    # 2, continued): after sequence training, so that the HCLG of the new
+    # tree (264-350 s of host work in its spawned process) is built behind
+    # run_all, train_sat and sequence training instead of being waited for
     # the decode: the first 64 clean held-out utterances through K2, spliced
     # and projected, an HCLG of the new tree and the pruned trigram
     t0 = time.perf_counter()
@@ -7004,22 +7789,6 @@ def main() -> int:
     if cfg2_faults:
         raise RuntimeError("BASELINE config 2 and run_all: " + "; ".join(cfg2_faults))
 
-    # ---- phases 32-35: sequence training (flat-start and semi-supervised
-    # LF-MMI, MMI of GMMs by EBW, nnet3 MMI / sMBR), each path's counts set to
-    # 0 just before it and read just after
-    plug = torch.randn((8192, 8192), device="cuda", generator=gen)
-    seq = sequence_training(torch, np, argparse.Namespace(
-        dev=dev, card=card, emit=emit, minilib=minilib, convert=convert, chain=chain,
-        system=system, twaves=twaves, ttext=ttext, lang=lang, topts=topts, gen=gen,
-        plug=plug, zero_counts=zero_counts, read_counts=read_counts,
-        gmm_loglikes=gmm_loglikes, gmm_loglikes_plain=gmm_loglikes_plain,
-        gather_at=gather_at,
-        token_budget=lambda k: _token_budget(system.csr, max(4, min(k, system.csr.num_states)),
-                                             tg.md) * tg.md))
-    del plug
-    torch.cuda.empty_cache()
-    seq_launches = seq["launches"]
-
     # ---- phase 36: lattice outputs (n-best, MBR, CTM, posteriors, archives,
     # native determinization, big-LM and LM-weight-sweep scoring, the RNNLM),
     # the counts set to 0 just before it and read just after
@@ -7040,15 +7809,16 @@ def main() -> int:
 
     # ---- phases 37-39: the remaining nnet3 architectures (TDNN-LSTM,
     # TDNN-attention, CNN-TDNN-F on Fbank) trained, decoded and streamed,
-    # xconfig models and the Fbank / PLP front ends card vs CPU; each path's
+    # xconfig models and the Fbank / PLP front ends card vs CPU; then nnet12
+    # (nnet1 and nnet2 on the architectures' features, yesno); each path's
     # counts set to 0 just before it and read just after
     arch_launches = run_architectures(topts, twaves)
 
-    # ---- phase 40: the command-line tools (cli), the counts set to 0 just
-    # before the tools run and read just after
-    cli_res, lat_res, trn_res = run_cli(twaves, ttext)
-    cli_launches, lat_launches, trn_launches = (
-        cli_res["launches"], lat_res["launches"], trn_res["launches"])
+    # ---- phase 40: the command-line tools (cli, cli_lattice, cli_train,
+    # cli_nnet3), the counts set to 0 just before the tools run and read just after
+    cli_res, lat_res, trn_res, nn3_res = run_cli(twaves, ttext)
+    cli_launches, lat_launches, trn_launches, nn3_launches = (
+        cli_res["launches"], lat_res["launches"], trn_res["launches"], nn3_res["launches"])
 
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
@@ -7071,7 +7841,7 @@ def main() -> int:
                       + lo_launches["gather"]
                       + sum(p["gather"] for p in arch_launches.values())
                       + cli_launches["gather"] + lat_launches["gather"]
-                      + trn_launches["gather"]),
+                      + trn_launches["gather"] + nn3_launches["gather"]),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -7101,7 +7871,8 @@ def main() -> int:
                               **{n: p["gather"] for n, p in arch_launches.items()},
                               "cli": cli_launches["gather"],
                               "cli_lattice": lat_launches["gather"],
-                              "cli_train": trn_launches["gather"]},
+                              "cli_train": trn_launches["gather"],
+                              "cli_nnet3": nn3_launches["gather"]},
          "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err, cli_res["k1_err"],
                             trn_res["k1_err"]),
          "ms": k1_ms,
@@ -7132,7 +7903,8 @@ def main() -> int:
                       + sum(p["mfcc"] for p in seq_launches.values())
                       + lo_launches["mfcc"]
                       + sum(p["mfcc"] for p in arch_launches.values())
-                      + cli_launches["mfcc"] + lat_launches["mfcc"] + trn_launches["mfcc"]),
+                      + cli_launches["mfcc"] + lat_launches["mfcc"] + trn_launches["mfcc"]
+                      + nn3_launches["mfcc"]),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -7161,7 +7933,8 @@ def main() -> int:
                               **{n: p["mfcc"] for n, p in arch_launches.items()},
                               "cli": cli_launches["mfcc"],
                               "cli_lattice": lat_launches["mfcc"],
-                              "cli_train": trn_launches["mfcc"]},
+                              "cli_train": trn_launches["mfcc"],
+                              "cli_nnet3": nn3_launches["mfcc"]},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -7171,13 +7944,15 @@ def main() -> int:
                  *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
                  cb_launches, *cfg2_launches.values(), *seq_launches.values(),
                  lo_launches, *arch_launches.values(), cli_launches, lat_launches,
-                 trn_launches))
+                 trn_launches, nn3_launches))
              for r in k2_routes},
-         "max_abs_err": max(k2_err, y_err, k2_yesno_err), "ms": k2_ms,
+         "max_abs_err": max(k2_err, y_err, k2_yesno_err,
+                            *(v["max_abs_err"] for v in k2_vtln.values())), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": "operations" if k2_ops_ms >= k2_bytes_ms else "bytes",
          "library_ms": None,
-         "at_other_shapes": {"decode_toy": k2_toy, "train_yesno": k2_yesno}},
+         "at_other_shapes": {"decode_toy": k2_toy, "train_yesno": k2_yesno,
+                             **{f"vtln_warp_{w}": v for w, v in k2_vtln.items()}}},
         {"name": "gmm_loglikes", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gmm.cu",
          "replaces": "old_kaldi_git_tpu/ops/gmm_kernel.py:125",
@@ -7187,7 +7962,7 @@ def main() -> int:
                       + sum(p["gmm"] for p in cfg2_launches.values())
                       + sum(p["gmm"] for p in seq_launches.values())
                       + lo_launches["gmm"] + cli_launches["gmm"] + lat_launches["gmm"]
-                      + trn_launches["gmm"]),
+                      + trn_launches["gmm"] + nn3_launches["gmm"]),
          "launches_by_path": {"decode": k3_tdnn_launches,
                               "decode_gmm": g_launches["gmm"],
                               **{n: a["gmm"] for n, a in a_launches.items()},
@@ -7198,7 +7973,8 @@ def main() -> int:
                               "lattice_outputs": lo_launches["gmm"],
                               "cli": cli_launches["gmm"],
                               "cli_lattice": lat_launches["gmm"],
-                              "cli_train": trn_launches["gmm"]},
+                              "cli_train": trn_launches["gmm"],
+                              "cli_nnet3": nn3_launches["gmm"]},
          "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]
                             + [v["max_abs_err"] for v in k3_train.values()]
                             + [v["max_abs_err"] for v in k3_depths.values()]

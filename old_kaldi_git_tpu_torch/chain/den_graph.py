@@ -42,6 +42,15 @@ class DenominatorGraph:
     loop_log_prob: float = float(math.log(0.5))
     advance_lm_log_prob: np.ndarray = None  # [S]: LM part of entering state
 
+    def __getstate__(self) -> dict:
+        """The graph's fields, without the per-device arrays that
+        chain/loss.py keeps on it: a saved model's tensors are loaded onto
+        the CPU, so those arrays are made again on the device that next uses
+        the graph."""
+        state = dict(self.__dict__)
+        state.pop("_device_arrays", None)
+        return state
+
     def numerator_weights(self, phone_seq) -> np.ndarray:
         """[L] weights that give each token the weight its path carries in
         the denominator graph (so num ≤ den): [0] the initial prob of the

@@ -1,6 +1,6 @@
 """Weights and state carried across from the JAX package's artifacts.
 
-Five things:
+Six things:
 
 * `am_nnet_from_jax`: a flax variable tree (as numpy) → the port's AmNnet,
   every layer kind (tdnn, tdnnf, lstmp, blstmp, pgru, attention, conv).
@@ -22,6 +22,10 @@ Five things:
   `den_graph_from_pickle`), so a test can start both packages from one
   point.
 * the RNNLM: `rnnlm_from_jax`, a flax RnnLmModule tree → the port's RnnLm.
+* the nnet1 and nnet2 families: `am_nnet1_from_jax` / `am_nnet2_from_jax`,
+  a flax `Dense` tree (`affine<i>`, `final_affine`) → the port's nn.Linear
+  layers; an Nnet2Config's fixed-affine bytes become the model's `fixed_w`
+  / `fixed_b` buffers.
 """
 
 from __future__ import annotations
@@ -301,3 +305,43 @@ def rnnlm_from_jax(params: Mapping[str, Any], opts: Any, vocab: int,
     named["embed.weight"] = named.pop("embed.embedding")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in named.items()})
     return RnnLm(model.to(resolve_device(device)), opts, vocab)
+
+
+# ---------------------------------------------------------------------------
+# nnet1 and nnet2
+# ---------------------------------------------------------------------------
+
+def _load_flax_dense(model: torch.nn.Module, params: Mapping[str, Any]) -> None:
+    """A flax Dense tree into `model`'s nn.Linear layers by name; buffers
+    (an nnet2 fixed affine) stay as the config made them."""
+    named = {k: torch.from_numpy(v) for k, v in torch_params_from_flax(params).items()}
+    model.load_state_dict({**model.state_dict(), **named})
+
+
+def am_nnet1_from_jax(config_fields: Mapping[str, Any], params: Mapping[str, Any],
+                      log_priors: Optional[np.ndarray] = None,
+                      feat_shift: Optional[np.ndarray] = None,
+                      feat_scale: Optional[np.ndarray] = None, device: DeviceLike = None):
+    """The JAX package's AmNnet1 (its config's fields, flax params, priors
+    and feature transform, as numpy) → the port's AmNnet1."""
+    from old_kaldi_git_tpu_torch.models.nnet1 import AmNnet1, Nnet1Config, Nnet1Model
+
+    config = Nnet1Config(**{f.name: config_fields[f.name]
+                            for f in dataclasses.fields(Nnet1Config)})
+    model = Nnet1Model(config)
+    _load_flax_dense(model, params)
+    return AmNnet1(config, model, log_priors, feat_shift, feat_scale, device=device)
+
+
+def am_nnet2_from_jax(config_fields: Mapping[str, Any], params: Mapping[str, Any],
+                      log_priors: Optional[np.ndarray] = None, device: DeviceLike = None):
+    """The JAX package's AmNnet2 (its config's fields, the fixed affine's
+    bytes among them, flax params and priors, as numpy) → the port's
+    AmNnet2."""
+    from old_kaldi_git_tpu_torch.models.nnet2 import AmNnet2, Nnet2Config, Nnet2Model
+
+    config = Nnet2Config(**{f.name: config_fields[f.name]
+                            for f in dataclasses.fields(Nnet2Config)})
+    model = Nnet2Model(config)
+    _load_flax_dense(model, params)
+    return AmNnet2(config, model, log_priors, device=device)

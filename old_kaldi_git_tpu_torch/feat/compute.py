@@ -105,7 +105,7 @@ class MfccOptions:
 
 class Mfcc:
     """Reference src/feat/feature-mfcc.h MfccComputer.  The kernel's tables
-    are built once per device at first use."""
+    are built once per device and VTLN warp at first use."""
 
     def __init__(self, opts: Optional[MfccOptions] = None):
         self.opts = opts or MfccOptions()
@@ -115,32 +115,34 @@ class Mfcc:
     def num_frames(self, num_samples: int) -> int:
         return num_frames(num_samples, self.frame_opts)
 
-    def weights(self, device: torch.device):
+    def weights(self, device: torch.device, vtln_warp: float = 1.0):
         from old_kaldi_git_tpu_torch.ops.mfcc_kernel import make_mfcc_weights
 
-        key = str(device)
+        key = (str(device), vtln_warp)
         if key not in self._weights:
-            self._weights[key] = make_mfcc_weights(self.opts, device=device)
+            self._weights[key] = make_mfcc_weights(self.opts, device=device,
+                                                   vtln_warp=vtln_warp)
         return self._weights[key]
 
     def __call__(self, wave: torch.Tensor, *,
-                 dither_generator: Optional[torch.Generator] = None
-                 ) -> torch.Tensor:
+                 dither_generator: Optional[torch.Generator] = None,
+                 vtln_warp: float = 1.0) -> torch.Tensor:
         """[..., num_samples] → [..., T, num_ceps].  T from the padded length;
-        use num_frames(actual_samples) to mask."""
+        use num_frames(actual_samples) to mask.  vtln_warp warps the mel
+        filters (the kernel runs on the warped table)."""
         frames, log_energy = extract_frames(
             wave, self.frame_opts, dither_generator=dither_generator)
-        return self._compute(frames, log_energy)
+        return self._compute(frames, log_energy, vtln_warp)
 
-    def _compute(self, frames: torch.Tensor, log_energy: torch.Tensor
-                 ) -> torch.Tensor:
+    def _compute(self, frames: torch.Tensor, log_energy: torch.Tensor,
+                 vtln_warp: float = 1.0) -> torch.Tensor:
         from old_kaldi_git_tpu_torch.ops.mfcc_kernel import fused_mfcc_from_frames
 
         o = self.opts
         lead = frames.shape[:-1]
         flat = frames.reshape(-1, frames.shape[-1]).contiguous()
         ceps = fused_mfcc_from_frames(
-            flat, self.weights(frames.device)).reshape(*lead, o.num_ceps)
+            flat, self.weights(frames.device, vtln_warp)).reshape(*lead, o.num_ceps)
         if o.use_energy:
             if o.energy_floor > 0.0:
                 log_energy = torch.clamp(log_energy, min=math.log(o.energy_floor))

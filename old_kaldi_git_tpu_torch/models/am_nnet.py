@@ -41,6 +41,19 @@ TUPLE_FIELDS = ("offsets", "height_offsets")
 _TRUNCATED_STD = 0.87962566103423978
 
 
+def lecun_normal_(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """flax's default Dense init, in place, on every nn.Linear of `model`:
+    weights lecun normal (truncated at ±2σ) drawn from `gen`, biases 0."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.Linear):
+                std = (1.0 / module.in_features) ** 0.5 / _TRUNCATED_STD
+                torch.nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std,
+                                            generator=gen)
+                if module.bias is not None:
+                    module.bias.zero_()
+
+
 class AmNnet:
     def __init__(self, config: TdnnConfig, model: TdnnModel,
                  log_priors: Optional[np.ndarray] = None,
@@ -150,16 +163,8 @@ class AmNnet:
         ±2σ) from a torch.Generator seeded with `seed`, biases 0, batch-norm
         statistics mean 0 and variance 1.  The values are not flax's: the
         two generators differ."""
-        gen = torch.Generator().manual_seed(seed)
         model = TdnnModel(config)
-        with torch.no_grad():
-            for module in model.modules():
-                if isinstance(module, torch.nn.Linear):
-                    std = (1.0 / module.in_features) ** 0.5 / _TRUNCATED_STD
-                    torch.nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std,
-                                                2 * std, generator=gen)
-                    if module.bias is not None:
-                        module.bias.zero_()
+        lecun_normal_(model, torch.Generator().manual_seed(seed))
         return AmNnet(config, model, log_priors, device=device)
 
     @staticmethod

@@ -5,20 +5,24 @@ Counterpart of the in-memory half of old_kaldi_git_tpu/models/egs.py
 nnet3-get-egs / nnet3-chain-get-egs and the ExampleMerger): an eg's feats and
 labels have equal length (the model pads context inside itself), and merging
 stacks egs into [B, T, ...] arrays, which one train step consumes.
-`combine_chain_models` batches its held-out egs through these.  The egs
-archive I/O (the `Holder` classes) comes with the command-line tools.
+`combine_chain_models` batches its held-out egs through these.  Archives of
+egs ride the table I/O (pipes, scripts, gzip) through two holders, "egs" and
+"cegs", in the JAX package's bytes: Kaldi-style tokens over the io_funcs
+primitives, binary only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Iterator, List, Sequence, Tuple
+from typing import BinaryIO, Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
 from old_kaldi_git_tpu_torch.chain.supervision import (
     ChainSupervision, alignment_to_supervision, chain_xent_labels, pad_supervisions)
+from old_kaldi_git_tpu_torch.utils import io_funcs as iof
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
+from old_kaldi_git_tpu_torch.utils.table import Holder, register_holder
 
 log = get_logger("egs")
 
@@ -53,6 +57,107 @@ class ChainEg:
     xent: np.ndarray  # [T'] int32
     ivector: np.ndarray = None
 
+
+# ---------------------------------------------------------------------------
+# archive I/O: <Eg> and <ChainEg> records
+# ---------------------------------------------------------------------------
+
+def _write_ivec(f: BinaryIO, v: np.ndarray) -> None:
+    """An int32 vector as a count and little-endian words (no size bytes)."""
+    v = np.asarray(v, np.int32).reshape(-1)
+    iof.write_int32(f, len(v))
+    f.write(v.astype("<i4").tobytes())
+
+
+def _read_ivec(f: BinaryIO) -> np.ndarray:
+    n = iof.read_int32(f)
+    raw = f.read(4 * n)
+    if len(raw) != 4 * n:
+        raise KaldiError("truncated int vector in eg")
+    return np.frombuffer(raw, "<i4").astype(np.int32)
+
+
+def _write_opt_ivector(f: BinaryIO, iv) -> None:
+    """The optional <IVec> section, just before the close token."""
+    if iv is not None:
+        iof.write_token(f, "<IVec>")
+        iof.write_vector(f, np.asarray(iv, np.float32))
+
+
+def _read_opt_ivector(f: BinaryIO, close_token: str):
+    tok = iof.read_token(f)
+    if tok == "<IVec>":
+        iv = iof.read_vector(f).astype(np.float32)
+        iof.expect_token(f, close_token)
+        return iv
+    if tok != close_token:
+        raise KaldiError(f"expected {close_token} or <IVec>, got {tok}")
+    return None
+
+
+class NnetEgHolder(Holder):
+    """<Eg> feats (float matrix) labels (int vector) mask (float vector)
+    [<IVec> vector] </Eg>."""
+
+    name = "egs"
+
+    def write(self, f: BinaryIO, eg: NnetEg, binary: bool) -> None:
+        if not binary:
+            raise KaldiError("egs are binary-only")
+        iof.write_token(f, "<Eg>")
+        iof.write_matrix(f, eg.feats)
+        _write_ivec(f, eg.labels)
+        iof.write_vector(f, eg.mask)
+        _write_opt_ivector(f, eg.ivector)
+        iof.write_token(f, "</Eg>")
+
+    def read(self, f: BinaryIO) -> NnetEg:
+        iof.expect_token(f, "<Eg>")
+        feats = iof.read_matrix(f)
+        labels = _read_ivec(f)
+        mask = iof.read_vector(f)
+        return NnetEg(feats, labels, mask, _read_opt_ivector(f, "</Eg>"))
+
+
+class ChainEgHolder(Holder):
+    """<ChainEg> feats pdf_seq allowed (a float32 0/1 matrix) num_frames
+    advance_lp xent [<IVec> vector] </ChainEg>."""
+
+    name = "cegs"
+
+    def write(self, f: BinaryIO, eg: ChainEg, binary: bool) -> None:
+        if not binary:
+            raise KaldiError("cegs are binary-only")
+        iof.write_token(f, "<ChainEg>")
+        iof.write_matrix(f, eg.feats)
+        _write_ivec(f, eg.sup.pdf_seq)
+        iof.write_matrix(f, np.asarray(eg.sup.allowed).astype(np.float32))
+        iof.write_int32(f, eg.sup.num_frames)
+        iof.write_vector(f, eg.sup.advance_lp)
+        _write_ivec(f, eg.xent)
+        _write_opt_ivector(f, eg.ivector)
+        iof.write_token(f, "</ChainEg>")
+
+    def read(self, f: BinaryIO) -> ChainEg:
+        iof.expect_token(f, "<ChainEg>")
+        feats = iof.read_matrix(f)
+        pdf_seq = _read_ivec(f)
+        allowed = iof.read_matrix(f) > 0.5
+        num_frames = iof.read_int32(f)
+        advance_lp = iof.read_vector(f).astype(np.float32)
+        xent = _read_ivec(f)
+        ivector = _read_opt_ivector(f, "</ChainEg>")
+        return ChainEg(feats, ChainSupervision(pdf_seq, allowed, num_frames, advance_lp),
+                       xent, ivector)
+
+
+register_holder("egs", NnetEgHolder)
+register_holder("cegs", ChainEgHolder)
+
+
+# ---------------------------------------------------------------------------
+# extraction (nnet3-get-egs role)
+# ---------------------------------------------------------------------------
 
 def _chunk_ivector(ivectors, s: int, e: int):
     """Per-chunk i-vector: the online-ivector row at the chunk midpoint

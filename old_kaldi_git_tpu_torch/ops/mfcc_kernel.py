@@ -59,13 +59,15 @@ MfccWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 def make_mfcc_weights(opts: Optional[MfccOptions] = None,
                       device: DeviceLike = None,
-                      dtype: torch.dtype = torch.float32) -> MfccWeights:
+                      dtype: torch.dtype = torch.float32,
+                      vtln_warp: float = 1.0) -> MfccWeights:
     """(c_re [W, W/2], c_im [W, W/2], mel [W/2, num_bins],
     dct [num_bins, num_ceps]) on `device` (None = the GPU; the CPU only by
     name); the Nyquist bin is dropped (as MelBanks does) and the DCT already
     includes liftering.  The cos/sin tables are computed in float64 and
     rounded to `dtype`; the mel and DCT tables are their float32 values in
-    either dtype (float64 gives the plain version in float64 the exact DFT)."""
+    either dtype (float64 gives the plain version in float64 the exact DFT).
+    vtln_warp: the mel filters' VTLN warp factor (mel_banks_matrix's)."""
     opts = opts or MfccOptions()
     device = resolve_device(device)
     w = opts.frame_opts.padded_window_size
@@ -75,7 +77,8 @@ def make_mfcc_weights(opts: Optional[MfccOptions] = None,
     ang = -2.0 * math.pi * np.outer(n, k) / w
     c_re = np.cos(ang)  # [W, F]
     c_im = np.sin(ang)
-    mel, _ = mel_banks_matrix(opts.mel_opts, opts.frame_opts.samp_freq, w)  # [F, nb]
+    mel, _ = mel_banks_matrix(opts.mel_opts, opts.frame_opts.samp_freq, w,
+                              vtln_warp)  # [F, nb]
     nb = mel.shape[1]
     dct = dct_matrix(opts.num_ceps, nb)  # [C, nb]
     if opts.cepstral_lifter != 0.0:

@@ -80,6 +80,7 @@ from old_kaldi_git_tpu_torch.device import DeviceLike, resolve_device
 from old_kaldi_git_tpu_torch.feat.compute import FEAT_CHUNK, compute_utterance_feats
 from old_kaldi_git_tpu_torch.fst.lang import Lang, Lexicon
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
 from old_kaldi_git_tpu_torch.ivector.extractor import (
     IvectorExtractor, extract_online_ivectors, train_ivector_extractor, train_ubm)
 from old_kaldi_git_tpu_torch.lat.determinize import determinize_lattice_pruned
@@ -664,6 +665,15 @@ def decode_and_score_chain(
 # lattice rescoring: pruned trigram → full higher-order LM
 # ---------------------------------------------------------------------------
 
+def rescore_lm(opts: Optional[MinilibOptions] = None, full_lm_order: int = 0) -> ArpaLm:
+    """The full `full_lm_order`-gram (0: opts.lm_order) that rescore_and_score
+    rescores with, estimated from the synthesised LM text (host work)."""
+    opts = opts or MinilibOptions()
+    order = full_lm_order or opts.lm_order
+    sents = [_to_words(s) for s in make_text(opts, opts.lm_sentences, opts.seed + 2)]
+    return estimate_ngram_lm(sents, order=order, cutoffs=(0, 0, 1) + (1,) * max(0, order - 3))
+
+
 def rescore_and_score(
     system: MinilibSystem,
     opts: Optional[MinilibOptions] = None,
@@ -678,6 +688,7 @@ def rescore_and_score(
     compute_oracle: bool = False,
     timings: Optional[Dict[str, float]] = None,
     lms: Optional[Dict[str, ArpaLm]] = None,
+    full_lm: Optional[ArpaLm] = None,
 ) -> Tuple[float, float]:
     """Decode with the pruned-trigram HCLG keeping lattices (bounded device
     records), determinize each lattice exactly within `lattice_beam`, then
@@ -697,15 +708,14 @@ def rescore_and_score(
     counts (`lattice_records_live`, `lattice_record_slots`,
     `lattice_overflow_fallbacks`).
     lms: a dict that receives the two LMs, "full" (the estimate) and
-    "pruned" (arpa.txt.gz's), for a caller that rescores with them again."""
+    "pruned" (arpa.txt.gz's), for a caller that rescores with them again.
+    full_lm: `rescore_lm(opts, full_lm_order)` made elsewhere (e.g. in a
+    spawned process while the caller decodes), in place of the estimate."""
     opts = opts or MinilibOptions()
     dev = system.am.device
     clock = StageClock(dev, timings)
-    order = full_lm_order or opts.lm_order
-    sents = [_to_words(s) for s in make_text(opts, opts.lm_sentences, opts.seed + 2)]
-    cutoffs = (0, 0, 1) + (1,) * max(0, order - 3)
-    full_lm = estimate_ngram_lm(sents, order=order, cutoffs=cutoffs)
-    del sents
+    if full_lm is None:
+        full_lm = rescore_lm(opts, full_lm_order)
     clock.lap("lm_estimate_seconds")
     with gzip.open(os.path.join(system.workdir, "arpa.txt.gz"), "rt") as f:
         pruned_lm = parse_arpa(f.read())
@@ -775,10 +785,10 @@ def rescore_and_score(
     rescore_and_score.last_stats = {
         "before": before.wer, "after": after.wer,
         "oracle_wer": oracle_wer, "num_utts": len(keys_all),
-        "full_lm_order": order, "noise": noise, "live_records": live,
+        "full_lm_order": full_lm.order, "noise": noise, "live_records": live,
     }
     log.info("minilib rescore (%d utts, noise %s): pruned trigram %s → full "
-             "%d-gram %s%s", len(keys_all), noise, before.report(), order,
+             "%d-gram %s%s", len(keys_all), noise, before.report(), full_lm.order,
              after.report(),
              f" (lattice oracle WER {oracle_wer:.2f})" if compute_oracle else "")
     return before.wer, after.wer
@@ -986,19 +996,47 @@ def train_chain_system(feats: Dict[str, np.ndarray], lang: Lang,
     seconds, `hclg_states`, `hclg_arcs` and `hclg_backoff_arcs`."""
     opts = opts or MinilibOptions()
     report = {} if report is None else report
+    model = train_chain_model(feats, lang, opts, device, gmm_workdir, history, report)
+    csr, graph_report = chain_graph(model.ctx_dep, model.tm, lang, opts, gmm_workdir)
+    report.update(graph_report)
+    return ChainSystem(word_table(make_lexicon(opts)), csr, model)
+
+
+def train_chain_model(feats: Dict[str, np.ndarray], lang: Lang,
+                      opts: Optional[MinilibOptions] = None, device: DeviceLike = None,
+                      gmm_workdir: str = "exp/minilib",
+                      history: Optional[List[dict]] = None,
+                      report: Optional[dict] = None) -> ChainModel:
+    """Stage 7: train_chain on `feats` with tri.mdl and tri_ali.pkl at
+    `chain_train_options(opts)` on `device` (history, report: train_chain's)."""
     tri, ali = _tri_system(gmm_workdir)
-    model = train_chain(tri, feats, ali, lang, chain_train_options(opts), device=device,
-                        history=history, report=report)
+    return train_chain(tri, feats, ali, lang, chain_train_options(opts or MinilibOptions()),
+                       device=device, history=history, report=report)
+
+
+def chain_graph(ctx_dep: ContextDependency, tm: TransitionModel, lang: Optional[Lang] = None,
+                opts: Optional[MinilibOptions] = None, gmm_workdir: str = "exp/minilib"
+                ) -> Tuple[CsrGraph, dict]:
+    """Stage 8: the split-eps decoding graph of a chain model's tree and
+    transition model (G from the pruned trigram `arpa.txt.gz`, mkgraph at
+    self-loop-scale 1.0: recipes/chain.make_chain_decode_graph's), host
+    work; lang None: make_lang(opts).  Its arguments pickle, so a spawned
+    process can build it while the caller goes on.  Returns (graph, report
+    of `g_seconds`, `g_states`, `g_arcs`, mkgraph_csr's stage seconds,
+    `hclg_states`, `hclg_arcs`, `hclg_backoff_arcs`)."""
+    lang = lang or make_lang(opts)
+    report: dict = {}
     t0 = time.perf_counter()
     with gzip.open(os.path.join(gmm_workdir, "arpa.txt.gz"), "rt") as f:
         g = arpa_to_fst(parse_arpa(f.read()), lang.words)
     report.update(g_seconds=time.perf_counter() - t0, g_states=g.num_states,
                   g_arcs=g.num_arcs)
-    csr = make_chain_decode_graph(model, lang, g, split_eps=True, timings=report)
+    csr = mkgraph_csr(lang, g, ctx_dep, tm, self_loop_scale=1.0, split_eps=True,
+                      timings=report)
     report.update(hclg_states=csr.num_states, hclg_arcs=csr.num_arcs,
                   hclg_backoff_arcs=int((csr.eps_ns >= 0).sum()) if csr.eps_ns is not None
                   else 0)
-    return ChainSystem(word_table(make_lexicon(opts)), csr, model)
+    return csr, report
 
 
 def check_same_tree(model_tree: ContextDependency, graph_tree: ContextDependency,

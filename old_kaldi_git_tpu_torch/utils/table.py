@@ -14,8 +14,9 @@ so that an archive written by either package reads in the other:
 Holders: "mat" (float matrix), "cmat" (written as a compressed matrix,
 read as any), "vec" (float vector), "ivec" (int32 vector: alignments),
 "text" (a line of tokens), "flt" (a scalar) and "wav" (a RIFF wave);
-"lat" / "clat" (lat/holder.py) and "post" / "gpost" (hmm/posterior.py)
-register themselves (`register_holder`) and load on first request.
+"lat" / "clat" (lat/holder.py), "post" / "gpost" (hmm/posterior.py) and
+"egs" / "cegs" (models/egs.py) register themselves (`register_holder`) and
+load on first request.
 """
 
 from __future__ import annotations
@@ -181,6 +182,8 @@ _LAZY_PROVIDERS = {
     "kfst": "old_kaldi_git_tpu_torch.fst.kaldi_fst_io",
     "kclat": "old_kaldi_git_tpu_torch.fst.kaldi_fst_io",
     "regx": "old_kaldi_git_tpu_torch.transform.regtree",
+    "egs": "old_kaldi_git_tpu_torch.models.egs",
+    "cegs": "old_kaldi_git_tpu_torch.models.egs",
 }
 
 

@@ -101,3 +101,27 @@ def test_compute_deltas(order, window, T):
     want = np.asarray(jfunctions.compute_deltas(jnp.asarray(x), jo))
     got = tfunctions.compute_deltas(torch.from_numpy(x), to).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("warp", [0.9, 1.1, 1.0])
+def test_mfcc_vtln_warp(warp):
+    """Mfcc(wave, vtln_warp=w) runs the kernel's plain version on the warped
+    mel table and equals the JAX Mfcc at that warp within the features rule
+    (1e-3 + 1e-5 of the largest feature); the warp-1.0 call is the unwarped
+    one, bit for bit, and another warp moves the cepstra."""
+    jo, to = jcompute.MfccOptions(), tcompute.MfccOptions()
+    for o in (jo, to):
+        o.frame_opts.samp_freq = 8000.0
+        o.frame_opts.dither = 0.0
+    wave = _wave(4, (2, 4000))
+    want = np.asarray(jcompute.Mfcc(jo)(jnp.asarray(wave), vtln_warp=warp))
+    mfcc = tcompute.Mfcc(to)
+    got = mfcc(torch.from_numpy(wave), vtln_warp=warp).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL + 1e-5 * np.abs(want).max(), rtol=0)
+    plain = mfcc(torch.from_numpy(wave)).numpy()
+    if warp == 1.0:
+        assert np.array_equal(got, plain)
+    else:
+        assert np.abs(got - plain).max() > 0.1
+        assert set(mfcc._weights) == {("cpu", warp), ("cpu", 1.0)}

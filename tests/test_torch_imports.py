@@ -54,7 +54,8 @@ def test_port_has_the_slice_modules():
                  "fst.holder", "fst.kaldi_fst_io", "feat.cmvn", "feat.signal", "feat.pitch",
                  "feat.resample", "ivector.vad", "bin.lat_tools", "bin.util_tools",
                  "fst.context", "fst.rand", "utils.threads", "transform.basis_fmllr",
-                 "transform.lvtln", "transform.regtree", "transform.fmpe"):
+                 "transform.lvtln", "transform.regtree", "transform.fmpe",
+                 "models.nnet1", "models.nnet2", "recipes.nnet12"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 

@@ -65,7 +65,10 @@ TENSOR_TOOLS = frozenset((
     "gmm-train-lvtln-special", "gmm-est-lvtln-trans", "gmm-est-regtree-fmllr",
     "gmm-est-regtree-mllr", "gmm-decode-faster-regtree-fmllr",
     "gmm-decode-faster-regtree-mllr", "gmm-get-stats-deriv", "gmm-fmpe-acc-stats",
-    "fmpe-apply-transform"))
+    "fmpe-apply-transform", "nnet3-train", "nnet3-compute-prob", "nnet3-adjust-priors",
+    "nnet3-combine", "nnet3-chain-init", "nnet3-chain-train", "nnet3-chain-compute-prob",
+    "nnet3-chain-combine", "nnet3-discriminative-train",
+    "nnet3-discriminative-compute-objf"))
 
 
 def lattices_equal(a, b, atol=1e-5, ac_rtol=2e-5):
