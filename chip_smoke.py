@@ -165,7 +165,19 @@ nnet3-chain-train and its combination; sMBR on final.am's lattices of the
 the phone LM and trees byte for byte, models through loglikes and
 objectives within 1e-4, the sMBR objective within 1e-5, words equal) and
 one chain step to the CPU's.  In the kernels phase K2 is also held on the
-mel tables VTLN-warped by 0.9 and 1.1.
+mel tables VTLN-warped by 0.9 and 1.1.  Then the last 43 tools: sgmm2
+trains an SGMM2 on the 600 training utterances from tri.mdl and
+tri_ali.pkl (a 64-Gaussian UBM, 8 EM iterations, a split to 4,000
+substates, 3 realignments through K1 on align_tri's graphs; the EM
+auxiliary, K1 three times a scanned frame, one iteration's statistics and
+8 utterances' loglikes card vs CPU), decodes the 256 clean utterances on
+hclg.npz through K1 (WER <= 5 %) and runs the 9 SGMM2 tools on the cli
+phase's work directory, each held to the library; cli_spkid runs the 30
+speaker-ID tools on a 512-utterance corpus made from a seed (UBMs,
+iVector extractor, PLDA scoring of 16 held-out speakers: EER < 0.15,
+logistic regression > 0.8 accuracy), files byte for byte the library's;
+cli_kws indexes and searches lattice_outputs' 64 noisy lattices with the 4
+KWS tools, byte for byte the library's.
 --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
@@ -2206,7 +2218,8 @@ def lattice_outputs(torch, np, c) -> dict:
     rescore phase's 4-gram; the RNNLM at RnnLmOptions() over the 20k-word
     vocabulary trained one epoch on the card, held to the CPU, and its
     n-best rescoring.  K1, K2 and K3 are counted over the whole phase.
-    Returns {"launches", "k1", "k3", "faults"}."""
+    Returns {"launches", "k1", "k3", "faults", "lattices"} (the 64 raw
+    lattices, which the cli_kws phase searches)."""
     import statistics
 
     from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
@@ -2458,9 +2471,9 @@ def lattice_outputs(torch, np, c) -> dict:
     x = torch.from_numpy(padded.reshape(-1, padded.shape[-1])).to(dev)
     k3 = {"lattice_outputs": c.k3_at(torch, c.gmm_loglikes, c.gmm_loglikes_plain,
                                      gmm.am.weights(), x, c.plug)}
-    del x, raw, clats, rlm
+    del x, clats, rlm
     torch.cuda.empty_cache()
-    return {"launches": counts, "k1": k1, "k3": k3, "faults": faults}
+    return {"launches": counts, "k1": k1, "k3": k3, "faults": faults, "lattices": raw}
 
 
 # the remaining nnet3 architectures (phases architectures, architectures_parity,
@@ -5293,6 +5306,1126 @@ def nnet12(torch, np, c) -> dict:
     return {"faults": faults, "launches": launches}
 
 
+SGMM2_SUBSTATES = 4000  # total_substates of the sgmm2 phase's training: 2 a pdf, so it splits
+SGMM2_CPU_UTTS = 8  # training utterances of the card-vs-CPU checks (the CPU's scoring cost)
+SGMM2_STATS_TOL = 1e-9  # one iteration's statistics card vs CPU, of each array's max|ref|
+SGMM2_LL_TOL = 1e-8  # loglikes card vs CPU, of max|ref|
+SGMM2_AUX_TOL = 1e-6  # the EM auxiliary between realignments (tests/test_sgmm2.py:95)
+SGMM2_ACOUSTIC_SCALE = 0.1
+SGMM2_MAX_WER_PERCENT = 5.0  # ARCH_MAX_WER_PERCENT's rule
+SGMM2_CLI_UBM = 64  # Gaussians of the SGMM2 tools' UBM
+SGMM2_CLI_SPK_DIM = 13  # sgmm2-init --spk-space-dim of the tools' model
+SGMM2_CLI_SUBSTATES = 2400  # sgmm2-est --split-substates of the tools' second iteration
+
+
+class _SgmmAm:
+    """An AmSgmm2 behind the acoustic-model seam of minilib.decode_features:
+    its float64 loglikes [B, T, J] handed to the search as float32."""
+
+    def __init__(self, torch, sgmm):
+        self.torch, self.sgmm, self.device = torch, sgmm, sgmm.device
+
+    def loglikes_batch(self, x):
+        return self.sgmm.loglikes_batch(x).to(self.torch.float32)
+
+
+def _rel_gap(np, got, want) -> float:
+    """max|got − want| over max|want| (tensors or arrays; inf on a shape
+    mismatch)."""
+    got = got.detach().cpu().numpy() if hasattr(got, "detach") else np.asarray(got)
+    want = want.detach().cpu().numpy() if hasattr(want, "detach") else np.asarray(want)
+    if got.shape != want.shape:
+        return float("inf")
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-300))
+
+
+def _run_tool(torch, tools, walls, on_card, tensor_tools, label, *argv, rcs=(0,)):
+    """A tool in-process (--device=cpu added to a tensor tool off the card):
+    what it printed; its wall under `label`, ended by a device synchronise."""
+    import contextlib
+    import io
+
+    argv = list(argv)
+    if not on_card and argv[0] in tensor_tools:
+        argv.insert(1, "--device=cpu")
+    out = io.TextIOWrapper(io.BytesIO(), encoding="utf-8")
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = tools.main(argv)
+    if on_card:
+        torch.cuda.synchronize()
+    walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
+    if rc not in rcs:
+        raise RuntimeError(f"{label} exited {rc}")
+    out.flush()
+    return out.buffer.getvalue().decode()
+
+
+def _file_bytes(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+SGMM2_TENSOR_TOOLS = frozenset((
+    "sgmm2-acc-stats-ali", "sgmm2-est", "sgmm2-est-spkvecs", "sgmm2-est-fmllr",
+    "sgmm2-align-compiled", "sgmm2-latgen-faster"))
+
+
+def sgmm2(torch, np, c) -> dict:
+    """The sgmm2 phase: SGMM2 on the minilib system, then its 9 tools.
+
+    Training: recipes/sgmm2.train_sgmm2 from tri.mdl and the committed
+    tri_ali.pkl on the 600 training utterances (features through K2) at
+    Sgmm2TrainOptions() but total_substates=SGMM2_SUBSTATES: a 64-Gaussian
+    UBM, D+1 = 40 phonetic dimensions, 8 EM iterations of the alternating
+    flags, substates split at iteration 4, realignment at 2, 4 and 6
+    through align_batch (K1 three times a scanned frame) on the align_tri
+    phase's training graphs (`c.graphs`; compiled here when None).  Gates:
+    the EM auxiliary does not fall between realignments; K1 three times a
+    scanned frame on each realignment; one iteration's statistics and the
+    loglikes of SGMM2_CPU_UTTS utterances card vs CPU.  Decode: the 256
+    clean held-out utterances through minilib.decode_and_score
+    (decode_batch_tokens, K1) at K=1024, B=128, acoustic scale 0.1 on
+    hclg.npz; WER ≤ SGMM2_MAX_WER_PERCENT.  Tools: sgmm2-init, -info,
+    -acc-stats-ali (two halves), -sum-accs, -est (vwc, then MSN with a
+    split), -est-spkvecs, -acc-stats-ali with the speaker vectors,
+    -est-fmllr, -align-compiled and -latgen-faster on the cli phase's work
+    directory (its 64 training utterances with tri.mdl's alignments and
+    training graphs, 8 round-robin speakers; its 64 held-out utterances and
+    HCLG, decoded with the model trained above: the tools' own model, two
+    iterations on 64 utterances, took 31-36 s to decode the 64 with its
+    lattices, most of the phase), each held to the
+    library on the same inputs: files byte for
+    byte, alignments = align_batch's, words = decode_batch's.  The counts
+    are set to 0 just before the training, the decode and the tools, and
+    read just after each.  Returns {"faults", "launches"}."""
+    from old_kaldi_git_tpu_torch import convert
+    from old_kaldi_git_tpu_torch.bin import tools
+    from old_kaldi_git_tpu_torch.decoder.csr import fst_to_csr_native
+    from old_kaldi_git_tpu_torch.decoder.graph import GraphCompiler, read_hclg_csr
+    from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, align_batch, decode_batch
+    from old_kaldi_git_tpu_torch.fst.native import NativeFst
+    from old_kaldi_git_tpu_torch.fst.symbols import SymbolTable
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+    from old_kaldi_git_tpu_torch.gmm.full_gmm import FullGmm
+    from old_kaldi_git_tpu_torch.gmm.sgmm2 import (
+        AmSgmm2, MleAmSgmm2Accs, Sgmm2Model, Sgmm2UpdateOptions, estimate_spk_vector,
+        sgmm2_update, split_substates)
+    from old_kaldi_git_tpu_torch.gmm.sgmm2_fmllr import (
+        FmllrSgmm2Accs, FmllrSgmm2Options, estimate_sgmm2_fmllr_batch)
+    from old_kaldi_git_tpu_torch.ivector.extractor import train_ubm
+    from old_kaldi_git_tpu_torch.recipes import sgmm2 as recipe
+    from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
+    from old_kaldi_git_tpu_torch.utils.table import TableWriter, read_table
+
+    t_phase = time.perf_counter()
+    dev, card, minilib = c.dev, c.card, c.minilib
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    faults, walls = [], {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # ---- training: inputs before the counts (the model, the committed
+    # alignments, the training graphs when the align phase left none)
+    tri_path = os.path.abspath("exp/minilib/tri.mdl")
+    tri = AmGmmModel.load(tri_path, device=dev)
+    tri_ali = convert.load_pickle("exp/minilib/tri_ali.pkl")
+    graphs = c.graphs
+    if graphs is None:
+        ctx_dep = convert.context_dependency_from_pickle(
+            convert.load_pickle("exp/minilib/tree.pkl")[0])
+        tkeys = sorted(c.twaves)
+        graphs = dict(zip(tkeys, GraphCompiler(c.lang, ctx_dep, tri.tm).compile_csr_graphs(
+            [c.ttext[k] for k in tkeys])))
+    realigns = []
+    real_align = recipe.align_batch
+
+    def counted_align(*a, **kw):
+        """align_batch with its K1 launches and scanned frames kept."""
+        g0, tim = c.batched_table_gather.launches, {}
+        out = real_align(*a, timings=tim, **kw)
+        sync()
+        realigns.append({"frames_scanned": int(tim["align_frames"]),
+                         "gather_launches": c.batched_table_gather.launches - g0})
+        return out
+
+    topts = recipe.Sgmm2TrainOptions(total_substates=c.substates)
+    hist, tim = [], {}
+    c.zero_counts()
+    t0 = time.perf_counter()
+    tfeats = minilib.compute_feats(c.twaves, device=dev)
+    sync()
+    fe_s = time.perf_counter() - t0
+    recipe.align_batch = counted_align
+    try:
+        model = recipe.train_sgmm2(tri, tfeats, tri_ali, graphs=graphs, opts=topts, device=dev,
+                                   history=hist, timings=tim)
+    finally:
+        recipe.align_batch = real_align
+    sync()
+    train_s = time.perf_counter() - t0
+    train_counts = c.read_counts("sgmm2")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    sg = model.sgmm
+    aux_falls = [(h0["iter"], h1["iter"], h1["avg_like"] - h0["avg_like"])
+                 for h0, h1 in zip(hist, hist[1:]) if h0["iter"] not in topts.realign_iters
+                 and h1["avg_like"] < h0["avg_like"] - SGMM2_AUX_TOL]
+    if aux_falls:
+        faults.append(f"sgmm2: the EM auxiliary fell between realignments: {aux_falls}")
+    if len(realigns) != len(topts.realign_iters) or any(
+            r["gather_launches"] != 3 * r["frames_scanned"] for r in realigns):
+        faults.append(f"sgmm2: realignments' K1 launches not three a scanned frame: {realigns}")
+    if sg.num_substates != c.substates:
+        faults.append(f"sgmm2: {sg.num_substates} substates after the split, not {c.substates}")
+    # card vs CPU from the same inputs: one iteration's statistics under the
+    # trained model, then the loglikes
+    ckeys = sorted(tfeats)[:SGMM2_CPU_UTTS]
+    t2p = tri.tm.tid_to_pdf_array()
+    lens = [min(len(tfeats[k]), len(tri_ali[k])) for k in ckeys]
+    cx = np.concatenate([np.asarray(tfeats[k], np.float64)[:n] for k, n in zip(ckeys, lens)])
+    cp = np.concatenate([t2p[np.asarray(tri_ali[k])[:n]] for k, n in zip(ckeys, lens)])
+    sg_cpu = sg.to(cpu)
+    accs = {}
+    for where, m in (("card", sg), ("cpu", sg_cpu)):
+        a = MleAmSgmm2Accs(m)
+        a.accumulate(m, cx, cp)
+        accs[where] = a
+    stats_gap = {name: _rel_gap(np, getattr(accs["card"], name), getattr(accs["cpu"], name))
+                 for name in ("gamma", "y", "Y", "Q", "S")}
+    stats_gap["total_like"] = abs(accs["card"].total_like - accs["cpu"].total_like) / abs(
+        accs["cpu"].total_like)
+    if not max(stats_gap.values()) <= SGMM2_STATS_TOL:
+        faults.append(f"sgmm2: statistics card vs CPU {stats_gap}")
+    # each update flag from the same statistics on both devices (a record:
+    # the occupancy thresholds and the weight step's acceptance may branch)
+    update_gap = {}
+    for flags in ("vwc", "MS"):
+        ms = {"card": sg.to(dev), "cpu": sg.to(cpu)}
+        for where, m in ms.items():
+            sgmm2_update(m, accs[where], Sgmm2UpdateOptions(update_flags=flags))
+        update_gap[flags] = {name: _rel_gap(np, getattr(ms["card"], name),
+                                            getattr(ms["cpu"], name))
+                             for name in ("M", "w", "sigma_inv", "V", "C")}
+    _, cpad, cnf = pad_feature_batch({k: tfeats[k] for k in ckeys})
+    ll_card = sg.loglikes_batch(torch.from_numpy(cpad).to(dev), num_frames=cnf)
+    ll_cpu = sg_cpu.loglikes_batch(torch.from_numpy(cpad), num_frames=cnf)
+    ll_gap = _rel_gap(np, ll_card, ll_cpu)
+    if not ll_gap <= SGMM2_LL_TOL:
+        faults.append(f"sgmm2: loglikes card vs CPU {ll_gap} of max|ref|")
+    del accs, sg_cpu, ll_card, ll_cpu, tfeats
+    # ---- decode: the 256 clean held-out utterances on hclg.npz
+    c.zero_counts()
+    stages = {}
+    t0 = time.perf_counter()
+    wer, audio_s = minilib.decode_and_score(
+        dataclasses.replace(c.system, am=_SgmmAm(torch, sg)), beam=BEAM,
+        max_active=MAX_ACTIVE, acoustic_scale=SGMM2_ACOUSTIC_SCALE, batch=BATCH,
+        timings=stages)
+    sync()
+    decode_s = time.perf_counter() - t0
+    decode_counts = c.read_counts("sgmm2_decode")
+    dstats = minilib.decode_and_score.last_stats
+    if not wer <= SGMM2_MAX_WER_PERCENT:
+        faults.append(f"sgmm2: WER {wer:.2f} % above {SGMM2_MAX_WER_PERCENT} %")
+    if decode_counts["gather"] == 0 or decode_counts["mfcc"] == 0:
+        faults.append(f"sgmm2: the decode did not go through K1 and K2: {decode_counts}")
+    model.save(os.path.join(c.workdir, "sg_trained.mdl"))  # sgmm2-latgen-faster's model
+    del model, sg
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- the 9 tools on the cli phase's work directory
+    wd = c.workdir
+    p = lambda *a: os.path.join(wd, *a)  # noqa: E731
+    o = lambda n: f"ark:{p(n)}"  # noqa: E731
+    checks = {}
+
+    def run(label, *argv, rcs=(0,)):
+        return _run_tool(torch, tools, walls, on_card, SGMM2_TENSOR_TOOLS, label, *argv,
+                         rcs=rcs)
+
+    # inputs: two halves of the training features, 8 round-robin speakers,
+    # the UBM (the library's, on the 64 utterances' frames)
+    tfe = read_table(o("train_feats.ark"), "mat")
+    tk = sorted(tfe)
+    tali = read_table(o("gmm-align-compiled.ark"), "ivec")
+    halves = (tk[: len(tk) // 2], tk[len(tk) // 2:])
+    for i, ks in enumerate(halves):
+        with TableWriter(o(f"sg_feats{i}.ark"), "mat") as w:
+            for k in ks:
+                w[k] = tfe[k]
+    u2s = {k: f"spk{i % CLI_TRAIN_SPEAKERS}" for i, k in enumerate(tk)}
+    with open(p("sg_utt2spk"), "w") as f:
+        f.writelines(f"{k} {s}\n" for k, s in u2s.items())
+    FullGmm.from_diag(train_ubm(np.concatenate([tfe[k] for k in tk]).astype(np.float64),
+                                num_gauss=SGMM2_CLI_UBM, num_iters=4, device=dev)
+                      ).save(p("sg_ubm.full"))
+    hclg, words_txt = p("graph", "HCLG.fst"), p("graph", "words.txt")
+    wt = f"--word-symbol-table={words_txt}"
+    c.zero_counts()
+    t_tools = time.perf_counter()
+    run("sgmm2-init", "sgmm2-init", f"--spk-space-dim={SGMM2_CLI_SPK_DIM}", tri_path,
+        p("sg_ubm.full"), p("sg0.mdl"))
+    info = run("sgmm2-info", "sgmm2-info", p("sg0.mdl"))
+    for i in range(2):
+        run("sgmm2-acc-stats-ali", "sgmm2-acc-stats-ali", p("sg0.mdl"), o(f"sg_feats{i}.ark"),
+            o("gmm-align-compiled.ark"), p(f"sg0.{i}.acc"))
+    run("sgmm2-sum-accs", "sgmm2-sum-accs", p("sg0.mdl"), p("sg0.acc"), p("sg0.0.acc"),
+        p("sg0.1.acc"))
+    run("sgmm2-est", "sgmm2-est", "--update-flags=vwc", p("sg0.mdl"), p("sg0.acc"), p("sg1.mdl"))
+    run("sgmm2-est-spkvecs", "sgmm2-est-spkvecs", f"--utt2spk={p('sg_utt2spk')}", p("sg1.mdl"),
+        o("train_feats.ark"), o("gmm-align-compiled.ark"), o("sg_spkvecs.ark"))
+    run("sgmm2-acc-stats-ali", "sgmm2-acc-stats-ali", f"--spk-vecs={o('sg_spkvecs.ark')}",
+        f"--utt2spk={p('sg_utt2spk')}", p("sg1.mdl"), o("train_feats.ark"),
+        o("gmm-align-compiled.ark"), p("sg1.acc"))
+    run("sgmm2-est", "sgmm2-est", "--update-flags=MSN",
+        f"--split-substates={SGMM2_CLI_SUBSTATES}", p("sg1.mdl"), p("sg1.acc"), p("sg2.mdl"))
+    run("sgmm2-est-fmllr", "sgmm2-est-fmllr", f"--utt2spk={p('sg_utt2spk')}", p("sg2.mdl"),
+        o("train_feats.ark"), o("gmm-align-compiled.ark"), o("sg_fmllr.ark"))
+    run("sgmm2-align-compiled", "sgmm2-align-compiled", p("sg2.mdl"), o("graphs.ark"),
+        o("train_feats.ark"), o("sg_ali.ark"))
+    run("sgmm2-latgen-faster", "sgmm2-latgen-faster", wt, p("sg_trained.mdl"), hclg,
+        o("feats.ark"), o("sg_lat.ark"), f"ark,t:{p('sg_words.txt')}")
+    sync()
+    tools_s = time.perf_counter() - t_tools
+    tool_counts = c.read_counts("sgmm2_tools")
+
+    # ---- the library on the same inputs
+    def same(name, path, save):
+        save(p(f"want_{name}"))
+        checks[name] = _file_bytes(path) == _file_bytes(p(f"want_{name}"))
+
+    base = AmGmmModel.load(tri_path, device=cpu)
+    lib0 = AmSgmm2.init(FullGmm.load(p("sg_ubm.full")), base.am.num_pdfs, device=cpu)
+    lib0.init_speaker_subspace(SGMM2_CLI_SPK_DIM)
+    same("sgmm2-init", p("sg0.mdl"), Sgmm2Model(base.tm, lib0).save)
+    checks["sgmm2-info"] = info.splitlines() == [
+        f"number of pdfs {lib0.num_pdfs}", f"number of gaussians {lib0.num_gauss}",
+        f"feature dimension {lib0.dim}", f"phone-space dimension {lib0.phn_dim}",
+        f"number of substates {lib0.num_substates}", f"speaker-space dimension {lib0.spk_dim}",
+        "symmetric false", f"number of transition-ids {base.tm.num_tids}"]
+
+    def frames(keys, spk=None):
+        xs, ps = [], []
+        for k in keys:
+            if (spk is None or u2s[k] == spk) and k in tali:
+                n = min(len(tfe[k]), len(tali[k]))
+                xs.append(np.asarray(tfe[k], np.float64)[:n])
+                ps.append(t2p[np.asarray(tali[k])[:n]])
+        return np.concatenate(xs), np.concatenate(ps)
+
+    m0 = Sgmm2Model.load(p("sg0.mdl"), device=dev)
+    half_accs = []
+    for i, ks in enumerate(halves):
+        a = MleAmSgmm2Accs(m0.sgmm)
+        x, pdfs = frames(ks)
+        a.accumulate(m0.sgmm, torch.from_numpy(x).to(dev), pdfs)
+        same(f"sgmm2-acc-stats-ali.{i}", p(f"sg0.{i}.acc"), a.save)
+        half_accs.append(a)
+    half_accs[0].add(half_accs[1])
+    same("sgmm2-sum-accs", p("sg0.acc"), half_accs[0].save)
+    sgmm2_update(m0.sgmm, half_accs[0], Sgmm2UpdateOptions(update_flags="vwc"))
+    same("sgmm2-est.vwc", p("sg1.mdl"), m0.save)
+    m1 = Sgmm2Model.load(p("sg1.mdl"), device=dev)
+    spks = sorted(set(u2s.values()))
+    vecs = {s: estimate_spk_vector(m1.sgmm, *frames(tk, s), num_iters=2, min_count=10.0)
+            for s in spks}
+    want = p("want_sg_spkvecs.ark")
+    with TableWriter(f"ark:{want}", "vec") as w:
+        for s in spks:
+            w[s] = vecs[s].cpu().numpy().astype(np.float32)
+    checks["sgmm2-est-spkvecs"] = _file_bytes(p("sg_spkvecs.ark")) == _file_bytes(want)
+    read_vecs = read_table(o("sg_spkvecs.ark"), "vec")
+    a1 = MleAmSgmm2Accs(m1.sgmm)
+    for k in tk:
+        if k in tali:
+            n = min(len(tfe[k]), len(tali[k]))
+            a1.accumulate(m1.sgmm, torch.from_numpy(np.asarray(tfe[k], np.float64)[:n]).to(dev),
+                          t2p[np.asarray(tali[k])[:n]], spk_vec=read_vecs[u2s[k]])
+    same("sgmm2-acc-stats-ali.spk", p("sg1.acc"), a1.save)
+    sgmm2_update(m1.sgmm, a1, Sgmm2UpdateOptions(update_flags="MSN"))
+    split_substates(m1.sgmm, a1, SGMM2_CLI_SUBSTATES)
+    same("sgmm2-est.MSN", p("sg2.mdl"), m1.save)
+    m2 = Sgmm2Model.load(p("sg2.mdl"), device=dev)
+    faccs = []
+    for s in spks:
+        fa = FmllrSgmm2Accs(m2.sgmm)
+        fa.accumulate(m2.sgmm, *frames(tk, s))
+        faccs.append(fa)
+    Ws = estimate_sgmm2_fmllr_batch(m2.sgmm, faccs, FmllrSgmm2Options())
+    D = m2.sgmm.dim
+    ident = np.concatenate([np.eye(D), np.zeros((D, 1))], axis=1)
+    want = p("want_sg_fmllr.ark")
+    with TableWriter(f"ark:{want}", "mat") as w:
+        for s, W in zip(spks, Ws):
+            w[s] = (ident if W is None else W.cpu().numpy()).astype(np.float32)
+    checks["sgmm2-est-fmllr"] = _file_bytes(p("sg_fmllr.ark")) == _file_bytes(want)
+    fmllr_identity = sum(W is None for W in Ws)
+    # sgmm2-align-compiled against align_batch on the same graphs and loglikes
+    graphs_t = read_table(o("graphs.ark"), "fst")
+    m2t2p = m2.tm.tid_to_pdf_array()
+    akeys, apad, anf = pad_feature_batch({k: tfe[k] for k in tk if k in graphs_t})
+    acsr = [fst_to_csr_native(NativeFst.from_arrays(*graphs_t[k].to_arrays()), m2t2p)
+            for k in akeys]
+    all_ = m2.sgmm.loglikes_batch(torch.from_numpy(apad).to(dev))  # as batch_align scores
+    alis, _ = align_batch(acsr, all_, anf, ViterbiOptions(beam=200.0, acoustic_scale=1.0),
+                          device=dev)
+    got = read_table(o("sg_ali.ark"), "ivec")
+    align_same = sum(a is not None and k in got and np.array_equal(got[k], a)
+                     for k, a in zip(akeys, alis))
+    del all_
+    # sgmm2-latgen-faster's words against decode_batch on the same loglikes
+    hfe = read_table(o("feats.ark"), "mat")
+    words = SymbolTable.read(words_txt)
+    trained = Sgmm2Model.load(p("sg_trained.mdl"), device=dev)
+    csr = read_hclg_csr(hclg, trained.tm.tid_to_pdf_array())
+    fkeys, fpad, fnf = pad_feature_batch(hfe)
+    ll = trained.sgmm.loglikes_batch(torch.from_numpy(fpad).to(dev), num_frames=fnf).to(
+        torch.float32)
+    lib = decode_batch(csr, ll, fnf, ViterbiOptions(), want_lattice=True, device=dev)
+    tool_words = read_table(f"ark:{p('sg_words.txt')}", "text")
+    words_same = sum(r is not None and tool_words.get(k) == " ".join(words[i] for i in r.words)
+                     for k, r in zip(fkeys, lib))
+    del ll, lib
+    if on_card:
+        torch.cuda.empty_cache()
+    bad = sorted(k for k, v in checks.items() if not v)
+    if bad:
+        faults.append(f"sgmm2 tools: files other than the library's: {bad}")
+    if align_same != len(tk) or words_same != len(fkeys):
+        faults.append(f"sgmm2 tools: alignments {align_same}/{len(tk)}, words "
+                      f"{words_same}/{len(fkeys)} equal the library's")
+    if tool_counts["gather"] == 0:
+        faults.append(f"sgmm2 tools did not go through K1: {tool_counts}")
+    c.emit({"phase": "sgmm2", "card": card, "utterances": len(c.twaves),
+            "options": dataclasses.asdict(topts), "history": hist,
+            "realignments": realigns, "train_seconds": train_s,
+            "front_end_seconds": fe_s, **tim,
+            "peak_device_memory_bytes": peak, "substates": c.substates,
+            "aux_falls_between_realignments": aux_falls,
+            "stats_card_vs_cpu_of_max": stats_gap, "tolerance_stats": SGMM2_STATS_TOL,
+            "update_card_vs_cpu_of_max": update_gap,
+            "loglikes_card_vs_cpu_of_max": ll_gap, "tolerance_loglikes": SGMM2_LL_TOL,
+            "cpu_check_utterances": len(ckeys),
+            "decode": {"wer_percent": wer, "errors": dstats["errors"],
+                       "ref_words": dstats["ref_words"], "audio_seconds": audio_s,
+                       "wall_seconds": decode_s, "acoustic_scale": SGMM2_ACOUSTIC_SCALE,
+                       "max_active": MAX_ACTIVE, "batch": BATCH, **stages,
+                       "gather_launches_per_search_frame":
+                           decode_counts["gather"] / max(stages.get("search_frames", 0), 1)},
+            "tools": {"seconds": tools_s, "tool_seconds": walls, "files_equal": checks,
+                      "align_tids_equal": align_same, "latgen_words_equal": words_same,
+                      "utterances": len(tk), "decoded": len(fkeys),
+                      "speakers": len(spks), "fmllr_identity_speakers": fmllr_identity},
+            "launches": {"train": train_counts, "decode": decode_counts, "tools": tool_counts},
+            "phase_seconds": time.perf_counter() - t_phase})
+    launches = {k: train_counts[k] + decode_counts[k] + tool_counts[k]
+                for k in ("gather", "mfcc")}
+    return {"faults": faults, "launches": launches,
+            "by_path": {"sgmm2": train_counts, "sgmm2_decode": decode_counts,
+                        "sgmm2_tools": tool_counts}}
+
+
+SPKID_SPEAKERS, SPKID_UTTS, SPKID_FRAMES = 64, 8, 300  # the cli_spkid corpus (seed 0)
+SPKID_TRAIN_SPEAKERS = 48  # of the 64: the UBM, extractor, LDA, PLDA and LR training set
+SPKID_ENROLL = 4  # of a test speaker's 8 utterances, the enrolment; the other 4 are tests
+SPKID_UBM = 64  # gmm-global-init-from-feats --num-gauss (final.ie's 64 Gaussians)
+SPKID_IVECTOR_DIM = 32  # ivector-extractor-init --ivector-dim (final.ie's)
+SPKID_GSELECT = 20  # gmm-gselect / fgmm-gselect --n
+SPKID_LDA_DIM = 24  # ivector-compute-lda --dim
+SPKID_CPU_UTTS = 64  # utterances of the card-vs-CPU statistics and iVectors
+SPKID_STATS_TOL = 1e-9  # the statistics card vs CPU, of each array's max|ref|
+SPKID_IVEC_TOL = 1e-4  # iVectors card vs CPU, of max|ref| (train_ivector's rule)
+SPKID_MAX_EER = 0.15  # tests/test_spkid_cli.py:150
+SPKID_MIN_LR_ACCURACY = 0.8  # tests/test_spkid_cli.py:167
+SPKID_TENSOR_TOOLS = frozenset((
+    "gmm-global-init-from-feats", "gmm-gselect", "fgmm-gselect", "gmm-global-acc-stats",
+    "gmm-global-get-post", "fgmm-global-acc-stats", "ivector-extractor-acc-stats",
+    "ivector-extract", "compute-vad"))
+
+
+def spkid_corpus(np, dim: int):
+    """The generator of the JAX package's tests/test_spkid_cli.py:24-53 at
+    `dim` dimensions: five cluster centres, a speaker offset in a rank-2
+    basis, noise; SPKID_SPEAKERS × SPKID_UTTS utterances of SPKID_FRAMES
+    frames from default_rng(0).  Returns ({utt: [T, dim] float32},
+    {utt: speaker})."""
+    rng = np.random.default_rng(0)
+    clusters = rng.standard_normal((5, dim)) * 3.0
+    basis = rng.standard_normal((2, dim))
+    spk_off = rng.standard_normal((SPKID_SPEAKERS, 2)) @ basis * 0.8
+    feats, utt2spk = {}, {}
+    for s in range(SPKID_SPEAKERS):
+        for u in range(SPKID_UTTS):
+            key = f"s{s:02d}-u{u}"
+            which = rng.integers(0, 5, size=SPKID_FRAMES)
+            feats[key] = (clusters[which] + spk_off[s] + 0.6 * rng.standard_normal(
+                (SPKID_FRAMES, dim))).astype(np.float32)
+            utt2spk[key] = f"s{s:02d}"
+    return feats, utt2spk
+
+
+def cli_spkid(torch, np, c) -> dict:
+    """The cli_spkid phase: the 30 speaker-ID tools of bin/spkid_tools.py on
+    the card, in-process, as egs/sre recipes chain them: a diagonal UBM
+    (init from the features, two EM iterations of gselect / acc-stats on two
+    halves / sum / est), the full UBM (two iterations), an iVector extractor
+    at final.ie's widths (64 Gaussians, 32 dimensions; two iterations),
+    iVectors per utterance and per speaker, mean / subtraction / length
+    normalisation, LDA and PLDA trained on SPKID_TRAIN_SPEAKERS speakers, the
+    other speakers enrolled on SPKID_ENROLL utterances each and scored on
+    the rest with every target and non-target pair, compute-eer, logistic
+    regression on the training speakers' iVectors; compute-vad and
+    select-voiced-frames on the cli phase's 64 held-out features.  Corpus:
+    spkid_corpus at the minilib width of 39.  Each tool's file is held to
+    the library's on the same inputs byte for byte; the statistics and
+    iVectors of SPKID_CPU_UTTS utterances card vs CPU; EER <
+    SPKID_MAX_EER and accuracy > SPKID_MIN_LR_ACCURACY.  The counts are set
+    to 0 just before the tools and read just after.  Returns {"faults",
+    "launches"}."""
+    from old_kaldi_git_tpu_torch.bin import tools
+    from old_kaldi_git_tpu_torch.bin.spkid_tools import compute_eer, read_ie_accs, write_ie_accs
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm, DiagGmm
+    from old_kaldi_git_tpu_torch.gmm.full_gmm import (
+        FRAME_CHUNK, AccumFullGmm, FullGmm, gselect, mle_full_gmm_update)
+    from old_kaldi_git_tpu_torch.gmm.mle import (
+        AccumDiagGmm, MleDiagGmmOptions, mle_diag_gmm_update)
+    from old_kaldi_git_tpu_torch.ivector.extractor import (
+        IvectorExtractor, acc_ivector_extractor_stats, batch_posteriors, batch_utt_stats,
+        est_ivector_extractor, init_ivector_extractor, train_ubm)
+    from old_kaldi_git_tpu_torch.ivector.logistic_regression import (
+        LogisticRegression, LogisticRegressionConfig, train_logistic_regression)
+    from old_kaldi_git_tpu_torch.ivector.plda import Plda, PldaStats, estimate_plda
+    from old_kaldi_git_tpu_torch.ivector.vad import VadOptions, compute_vad_energy
+    from old_kaldi_git_tpu_torch.transform.lda import LdaEstimate
+    from old_kaldi_git_tpu_torch.utils import io_funcs as iof
+    from old_kaldi_git_tpu_torch.utils.table import TableWriter, read_table
+
+    t_phase = time.perf_counter()
+    dev, card = c.dev, c.card
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    faults, walls, checks, gaps = [], {}, {}, {}
+    wd = os.path.join(c.workdir, "spkid")
+    os.makedirs(wd, exist_ok=True)
+    p = lambda *a: os.path.join(wd, *a)  # noqa: E731
+    o = lambda n: f"ark:{p(n)}"  # noqa: E731
+
+    def run(label, *argv, rcs=(0,)):
+        return _run_tool(torch, tools, walls, on_card, SPKID_TENSOR_TOOLS, label, *argv,
+                         rcs=rcs)
+
+    # ---- inputs, before the counts: the corpus, its halves, the lists
+    feats, utt2spk = spkid_corpus(np, 39)
+    keys = list(feats)
+    spks = sorted(set(utt2spk.values()))
+    train_spks, test_spks = spks[:SPKID_TRAIN_SPEAKERS], spks[SPKID_TRAIN_SPEAKERS:]
+    by_spk = {s: [k for k in keys if utt2spk[k] == s] for s in spks}
+    train_keys = [k for s in train_spks for k in by_spk[s]]
+    enroll = {s: by_spk[s][:SPKID_ENROLL] for s in test_spks}
+    tests = [k for s in test_spks for k in by_spk[s][SPKID_ENROLL:]]
+    halves = (keys[: len(keys) // 2], keys[len(keys) // 2:])
+    for name, ks in (("feats.ark", keys), ("feats0.ark", halves[0]), ("feats1.ark", halves[1])):
+        with TableWriter(o(name), "mat") as w:
+            for k in ks:
+                w[k] = feats[k]
+
+    def write_map(name, mapping):
+        with open(p(name), "w") as f:
+            f.writelines(f"{k} {' '.join(v) if isinstance(v, list) else v}\n"
+                         for k, v in mapping.items())
+
+    write_map("spk2utt", by_spk)
+    write_map("train_spk2utt", {s: by_spk[s] for s in train_spks})
+    write_map("train_utt2spk", {k: utt2spk[k] for k in train_keys})
+    write_map("enroll_spk2utt", enroll)
+    with open(p("trials"), "w") as f:
+        f.writelines(f"{s} {t}\n" for s in test_spks for t in tests)
+
+    # ---- the tools, the counts set to 0 just before them
+    c.zero_counts()
+    t_tools = time.perf_counter()
+    g = f"--n={SPKID_GSELECT}"
+    run("gmm-global-init-from-feats", "gmm-global-init-from-feats",
+        f"--num-gauss={SPKID_UBM}", o("feats.ark"), p("ubm0"))
+    for it in range(2):
+        run("gmm-gselect", "gmm-gselect", g, p(f"ubm{it}"), o("feats.ark"), o(f"gsel{it}.ark"))
+        for h in range(2):
+            run("gmm-global-acc-stats", "gmm-global-acc-stats", f"--gselect={o(f'gsel{it}.ark')}",
+                p(f"ubm{it}"), o(f"feats{h}.ark"), p(f"diag{it}.{h}.acc"))
+        run("gmm-global-sum-accs", "gmm-global-sum-accs", p(f"diag{it}.acc"),
+            p(f"diag{it}.0.acc"), p(f"diag{it}.1.acc"))
+        run("gmm-global-est", "gmm-global-est", "--remove-low-count-gaussians=false",
+            p(f"ubm{it}"), p(f"diag{it}.acc"), p(f"ubm{it + 1}"))
+    info = [run("gmm-global-info", "gmm-global-info", p("ubm2"))]
+    run("gmm-global-get-post", "gmm-global-get-post", "--n=5", p("ubm2"), o("feats.ark"),
+        o("post.ark"))
+    run("gmm-global-to-fgmm", "gmm-global-to-fgmm", p("ubm2"), p("full0"))
+    run("fgmm-global-to-gmm", "fgmm-global-to-gmm", p("full0"), p("back.diag"))
+    for it in range(2):
+        run("fgmm-gselect", "fgmm-gselect", g, p(f"full{it}"), o("feats.ark"),
+            o(f"fgsel{it}.ark"))
+        for h in range(2):
+            run("fgmm-global-acc-stats", "fgmm-global-acc-stats",
+                f"--gselect={o(f'fgsel{it}.ark')}", p(f"full{it}"), o(f"feats{h}.ark"),
+                p(f"full{it}.{h}.acc"))
+        run("fgmm-global-sum-accs", "fgmm-global-sum-accs", p(f"full{it}.acc"),
+            p(f"full{it}.0.acc"), p(f"full{it}.1.acc"))
+        run("fgmm-global-est", "fgmm-global-est", p(f"full{it}"), p(f"full{it}.acc"),
+            p(f"full{it + 1}"))
+    info.append(run("fgmm-global-info", "fgmm-global-info", p("full2")))
+    run("ivector-extractor-init", "ivector-extractor-init",
+        f"--ivector-dim={SPKID_IVECTOR_DIM}", p("full2"), p("ie0"))
+    for it in range(2):
+        for h in range(2):
+            run("ivector-extractor-acc-stats", "ivector-extractor-acc-stats", p(f"ie{it}"),
+                o(f"feats{h}.ark"), p(f"ie{it}.{h}.acc"))
+        run("ivector-extractor-sum-accs", "ivector-extractor-sum-accs", p(f"ie{it}.acc"),
+            p(f"ie{it}.0.acc"), p(f"ie{it}.1.acc"))
+        run("ivector-extractor-est", "ivector-extractor-est", p(f"ie{it}"), p(f"ie{it}.acc"),
+            p(f"ie{it + 1}"))
+    run("ivector-extract", "ivector-extract", p("ie2"), o("feats.ark"), o("ivec.ark"))
+    run("ivector-extract", "ivector-extract", f"--spk2utt={p('spk2utt')}", p("ie2"),
+        o("feats.ark"), o("spk_ivec.ark"))
+    run("ivector-mean", "ivector-mean", o("ivec.ark"), p("global.mean"))
+    run("ivector-subtract-global-mean", "ivector-subtract-global-mean", p("global.mean"),
+        o("ivec.ark"), o("ivec_c.ark"))
+    run("ivector-subtract-global-mean", "ivector-subtract-global-mean", o("ivec.ark"),
+        o("ivec_c2.ark"))
+    run("ivector-normalize-length", "ivector-normalize-length", o("ivec_c.ark"),
+        o("ivec_n.ark"))
+    run("ivector-compute-lda", "ivector-compute-lda", f"--dim={SPKID_LDA_DIM}", o("ivec_n.ark"),
+        p("train_utt2spk"), p("lda.mat"))
+    run("ivector-transform", "ivector-transform", p("lda.mat"), o("ivec_n.ark"), o("ivec_l.ark"))
+    run("ivector-normalize-length", "ivector-normalize-length", o("ivec_l.ark"),
+        o("ivec_ln.ark"))
+    run("ivector-compute-plda", "ivector-compute-plda", p("train_spk2utt"), o("ivec_ln.ark"),
+        p("plda"))
+    run("ivector-mean", "ivector-mean", p("enroll_spk2utt"), o("ivec_ln.ark"),
+        o("enroll.ark"), o("num_utts.ark"))
+    run("ivector-plda-scoring", "ivector-plda-scoring", f"--num-utts={o('num_utts.ark')}",
+        p("plda"), o("enroll.ark"), o("ivec_ln.ark"), p("trials"), p("scores"))
+    with open(p("scores")) as f, open(p("eer_in"), "w") as out:
+        for ln in f:
+            s, u, score = ln.split()
+            out.write(f"{score} {'target' if utt2spk[u] == s else 'nontarget'}\n")
+    eer_out = run("compute-eer", "compute-eer", p("eer_in"))
+    run("logistic-regression-train", "logistic-regression-train", o("ivec_ln.ark"),
+        p("train_utt2spk"), p("lr.mdl"))
+    run("logistic-regression-eval", "logistic-regression-eval", p("lr.mdl"), o("ivec_ln.ark"),
+        o("lr_post.ark"))
+    cli = lambda n: f"ark:{os.path.join(c.workdir, n)}"  # noqa: E731
+    run("compute-vad", "compute-vad", cli("raw.ark"), o("vad.ark"))
+    run("select-voiced-frames", "select-voiced-frames", cli("feats.ark"), o("vad.ark"),
+        o("voiced.ark"))
+    if on_card:
+        torch.cuda.synchronize()
+    tools_s = time.perf_counter() - t_tools
+    launches = c.read_counts("cli_spkid")
+
+    # ---- the library on the same inputs
+    def same_file(name, path, save):
+        save(p(f"want_{name}"))
+        checks[name] = _file_bytes(path) == _file_bytes(p(f"want_{name}"))
+
+    def same_archive(name, path, holder, items):
+        with TableWriter(o(f"want_{name}"), holder) as w:
+            for k, v in items:
+                w[k] = v
+        checks[name] = _file_bytes(path) == _file_bytes(p(f"want_{name}"))
+
+    def writer(obj):
+        def save(path):
+            with open(path, "wb") as f:
+                obj.write(f)
+        return save
+
+    def load_gmm(path):
+        with open(path, "rb") as f:
+            iof.init_kaldi_input_stream(f)
+            return (DiagGmm if iof.peek_token(f) == "<DiagGMM>" else FullGmm).read(f)
+
+    def frames(ks):
+        return torch.from_numpy(np.concatenate([feats[k] for k in ks]).astype(np.float64)).to(dev)
+
+    def gsel_of(model, ks):
+        x = frames(ks)
+        return torch.cat([gselect(model, x[lo: lo + FRAME_CHUNK], SPKID_GSELECT)
+                          for lo in range(0, x.shape[0], FRAME_CHUNK)]).cpu().numpy()
+
+    x_all = np.concatenate([feats[k] for k in keys])
+    same_file("gmm-global-init-from-feats", p("ubm0"),
+              train_ubm(x_all[:200000], num_gauss=SPKID_UBM, num_iters=10, seed=0,
+                        device=dev).save)
+    starts = np.concatenate([[0], np.cumsum([len(feats[k]) for k in keys])])
+    for it in range(2):
+        ubm = load_gmm(p(f"ubm{it}"))
+        sel = gsel_of(ubm, keys)
+        same_archive(f"gmm-gselect.{it}", p(f"gsel{it}.ark"), "mat",
+                     [(k, sel[starts[i]: starts[i + 1]].astype(np.float32))
+                      for i, k in enumerate(keys)])
+        accs = []
+        for h, ks in enumerate(halves):
+            a = AccumDiagGmm(ubm.num_mix, ubm.dim, dev)
+            a.accumulate(ubm, frames(ks), gsel=np.concatenate(
+                [sel[starts[keys.index(k)]: starts[keys.index(k) + 1]] for k in ks]))
+            same_file(f"gmm-global-acc-stats.{it}.{h}", p(f"diag{it}.{h}.acc"), writer(a))
+            accs.append(a)
+        accs[0].add(accs[1])
+        same_file(f"gmm-global-sum-accs.{it}", p(f"diag{it}.acc"), writer(accs[0]))
+        with open(p(f"diag{it}.acc"), "rb") as f:
+            acc_h = AccumDiagGmm.read(f, cpu)
+        same_file(f"gmm-global-est.{it}", p(f"ubm{it + 1}"), mle_diag_gmm_update(
+            ubm, acc_h.occ, acc_h.mean_acc, acc_h.var_acc, MleDiagGmmOptions(
+                min_gaussian_occupancy=10.0, variance_floor=1e-3,
+                remove_low_count_gaussians=False)).save)
+    ubm2 = load_gmm(p("ubm2"))
+    checks["gmm-global-info"] = info[0].splitlines() == [
+        f"number of gaussians {ubm2.num_mix}", f"feature dimension {ubm2.dim}",
+        "covariance type diag"]
+    xk = frames(keys)
+    post = torch.cat([ubm2.posteriors(xk[lo: lo + FRAME_CHUNK])
+                      for lo in range(0, len(x_all), FRAME_CHUNK)]).cpu().numpy()
+    del xk
+    want_post = []
+    for i, k in enumerate(keys):
+        pk = post[starts[i]: starts[i + 1]]
+        idx = np.argpartition(-pk, 4, axis=1)[:, :5]
+        rows = []
+        for t in range(pk.shape[0]):
+            pairs = [(int(j), float(pk[t, j])) for j in idx[t] if pk[t, j] > 0.0]
+            tot = sum(v for _, v in pairs) or 1.0
+            rows.append([(j, v / tot) for j, v in sorted(pairs, key=lambda jv: -jv[1])])
+        want_post.append((k, rows))
+    same_archive("gmm-global-get-post", p("post.ark"), "post", want_post)
+    del post, want_post
+    same_file("gmm-global-to-fgmm", p("full0"), FullGmm.from_diag(ubm2).save)
+    same_file("fgmm-global-to-gmm", p("back.diag"), load_gmm(p("full0")).to_diag().save)
+    for it in range(2):
+        full = load_gmm(p(f"full{it}"))
+        sel = gsel_of(full, keys)
+        same_archive(f"fgmm-gselect.{it}", p(f"fgsel{it}.ark"), "mat",
+                     [(k, sel[starts[i]: starts[i + 1]].astype(np.float32))
+                      for i, k in enumerate(keys)])
+        accs = []
+        for h, ks in enumerate(halves):
+            a = AccumFullGmm(full.num_mix, full.dim, dev)
+            a.accumulate(full, frames(ks), torch.from_numpy(np.concatenate(
+                [sel[starts[keys.index(k)]: starts[keys.index(k) + 1]]
+                 for k in ks]).astype(np.int64)).to(dev))
+            same_file(f"fgmm-global-acc-stats.{it}.{h}", p(f"full{it}.{h}.acc"), writer(a))
+            accs.append(a)
+        accs[0].add(accs[1])
+        same_file(f"fgmm-global-sum-accs.{it}", p(f"full{it}.acc"), writer(accs[0]))
+        with open(p(f"full{it}.acc"), "rb") as f:
+            acc_h = AccumFullGmm.read(f, cpu)
+        same_file(f"fgmm-global-est.{it}", p(f"full{it + 1}"), mle_full_gmm_update(
+            full, acc_h, min_gaussian_occupancy=10.0, variance_floor=1e-3,
+            remove_low_count=False).save)
+    full2 = load_gmm(p("full2"))
+    checks["fgmm-global-info"] = info[1].splitlines() == [
+        f"number of gaussians {full2.num_mix}", f"feature dimension {full2.dim}",
+        "covariance type full"]
+    same_file("ivector-extractor-init", p("ie0"),
+              init_ivector_extractor(full2, SPKID_IVECTOR_DIM, 0, cpu).save)
+    for it in range(2):
+        ext = IvectorExtractor.load(p(f"ie{it}"), dev)
+        sums = []
+        for h, ks in enumerate(halves):
+            A, B, aux = acc_ivector_extractor_stats(ext, [feats[k] for k in ks])
+            A, B, aux = A.cpu().numpy(), B.cpu().numpy(), float(aux)
+            same_file(f"ivector-extractor-acc-stats.{it}.{h}", p(f"ie{it}.{h}.acc"),
+                      lambda path, A=A, B=B, aux=aux: write_ie_accs(path, A, B, aux))
+            sums.append((A, B, aux))
+        A, B, aux = (sums[0][0] + sums[1][0], sums[0][1] + sums[1][1], sums[0][2] + sums[1][2])
+        same_file(f"ivector-extractor-sum-accs.{it}", p(f"ie{it}.acc"),
+                  lambda path: write_ie_accs(path, A, B, aux))
+        A, B, _ = read_ie_accs(p(f"ie{it}.acc"))
+        same_file(f"ivector-extractor-est.{it}", p(f"ie{it + 1}"), est_ivector_extractor(
+            IvectorExtractor.load(p(f"ie{it}"), cpu), torch.from_numpy(A),
+            torch.from_numpy(B)).save)
+    ext = IvectorExtractor.load(p("ie2"), dev)
+    gamma, fst = batch_utt_stats(ext, [feats[k] for k in keys])
+    ivec = batch_posteriors(ext, gamma, fst)[0].to(torch.float32).cpu().numpy()
+    same_archive("ivector-extract", p("ivec.ark"), "vec", zip(keys, ivec))
+    ix = {s: [keys.index(k) for k in by_spk[s]] for s in spks}
+    spk_ivec = batch_posteriors(ext, torch.stack([gamma[ix[s]].sum(0) for s in spks]),
+                                torch.stack([fst[ix[s]].sum(0) for s in spks])
+                                )[0].to(torch.float32).cpu().numpy()
+    same_archive("ivector-extract.spk2utt", p("spk_ivec.ark"), "vec", zip(spks, spk_ivec))
+    del gamma, fst
+    # the host tools: numpy on the tools' own inputs
+    iv = {k: np.asarray(v) for k, v in read_table(o("ivec.ark"), "vec").items()}
+    mean = np.mean(list(iv.values()), axis=0)
+
+    def write_mean(path):
+        with open(path, "wb") as f:
+            iof.init_kaldi_output_stream(f, True)
+            iof.write_vector(f, mean.astype(np.float64), dtype=np.float64)
+
+    same_file("ivector-mean.global", p("global.mean"), write_mean)
+    centred = [(k, (np.asarray(v, np.float64) - mean).astype(np.float32)) for k, v in iv.items()]
+    same_archive("ivector-subtract-global-mean", p("ivec_c.ark"), "vec", centred)
+    same_archive("ivector-subtract-global-mean.2", p("ivec_c2.ark"), "vec", centred)
+
+    def normalized(items):
+        out = []
+        for k, v in items:
+            x = np.asarray(v, np.float64)
+            norm = np.linalg.norm(x)
+            if norm > 0:  # the tool's order of operations
+                x = x * (1.0 / (norm / np.sqrt(len(x))))
+            out.append((k, x.astype(np.float32)))
+        return out
+
+    same_archive("ivector-normalize-length", p("ivec_n.ark"), "vec",
+                 normalized(read_table(o("ivec_c.ark"), "vec").items()))
+    ivn = {k: np.asarray(v) for k, v in read_table(o("ivec_n.ark"), "vec").items()}
+    spk_id = {s: i for i, s in enumerate(train_spks)}
+    lda = LdaEstimate(len(spk_id), SPKID_IVECTOR_DIM, cpu)
+    lda.accumulate(np.stack([ivn[k] for k in train_keys]),
+                   np.asarray([spk_id[utt2spk[k]] for k in train_keys]))
+    lda_mat = lda.estimate(SPKID_LDA_DIM)
+
+    def write_lda(path):
+        with open(path, "wb") as f:
+            iof.init_kaldi_output_stream(f, True)
+            iof.write_matrix(f, lda_mat.astype(np.float64), dtype=np.float64)
+
+    same_file("ivector-compute-lda", p("lda.mat"), write_lda)
+    with open(p("lda.mat"), "rb") as f:
+        iof.init_kaldi_input_stream(f)
+        mat = np.asarray(iof.read_matrix(f), np.float64)
+    same_archive("ivector-transform", p("ivec_l.ark"), "vec",
+                 [(k, (mat @ np.asarray(v, np.float64)).astype(np.float32))
+                  for k, v in ivn.items()])
+    same_archive("ivector-normalize-length.lda", p("ivec_ln.ark"), "vec",
+                 normalized(read_table(o("ivec_l.ark"), "vec").items()))
+    ivln = {k: np.asarray(v) for k, v in read_table(o("ivec_ln.ark"), "vec").items()}
+    stats = PldaStats(dim=SPKID_LDA_DIM)
+    for s in train_spks:
+        stats.add_samples(np.stack([ivln[k] for k in by_spk[s]]))
+    same_file("ivector-compute-plda", p("plda"), estimate_plda(stats, num_em_iters=10).save)
+    same_archive("ivector-mean.spk2utt", p("enroll.ark"), "vec",
+                 [(s, np.mean([ivln[k] for k in enroll[s]], axis=0).astype(np.float32))
+                  for s in test_spks])
+    same_archive("ivector-mean.num_utts", p("num_utts.ark"), "flt",
+                 [(s, float(len(enroll[s]))) for s in test_spks])
+    plda = Plda.load(p("plda"))
+    env = {k: np.asarray(v) for k, v in read_table(o("enroll.ark"), "vec").items()}
+    e_u = plda.transform_ivectors(np.stack([env[s] for s in test_spks]), True, cpu)
+    t_keys = list(ivln)
+    t_u = plda.transform_ivectors(np.stack([ivln[k] for k in t_keys]), True, cpu)
+    trials = [(s, t) for s in test_spks for t in tests]
+    scores = plda.log_likelihood_ratios(
+        e_u[[test_spks.index(s) for s, _ in trials]],
+        torch.tensor([len(enroll[s]) for s, _ in trials]),
+        t_u[[t_keys.index(t) for _, t in trials]]).numpy()
+    checks["ivector-plda-scoring"] = _file_bytes(p("scores")) == "".join(
+        f"{s} {t} {float(v):.6f}\n" for (s, t), v in zip(trials, scores)).encode()
+    tgt = np.asarray([float(f"{v:.6f}") for (s, t), v in zip(trials, scores)
+                      if utt2spk[t] == s])
+    non = np.asarray([float(f"{v:.6f}") for (s, t), v in zip(trials, scores)
+                      if utt2spk[t] != s])
+    eer, _ = compute_eer(tgt, non)
+    checks["compute-eer"] = eer_out.strip() == f"{100 * eer:.4f}"
+    lab = {s: i for i, s in enumerate(train_spks)}
+    lr_keys = [k for k in ivln if k in set(train_keys)]
+    same_file("logistic-regression-train", p("lr.mdl"), train_logistic_regression(
+        np.stack([ivln[k] for k in lr_keys]), [lab[utt2spk[k]] for k in lr_keys],
+        LogisticRegressionConfig(), device=cpu).save)
+    lr_post = LogisticRegression.load(p("lr.mdl")).log_posteriors(
+        np.stack([ivln[k] for k in t_keys]), cpu).numpy()
+    same_archive("logistic-regression-eval", p("lr_post.ark"), "vec",
+                 [(k, v.astype(np.float32)) for k, v in zip(t_keys, lr_post)])
+    accuracy = float(np.mean([int(np.argmax(lr_post[t_keys.index(k)])) == lab[utt2spk[k]]
+                              for k in lr_keys]))
+    raw = read_table(cli("raw.ark"), "mat")
+    vad = {k: compute_vad_energy(torch.from_numpy(np.ascontiguousarray(
+        f[None, :, 0], np.float32)).to(dev), VadOptions())[0].cpu().numpy()
+        for k, f in raw.items()}
+    same_archive("compute-vad", p("vad.ark"), "vec", vad.items())
+    hfe = read_table(cli("feats.ark"), "mat")
+    voiced = []
+    for k, f in hfe.items():
+        mask = np.asarray(vad[k]) > 0.5
+        x = np.asarray(f)[: len(mask)][mask[: len(f)]]
+        if len(x):
+            voiced.append((k, x))
+    same_archive("select-voiced-frames", p("voiced.ark"), "mat", voiced)
+    voiced_share = sum(len(x) for _, x in voiced) / max(sum(len(f) for f in hfe.values()), 1)
+    # card vs CPU from the same inputs: the statistics and iVectors of the
+    # first SPKID_CPU_UTTS utterances
+    sub = keys[:SPKID_CPU_UTTS]
+    xs = np.concatenate([feats[k] for k in sub]).astype(np.float64)
+    out = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        da = AccumDiagGmm(ubm2.num_mix, ubm2.dim, d)
+        da.accumulate(ubm2, torch.from_numpy(xs).to(d))
+        fa = AccumFullGmm(full2.num_mix, full2.dim, d)
+        fa.accumulate(full2, torch.from_numpy(xs).to(d))
+        e = IvectorExtractor.load(p("ie2"), d)
+        A, B, _ = acc_ivector_extractor_stats(e, [feats[k] for k in sub])
+        gm, fs = batch_utt_stats(e, [feats[k] for k in sub])
+        out[where] = {"diag_occ": da.occ, "diag_mean": da.mean_acc, "diag_var": da.var_acc,
+                      "full_occ": fa.occ, "full_mean": fa.mean_acc, "full_cov": fa.cov_acc,
+                      "ie_A": A, "ie_B": B, "ivectors": batch_posteriors(e, gm, fs)[0]}
+    for name in out["card"]:
+        gaps[name] = _rel_gap(np, out["card"][name], out["cpu"][name])
+    del out
+    if on_card:
+        torch.cuda.empty_cache()
+    bad = sorted(k for k, v in checks.items() if not v)
+    if bad:
+        faults.append(f"cli_spkid: files other than the library's: {bad}")
+    stats_gap = max(v for k, v in gaps.items() if k != "ivectors")
+    if not (stats_gap <= SPKID_STATS_TOL and gaps["ivectors"] <= SPKID_IVEC_TOL):
+        faults.append(f"cli_spkid: card vs CPU {gaps}")
+    if not eer < SPKID_MAX_EER:
+        faults.append(f"cli_spkid: EER {eer} not under {SPKID_MAX_EER}")
+    if not accuracy > SPKID_MIN_LR_ACCURACY:
+        faults.append(f"cli_spkid: logistic-regression accuracy {accuracy}")
+    ran = set(walls)
+    c.emit({"phase": "cli_spkid", "card": card, "utterances": len(keys),
+            "frames": int(len(x_all)), "speakers": len(spks),
+            "train_speakers": len(train_spks), "trials": len(trials),
+            "target_trials": int(len(tgt)), "eer": eer, "eer_gate": SPKID_MAX_EER,
+            "lr_accuracy": accuracy, "lr_gate": SPKID_MIN_LR_ACCURACY,
+            "ubm_gaussians": [load_gmm(p(f"ubm{i}")).num_mix for i in range(3)],
+            "voiced_share": voiced_share, "tools_run": len(ran),
+            "tools_seconds": tools_s, "tool_seconds": walls, "files_equal": checks,
+            "card_vs_cpu_of_max": gaps, "tolerance_stats": SPKID_STATS_TOL,
+            "tolerance_ivectors": SPKID_IVEC_TOL, "cpu_check_utterances": len(sub),
+            "launches": launches, "phase_seconds": time.perf_counter() - t_phase})
+    return {"faults": faults, "launches": launches}
+
+
+KWS_WORDS, KWS_PHRASES, KWS_ABSENT = 100, 20, 10  # the cli_kws keyword list
+KWS_FRAME_SHIFT = 0.01  # seconds a frame (kws-search --frame-shift, compute-atwv's times)
+KWS_ACOUSTIC_SCALE = 0.1  # lattice-to-kws-index's and kws-search's default
+KWS_THRESHOLD = 0.5  # compute-atwv --threshold: the hits a system would report
+
+
+def best_path_word_frames(lat, lm_scale: float, ac_scale: float):
+    """The words of a lattice's best path with their frames: [(word, first
+    frame, end frame)], a word running from the arc that carries it to the
+    next word's (the decode's lattices put a word on its first arc)."""
+    from old_kaldi_git_tpu_torch.lat.lattice import _topo_order
+
+    inf = float("inf")
+    dist = [inf] * lat.num_states
+    back = [None] * lat.num_states
+    dist[lat.start] = 0.0
+    for s in _topo_order(lat):
+        if dist[s] == inf:
+            continue
+        for a in lat.arcs[s]:
+            d = dist[s] + lat.combined(a, lm_scale, ac_scale)
+            if d < dist[a.nextstate]:
+                dist[a.nextstate], back[a.nextstate] = d, (s, a)
+    ends = [(dist[s] + lm_scale * g + ac_scale * ac, s)
+            for s, (g, ac) in enumerate(lat.finals) if lat.is_final(s) and dist[s] < inf]
+    if not ends:
+        return []
+    s, path = min(ends)[1], []
+    while back[s] is not None:
+        s, a = back[s][0], back[s][1]
+        path.append(a)
+    out, frame = [], 0
+    for a in reversed(path):
+        if a.olabel:
+            if out:
+                out[-1][2] = frame
+            out.append([a.olabel, frame, None])
+        if a.ilabel:
+            frame += 1
+    if out:
+        out[-1][2] = frame
+    return [tuple(w) for w in out]
+
+
+def cli_kws(torch, np, c) -> dict:
+    """The cli_kws phase: the 4 keyword-search tools on the lattice_outputs
+    phase's 64 noisy lattices (`c.lattices`; decoded here as that phase
+    decodes them when None), written as a "lat" archive.
+    lattice-to-kws-index of the archive and of each half, kws-index-union of
+    the halves, kws-search with --index on KWS_WORDS single words and
+    KWS_PHRASES two-word phrases from the 64 references and KWS_ABSENT
+    vocabulary words that no lattice holds, compute-atwv against the
+    occurrences on each lattice's best path (hits at KWS_THRESHOLD and
+    above).  The index files and results
+    are held byte for byte to library build_kws_index / merge_indexes /
+    search_index / search_phrase on the archive's lattices; absent keywords
+    get no hit; the ATWV is a record, as is the index of the in-memory
+    lattices (their float64 costs against the archive's float32).  Host
+    code: no kernel is launched.  Returns {"faults", "launches"}."""
+    from old_kaldi_git_tpu_torch.bin import tools
+    from old_kaldi_git_tpu_torch.kws.atwv import compute_atwv
+    from old_kaldi_git_tpu_torch.kws.search import (
+        build_kws_index, merge_indexes, save_index, search_index, search_phrase)
+    from old_kaldi_git_tpu_torch.utils.table import TableWriter, read_table
+
+    t_phase = time.perf_counter()
+    dev, card, minilib = c.dev, c.card, c.minilib
+    on_card = dev.type == "cuda"
+    faults, walls, checks = [], {}, {}
+    wd = tempfile.mkdtemp(prefix="okt_kws_")
+    p = lambda *a: os.path.join(wd, *a)  # noqa: E731
+    o = lambda n: f"ark:{p(n)}"  # noqa: E731
+    words = c.system.words
+    word_id = {w: i for i, w in enumerate(words)}
+    opts = minilib.MinilibOptions()
+    waves, text = minilib.make_test_set(opts, noise=minilib.NOISE_EVAL)
+    keys = sorted(waves)[:LATTICE_UTTS]
+    lats = c.lattices
+    if lats is None:
+        from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+        from old_kaldi_git_tpu_torch.recipes import decode
+
+        gmm = AmGmmModel.load("exp/minilib/tri.mdl", device=dev)
+        feats = minilib.compute_feats({k: waves[k] for k in keys}, device=dev)
+        lats = decode.decode_dataset_with_lattices(gmm, c.system.csr, words, feats,
+                                                   decode.DecodeOptions(), LATTICE_BEAM)
+        del gmm, feats
+    try:
+        # ---- inputs: the archive and its halves, the keywords, the references
+        lkeys = sorted(lats)
+        halves = (lkeys[: len(lkeys) // 2], lkeys[len(lkeys) // 2:])
+        for name, ks in (("lats.ark", lkeys), ("lats0.ark", halves[0]),
+                         ("lats1.ark", halves[1])):
+            with TableWriter(o(name), "lat") as w:
+                for k in ks:
+                    w[k] = lats[k]
+        refs = [[word_id[w] for w in text[k]] for k in keys]
+        uniq = sorted({w for r in refs for w in r})
+        singles = [uniq[i] for i in np.linspace(0, len(uniq) - 1, min(KWS_WORDS, len(uniq))
+                                                ).astype(int)]
+        pairs = sorted({(r[i], r[i + 1]) for r in refs for i in range(len(r) - 1)})
+        phrases = [pairs[i] for i in np.linspace(0, len(pairs) - 1, min(KWS_PHRASES, len(pairs))
+                                                 ).astype(int)]
+        seen = {a.olabel for lat in lats.values() for arcs in lat.arcs for a in arcs}
+        unseen = [i for i, w in enumerate(words)
+                  if i and i not in seen and w[0] not in "<#!"]
+        absent = [unseen[i] for i in np.linspace(0, len(unseen) - 1,
+                                                 min(KWS_ABSENT, len(unseen))).astype(int)]
+        kws = {**{f"KW-{w:05d}": [w] for w in singles},
+               **{f"KWP-{a:05d}-{b:05d}": [a, b] for a, b in phrases},
+               **{f"KWX-{w:05d}": [w] for w in absent}}
+        with open(p("keywords.txt"), "w") as f:
+            f.writelines(f"{k} {' '.join(map(str, ws))}\n" for k, ws in kws.items())
+        ref_lines, total_frames = [], 0
+        for k in lkeys:
+            best = best_path_word_frames(lats[k], 1.0, KWS_ACOUSTIC_SCALE)
+            total_frames += max([e for _, _, e in best] + [0])
+            seq = [w for w, _, _ in best]
+            for kw, ws in kws.items():
+                n = len(ws)
+                for i in range(len(seq) - n + 1):
+                    if seq[i: i + n] == ws:
+                        ref_lines.append(f"{kw} {k} {best[i][1] * KWS_FRAME_SHIFT:.2f} "
+                                         f"{best[i + n - 1][2] * KWS_FRAME_SHIFT:.2f}\n")
+        with open(p("ref.txt"), "w") as f:
+            f.writelines(ref_lines)
+        duration = f"{total_frames * KWS_FRAME_SHIFT:.2f}"
+
+        # ---- the tools, the counts set to 0 just before them
+        c.zero_counts()
+        t_tools = time.perf_counter()
+
+        def run(label, *argv):
+            return _run_tool(torch, tools, walls, on_card, (), label, *argv)
+
+        run("lattice-to-kws-index", "lattice-to-kws-index", o("lats.ark"), p("all.idx"))
+        for h in range(2):
+            run("lattice-to-kws-index", "lattice-to-kws-index", o(f"lats{h}.ark"),
+                p(f"half{h}.idx"))
+        run("kws-index-union", "kws-index-union", p("half0.idx"), p("half1.idx"),
+            p("union.idx"))
+        run("kws-search", "kws-search", f"--index={p('union.idx')}",
+            f"--frame-shift={KWS_FRAME_SHIFT}", o("lats.ark"), p("keywords.txt"),
+            p("results.txt"))
+        atwv_out = run("compute-atwv", "compute-atwv", f"--threshold={KWS_THRESHOLD}",
+                       duration, p("ref.txt"), p("results.txt"))
+        tools_s = time.perf_counter() - t_tools
+        launches = c.read_counts("cli_kws")
+
+        # ---- the library on the archive's lattices
+        alats = read_table(o("lats.ark"), "lat")
+        min_lp = float(np.log(1e-4))
+
+        def index_of(ks, source):
+            return build_kws_index({k: source[k] for k in ks}, lm_scale=1.0,
+                                   ac_scale=KWS_ACOUSTIC_SCALE, min_log_post=min_lp)
+
+        for name, idx in (("all.idx", index_of(lkeys, alats)),
+                          ("half0.idx", index_of(halves[0], alats)),
+                          ("half1.idx", index_of(halves[1], alats))):
+            save_index(idx, p("want_" + name))
+            checks[f"lattice-to-kws-index.{name}"] = (
+                _file_bytes(p(name)) == _file_bytes(p("want_" + name)))
+        merged = merge_indexes([index_of(halves[0], alats), index_of(halves[1], alats)])
+        save_index(merged, p("want_union.idx"))
+        checks["kws-index-union"] = _file_bytes(p("union.idx")) == _file_bytes(
+            p("want_union.idx"))
+        lines, hits = [], {}
+        for kw, ws in sorted(kws.items()):
+            if len(ws) == 1:
+                found = [(h.utt, h.tbeg, h.tend, h.log_post) for h in search_index(merged, ws[0])
+                         if h.log_post >= min_lp]
+            else:
+                found = [(u, b, e, lp) for u, lat in sorted(alats.items())
+                         for b, e, lp in search_phrase(lat, ws, lm_scale=1.0,
+                                                       ac_scale=KWS_ACOUSTIC_SCALE,
+                                                       min_log_post=min_lp)]
+            hits[kw] = len(found)
+            lines += [f"{kw} {u} {b * KWS_FRAME_SHIFT:.2f} {e * KWS_FRAME_SHIFT:.2f} "
+                      f"{np.exp(lp):.6f}\n" for u, b, e, lp in found]
+        checks["kws-search"] = _file_bytes(p("results.txt")) == "".join(lines).encode()
+        absent_hits = sum(hits[k] for k in kws if k.startswith("KWX-"))
+        ref_entries = [(a, b, float(t0), float(t1)) for a, b, t0, t1 in
+                       (ln.split() for ln in ref_lines)]
+        hyp_entries = [(a, b, float(t0), float(t1), float(s)) for a, b, t0, t1, s in
+                       (ln.split() for ln in lines) if float(s) >= KWS_THRESHOLD]
+        atwv, _ = compute_atwv(float(duration), ref_entries, hyp_entries)
+        checks["compute-atwv"] = atwv_out.strip() == f"ATWV = {atwv:.4f}"
+        # the in-memory lattices' index against the archive's (a record)
+        mem = index_of(lkeys, lats)
+        arc_idx = index_of(lkeys, alats)
+        mem_hits = sum(len(v) for v in mem.values())
+        arc_hits = sum(len(v) for v in arc_idx.values())
+        same_hits = all(len(mem.get(w, [])) == len(arc_idx.get(w, [])) and all(
+            (a.utt, a.tbeg, a.tend) == (b.utt, b.tbeg, b.tend)
+            for a, b in zip(mem.get(w, []), arc_idx.get(w, []))) for w in set(mem) | set(arc_idx))
+        lp_gap = max([abs(a.log_post - b.log_post) for w in set(mem) & set(arc_idx)
+                      for a, b in zip(mem[w], arc_idx[w])] + [0.0])
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    bad = sorted(k for k, v in checks.items() if not v)
+    if bad:
+        faults.append(f"cli_kws: files other than the library's: {bad}")
+    if absent_hits:
+        faults.append(f"cli_kws: {absent_hits} hits for keywords no lattice holds")
+    if any(launches[k] for k in ("gather", "mfcc")):
+        faults.append(f"cli_kws: host tools launched a kernel: {launches}")
+    c.emit({"phase": "cli_kws", "card": card, "lattices": len(lkeys),
+            "keywords": {"words": len(singles), "phrases": len(phrases), "absent": len(absent)},
+            "hits": sum(hits.values()), "hits_by_kind": {
+                kind: sum(v for k, v in hits.items() if k.startswith(pre))
+                for kind, pre in (("words", "KW-"), ("phrases", "KWP-"), ("absent", "KWX-"))},
+            "reference_occurrences": len(ref_lines), "trials_seconds": float(duration),
+            "atwv": atwv, "atwv_threshold": KWS_THRESHOLD, "index_words": len(arc_idx), "index_occurrences": arc_hits,
+            "in_memory_index": {"occurrences": mem_hits, "same_occurrences": same_hits,
+                                "max_abs_log_post_gap": lp_gap},
+            "files_equal": checks, "tools_seconds": tools_s, "tool_seconds": walls,
+            "launches": launches, "phase_seconds": time.perf_counter() - t_phase})
+    return {"faults": faults, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--noisy", action="store_true",
@@ -5300,11 +6433,14 @@ def main() -> int:
     ap.add_argument("--profile-frames", type=int, default=0,
                     help="frames of one chunk's search under torch.profiler")
     ap.add_argument("--only", choices=["architectures", "nnet12", "cli", "cli_lattice",
-                                       "cli_train", "cli_nnet3"],
+                                       "cli_train", "cli_nnet3", "sgmm2", "cli_spkid",
+                                       "cli_kws"],
                     help="build the kernels, load the system and run only these "
                          "phases (no final line: a partial run); cli_lattice, "
-                         "cli_train and cli_nnet3 run the cli phase first, whose work "
-                         "directory they read; nnet12 runs architectures first, whose "
+                         "cli_train, cli_nnet3, sgmm2 and cli_spkid run the cli phase "
+                         "first, whose work directory they read (sgmm2 compiles its "
+                         "training graphs itself); cli_kws decodes its lattices as "
+                         "lattice_outputs does; nnet12 runs architectures first, whose "
                          "features it trains on")
     args = ap.parse_args()
 
@@ -5398,7 +6534,7 @@ def main() -> int:
     # here on (host work); the phase waits for it at the end of the run
     cli_dir = tempfile.mkdtemp(prefix="okt_cli_")
     cli_pool = cli_graph_future = None
-    if args.only not in ("architectures", "nnet12"):
+    if args.only not in ("architectures", "nnet12", "cli_kws"):
         cli_pool = concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn"))
         cli_graph_future = cli_pool.submit(cli_graph, cli_dir)
@@ -5461,15 +6597,18 @@ def main() -> int:
             raise RuntimeError("nnet12: " + "; ".join(res["faults"]))
         return {**arch["launches"], **res["launches"]}
 
-    def run_cli(twaves, ttext, lattice=True, train=True, nnet3=True):
+    def run_cli(twaves, ttext, lattice=True, train=True, nnet3=True, sgmm=True, spkid=True,
+                graphs=None, lang=None):
         """The cli phase and, with `lattice`, cli_lattice, with `train`,
-        cli_train, with `nnet3`, cli_nnet3 after it on its work directory,
-        which is removed at the end; their faults end the run.  Returns the
-        four phases' results (None for a phase not run)."""
+        cli_train, with `nnet3`, cli_nnet3, with `sgmm`, sgmm2 (on the
+        training graphs `graphs`, compiled with `lang` when None), with
+        `spkid`, cli_spkid after it on its work directory, which is removed
+        at the end; their faults end the run.  Returns the six phases'
+        results (None for a phase not run)."""
         nonlocal plug
         plug = torch.randn((8192, 8192), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(15))
-        lat = trn = nn3 = None
+        lat = trn = nn3 = sg = sp = None
         try:
             res = cli(torch, np, argparse.Namespace(
                 dev=dev, card=card, emit=emit, minilib=minilib, system=system, twaves=twaves,
@@ -5510,11 +6649,29 @@ def main() -> int:
                     gmm_loglikes=gmm_loglikes))
                 if nn3["faults"]:
                     raise RuntimeError("cli_nnet3: " + "; ".join(nn3["faults"]))
+            plug = None
+            torch.cuda.empty_cache()
+            if sgmm:
+                sg = sgmm2(torch, np, argparse.Namespace(
+                    dev=dev, card=card, emit=emit, minilib=minilib, system=system,
+                    twaves=twaves, ttext=ttext, graphs=graphs,
+                    lang=lang if lang is not None or graphs is not None else
+                    minilib.make_lang(minilib.MinilibOptions()),
+                    substates=SGMM2_SUBSTATES, workdir=cli_dir, zero_counts=zero_counts,
+                    read_counts=read_counts, batched_table_gather=batched_table_gather))
+                if sg["faults"]:
+                    raise RuntimeError("sgmm2: " + "; ".join(sg["faults"]))
+            if spkid:
+                sp = cli_spkid(torch, np, argparse.Namespace(
+                    dev=dev, card=card, emit=emit, workdir=cli_dir, zero_counts=zero_counts,
+                    read_counts=read_counts))
+                if sp["faults"]:
+                    raise RuntimeError("cli_spkid: " + "; ".join(sp["faults"]))
         finally:
             plug = None
             torch.cuda.empty_cache()
             shutil.rmtree(cli_dir, ignore_errors=True)
-        return res, lat, trn, nn3
+        return res, lat, trn, nn3, sg, sp
 
     if args.only in ("architectures", "nnet12"):
         topts = minilib.MinilibOptions()
@@ -5761,10 +6918,20 @@ def main() -> int:
           "check_launches": {"gather": batched_table_gather.launches,
                              "mfcc": fused_mfcc_from_frames.launches}})
 
-    if args.only in ("cli", "cli_lattice", "cli_train", "cli_nnet3"):
+    if args.only in ("cli", "cli_lattice", "cli_train", "cli_nnet3", "sgmm2", "cli_spkid"):
         run_cli(*minilib.training_set(minilib.MinilibOptions()),
                 lattice=args.only == "cli_lattice", train=args.only == "cli_train",
-                nnet3=args.only == "cli_nnet3")
+                nnet3=args.only == "cli_nnet3", sgmm=args.only == "sgmm2",
+                spkid=args.only == "cli_spkid")
+        emit({"phase": "total", "card": card, "partial": args.only,
+              "seconds": round(time.perf_counter() - t_start, 1)})
+        return 0
+    if args.only == "cli_kws":
+        res = cli_kws(torch, np, argparse.Namespace(
+            dev=dev, card=card, emit=emit, minilib=minilib, system=system, lattices=None,
+            zero_counts=zero_counts, read_counts=read_counts))
+        if res["faults"]:
+            raise RuntimeError("cli_kws: " + "; ".join(res["faults"]))
         emit({"phase": "total", "card": card, "partial": args.only,
               "seconds": round(time.perf_counter() - t_start, 1)})
         return 0
@@ -7814,11 +8981,24 @@ def main() -> int:
     # counts set to 0 just before it and read just after
     arch_launches = run_architectures(topts, twaves)
 
-    # ---- phase 40: the command-line tools (cli, cli_lattice, cli_train,
-    # cli_nnet3), the counts set to 0 just before the tools run and read just after
-    cli_res, lat_res, trn_res, nn3_res = run_cli(twaves, ttext)
+    # ---- phases 40-42: the command-line tools (cli, cli_lattice, cli_train,
+    # cli_nnet3), SGMM2 (the library's training on align_tri's graphs, its
+    # decode, its tools) and the speaker-ID tools, the counts set to 0 just
+    # before each path and read just after
+    cli_res, lat_res, trn_res, nn3_res, sg_res, sp_res = run_cli(
+        twaves, ttext, graphs=a_results["align_tri"].graphs, lang=lang)
     cli_launches, lat_launches, trn_launches, nn3_launches = (
         cli_res["launches"], lat_res["launches"], trn_res["launches"], nn3_res["launches"])
+    sg_launches, sp_launches = sg_res["by_path"], sp_res["launches"]
+    del a_results
+
+    # ---- phase 43: the keyword-search tools on lattice_outputs' lattices
+    kws_res = cli_kws(torch, np, argparse.Namespace(
+        dev=dev, card=card, emit=emit, minilib=minilib, system=system,
+        lattices=lo.pop("lattices"), zero_counts=zero_counts, read_counts=read_counts))
+    if kws_res["faults"]:
+        raise RuntimeError("cli_kws: " + "; ".join(kws_res["faults"]))
+    kws_launches = kws_res["launches"]
 
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
@@ -7841,7 +9021,9 @@ def main() -> int:
                       + lo_launches["gather"]
                       + sum(p["gather"] for p in arch_launches.values())
                       + cli_launches["gather"] + lat_launches["gather"]
-                      + trn_launches["gather"] + nn3_launches["gather"]),
+                      + trn_launches["gather"] + nn3_launches["gather"]
+                      + sum(p["gather"] for p in sg_launches.values())
+                      + sp_launches["gather"] + kws_launches["gather"]),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -7872,7 +9054,10 @@ def main() -> int:
                               "cli": cli_launches["gather"],
                               "cli_lattice": lat_launches["gather"],
                               "cli_train": trn_launches["gather"],
-                              "cli_nnet3": nn3_launches["gather"]},
+                              "cli_nnet3": nn3_launches["gather"],
+                              **{n: p["gather"] for n, p in sg_launches.items()},
+                              "cli_spkid": sp_launches["gather"],
+                              "cli_kws": kws_launches["gather"]},
          "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err, cli_res["k1_err"],
                             trn_res["k1_err"]),
          "ms": k1_ms,
@@ -7904,7 +9089,8 @@ def main() -> int:
                       + lo_launches["mfcc"]
                       + sum(p["mfcc"] for p in arch_launches.values())
                       + cli_launches["mfcc"] + lat_launches["mfcc"] + trn_launches["mfcc"]
-                      + nn3_launches["mfcc"]),
+                      + nn3_launches["mfcc"] + sum(p["mfcc"] for p in sg_launches.values())
+                      + sp_launches["mfcc"] + kws_launches["mfcc"]),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -7934,7 +9120,10 @@ def main() -> int:
                               "cli": cli_launches["mfcc"],
                               "cli_lattice": lat_launches["mfcc"],
                               "cli_train": trn_launches["mfcc"],
-                              "cli_nnet3": nn3_launches["mfcc"]},
+                              "cli_nnet3": nn3_launches["mfcc"],
+                              **{n: p["mfcc"] for n, p in sg_launches.items()},
+                              "cli_spkid": sp_launches["mfcc"],
+                              "cli_kws": kws_launches["mfcc"]},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -7944,7 +9133,8 @@ def main() -> int:
                  *ci_launches.values(), *cv_launches.values(), tiv_launches, ng_launches,
                  cb_launches, *cfg2_launches.values(), *seq_launches.values(),
                  lo_launches, *arch_launches.values(), cli_launches, lat_launches,
-                 trn_launches, nn3_launches))
+                 trn_launches, nn3_launches, *sg_launches.values(), sp_launches,
+                 kws_launches))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err,
                             *(v["max_abs_err"] for v in k2_vtln.values())), "ms": k2_ms,

@@ -1461,8 +1461,12 @@ def wav_reverberate_tool(argv: List[str]) -> int:
     return 0
 
 
-# registration side effect: the nnet3 serving, alignment, lattice and utility tools
+# registration side effect: the nnet3 serving, alignment, lattice, utility, training,
+# speaker-ID, SGMM2 and keyword-search tools
 from old_kaldi_git_tpu_torch.bin import nnet3_tools  # noqa: E402,F401  (isort:skip)
 from old_kaldi_git_tpu_torch.bin import train_tools  # noqa: E402,F401  (isort:skip)
 from old_kaldi_git_tpu_torch.bin import lat_tools  # noqa: E402,F401  (isort:skip)
 from old_kaldi_git_tpu_torch.bin import util_tools  # noqa: E402,F401  (isort:skip)
+from old_kaldi_git_tpu_torch.bin import spkid_tools  # noqa: E402,F401  (isort:skip)
+from old_kaldi_git_tpu_torch.bin import sgmm2_tools  # noqa: E402,F401  (isort:skip)
+from old_kaldi_git_tpu_torch.bin import kws_tools  # noqa: E402,F401  (isort:skip)

@@ -1,6 +1,6 @@
 """Weights and state carried across from the JAX package's artifacts.
 
-Six things:
+Seven things:
 
 * `am_nnet_from_jax`: a flax variable tree (as numpy) → the port's AmNnet,
   every layer kind (tdnn, tdnnf, lstmp, blstmp, pgru, attention, conv).
@@ -26,6 +26,9 @@ Six things:
   a flax `Dense` tree (`affine<i>`, `final_affine`) → the port's nn.Linear
   layers; an Nnet2Config's fixed-affine bytes become the model's `fixed_w`
   / `fixed_b` buffers.
+* the speaker-ID and SGMM2 back ends: `sgmm2_from_jax` (an AmSgmm2's
+  arrays, its UBM's and the speaker terms), `plda_from_jax` and
+  `logistic_regression_from_jax`, from the JAX objects' numpy arrays.
 """
 
 from __future__ import annotations
@@ -345,3 +348,34 @@ def am_nnet2_from_jax(config_fields: Mapping[str, Any], params: Mapping[str, Any
     model = Nnet2Model(config)
     _load_flax_dense(model, params)
     return AmNnet2(config, model, log_priors, device=device)
+
+
+def sgmm2_from_jax(M: np.ndarray, w: np.ndarray, sigma_inv: np.ndarray,
+                   v: Sequence[np.ndarray], c: Sequence[np.ndarray],
+                   ubm: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+                   N: Optional[np.ndarray] = None, u: Optional[np.ndarray] = None,
+                   device: DeviceLike = None):
+    """The JAX package's AmSgmm2 (M, w, sigma_inv, its per-pdf v and c, the
+    UBM's (weights, means, covars), N and u, as numpy) → the port's AmSgmm2
+    on `device`."""
+    from old_kaldi_git_tpu_torch.gmm.full_gmm import FullGmm
+    from old_kaldi_git_tpu_torch.gmm.sgmm2 import AmSgmm2
+
+    return AmSgmm2(M, w, sigma_inv, v, c, None if ubm is None else FullGmm(*ubm), N=N, u=u,
+                   device=device)
+
+
+def plda_from_jax(mean: np.ndarray, transform: np.ndarray, psi: np.ndarray):
+    """The JAX package's Plda (mean, transform, psi) → the port's Plda."""
+    from old_kaldi_git_tpu_torch.ivector.plda import Plda
+
+    return Plda(mean=np.asarray(mean, np.float64), transform=np.asarray(transform, np.float64),
+                psi=np.asarray(psi, np.float64))
+
+
+def logistic_regression_from_jax(weights: np.ndarray, row_to_class: np.ndarray):
+    """The JAX package's LogisticRegression (weights, row_to_class) → the
+    port's."""
+    from old_kaldi_git_tpu_torch.ivector.logistic_regression import LogisticRegression
+
+    return LogisticRegression(weights, row_to_class)

@@ -25,8 +25,12 @@ src/gmm/{mle-diag-gmm.h,mle-am-diag-gmm.h}, gmm-mixup, gmm-init-model):
   package, and draw the same numbers from the same seeds.
 
 - `write_accs` / `read_accs`: the accumulator file of `gmm-acc-stats`, in
-  the JAX package's binary layout (a single GMM's `AccumDiagGmm` is not
-  ported).
+  the JAX package's binary layout.
+- `AccumDiagGmm` / `mle_diag_gmm_update`: a single GMM's statistics (the
+  gmm-global-* tools), float64 on the accumulator's device, every frame of a
+  table in one pass (optionally restricted to preselected Gaussians), and
+  its M-step on the host with the JAX package's rules; the accumulator file
+  is the JAX package's bytes.
 """
 
 from __future__ import annotations
@@ -151,6 +155,115 @@ class AccumAmDiagGmm:
         """[P] float64 on the host: each pdf's occupancy (mixup's allocation
         key), summed over its Gaussians as the JAX package sums it."""
         return self.occ.cpu().numpy().sum(axis=1)
+
+
+class AccumDiagGmm:
+    """A single GMM's statistics (reference mle-diag-gmm.h AccumDiagGmm, the
+    gmm-global-* tools): occupancy [M], Σx and Σx² [M, D] as float64
+    tensors on `device`, the total loglike and frames as floats."""
+
+    def __init__(self, num_mix: int, dim: int, device=None):
+        from old_kaldi_git_tpu_torch.device import resolve_device
+
+        self.device = resolve_device(device)
+        kw = dict(dtype=torch.float64, device=self.device)
+        self.occ = torch.zeros(num_mix, **kw)
+        self.mean_acc = torch.zeros((num_mix, dim), **kw)
+        self.var_acc = torch.zeros((num_mix, dim), **kw)
+        self.tot_like = 0.0
+        self.tot_frames = 0.0
+
+    def accumulate(self, gmm: DiagGmm, feats: ArrayLike, gsel: Optional[ArrayLike] = None,
+                   weights: Optional[ArrayLike] = None) -> float:
+        """feats [T, D] (all of a table's frames at once); `gsel` [T, N]
+        restricts each frame's posterior to its preselected Gaussians
+        (gmm-global-acc-stats --gselect); `weights` [T] scales a frame's
+        share.  Returns the frames' total loglike."""
+        dev = self.device
+        x = torch.as_tensor(feats).to(device=dev, dtype=torch.float64)
+        comp = gmm.component_loglikes(x)  # [T, M]
+        if gsel is not None:
+            sel = torch.as_tensor(gsel).to(device=dev, dtype=torch.int64)
+            comp = torch.full_like(comp, -torch.inf).scatter(1, sel, torch.gather(comp, 1, sel))
+        m = comp.max(dim=1, keepdim=True).values
+        like = m + torch.log(torch.exp(comp - m).sum(dim=1, keepdim=True))
+        post = torch.exp(comp - like)
+        w = (torch.ones(x.shape[0], dtype=torch.float64, device=dev) if weights is None
+             else torch.as_tensor(weights).to(device=dev, dtype=torch.float64))
+        post = post * w[:, None]
+        self.occ += post.sum(0)
+        self.mean_acc += post.T @ x
+        self.var_acc += post.T @ (x * x)
+        total = float((like[:, 0] * w).sum())
+        self.tot_like += total
+        self.tot_frames += float(w.sum())
+        return total
+
+    def add(self, other: "AccumDiagGmm") -> None:
+        self.occ += other.occ.to(self.device)
+        self.mean_acc += other.mean_acc.to(self.device)
+        self.var_acc += other.var_acc.to(self.device)
+        self.tot_like += other.tot_like
+        self.tot_frames += other.tot_frames
+
+    def write(self, f) -> None:
+        """<GmmGlobalAccs> DV occupancy, DM Σx, DM Σx², the totals as
+        doubles </GmmGlobalAccs> (the JAX package's bytes)."""
+        from old_kaldi_git_tpu_torch.utils import io_funcs as iof
+
+        iof.init_kaldi_output_stream(f, True)
+        iof.write_token(f, "<GmmGlobalAccs>")
+        iof.write_vector(f, self.occ.cpu().numpy(), dtype=np.float64)
+        iof.write_matrix(f, self.mean_acc.cpu().numpy(), dtype=np.float64)
+        iof.write_matrix(f, self.var_acc.cpu().numpy(), dtype=np.float64)
+        iof.write_double(f, self.tot_like)
+        iof.write_double(f, self.tot_frames)
+        iof.write_token(f, "</GmmGlobalAccs>")
+
+    @staticmethod
+    def read(f, device=None) -> "AccumDiagGmm":
+        from old_kaldi_git_tpu_torch.utils import io_funcs as iof
+
+        if not iof.init_kaldi_input_stream(f):
+            raise KaldiError("GmmGlobalAccs must be binary")
+        iof.expect_token(f, "<GmmGlobalAccs>")
+        occ = np.asarray(iof.read_vector(f), np.float64)
+        mean_acc = np.asarray(iof.read_matrix(f), np.float64)
+        accs = AccumDiagGmm(len(occ), mean_acc.shape[1], device)
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float64)).to(accs.device)  # noqa: E731
+        accs.occ, accs.mean_acc, accs.var_acc = t(occ), t(mean_acc), t(iof.read_matrix(f))
+        accs.tot_like = iof.read_float(f)
+        accs.tot_frames = iof.read_float(f)
+        iof.expect_token(f, "</GmmGlobalAccs>")
+        return accs
+
+
+def mle_diag_gmm_update(gmm: DiagGmm, occ: ArrayLike, mean_acc: ArrayLike,
+                        var_acc: ArrayLike, opts: MleDiagGmmOptions) -> DiagGmm:
+    """One GMM's M-step (reference MleDiagGmmUpdate) on the host, with the
+    JAX package's rules: Gaussians under `min_gaussian_occupancy` removed
+    (the largest kept when none passes), variances and weights floored; a
+    GMM without occupancy is returned unchanged."""
+    host = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)  # noqa: E731
+                      else np.asarray(a, np.float64))
+    occ, mean_acc, var_acc = host(occ), host(mean_acc), host(var_acc)
+    m = gmm.num_mix
+    occ = occ[:m]
+    tot = occ.sum()
+    if tot <= 0:
+        log.warning("no occupancy for a pdf; leaving it unchanged")
+        return gmm
+    keep = occ >= opts.min_gaussian_occupancy
+    if not keep.any():
+        keep = occ == occ.max()
+    if not opts.remove_low_count_gaussians:
+        keep = np.ones_like(keep)
+    occ_k = occ[keep]
+    means = mean_acc[:m][keep] / occ_k[:, None]
+    variances = np.maximum(var_acc[:m][keep] / occ_k[:, None] - means ** 2,
+                           opts.variance_floor)
+    weights = np.maximum(occ_k / tot, opts.min_gaussian_weight)
+    return DiagGmm(weights / weights.sum(), means, variances)
 
 
 def mle_am_diag_gmm_update(am: AmDiagGmm, accs: AccumAmDiagGmm,

@@ -31,11 +31,20 @@ _VEC_TOKENS = {"FV": np.float32, "DV": np.float64}
 def _peek(f: BinaryIO, n: int) -> bytes:
     """Up to `n` bytes ahead of the read position, not consumed.  The
     stream must be a buffered reader (`open(path, "rb")`, a pipe's stdout,
-    `io.BufferedReader` around anything else)."""
+    `io.BufferedReader` around anything else).  A reader's `peek` returns
+    only what its buffer holds, which near the buffer's end is fewer than
+    `n` bytes: a seekable stream then reads the `n` bytes and seeks back,
+    as the JAX package reads every seekable stream; a pipe cannot, and
+    gives what its buffer holds (as the JAX package's pipes do)."""
     if not hasattr(f, "peek"):
         raise KaldiError("a Kaldi input stream needs peek(): wrap it in "
                          "io.BufferedReader")
-    return f.peek(n)[:n]
+    ahead = f.peek(n)[:n]
+    if len(ahead) < n and ahead and f.seekable():
+        pos = f.tell()
+        ahead = f.read(n)
+        f.seek(pos)
+    return ahead
 
 
 def _read_exact(f: BinaryIO, n: int, what: str) -> bytes:

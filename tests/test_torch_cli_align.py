@@ -6,7 +6,7 @@ self-loops added on the host in float64, as the JAX tool adds them);
 gmm-align-compiled (tri.mdl), align-equal-compiled and nnet3-align-compiled
 (final.am bundled with tri.mdl) give the JAX tools' tids, and the port's
 library `align_batch` on the same graphs and loglikes.  The interface: the
-module entry lists exactly the 201 ported tools, an unknown tool exits 1, the
+module entry lists exactly the 244 ported tools, an unknown tool exits 1, the
 tools that make tensors take --device (the others do not) and raise without
 a card when it is left at cuda."""
 
@@ -113,7 +113,11 @@ def test_the_module_entry_lists_exactly_the_ported_tools():
     train = set(_registered_names(os.path.join(JAX_BIN, "train_tools.py")))
     assert len(train) == 57 and not train & batch2
     want |= train
-    assert listed == sorted(want) and len(listed) == 201
+    for f, n in (("spkid_tools.py", 30), ("sgmm2_tools.py", 9), ("kws_tools.py", 4)):
+        names = set(_registered_names(os.path.join(JAX_BIN, f)))
+        assert len(names) == n and not names & want
+        want |= names
+    assert listed == sorted(want) and len(listed) == 244
     assert set(ttools.TOOLS) == want
 
 

@@ -55,7 +55,10 @@ def test_port_has_the_slice_modules():
                  "feat.resample", "ivector.vad", "bin.lat_tools", "bin.util_tools",
                  "fst.context", "fst.rand", "utils.threads", "transform.basis_fmllr",
                  "transform.lvtln", "transform.regtree", "transform.fmpe",
-                 "models.nnet1", "models.nnet2", "recipes.nnet12"):
+                 "models.nnet1", "models.nnet2", "recipes.nnet12", "ivector.plda",
+                 "ivector.logistic_regression", "gmm.sgmm2", "gmm.sgmm2_fmllr",
+                 "recipes.sgmm2", "kws", "kws.search", "kws.atwv", "bin.spkid_tools",
+                 "bin.sgmm2_tools", "bin.kws_tools"):
         assert f"old_kaldi_git_tpu_torch.{want}" in names
 
 

@@ -68,7 +68,10 @@ TENSOR_TOOLS = frozenset((
     "fmpe-apply-transform", "nnet3-train", "nnet3-compute-prob", "nnet3-adjust-priors",
     "nnet3-combine", "nnet3-chain-init", "nnet3-chain-train", "nnet3-chain-compute-prob",
     "nnet3-chain-combine", "nnet3-discriminative-train",
-    "nnet3-discriminative-compute-objf"))
+    "nnet3-discriminative-compute-objf", "gmm-global-init-from-feats", "gmm-gselect",
+    "fgmm-gselect", "gmm-global-acc-stats", "gmm-global-get-post", "fgmm-global-acc-stats",
+    "ivector-extractor-acc-stats", "ivector-extract", "sgmm2-acc-stats-ali", "sgmm2-est",
+    "sgmm2-est-spkvecs", "sgmm2-est-fmllr", "sgmm2-align-compiled", "sgmm2-latgen-faster"))
 
 
 def lattices_equal(a, b, atol=1e-5, ac_rtol=2e-5):
