@@ -177,7 +177,20 @@ speaker-ID tools on a 512-utterance corpus made from a seed (UBMs,
 iVector extractor, PLDA scoring of 16 held-out speakers: EER < 0.15,
 logistic regression > 0.8 accuracy), files byte for byte the library's;
 cli_kws indexes and searches lattice_outputs' 64 noisy lattices with the 4
-KWS tools, byte for byte the library's.
+KWS tools, byte for byte the library's.  Then scale-out and the last modules:
+sharded_decode decodes the 256 clean utterances' final.am loglikes through
+decoder/sharded.decode_batch_tokens_sharded at N = 1, 2 and 4 in-process
+shards on the card (one K1 call a frame over the shards' indices side by
+side) and through a one-rank NCCL process group, against the single-device
+decode_batch_tokens (words, WER, K1 one launch a frame), and holds K1 at
+the sharded index widths; scale_out runs parallel/dryrun.entry() (the
+flagship TDNN-F) on the card against the CPU, dryrun_multichip over the
+card count's NCCL ranks and measure_scaling; long_recording joins 16 clean
+utterances into one recording and decodes it with tri.mdl through
+recipes/segment.decode_long_recording (segments against the utterances'
+speech, words against decode_dataset on the segments), and holds
+arbitrary_resample card vs CPU; export_upstream writes and reads back
+final.mdl and lat.1.gz through recipes/minilib.export_upstream_artifacts.
 --noisy also decodes the set re-synthesised at noise amplitude 400
 (the reference's second operating point) with the TDNN, the chain model
 and both iVector systems, and lists the utterances with errors.  --profile-frames N puts the first N frames of one
@@ -6426,6 +6439,347 @@ def cli_kws(torch, np, c) -> dict:
     return {"faults": faults, "launches": launches}
 
 
+SHARDED_COUNTS = (1, 2, 4)  # in-process shards on the one card
+LONG_UTTS = 16  # clean held-out utterances joined into the long recording
+LONG_GAP_SECONDS = (0.5, 1.0)  # the noise between them
+LONG_NOISE = 10.0  # the gaps' noise, standard deviation in sample units
+SYNTH_EDGE_SECONDS = 0.1  # the silence minilib.synth_utterance puts at each end
+RESAMPLE_POINTS = 16000  # arbitrary time points of the resampler's check
+RESAMPLE_TOL = 1e-5  # card vs CPU, of max|ref|
+ENTRY_TOL = 1e-4  # the flagship forward, card vs CPU, of max|ref|
+EXPORT_UTTS = 8  # held-out utterances of export_upstream's lat.1.gz
+
+
+def sharded_decode(torch, np, c) -> dict:
+    """The sharded_decode phase: final.am's loglikes of the 256 clean
+    held-out utterances (duration-sorted chunks of BATCH, T bucketed to 128,
+    as decode_features makes them) on hclg.npz at K = MAX_ACTIVE through
+    decoder/sharded.decode_batch_tokens_sharded with in-process shards at
+    N = 1, 2 and 4 on the one card, against the single-device
+    decode_batch_tokens on the same loglikes: words, WER, wall, peak memory,
+    K1's launches against one a frame, each shard's tiles.  An utterance
+    whose words differ at N > 1 is decoded once more by the sharded search
+    on the CPU from the card's loglikes, whose words must be the card's.
+    Then a one-rank NCCL process group decodes the set through
+    ProcessGroupShards at N = 1.  K1 is held exact against its plain version
+    and timed at the sharded index widths.  Returns {"faults", "launches",
+    "k1", "k1_err"}."""
+    import torch.distributed as dist
+
+    from old_kaldi_git_tpu_torch.decoder.sharded import (
+        InProcessShards, ProcessGroupShards, decode_batch_tokens_sharded, shard_budget,
+        shard_graph)
+    from old_kaldi_git_tpu_torch.decoder.viterbi import ViterbiOptions, decode_batch_tokens
+    from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
+    from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
+
+    t_phase = time.perf_counter()
+    dev, card, minilib, system = c.dev, c.card, c.minilib, c.system
+    faults = []
+    vopts = ViterbiOptions(beam=BEAM, max_active=MAX_ACTIVE, acoustic_scale=ACOUSTIC_SCALE)
+    c.zero_counts()
+    feats = minilib.compute_feats(system.test_waves, device=dev)
+    by_dur = sorted(feats, key=lambda k: feats[k].shape[0])
+    chunks = []
+    for lo in range(0, len(by_dur), BATCH):
+        keys, padded, nf = pad_feature_batch({k: feats[k] for k in by_dur[lo:lo + BATCH]})
+        tb = -(-padded.shape[1] // 128) * 128
+        padded = np.pad(padded, ((0, BATCH - len(keys)), (0, tb - padded.shape[1]), (0, 0)))
+        nf = np.concatenate([nf, np.zeros(BATCH - len(keys), nf.dtype)])
+        chunks.append((keys, system.am.loglikes_batch(padded), nf))
+    fe_counts = c.read_counts("sharded_decode front end")
+    frames = sum(int(nf.max()) for _, _, nf in chunks)
+    text = system.test_text
+
+    def words_of(decode):
+        out = {}
+        for keys, ll, nf in chunks:
+            for k, r in zip(keys, decode(ll, nf)):
+                out[k] = [system.words[w] for w in r.words] if r else []
+        return out
+
+    def wer_of(hyps):
+        return compute_wer({k: list(v) for k, v in text.items()}, hyps).wer
+
+    c.zero_counts()
+    t0 = time.perf_counter()
+    single = words_of(lambda ll, nf: decode_batch_tokens(system.csr, ll, nf, vopts, device=dev))
+    torch.cuda.synchronize()
+    runs = {"single": {"wall_seconds": time.perf_counter() - t0, "wer_percent": wer_of(single),
+                       "gather_launches": c.batched_table_gather.launches,
+                       "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}}
+    K = max(4, min(MAX_ACTIVE, system.csr.num_states))
+    shapes, launches = {}, {**fe_counts, "gmm": 0}
+    launches["gather"] += runs["single"]["gather_launches"]
+    P = chunks[0][1].shape[-1]
+    for N in SHARDED_COUNTS:
+        t0 = time.perf_counter()
+        sg = shard_graph(system.csr, N)
+        plan_s = time.perf_counter() - t0
+        ET = shard_budget(sg, K)
+        width = N * ET * sg.md
+        shapes[N] = (ET, width)
+        group = InProcessShards([dev] * N)
+        decode_batch_tokens_sharded(sg, chunks[0][1][:1, :4], [4], group=group, opts=vopts)
+        c.zero_counts()
+        t0 = time.perf_counter()
+        hyps = words_of(lambda ll, nf: decode_batch_tokens_sharded(sg, ll, nf, group=group,
+                                                                   opts=vopts))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = c.batched_table_gather.launches
+        peak = torch.cuda.max_memory_allocated()
+        differ = sorted(k for k in hyps if hyps[k] != single[k])
+        cpu_same = {}
+        for keys, ll, nf in chunks:
+            rows = [i for i, k in enumerate(keys) if k in differ]
+            if rows:
+                res = decode_batch_tokens_sharded(
+                    sg, ll[rows].cpu(), nf[rows], group=InProcessShards(["cpu"] * N),
+                    opts=vopts)
+                for i, r in zip(rows, res):
+                    cpu_same[keys[i]] = ([system.words[w] for w in r.words] if r else []
+                                         ) == hyps[keys[i]]
+        wer = wer_of(hyps)
+        runs[f"N{N}"] = {"shards": N, "ET_per_shard": ET, "index_width": width,
+                         "shard_tiles": sg.shard_tile_counts().tolist(),
+                         "states_per_shard": sg.states_per_shard, "plan_seconds": plan_s,
+                         "wall_seconds": wall, "wer_percent": wer,
+                         "words_equal_single": len(hyps) - len(differ),
+                         "utterances_differing": differ, "cpu_words_equal": cpu_same,
+                         "gather_launches": k1, "search_frames": frames,
+                         "peak_device_memory_bytes": peak}
+        launches["gather"] += k1
+        if not wer <= MAX_WER_PERCENT:
+            faults.append(f"sharded_decode N={N}: WER {wer:.2f}%")
+        if N == 1 and differ:
+            faults.append(f"sharded_decode N=1: words differ from the single-device "
+                          f"decode on {differ}")
+        if not all(cpu_same.values()):
+            faults.append(f"sharded_decode N={N}: card words differ from the CPU's on "
+                          f"{sorted(k for k, v in cpu_same.items() if not v)}")
+        if k1 != frames:
+            faults.append(f"sharded_decode N={N}: {k1} K1 launches for {frames} frames")
+    # one rank of an NCCL process group
+    store = tempfile.mkdtemp(prefix="okt_nccl_")
+    try:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(store, "s"),
+                                world_size=1, rank=0)
+        try:
+            group = ProcessGroupShards(device=dev)
+            c.zero_counts()
+            t0 = time.perf_counter()
+            hyps = words_of(lambda ll, nf: decode_batch_tokens_sharded(
+                system.csr, ll, nf, group=group, opts=vopts))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1 = c.batched_table_gather.launches
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    differ = sorted(k for k in hyps if hyps[k] != single[k])
+    runs["nccl_N1"] = {"backend": "nccl", "world_size": 1, "wall_seconds": wall,
+                       "wer_percent": wer_of(hyps), "utterances_differing": differ,
+                       "gather_launches": k1}
+    launches["gather"] += k1
+    if differ or k1 != frames:
+        faults.append(f"sharded_decode nccl: words differ on {differ}, K1 {k1} of {frames}")
+    # K1 at the sharded index widths: exact, and timed
+    tb = chunks[-1][1].shape[1]
+    k1_err = c.check_gather(torch, c.batched_table_gather, c.batched_table_gather_plain,
+                            [(BATCH, P, w, 3, 1) for _, w in shapes.values()], seed=20)
+    k1 = {f"sharded_N{N}": c.gather_at(BATCH, P, w, tb) for N, (_, w) in shapes.items()}
+    del chunks
+    torch.cuda.empty_cache()
+    c.emit({"phase": "sharded_decode", "card": card, "utterances": len(single),
+            "max_active": MAX_ACTIVE, "batch": BATCH, "search_frames": frames,
+            "runs": runs, "k1": k1, "k1_max_abs_err": k1_err,
+            "phase_seconds": time.perf_counter() - t_phase})
+    return {"faults": faults, "launches": launches, "k1": k1, "k1_err": k1_err}
+
+
+def scale_out(torch, np, c) -> dict:
+    """The scale_out phase: parallel/dryrun.entry() (the flagship TDNN-F,
+    1536 hidden, 17 layers, 6,008 pdfs, on [4, 64, 40]) on the card against
+    the port on the CPU; dryrun_multichip over the card count's NCCL ranks
+    (the data × model CE step against the one-rank step, the time-split
+    forward, the graph-sharded decode); parallel/scaling.measure_scaling of
+    the flagship forward over 1, 2, 4 and 8 cards (counts beyond the card
+    count skipped with a warning).  Returns {"faults", "launches"}."""
+    from old_kaldi_git_tpu_torch.parallel.dryrun import _flagship, dryrun_multichip, entry
+    from old_kaldi_git_tpu_torch.parallel.scaling import measure_scaling
+
+    t_phase = time.perf_counter()
+    dev, card = c.dev, c.card
+    faults = []
+    t0 = time.perf_counter()
+    fn, args = entry(device=dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    fwd_ms = time_ms(torch, lambda: fn(*args), reps=5, warm=1)
+    t0 = time.perf_counter()
+    cfn, cargs = entry(device="cpu")
+    ref = cfn(*cargs)
+    cpu_s = time.perf_counter() - t0
+    scale = float(ref.abs().max())
+    err = float((out.cpu() - ref).abs().max()) / scale
+    if not (tuple(out.shape) == (4, 64, 6008) and err <= ENTRY_TOL):
+        faults.append(f"scale_out: entry() on the card {tuple(out.shape)}, "
+                      f"{err:.2e} of max|ref| from the CPU")
+    del out, ref, fn, cfn
+    n = torch.cuda.device_count()
+    c.zero_counts()
+    t0 = time.perf_counter()
+    rep = dryrun_multichip(n)
+    dry_s = time.perf_counter() - t0
+    launches = {**c.read_counts("scale_out dryrun"), "gmm": 0}
+    if not np.isfinite(rep["loss"]):
+        faults.append(f"scale_out: dry-run loss {rep['loss']}")
+    ams = {}
+
+    def make_step(devs):
+        for d in devs:
+            ams.setdefault(str(d), _flagship(device=d))
+        models = [ams[str(d)] for d in devs]
+        return lambda pieces: [am.loglikes_batch(p) for am, p in zip(models, pieces)]
+
+    points = measure_scaling(
+        make_step, lambda k: np.random.default_rng(0).normal(size=(4 * k, 64, 40)).astype(
+            np.float32), [1, 2, 4, 8], work_per_batch=4 * 64 * 0.01, iters=5)
+    del ams
+    torch.cuda.empty_cache()
+    c.emit({"phase": "scale_out", "card": card, "entry": {
+                "shape": [4, 64, 6008], "max_abs_err_of_max_ref": err, "tolerance": ENTRY_TOL,
+                "card_seconds_with_init": card_s, "cpu_seconds_with_init": cpu_s,
+                "forward_ms": fwd_ms},
+            "dryrun": {"ranks": n, "backend": "nccl", **rep, "seconds": dry_s},
+            "scaling": [dataclasses.asdict(p) for p in points],
+            "scaling_units": "audio seconds a second (10 ms frames)",
+            "launches": launches, "phase_seconds": time.perf_counter() - t_phase})
+    return {"faults": faults, "launches": launches}
+
+
+def long_recording(torch, np, c) -> dict:
+    """The long_recording phase: LONG_UTTS clean held-out utterances joined
+    by 0.5-1.0 s of low-level noise into one wave, segmented and decoded by
+    recipes/segment.decode_long_recording with tri.mdl on hclg.npz at
+    DecodeOptions() (features through K2, loglikes through K3, the dense
+    top-K search); every utterance's speech (its wave less the synthesiser's
+    0.1 s of silence at each end) must lie inside a segment widened by
+    pad_sec, and each segment's words must be recipes/decode.decode_dataset's
+    on the segment's wave.  Then feat/resample.arbitrary_resample of the
+    wave at RESAMPLE_POINTS time points on the card against the CPU.
+    Returns {"faults", "launches"}."""
+    from old_kaldi_git_tpu_torch.feat.resample import arbitrary_resample
+    from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmGmmModel
+    from old_kaldi_git_tpu_torch.recipes.decode import DecodeOptions, decode_dataset
+    from old_kaldi_git_tpu_torch.recipes.segment import SegmentationOptions, decode_long_recording
+    from old_kaldi_git_tpu_torch.utils.edit_distance import compute_wer
+
+    t_phase = time.perf_counter()
+    dev, card, minilib, system = c.dev, c.card, c.minilib, c.system
+    sf = minilib.SAMP_FREQ
+    faults = []
+    rng = np.random.default_rng(11)
+    keys = sorted(system.test_waves)[:LONG_UTTS]
+
+    def gap():
+        n = int(rng.uniform(*LONG_GAP_SECONDS) * sf)
+        return (rng.normal(size=n) * LONG_NOISE).astype(np.float32)
+
+    pieces, spans, pos = [gap()], [], 0
+    pos = len(pieces[0])
+    for k in keys:
+        w = system.test_waves[k].astype(np.float32)
+        spans.append((pos / sf + SYNTH_EDGE_SECONDS, (pos + len(w)) / sf - SYNTH_EDGE_SECONDS))
+        pieces += [w, gap()]
+        pos += len(w) + len(pieces[-1])
+    wave = np.concatenate(pieces)
+    tri = AmGmmModel.load("exp/minilib/tri.mdl", device=dev)
+    seg_opts = SegmentationOptions()
+
+    def feats_fn(waves):
+        return minilib.compute_feats(waves, device=dev)
+
+    c.zero_counts()
+    c.gmm_loglikes.launches = 0
+    t0 = time.perf_counter()
+    res = decode_long_recording(tri, system.csr, system.words, wave, sf, feats_fn,
+                                seg_opts=seg_opts, decode_opts=DecodeOptions())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**c.read_counts("long_recording"), "gmm": c.gmm_loglikes.launches}
+    segs = [(s, e) for s, e, _ in res]
+    inside = [any(s - seg_opts.pad_sec <= a and b <= e + seg_opts.pad_sec for s, e in segs)
+              for a, b in spans]
+    seg_waves = {f"seg{i:04d}": wave[int(s * sf): int(e * sf)] for i, (s, e) in enumerate(segs)}
+    t0 = time.perf_counter()
+    direct = decode_dataset(tri, system.csr, system.words, feats_fn(seg_waves), DecodeOptions())
+    direct_s = time.perf_counter() - t0
+    same = [direct[f"seg{i:04d}"] == words for i, (_, _, words) in enumerate(res)]
+    ref = [w for k in keys for w in system.test_text[k]]
+    hyp = [w for _, _, words in res for w in words]
+    wer = compute_wer({"all": ref}, {"all": hyp}).wer
+    if not all(inside):
+        faults.append(f"long_recording: spans outside every segment: "
+                      f"{[s for s, ok in zip(spans, inside) if not ok]}")
+    if not all(same):
+        faults.append(f"long_recording: segments whose words differ from decode_dataset's: "
+                      f"{[i for i, ok in enumerate(same) if not ok]}")
+    points = np.sort(rng.uniform(0.0, len(wave) / sf, RESAMPLE_POINTS))
+    wt = torch.from_numpy(wave)
+    got = arbitrary_resample(wt.to(dev), sf, points)
+    torch.cuda.synchronize()
+    want = arbitrary_resample(wt, sf, points)
+    rs_err = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+    rs_ms = time_ms(torch, lambda: arbitrary_resample(wt.to(dev), sf, points), reps=5, warm=1)
+    if not rs_err <= RESAMPLE_TOL:
+        faults.append(f"long_recording: arbitrary_resample card vs CPU {rs_err:.2e}")
+    del tri
+    torch.cuda.empty_cache()
+    c.emit({"phase": "long_recording", "card": card, "utterances": len(keys),
+            "audio_seconds": len(wave) / sf, "segments": len(segs),
+            "segments_seconds": [[round(s, 2), round(e, 2)] for s, e in segs],
+            "true_spans_inside": sum(inside), "true_spans": len(spans),
+            "words_equal_decode_dataset": sum(same), "wer_percent": wer,
+            "wall_seconds": wall, "decode_dataset_seconds": direct_s,
+            "arbitrary_resample": {"points": RESAMPLE_POINTS, "max_abs_err_of_max_ref": rs_err,
+                                   "card_ms_with_copy": rs_ms},
+            "launches": launches, "phase_seconds": time.perf_counter() - t_phase})
+    return {"faults": faults, "launches": launches}
+
+
+def export_upstream(torch, np, c) -> dict:
+    """The export_upstream phase: recipes/minilib.export_upstream_artifacts
+    on a temporary work directory of the committed system's files with
+    EXPORT_UTTS utterances: final.mdl, lat.1.gz (the token decode with
+    lattice records through K1, determinized), each read back; the sizes and
+    read times recorded.  Returns {"faults", "launches"}."""
+    t_phase = time.perf_counter()
+    dev, card, minilib = c.dev, c.card, c.minilib
+    faults = []
+    wd = tempfile.mkdtemp(prefix="okt_export_")
+    try:
+        for name in ("tri.mdl", "tree.pkl", "hclg.npz", "final.am"):
+            os.symlink(os.path.abspath(os.path.join("exp/minilib", name)), os.path.join(wd, name))
+        c.zero_counts()
+        t0 = time.perf_counter()
+        rep = minilib.export_upstream_artifacts(wd, num_utts=EXPORT_UTTS, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**c.read_counts("export_upstream"), "gmm": 0}
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    if not (rep.get("lat.1.gz", {}).get("cells", 0) > 0 and launches["gather"] > 0):
+        faults.append(f"export_upstream: {rep}, launches {launches}")
+    c.emit({"phase": "export_upstream", "card": card, "utterances": EXPORT_UTTS,
+            "files": rep, "wall_seconds": wall, "launches": launches,
+            "phase_seconds": time.perf_counter() - t_phase})
+    return {"faults": faults, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--noisy", action="store_true",
@@ -6434,14 +6788,16 @@ def main() -> int:
                     help="frames of one chunk's search under torch.profiler")
     ap.add_argument("--only", choices=["architectures", "nnet12", "cli", "cli_lattice",
                                        "cli_train", "cli_nnet3", "sgmm2", "cli_spkid",
-                                       "cli_kws"],
+                                       "cli_kws", "sharded_decode", "scale_out",
+                                       "long_recording", "export_upstream"],
                     help="build the kernels, load the system and run only these "
                          "phases (no final line: a partial run); cli_lattice, "
                          "cli_train, cli_nnet3, sgmm2 and cli_spkid run the cli phase "
                          "first, whose work directory they read (sgmm2 compiles its "
                          "training graphs itself); cli_kws decodes its lattices as "
                          "lattice_outputs does; nnet12 runs architectures first, whose "
-                         "features it trains on")
+                         "features it trains on; sharded_decode, scale_out, long_recording "
+                         "and export_upstream run alone")
     args = ap.parse_args()
 
     import torch
@@ -6534,7 +6890,8 @@ def main() -> int:
     # here on (host work); the phase waits for it at the end of the run
     cli_dir = tempfile.mkdtemp(prefix="okt_cli_")
     cli_pool = cli_graph_future = None
-    if args.only not in ("architectures", "nnet12", "cli_kws"):
+    if args.only not in ("architectures", "nnet12", "cli_kws", "sharded_decode", "scale_out",
+                         "long_recording", "export_upstream"):
         cli_pool = concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn"))
         cli_graph_future = cli_pool.submit(cli_graph, cli_dir)
@@ -6923,6 +7280,37 @@ def main() -> int:
                 lattice=args.only == "cli_lattice", train=args.only == "cli_train",
                 nnet3=args.only == "cli_nnet3", sgmm=args.only == "sgmm2",
                 spkid=args.only == "cli_spkid")
+        emit({"phase": "total", "card": card, "partial": args.only,
+              "seconds": round(time.perf_counter() - t_start, 1)})
+        return 0
+    def run_scale_out(names):
+        """The phases sharded_decode, scale_out, long_recording and
+        export_upstream named in `names`, in that order, each path's counts
+        set to 0 just before it and read just after; a fault ends the run.
+        Returns their results by name."""
+        nonlocal plug
+        plug = torch.randn((8192, 8192), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(21))
+        c = argparse.Namespace(
+            dev=dev, card=card, emit=emit, minilib=minilib, system=system,
+            zero_counts=zero_counts, read_counts=read_counts, gmm_loglikes=gmm_loglikes,
+            check_gather=check_gather, batched_table_gather=batched_table_gather,
+            batched_table_gather_plain=batched_table_gather_plain,
+            gather_at=lambda *a: gather_at(*a))
+        out = {}
+        for name, phase in (("sharded_decode", sharded_decode), ("scale_out", scale_out),
+                            ("long_recording", long_recording),
+                            ("export_upstream", export_upstream)):
+            if name in names:
+                out[name] = phase(torch, np, c)
+                if out[name]["faults"]:
+                    raise RuntimeError(f"{name}: " + "; ".join(out[name]["faults"]))
+        plug = None
+        torch.cuda.empty_cache()
+        return out
+
+    if args.only in ("sharded_decode", "scale_out", "long_recording", "export_upstream"):
+        run_scale_out((args.only,))
         emit({"phase": "total", "card": card, "partial": args.only,
               "seconds": round(time.perf_counter() - t_start, 1)})
         return 0
@@ -9000,6 +9388,14 @@ def main() -> int:
         raise RuntimeError("cli_kws: " + "; ".join(kws_res["faults"]))
     kws_launches = kws_res["launches"]
 
+    # ---- phases 44-47: scale-out (the graph-sharded decode in-process at
+    # N = 1, 2, 4 and through a one-rank NCCL group; the flagship forward,
+    # the dry run and the scaling harness), long-recording segmentation
+    # with tri.mdl, the upstream-format export; each path's counts set to 0
+    # just before it and read just after
+    so = run_scale_out(("sharded_decode", "scale_out", "long_recording", "export_upstream"))
+    so_launches = {n: r["launches"] for n, r in so.items()}
+
     emit({"kernels": [
         {"name": "batched_table_gather", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/gather.cu",
@@ -9023,7 +9419,8 @@ def main() -> int:
                       + cli_launches["gather"] + lat_launches["gather"]
                       + trn_launches["gather"] + nn3_launches["gather"]
                       + sum(p["gather"] for p in sg_launches.values())
-                      + sp_launches["gather"] + kws_launches["gather"]),
+                      + sp_launches["gather"] + kws_launches["gather"]
+                      + sum(p["gather"] for p in so_launches.values())),
          "launches_by_path": {"decode": k1_launches, "decode_gmm": g_launches["gather"],
                               "decode_chain": c_launches["gather"],
                               "decode_chain_lattice": l_launches,
@@ -9057,9 +9454,10 @@ def main() -> int:
                               "cli_nnet3": nn3_launches["gather"],
                               **{n: p["gather"] for n, p in sg_launches.items()},
                               "cli_spkid": sp_launches["gather"],
-                              "cli_kws": kws_launches["gather"]},
+                              "cli_kws": kws_launches["gather"],
+                              **{n: p["gather"] for n, p in so_launches.items()}},
          "max_abs_err": max(k1_err, k1_align_err, k1_trained_chain_err, cli_res["k1_err"],
-                            trn_res["k1_err"]),
+                            trn_res["k1_err"], so["sharded_decode"]["k1_err"]),
          "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
          "library_ms": k1_lib_ms,
@@ -9071,7 +9469,7 @@ def main() -> int:
                              **{f"train_yesno_{k}": v for k, v in k1_yesno.items()},
                              "train_chain_decode": k1_trained_chain, **seq["k1"],
                              **lo["k1"], **{f"cli_{k}": v for k, v in cli_res["k1"].items()},
-                             **trn_res["k1"]}},
+                             **trn_res["k1"], **so["sharded_decode"]["k1"]}},
         {"name": "fused_mfcc_from_frames", "route": "cuda",
          "source": "old_kaldi_git_tpu_torch/ops/csrc/mfcc.cu",
          "replaces": "old_kaldi_git_tpu/ops/mfcc_kernel.py:73",
@@ -9090,7 +9488,8 @@ def main() -> int:
                       + sum(p["mfcc"] for p in arch_launches.values())
                       + cli_launches["mfcc"] + lat_launches["mfcc"] + trn_launches["mfcc"]
                       + nn3_launches["mfcc"] + sum(p["mfcc"] for p in sg_launches.values())
-                      + sp_launches["mfcc"] + kws_launches["mfcc"]),
+                      + sp_launches["mfcc"] + kws_launches["mfcc"]
+                      + sum(p["mfcc"] for p in so_launches.values())),
          "launches_by_path": {"decode": k2_launches, "decode_gmm": g_launches["mfcc"],
                               "decode_chain": c_launches["mfcc"],
                               "rescore": r_launches["mfcc"],
@@ -9123,7 +9522,8 @@ def main() -> int:
                               "cli_nnet3": nn3_launches["mfcc"],
                               **{n: p["mfcc"] for n, p in sg_launches.items()},
                               "cli_spkid": sp_launches["mfcc"],
-                              "cli_kws": kws_launches["mfcc"]},
+                              "cli_kws": kws_launches["mfcc"],
+                              **{n: p["mfcc"] for n, p in so_launches.items()}},
          "launches_by_route": {r: k2_routes[r] + g_routes[r] + sum(
              p["mfcc_by_route"][r] for p in (
                  c_launches, r_launches, iv_launches, civ_launches,
@@ -9134,7 +9534,7 @@ def main() -> int:
                  cb_launches, *cfg2_launches.values(), *seq_launches.values(),
                  lo_launches, *arch_launches.values(), cli_launches, lat_launches,
                  trn_launches, nn3_launches, *sg_launches.values(), sp_launches,
-                 kws_launches))
+                 kws_launches, *so_launches.values()))
              for r in k2_routes},
          "max_abs_err": max(k2_err, y_err, k2_yesno_err,
                             *(v["max_abs_err"] for v in k2_vtln.values())), "ms": k2_ms,
@@ -9152,7 +9552,8 @@ def main() -> int:
                       + sum(p["gmm"] for p in cfg2_launches.values())
                       + sum(p["gmm"] for p in seq_launches.values())
                       + lo_launches["gmm"] + cli_launches["gmm"] + lat_launches["gmm"]
-                      + trn_launches["gmm"] + nn3_launches["gmm"]),
+                      + trn_launches["gmm"] + nn3_launches["gmm"]
+                      + sum(p["gmm"] for p in so_launches.values())),
          "launches_by_path": {"decode": k3_tdnn_launches,
                               "decode_gmm": g_launches["gmm"],
                               **{n: a["gmm"] for n, a in a_launches.items()},
@@ -9164,7 +9565,8 @@ def main() -> int:
                               "cli": cli_launches["gmm"],
                               "cli_lattice": lat_launches["gmm"],
                               "cli_train": trn_launches["gmm"],
-                              "cli_nnet3": nn3_launches["gmm"]},
+                              "cli_nnet3": nn3_launches["gmm"],
+                              **{n: p["gmm"] for n, p in so_launches.items()}},
          "max_abs_err": max([k3_err] + [v["max_abs_err"] for v in k3_align.values()]
                             + [v["max_abs_err"] for v in k3_train.values()]
                             + [v["max_abs_err"] for v in k3_depths.values()]

@@ -218,3 +218,11 @@ class GraphCompiler:
 
     def compile_csr_graphs(self, transcripts: Sequence[Sequence[str]]) -> List[CsrGraph]:
         return [self.compile_csr_from_text(t) for t in transcripts]
+
+
+def compile_training_graphs(lang: Lang, ctx_dep: ContextDependency, tm: TransitionModel,
+                            transcripts: Sequence[Sequence[str]], **kw) -> List[VectorFst]:
+    """Every transcript's training graph as a VectorFst (the JAX package's
+    compile_training_graphs over GraphCompiler.compile_graph_from_text)."""
+    compiler = GraphCompiler(lang, ctx_dep, tm, **kw)
+    return [compiler.compile_graph_from_text(t) for t in transcripts]

@@ -150,6 +150,19 @@ class Mfcc:
         return ceps
 
 
+def real_spectrum(frames: torch.Tensor):
+    """[..., N] → (real, imag), each [..., N//2 + 1] (rfft semantics),
+    computed in float64, returned in the frames' dtype."""
+    spec = torch.fft.rfft(frames.to(torch.float64), dim=-1)
+    return spec.real.to(frames.dtype), spec.imag.to(frames.dtype)
+
+
+def power_spectrum(frames: torch.Tensor) -> torch.Tensor:
+    """[..., padded_N] windowed frames → [..., padded_N//2] power spectrum
+    (the Nyquist bin dropped, matching MelBanks), in the frames' dtype."""
+    return _SpectrumComputer.power(frames)[..., :-1].to(frames.dtype)
+
+
 def _floored_log_energy(log_energy: torch.Tensor, energy_floor: float) -> torch.Tensor:
     if energy_floor > 0.0:
         return torch.clamp(log_energy, min=math.log(energy_floor))

@@ -451,6 +451,40 @@ def shortest_path(fst: VectorFst) -> Tuple[float, List[int], List[int]]:
     return best_w, ilabels[::-1], olabels[::-1]
 
 
+def fst_sentence_cost(g: VectorFst, word_ids, backoff_ilabel: int) -> float:
+    """Cost of a word sequence through a backoff G acceptor (reference
+    BackoffDeterministicOnDemandFst, src/fstext/deterministic-fst.h): at each
+    state the arc of the next word if there is one, else the #0 backoff arc
+    and a retry; at the end, back off until a final state is reached."""
+    s = g.start
+    total = 0.0
+    for w in word_ids:
+        while True:
+            hit = None
+            bo = None
+            for a in g.arcs[s]:
+                if a.ilabel == w:
+                    hit = a
+                    break
+                if a.ilabel == backoff_ilabel:
+                    bo = a
+            if hit is not None:
+                total += hit.weight
+                s = hit.nextstate
+                break
+            if bo is None:
+                return INF
+            total += bo.weight
+            s = bo.nextstate
+    while g.finals[s] == INF:
+        bo = next((a for a in g.arcs[s] if a.ilabel == backoff_ilabel), None)
+        if bo is None:
+            return INF
+        total += bo.weight
+        s = bo.nextstate
+    return total + g.finals[s]
+
+
 def _string_weights(fst: VectorFst, max_len: int, use_log: bool, max_strings: int = 20000
                     ) -> Dict[Tuple[Tuple[int, ...], Tuple[int, ...]], float]:
     """Total weight of every (istring, ostring) pair of paths up to max_len
@@ -498,6 +532,14 @@ def fst_equivalent(a: VectorFst, b: VectorFst, max_len: int = 6, tol: float = 1e
         elif abs(x - y) > tol:
             return False
     return True
+
+
+def add_self_loops_from(*args, **kwargs):
+    """Refuses, as the JAX package's stub does: self-loop addition needs the
+    transition model and lives in hmm/hmm_utils.add_self_loops."""
+    raise NotImplementedError(
+        "self-loop addition lives in old_kaldi_git_tpu_torch.hmm.hmm_utils "
+        "(needs the TransitionModel)")
 
 
 def add_disambig_self_loops(fst: VectorFst, pairs) -> None:

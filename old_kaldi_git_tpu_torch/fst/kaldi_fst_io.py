@@ -187,6 +187,45 @@ def write_fst_kaldi_arrays(f: BinaryIO, start: int, row_ptr: np.ndarray,
     f.write(buf.tobytes())
 
 
+def read_fst_kaldi_arrays(f: BinaryIO):
+    """Inverse of write_fst_kaldi_arrays: (start, row_ptr, il, ol, w, ns,
+    finals) without building Python arc objects."""
+    start, numstates, numarcs = _read_header(f, "standard")
+    raw = np.frombuffer(f.read(12 * numstates + 16 * numarcs), np.uint8)
+    finals = np.zeros(numstates, np.float32)
+    row_ptr = np.zeros(numstates + 1, np.int64)
+    il = np.zeros(numarcs, np.int32)
+    ol = np.zeros(numarcs, np.int32)
+    w = np.zeros(numarcs, np.float32)
+    ns = np.zeros(numarcs, np.int32)
+    pos = 0
+    a = 0
+    for s in range(numstates):
+        finals[s] = raw[pos:pos + 4].view("<f4")[0]
+        narcs = int(raw[pos + 4:pos + 12].view("<i8")[0])
+        pos += 12
+        if narcs:
+            rows = raw[pos:pos + 16 * narcs].view("<u4").reshape(narcs, 4)
+            il[a:a + narcs] = rows[:, 0].view("<i4")
+            ol[a:a + narcs] = rows[:, 1].view("<i4")
+            w[a:a + narcs] = rows[:, 2].view("<f4")
+            ns[a:a + narcs] = rows[:, 3].view("<i4")
+            pos += 16 * narcs
+            a += narcs
+        row_ptr[s + 1] = a
+    return int(start), row_ptr, il, ol, w, ns, finals
+
+
+def write_fst_kaldi_file(path: str, fst: VectorFst) -> None:
+    with open(path, "wb") as f:
+        write_fst_kaldi(f, fst)
+
+
+def read_fst_kaldi_file(path: str) -> VectorFst:
+    with open(path, "rb") as f:
+        return read_fst_kaldi(f)
+
+
 # ---------------------------------------------------------------------------
 # CompactLattice ("compactlattice44") — lattice ark cells
 # ---------------------------------------------------------------------------

@@ -133,7 +133,12 @@ def layer_offsets(spec: TdnnLayerSpec) -> Tuple[int, ...]:
 
 class _BatchNormLayer(nn.Module):
     """A layer ending in a BatchNorm without scale or offset (the reference
-    BatchNormComponent): running statistics as buffers `mean` and `var`."""
+    BatchNormComponent): running statistics as buffers `mean` and `var`.
+    `stats_sum`, when set, sums a train-mode statistic over every rank that
+    holds a part of the batch (parallel/dryrun.py's data-parallel step), so
+    the statistics are the whole batch's."""
+
+    stats_sum = None
 
     def _init_stats(self, dim: int) -> None:
         self.register_buffer("mean", torch.zeros(dim))
@@ -143,8 +148,13 @@ class _BatchNormLayer(nn.Module):
         if not self.training:
             return (y - self.mean) * torch.rsqrt(self.var + BATCHNORM_EPS)
         axes = tuple(range(y.dim() - 1))
-        mean = y.mean(axes)
-        var = torch.clamp((y * y).mean(axes) - mean * mean, min=0.0)
+        if self.stats_sum is None:
+            mean, sq = y.mean(axes), (y * y).mean(axes)
+        else:
+            count = self.stats_sum(y.new_full((1,), float(y[..., 0].numel())))
+            mean = self.stats_sum(y.sum(axes)) / count
+            sq = self.stats_sum((y * y).sum(axes)) / count
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = BATCHNORM_MOMENTUM
             self.mean.copy_(m * self.mean + (1.0 - m) * mean)

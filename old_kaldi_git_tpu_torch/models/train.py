@@ -103,7 +103,10 @@ class NnetOptimizer:
     (`count`: updates made; `mu`, `nu`: Adam's moments; `trace`: momentum;
     `ng`: the natural-gradient transform's), which `update` returns anew, so
     a caller can keep or drop it (backstitch's two updates, a rewound
-    epoch)."""
+    epoch).  `sum_squares` ({name: tensor} → the sum of their squares),
+    when set, takes the max-change norms: a step whose tensors are split
+    over ranks sets one that sums over the whole tensors
+    (parallel/dryrun.py)."""
 
     def __init__(self, opts: NnetTrainOptions, num_steps: int,
                  lr_factors: Optional[Dict[str, float]] = None):
@@ -112,6 +115,7 @@ class NnetOptimizer:
         self.opts = opts
         self.lr = linear_schedule(opts.initial_lr, opts.final_lr, max(num_steps, 1))
         self.lr_factors = dict(lr_factors or {})
+        self.sum_squares: Optional[Callable[[Params], torch.Tensor]] = None
         self.ng = (NaturalGradient() if opts.optimizer == "ng-sgd"
                    else NaturalGradientActivations() if opts.optimizer == "ng-sgd-act"
                    else None)
@@ -159,25 +163,35 @@ class NnetOptimizer:
             new["trace"] = u
         step = -float(self.lr(count))
         u = {k: v * (step * self._factor(top_level(k))) for k, v in u.items()}
-        return clip_max_change(u, o.max_param_change, o.max_change_per_component), new
+        return clip_max_change(u, o.max_param_change, o.max_change_per_component,
+                               self.sum_squares), new
 
 
-def _norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors) + NORM_FLOOR)
+def sum_squares(tensors: Params) -> torch.Tensor:
+    return sum(torch.sum(t * t) for t in tensors.values())
 
 
-def clip_max_change(updates: Params, global_max: float, per_component_max: float) -> Params:
+def clip_max_change(updates: Params, global_max: float, per_component_max: float,
+                    squares: Optional[Callable[[Params], torch.Tensor]] = None) -> Params:
     """Kaldi's max-change on the final update: each top-level module's
     update scaled to at most `per_component_max` in l2, then the whole to
-    at most `global_max` (on the device, without a synchronise)."""
+    at most `global_max` (on the device, without a synchronise).
+    `squares` ({name: tensor} → their sum of squares) defaults to
+    `sum_squares`."""
+    squares = squares or sum_squares
+
+    def norm(named: Params) -> torch.Tensor:
+        return torch.sqrt(squares(named) + NORM_FLOOR)
+
     groups: Dict[str, List[str]] = {}
     for k in updates:
         groups.setdefault(top_level(k), []).append(k)
     out = {}
     for names in groups.values():
-        scale = torch.clamp(per_component_max / _norm([updates[k] for k in names]), max=1.0)
+        scale = torch.clamp(per_component_max / norm({k: updates[k] for k in names}),
+                            max=1.0)
         out.update({k: updates[k] * scale for k in names})
-    scale = torch.clamp(global_max / _norm(list(out.values())), max=1.0)
+    scale = torch.clamp(global_max / norm(out), max=1.0)
     return {k: v * scale for k, v in out.items()}
 
 

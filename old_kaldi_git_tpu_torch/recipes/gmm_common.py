@@ -29,6 +29,7 @@ from old_kaldi_git_tpu_torch.gmm.mle import (
     mle_am_diag_gmm_update,
 )
 from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
+from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.log import KaldiError, get_logger
 from old_kaldi_git_tpu_torch.utils.parse_options import options_dataclass
 from old_kaldi_git_tpu_torch.utils.timing import StageClock
@@ -47,6 +48,13 @@ class GmmTrainOptions:
     beam: float = 32.0
     acoustic_scale: float = 0.1
     realign_iters: Sequence[int] = tuple(range(1, 10)) + (12, 14, 16, 18, 20, 23, 26, 29)
+
+
+def pad_feats(feats: Dict[str, np.ndarray]
+              ) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """{utt: [T, D]} → (sorted keys, padded [B, Tmax, D] float32,
+    num_frames [B])."""
+    return pad_feature_batch(feats)
 
 
 def align_all(

@@ -1292,6 +1292,97 @@ def build_system(workdir: str, opts: Optional[MinilibOptions] = None, stage: int
     pipe.run()
 
 
+def export_upstream_artifacts(workdir: str, opts: Optional[MinilibOptions] = None,
+                              num_utts: int = 8, device: DeviceLike = None
+                              ) -> Dict[str, dict]:
+    """Write the system's artifacts in the UPSTREAM byte formats and read
+    each one back (the JAX package's export_upstream_artifacts):
+
+      final.mdl — the triphone GMM system, Kaldi binary (tri.mdl's bytes;
+                  final.mdl is the reference name);
+      HCLG.fst  — the decode graph's OpenFst VectorFst<StdArc> bytes, read
+                  back as arrays when the graph build wrote it;
+      lat.1.gz  — the first num_utts held-out utterances decoded with
+                  lattice records on `device` (default the card),
+                  determinized, as gzipped CompactLattice ark cells
+                  (`key \0B <clat bytes>`).
+
+    Returns {file: {"bytes", "read_seconds", and what was read back}}."""
+    import shutil
+
+    from old_kaldi_git_tpu_torch.fst.kaldi_fst_io import (
+        read_compact_lattice_kaldi, read_fst_kaldi_arrays, write_compact_lattice_kaldi)
+
+    opts = opts or MinilibOptions()
+    report: Dict[str, dict] = {}
+    # 1. final.mdl (Kaldi binary GMM system)
+    mdl = os.path.join(workdir, "final.mdl")
+    if not os.path.exists(mdl):
+        shutil.copyfile(os.path.join(workdir, "tri.mdl"), mdl)
+    t0 = time.perf_counter()
+    m = AmGmmModel.load(mdl, device=device)
+    if m.am.num_pdfs <= 0:
+        raise KaldiError(f"{mdl}: no pdfs read back")
+    report["final.mdl"] = {"bytes": os.path.getsize(mdl), "num_pdfs": m.am.num_pdfs,
+                           "read_seconds": time.perf_counter() - t0}
+    log.info("final.mdl: %d pdfs (Kaldi binary, read back)", m.am.num_pdfs)
+    # 2. HCLG.fst (OpenFst bytes), when the graph build wrote it
+    fst_path = os.path.join(workdir, "HCLG.fst")
+    if os.path.exists(fst_path):
+        t0 = time.perf_counter()
+        with open(fst_path, "rb") as f:
+            _start, rp, il, _ol, _w, _ns, _fin = read_fst_kaldi_arrays(f)
+        report["HCLG.fst"] = {"bytes": os.path.getsize(fst_path), "states": len(rp) - 1,
+                              "arcs": len(il), "read_seconds": time.perf_counter() - t0}
+        log.info("HCLG.fst: %d states / %d arcs (OpenFst bytes, read back)",
+                 len(rp) - 1, len(il))
+    # 3. lat.1.gz: decode with lattice records, determinize, write the cells
+    system = load_system(workdir, opts, device=device)
+    keys = sorted(system.test_waves)[:num_utts]
+    feats = compute_feats({k: system.test_waves[k] for k in keys}, device=system.am.device)
+    keys, padded, nf = pad_feature_batch(feats)
+    ll = system.am.loglikes_batch(padded)
+    results = decode_batch_tokens(
+        system.csr, ll, nf, ViterbiOptions(beam=14.0, max_active=2048, acoustic_scale=1.0),
+        want_lattice=True, lattice_beam=8.0, lattice_budget=128, device=system.am.device)
+    lat_path = os.path.join(workdir, "lat.1.gz")
+    n_written = 0
+    with gzip.open(lat_path, "wb") as f:
+        for k, res in zip(keys, results):
+            if res is None or res.token_lattice is None:
+                continue
+            lat = lattice_from_token_records(system.csr, res.token_lattice)
+            if lat is None:
+                continue
+            clat = determinize_lattice_pruned(lat, 8.0, acoustic_scale=1.0)
+            f.write(k.encode() + b" \0B")
+            write_compact_lattice_kaldi(f, clat)
+            n_written += 1
+    # read the archive back (upstream cell framing: key, space, \0B, body)
+    t0 = time.perf_counter()
+    n_read = 0
+    with gzip.open(lat_path, "rb") as f:
+        while True:
+            key = b""
+            c = f.read(1)
+            if not c:
+                break
+            while c != b" ":
+                key += c
+                c = f.read(1)
+            if f.read(2) != b"\0B":
+                raise KaldiError(f"{lat_path}: cell {key!r} is not binary")
+            if read_compact_lattice_kaldi(f).num_states <= 0:
+                raise KaldiError(f"{lat_path}: cell {key!r} is empty")
+            n_read += 1
+    if n_read != n_written:
+        raise KaldiError(f"{lat_path}: {n_read} cells read back of {n_written}")
+    report["lat.1.gz"] = {"bytes": os.path.getsize(lat_path), "cells": n_read,
+                          "read_seconds": time.perf_counter() - t0}
+    log.info("lat.1.gz: %d CompactLattice cells (upstream ark bytes, read back)", n_read)
+    return report
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(
         description="Build the minilib system stage by stage on the GPU (stages 1-11; "

@@ -19,7 +19,8 @@ from old_kaldi_git_tpu_torch.fst.lang import Lang
 from old_kaldi_git_tpu_torch.gmm.diag_gmm import AmDiagGmm, AmGmmModel
 from old_kaldi_git_tpu_torch.hmm.topology import HmmTopology
 from old_kaldi_git_tpu_torch.hmm.transition_model import TransitionModel
-from old_kaldi_git_tpu_torch.recipes.gmm_common import GmmTrainOptions, gmm_training_loop
+from old_kaldi_git_tpu_torch.recipes.gmm_common import (
+    GmmTrainOptions, align_all, gmm_training_loop)
 from old_kaldi_git_tpu_torch.tree.context_dep import monophone_context_dependency
 from old_kaldi_git_tpu_torch.utils.batching import pad_feature_batch
 from old_kaldi_git_tpu_torch.utils.log import get_logger
@@ -29,6 +30,12 @@ log = get_logger("mono")
 
 # the public name the recipes use
 MonoTrainOptions = GmmTrainOptions
+
+
+def align_utts(am: AmDiagGmm, graphs, feats_padded, num_frames, opts):
+    """(alignments, scores) of padded utterances on their training graphs
+    (gmm_common.align_all; opts a ViterbiOptions)."""
+    return align_all(am, graphs, feats_padded, num_frames, opts)
 
 
 def train_mono(

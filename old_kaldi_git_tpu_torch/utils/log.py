@@ -1,13 +1,15 @@
 """Logging and error handling (counterpart of old_kaldi_git_tpu/utils/log.py).
 
 stderr logging with file:line provenance, the framework's fatal-error
-exception type and the verbosity level the CLI's --verbose sets.
+exception type, the verbosity level the CLI's --verbose sets, and a
+wall-clock timer.
 """
 
 from __future__ import annotations
 
 import logging
 import sys
+import time
 
 
 class KaldiError(RuntimeError):
@@ -16,6 +18,7 @@ class KaldiError(RuntimeError):
 
 _FORMAT = "%(levelname).1s %(asctime)s %(name)s %(filename)s:%(lineno)d] %(message)s"
 _ROOT = "okt_torch"
+_verbose_level = 0
 
 
 def get_logger(name: str = _ROOT) -> logging.Logger:
@@ -33,5 +36,24 @@ def get_logger(name: str = _ROOT) -> logging.Logger:
 
 def set_verbose_level(level: int) -> None:
     """--verbose=N: N >= 1 enables DEBUG (reference KALDI_VLOG semantics)."""
+    global _verbose_level
+    _verbose_level = level
     get_logger()
     logging.getLogger(_ROOT).setLevel(logging.DEBUG if level >= 1 else logging.INFO)
+
+
+def verbose_level() -> int:
+    return _verbose_level
+
+
+class Timer:
+    """Wall-clock timer (reference src/base/timer.h)."""
+
+    def __init__(self) -> None:
+        self._start = time.perf_counter()
+
+    def elapsed(self) -> float:
+        return time.perf_counter() - self._start
+
+    def reset(self) -> None:
+        self._start = time.perf_counter()
